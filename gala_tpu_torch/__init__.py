@@ -6,8 +6,10 @@ beside it as the reference.  Module paths mirror `gala_tpu`'s so each
 module's counterpart is found at the same place.  The host layer (DSL,
 IR, passes, host graph layouts) is a verbatim copy of `gala_tpu`'s
 JAX-free modules with the package renamed; everything that touches a
-device is written in PyTorch, and the binned-ELL SpMM runs on a
-hand-written CUDA kernel (`gala_tpu_torch/csrc/bell_spmm.cu`).
+device is written in PyTorch, and the sparse ops run on hand-written
+CUDA kernels: the binned-ELL SpMM (`gala_tpu_torch/csrc/bell_spmm.cu`)
+and GAT's fused slot-space attention, forward and backward
+(`gala_tpu_torch/csrc/attn_bell.cu`).
 
 Public API (the same as gala_tpu's, with the device passed explicitly):
 

@@ -3,7 +3,8 @@ gala_tpu.lowering.interp).
 
 Each ComputeNode maps to a PyTorch op, run eagerly; the sparse
 aggregation goes through gala_tpu_torch.ops.spmm (the bell kernel on the
-GPU).
+GPU) and the fused attention through gala_tpu_torch.ops.attention (the
+attention kernels on the GPU).
 
 Contract (shared with gala_tpu_torch.train.train):
     init_params(gen, dim_env)            -> params (nn.ModuleDict)
@@ -17,11 +18,13 @@ evaluated once per graph set; its outputs ride in `carry`.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from gala_tpu_torch.ir.compute_ir import CompOpt, ComputeNode, ComputeOp, Program
 from gala_tpu_torch.ir.data_ir import DataFormat
 from gala_tpu_torch.models.common import linear, linear_init
+from gala_tpu_torch.ops.attention import attention_aggregate
 from gala_tpu_torch.ops.graph import Graph, not_ported
 from gala_tpu_torch.ops.spmm import spmm, spmm_direct
 
@@ -111,6 +114,16 @@ def _eval_node(node: ComputeNode, env, params, graphs):
         if node.get_opt(CompOpt.SAMPLE_DYNAMIC):
             raise not_ported("dynamic sampling", "ROADMAP Queue 1 item 8")
         return spmm(_graph_for(node, graphs), ins[0])
+    if op is ComputeOp.FUSED_ATTENTION:
+        g = _graph_for(node, graphs)
+        slope = float(node.params[0]) if node.params else 0.2
+        if g.attn is None:
+            raise not_ported("attention without the fused layout (the unfused chain)",
+                             "ROADMAP Queue 1 item 7")
+        return attention_aggregate(g.n_pad, g.c_pad, slope, g.attn, ins[0], ins[1], ins[2])
+    if op is ComputeOp.LEAKY_RELU:
+        slope = float(node.params[0]) if node.params else 0.2
+        return F.leaky_relu(ins[0], slope)
     if op is ComputeOp.RELU:
         return torch.relu(ins[0])
     if op in _FFN_OPS:

@@ -151,24 +151,45 @@ def lower(
 
     if spec.graph.sample or spec.compute.sample or spec.compute.sample_dynamic:
         raise not_ported("graph sampling", "ROADMAP Queue 1 item 8")
-    if uses_edge_values(prog) or uses_fused_attention(prog):
-        raise not_ported("attention (learned edge values)", "ROADMAP Queue 1 item 7")
+    attention = uses_fused_attention(prog)
+    nh = max(int(getattr(spec, "attention_heads", 1)), 1)
+    if nh > 1:
+        # multi-head rides the fused op's shared slot sweep; the unfused
+        # SDDVV/softmax chain is (N, 1)-shaped
+        if not attention:
+            raise ValueError(
+                "attention_heads > 1 requires the fused attention path "
+                "(enable the attention_fusion pass / use a standard GAT "
+                "layer body)"
+            )
+        # final layer stays single-head (see ir/build ATTEN_L)
+        bad = [d for d in spec.output_sizes[:-1] if d % nh]
+        if bad:
+            raise ValueError(
+                f"attention_heads={nh} must divide every hidden GAT layer "
+                f"width; offending sizes: {bad}"
+            )
+    if uses_edge_values(prog):
+        raise not_ported("learned edge values (the unfused attention chain)",
+                         "ROADMAP Queue 1 item 7")
 
     if strategy == "auto":
         strategy = choose_strategy(g_host.n_rows + NODE_PAD, g_host.n_cols + NODE_PAD)
     if strategy == "bell":
         # relabel nodes in degree-class order so the binned layout's
-        # output order is the identity (no reorder at run time)
+        # output order is the identity (no reorder at run time); fused
+        # attention keeps self loops as slots, so its class order is
+        # computed without the diagonal split
         from gala_tpu_torch.data.ell import bell_order
         from gala_tpu_torch.data.reordering import apply_reorder
 
-        order = bell_order(g_host, split_diag=True)
+        order = bell_order(g_host, split_diag=not attention)
         g_host, feats, labels, masks, _ = apply_reorder(
             g_host, order, feats, labels, masks
         )
 
-    full_g = Graph.from_host(g_host, strategy=strategy,
-                             undirected=spec.graph.undirected, device=device)
+    full_g = Graph.from_host(g_host, strategy=strategy, undirected=spec.graph.undirected,
+                             device=device, attention=attention)
     n_layers = spec.num_layers
     full_graphs = [full_g] * n_layers
 
@@ -176,7 +197,8 @@ def lower(
     if prog.uses_training_subgraphs:
         subs = mask_subgraphs(g_host, masks["train"], n_layers)
         train_graphs = [
-            Graph.from_host(s, strategy=strategy, undirected=False, device=device)
+            Graph.from_host(s, strategy=strategy, undirected=False, device=device,
+                            attention=attention)
             for s in subs
         ]
 

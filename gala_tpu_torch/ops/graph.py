@@ -13,18 +13,23 @@ device, for the two strategies this port executes:
 Node dimensions are padded as in gala_tpu (n_pad = round_up(n+1, 8): at
 least one phantom row, which absorbs padding slots).  The other gala_tpu
 strategies ('ell', 'segment', 'segment_scan', 'pallas_bell') raise
-NotImplementedError naming their ROADMAP item; so do the fused attention
-layout and dynamic sampling, in the lowering.
+NotImplementedError naming their ROADMAP item; so does dynamic sampling,
+in the lowering.  With attention=True a 'bell' graph also carries the
+fused-attention layout (`attn`, ops.attention.AttnBell).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import TYPE_CHECKING
 
 import numpy as np
 import torch
 
 from gala_tpu_torch.data.csr import HostCSR, densify, is_symmetric
 from gala_tpu_torch.data.csr import transpose as host_transpose
+
+if TYPE_CHECKING:
+    from gala_tpu_torch.ops.attention import AttnBell
 
 NODE_PAD = 8
 _DENSE_MAX_NODES = 16384  # N_pad^2 f32 <= 1GB (gala_tpu's gate, unchanged)
@@ -152,6 +157,7 @@ class Graph:
     deg: torch.Tensor               # (n_pad, 1) f32 in-degrees (0 on padding)
     bell: BellDev | None            # binned ELL, strategy 'bell'
     t_bell: BellDev | None          # its transpose (may alias bell)
+    attn: AttnBell | None           # fused-attention layout (attention=True, 'bell')
 
     n_nodes: int            # real node count
     n_cols: int             # real source-side node count
@@ -169,6 +175,7 @@ class Graph:
         strategy: str = "auto",
         undirected: bool | None = None,
         device="cpu",
+        attention: bool = False,
     ) -> "Graph":
         device = torch.device(device)
         # is_symmetric costs two full edge argsorts: only pay it when
@@ -187,6 +194,10 @@ class Graph:
             raise not_ported(f"strategy {strategy!r}", _NOT_PORTED[strategy])
         if strategy not in ("dense", "bell"):
             raise ValueError(f"unknown strategy {strategy!r}")
+        if attention and strategy != "bell":
+            raise not_ported(
+                f"attention on strategy {strategy!r}",
+                "ROADMAP Queue 1 item 7 (the unfused ops/edge.py chain and spmm_ev)")
 
         deg_np = np.zeros((n_pad, 1), np.float32)
         deg_np[:n, 0] = np.bincount(g.dst, minlength=n).astype(np.float32)
@@ -212,11 +223,18 @@ class Graph:
                 hbt = build_binned_ell(host_transpose(g), phantom_col=n)
                 t_bell = BellDev.from_host(hbt, c_pad, c, device)
 
+        attn = None
+        if attention:
+            from gala_tpu_torch.ops.attention import AttnBell
+
+            attn = AttnBell.from_host(g, n_pad, c_pad, device)
+
         return cls(
             a_dense=a_dense,
             deg=torch.from_numpy(deg_np).to(device),
             bell=bell,
             t_bell=t_bell,
+            attn=attn,
             n_nodes=n,
             n_cols=c,
             n_pad=n_pad,

@@ -9,8 +9,7 @@ says what bounds it on the H100 and what the design does about that.
 
 Build: nvcc for sm_90a into a shared library with a plain C interface,
 loaded with ctypes, at first use, into `gala_tpu_torch/_build/`
-(git-ignored).  The library's name carries a hash of the source, so an
-edited source is rebuilt.
+(git-ignored), by `ops.kernels._build.build_library`.
 
 Dispatch (`bell_spmm`): a CPU tensor runs `bell_spmm_reference`; a CUDA
 tensor runs the kernel or raises (no fallback).  `counts` records
@@ -20,82 +19,26 @@ show that its aggregations went through the kernel.
 from __future__ import annotations
 
 import ctypes
-import dataclasses
-import hashlib
 import os
-import shutil
-import subprocess
-import time
 
 import torch
 
-_PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-_SRC = os.path.join(_PKG, "csrc", "bell_spmm.cu")
-_BUILD_DIR = os.path.join(_PKG, "_build")
-_NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
+from gala_tpu_torch.ops.kernels._build import CSRC_DIR, Build, build_library, counts_for
+
+_SRC = os.path.join(CSRC_DIR, "bell_spmm.cu")
 _MAX_SLOTS = 2**31 - 1  # int32 slot offsets
 
-
-@dataclasses.dataclass
-class Counts:
-    launches: int = 0                 # kernel launches
-    reference_calls_on_cuda: int = 0  # plain-version calls on CUDA tensors
-
-    def reset(self) -> None:
-        self.launches = 0
-        self.reference_calls_on_cuda = 0
-
-
-counts = Counts()
-
-
-@dataclasses.dataclass
-class Build:
-    lib: ctypes.CDLL
-    path: str
-    seconds: float   # 0.0 when the library was already built
-    log: str         # nvcc's output (ptxas register and spill report)
-
-
-_build: Build | None = None
+counts = counts_for("bell_spmm")
 
 
 def build() -> Build:
     """Compile (once per source version) and load the kernel library.
     Raises when nvcc is missing or the build fails."""
-    global _build
-    if _build is not None:
-        return _build
-    with open(_SRC, "rb") as f:
-        digest = hashlib.sha1(f.read()).hexdigest()[:12]
-    path = os.path.join(_BUILD_DIR, f"libbell_spmm_{digest}.so")
-    seconds, log = 0.0, ""
-    if not os.path.exists(path):
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        if not os.path.exists(nvcc):
-            raise RuntimeError("nvcc not found: the bell SpMM kernel cannot be built")
-        os.makedirs(_BUILD_DIR, exist_ok=True)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        t0 = time.perf_counter()
-        res = subprocess.run(
-            [nvcc, *_NVCC_FLAGS, "-o", tmp, _SRC],
-            capture_output=True, text=True, timeout=600,
-        )
-        seconds = time.perf_counter() - t0
-        log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed to build {_SRC}:\n{log}")
-        os.replace(tmp, path)
-    lib = ctypes.CDLL(path)
-    lib.gala_bell_spmm_f32.argtypes = [ctypes.c_void_p] * 8 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
-    lib.gala_bell_spmm_f32.restype = ctypes.c_int
-    _build = Build(lib=lib, path=path, seconds=seconds, log=log)
-    return _build
+    return build_library(_SRC, "bell_spmm", {
+        "gala_bell_spmm_f32": [ctypes.c_void_p] * 8 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ],
+    })
 
 
 def bell_spmm_reference(bell, x: torch.Tensor, n_out_pad: int) -> torch.Tensor:

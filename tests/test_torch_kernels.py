@@ -1,4 +1,5 @@
-"""The bell SpMM CUDA kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels (bell SpMM, and the three attention kernels) against
+their plain PyTorch versions, on the card.
 
 This file imports neither jax nor gala_tpu, so it runs on a machine with
 the GPU, where JAX is not installed (tests/conftest.py imports jax, hence
@@ -22,6 +23,8 @@ import gala_tpu_torch.data.reordering as treo
 import gala_tpu_torch.data.subgraph as tsub
 import gala_tpu_torch.data.synthetic as tsyn
 from gala_tpu_torch.ops.graph import Graph
+from gala_tpu_torch.ops.kernels import _build
+from gala_tpu_torch.ops.kernels import attn_bell
 from gala_tpu_torch.ops.kernels import bell_spmm as kernel
 
 CASES = ["symmetric_relabelled", "directed", "train_subgraph", "hub_selfloops"]
@@ -82,8 +85,13 @@ def test_kernel_source_targets_hopper_and_names_what_it_replaces():
         src = f.read()
     assert "gala_tpu/ops/pallas/bell_spmm.py::bell_spmm_planned" in src
     assert "3.35 TB/s" in src
-    assert "arch=compute_90a,code=sm_90a" in kernel._NVCC_FLAGS
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert os.path.dirname(kernel._SRC).endswith(os.path.join("gala_tpu_torch", "csrc"))
+    with open(attn_bell._SRC) as f:
+        src = f.read()
+    for name in ("attn_fwd_planned", "attn_bwd1_planned", "attn_bwd2_planned"):
+        assert name in src
+    assert os.path.dirname(attn_bell._SRC) == os.path.dirname(kernel._SRC)
 
 
 @pytest.fixture
@@ -127,3 +135,27 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         kernel.bell_spmm(g.bell, torch.zeros((8, g.c_pad), device=cuda).t(), g.n_pad)
     with pytest.raises(ValueError):
         kernel.bell_spmm(g.bell, x.cpu(), g.n_pad)
+
+
+ATTN_SHAPES = [(32, 1), (40, 1), (32, 4), (40, 4)]  # (hf, H); fh 10 takes scalar loads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hf,nh", ATTN_SHAPES)
+@pytest.mark.parametrize("case", CASES)
+def test_attention_kernels_match_plain_versions_on_the_card(cuda, case, hf, nh):
+    """fwd, bwd1 and bwd2 against their plain versions and bwd1 against the
+    flash identity, with attn_bell.compare_with_plain's per-element
+    tolerance (1e-4 + 1e-4 * the magnitudes of the summed terms)."""
+    host, undirected = torch_case(case)
+    g = Graph.from_host(host, strategy="bell", undirected=undirected, device=cuda,
+                        attention=True)
+    gen = torch.Generator(device=cuda).manual_seed(hf * 10 + nh)
+    rand = lambda *shape: torch.randn(shape, generator=gen, device=cuda)  # noqa: E731
+    before = {n: attn_bell.counts[n].launches for n in attn_bell.NAMES}
+    res = attn_bell.compare_with_plain(g.attn, rand(g.c_pad, hf), rand(g.c_pad, nh),
+                                       rand(g.n_pad, nh), rand(g.n_pad, hf), 0.2,
+                                       g.n_pad, g.c_pad)
+    torch.cuda.synchronize()
+    assert all(attn_bell.counts[n].launches == before[n] + 1 for n in attn_bell.NAMES)
+    assert {k: v for k, v in res.items() if v[1]} == {}

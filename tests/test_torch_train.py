@@ -1,6 +1,7 @@
-"""The port's compiled GCN training path against gala_tpu's, end to end on
-the CPU: the same DSL (__graft_entry__.GCN_DSL), the same synthetic data
-and the JAX weights copied over, strategy 'bell' on both sides.
+"""The port's compiled GCN and GAT training paths against gala_tpu's, end to
+end on the CPU: the same DSL (__graft_entry__.GCN_DSL and GAT_DSL,
+examples/gat.txt for multi-head), the same synthetic data and the JAX
+weights copied over, strategy 'bell' on both sides.
 
 Tolerances: rtol 1e-5 for one forward (f32, sums in another order);
 rtol 1e-4 for losses over 6 Adam steps and 1e-3 (atol 1e-5) for the final
@@ -10,6 +11,8 @@ one hidden pre-activation sits at 0 within rounding, its ReLU goes
 different ways on the two sides and Adam carries that into one hidden
 unit's weights (1e-4 apart after 6 epochs, while the losses still agree
 to 2e-6); seeds 0-2 and 4-7 agree to 4e-7 beyond rtol 1e-3."""
+import os
+
 import jax
 import numpy as np
 import pytest
@@ -21,7 +24,7 @@ from __graft_entry__ import GAT_DSL, GCN_DSL
 from gala_tpu.data.synthetic import synthetic_dataset as jax_dataset
 from gala_tpu.train import TrainResult as JaxTrainResult
 from gala_tpu_torch.data.synthetic import synthetic_dataset as torch_dataset
-from gala_tpu_torch.dsl.parser import parse_source
+from gala_tpu_torch.dsl.parser import parse_file, parse_source
 from gala_tpu_torch.models import gcn
 from gala_tpu_torch.train import TrainResult
 from gala_tpu_torch.weights import params_from_jax, params_to_numpy
@@ -29,20 +32,29 @@ from gala_tpu_torch.weights import params_from_jax, params_to_numpy
 torch.set_num_threads(2)
 
 TOL = dict(rtol=1e-5, atol=1e-6)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _data(make):
     return make(n=600, avg_degree=8, n_feats=24, n_classes=5, seed=0)
 
 
-@pytest.fixture(scope="module")
-def models():
-    jcm = gala_tpu.compile_source(GCN_DSL, mode="train", data=_data(jax_dataset),
-                                  strategy="bell")
-    tcm = gala_tpu_torch.compile_source(GCN_DSL, mode="train", data=_data(torch_dataset),
+def _compile_pair(source, mode="train"):
+    jcm = gala_tpu.compile_source(source, mode=mode, data=_data(jax_dataset), strategy="bell")
+    tcm = gala_tpu_torch.compile_source(source, mode=mode, data=_data(torch_dataset),
                                         strategy="bell", device="cpu")
     jparams = jax.device_get(jcm.make_params(0))
     return jcm, tcm, jparams
+
+
+@pytest.fixture(scope="module")
+def models():
+    return _compile_pair(GCN_DSL)
+
+
+@pytest.fixture(scope="module")
+def gat_models():
+    return _compile_pair(GAT_DSL)
 
 
 def _by_uid(carry):
@@ -53,8 +65,7 @@ def _train_rows(cm):
     return np.flatnonzero(np.asarray(cm.train_mask))
 
 
-def test_lowering_builds_the_same_program(models):
-    jcm, tcm, _ = models
+def _same_program(jcm, tcm):
     assert tcm.full_graphs[0].strategy == jcm.full_graphs[0].strategy == "bell"
     assert [n.op.name for n in tcm.program.all_nodes()] == [n.op.name for n in jcm.program.all_nodes()]
     np.testing.assert_array_equal(tcm.x.numpy(), np.asarray(jcm.x))
@@ -62,8 +73,27 @@ def test_lowering_builds_the_same_program(models):
     assert len(tcm.train_graphs) == len(jcm.train_graphs) == 2
 
 
+def test_lowering_builds_the_same_program(models):
+    _same_program(*models[:2])
+
+
+def test_gat_lowering_builds_the_same_program(gat_models):
+    jcm, tcm, _ = gat_models
+    _same_program(jcm, tcm)
+    assert [n.op.name for n in tcm.program.loop.nodes].count("FUSED_ATTENTION") == 2
+    for g in tcm.full_graphs[:1] + tcm.train_graphs:
+        assert g.attn is not None and g.attn.fwd.n_real == g.n_nodes
+
+
 def test_invariant_forward_and_forward_rows_match_jax(models):
-    jcm, tcm, jparams = models
+    _forwards_match(*models)
+
+
+def test_gat_invariant_forward_and_forward_rows_match_jax(gat_models):
+    _forwards_match(*gat_models)
+
+
+def _forwards_match(jcm, tcm, jparams):
     params = params_from_jax(jparams)
     invariant, forward = jax.jit(jcm.invariant), jax.jit(jcm.forward)
     forward_rows = jax.jit(jcm.forward_rows)
@@ -104,7 +134,16 @@ def test_hand_gcn_matches_compiled_forward(models):
 def test_training_matches_jax(models):
     """6 epochs, valid_step 5: epochs 0 and 5 step on the full graph,
     1-4 on the training subgraphs."""
-    jcm, tcm, jparams = models
+    _training_matches(*models)
+
+
+def test_gat_training_matches_jax(gat_models):
+    """The GCN test's 6 epochs for GAT_DSL: the attention op's forward and
+    its flash-identity backward in every step."""
+    _training_matches(*gat_models)
+
+
+def _training_matches(jcm, tcm, jparams):
     jres = jcm.train(iters=6, warmup=1)
     tres = tcm.train(iters=6, warmup=1, params=params_from_jax(jparams))
     assert len(tres.losses) == len(jres.losses) == 6
@@ -145,12 +184,13 @@ def test_make_params_draws_the_nn_linear_law(models):
         np.testing.assert_array_equal(layer["w"], again[name]["w"])
 
 
-@pytest.mark.parametrize("what", ["bf16", "int64", "pallas_bell", "attention", "sampling",
-                                  "col_tile"])
+@pytest.mark.parametrize("what", ["bf16", "int64", "pallas_bell", "attention on dense",
+                                  "sampling", "col_tile"])
 def test_unported_options_raise(what):
-    spec = parse_source(GAT_DSL if what == "attention" else GCN_DSL)
+    spec = parse_source(GAT_DSL if what.startswith("attention") else GCN_DSL)
     kw = {"bf16": {"dtype": torch.bfloat16}, "int64": {"use_long": True},
-          "pallas_bell": {"strategy": "pallas_bell"}}.get(what, {})
+          "pallas_bell": {"strategy": "pallas_bell"},
+          "attention on dense": {"strategy": "dense"}}.get(what, {})
     if what == "sampling":
         spec.compute.sample_dynamic = 4
     if what == "col_tile":
@@ -163,3 +203,44 @@ def test_compiled_model_run_prints_the_csv_line(models):
     _, tcm, _ = models
     parts = tcm.run(iters=7).split(",")
     assert len(parts) == 2 and float(parts[1]) >= float(parts[0]) > 0
+
+
+def _gat_example(heads_guard=None):
+    """examples/gat.txt (2-layer GAT, hidden 32, attention_heads(4))."""
+    spec = parse_file(os.path.join(REPO, "examples", "gat.txt"))
+    assert spec.attention_heads == 4
+    if heads_guard == "divide":
+        spec.output_sizes = [30, 5]          # 30 % 4 != 0
+    if heads_guard == "unfused":
+        spec.passes.attention_fusion = False
+    return spec
+
+
+@pytest.mark.parametrize("guard,match", [("divide", "divide"),
+                                         ("unfused", "requires the fused attention path")])
+def test_multihead_gat_guards(guard, match):
+    """The port's counterpart of gala_tpu's multi-head guards, built from
+    examples/gat.txt."""
+    with pytest.raises(ValueError, match=match):
+        gala_tpu_torch.compile_model(_gat_example(guard), mode="train",
+                                     data=_data(torch_dataset), strategy="bell")
+
+
+def test_multihead_gat_matches_jax():
+    """attention_heads(4): the hidden layer attends with 4 heads, the last
+    with one; the forward agrees with gala_tpu's."""
+    from gala_tpu.dsl.parser import parse_file as jparse_file
+
+    path = os.path.join(REPO, "examples", "gat.txt")
+    jcm = gala_tpu.compile_model(jparse_file(path), mode="train", data=_data(jax_dataset),
+                                 strategy="bell")
+    tcm = gala_tpu_torch.compile_model(_gat_example(), mode="train", data=_data(torch_dataset),
+                                       strategy="bell", device="cpu")
+    fused = [n for n in tcm.program.all_nodes() if n.op.name == "FUSED_ATTENTION"]
+    assert sorted(n.inputs[1].cols for n in fused) == [1, 4]
+    jparams = jax.device_get(jcm.make_params(0))
+    with torch.no_grad():
+        got = tcm.forward(params_from_jax(jparams), tcm.full_graphs,
+                          tcm.invariant(tcm.full_graphs, tcm.x))
+    want = jax.jit(jcm.forward)(jparams, jcm.full_graphs, jcm.invariant(jcm.full_graphs, jcm.x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
