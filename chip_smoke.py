@@ -8,9 +8,10 @@ Phases, each printing its own lines; any failure raises, exits non-zero
 and prints no "ok" line:
 
 1. device   needs torch.cuda; prints the card's name and power limit.
-2. build    builds both kernel libraries from gala_tpu_torch/csrc/ (the
-            bell SpMM and the three attention kernels), one nvcc each,
-            started together, for sm_90a into gala_tpu_torch/_build/.
+2. build    builds the three kernel libraries from gala_tpu_torch/csrc/
+            (the bell SpMM, the three attention kernels, the SDDMM), one
+            nvcc each, started together, for sm_90a into
+            gala_tpu_torch/_build/.
 3. train    the port's GCN path, as a user calls it: compile
             __graft_entry__.GCN_DSL (2-layer GCN, hidden 32) on the Arxiv
             stand-in at full size (scale 1.0, strategy auto -> bell) on
@@ -49,6 +50,30 @@ and prints no "ok" line:
             on the card against the same call on CPU tensors (same
             tolerance form); then each kernel's and plain version's times
             at the GAT path's shapes.
+7. gat-edge the port's edge-valued GAT path: GAT_DSL with the
+            attention_fusion pass off (the reference GALA's own GAT: SDDVV,
+            leaky ReLU, edge softmax, SpMM with edge values) on the Arxiv
+            stand-in at full size on "cuda", strategy auto -> ell, 20
+            epochs (warmup 2).  The SpMM kernel (forward and dx on the ELL
+            layouts, per-slot values) and the SDDMM kernel (the values'
+            gradient) must have launched, no attention kernel and no plain
+            version on the card; finite falling loss, max test accuracy
+            >= 0.6.
+8. sddmm-kernel  the SDDMM kernel against its plain version on the card,
+            on that run's full-graph and training-subgraph edge lists at
+            F = 32 and 40 and on the generated hub graph's at F = 1, 33,
+            40 and 128.  Tolerance per edge, in f32: |kernel - plain| <=
+            1e-4 + 1e-4 * sum_f |a||b| (the plain version on |a|, |b|).
+            Then the SpMM kernel with learned per-slot values on the ELL
+            layout and its transpose against the row-descriptor plain
+            version (phase 4's tolerance form), and the SDDMM kernel's and
+            plain version's times at F = 32 and 40 on the full graph.
+9. gcn-sparser  GCN_DSL with `G = G.is_sparser(true);` (the sparsity-
+            aware rewrite: precomputed edge values norm_src * norm_dst)
+            on the same graph, strategy auto -> ell, 20 epochs: the SpMM
+            kernel must have launched and the SDDMM kernel not (the
+            values need no gradient); finite falling loss, max test
+            accuracy >= 0.7.
 
 It ends with a JSON line of the kernels (launches on the main path of each
 kernel's phase, and in the kernel phase), the nvidia-smi line, and the
@@ -78,6 +103,8 @@ ATTN_REPLACES = {
 }
 ATTN_SHAPES = ((32, 1), (40, 1), (32, 4))  # (hf, H); the GAT path runs (32, 1), (40, 1)
 SLOPE = 0.2
+SDDMM_SOURCE = "gala_tpu_torch/csrc/sddmm.cu"
+SDDMM_REPLACES = "gala_tpu/ops/pallas/sddmm.py:183"
 
 
 def nvidia_smi() -> str:
@@ -103,10 +130,11 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def hub_graph(device, attention=False):
+def hub_graph(device, attention=False, strategy="bell"):
     """Weighted directed graph on 5,000 nodes: node 0 has in-degree 3,000
-    (24 virtual rows), node 1 out-degree 2,000 (a hub of the transpose),
-    every second node a self-loop, the last 500 nodes no edges."""
+    (24 virtual rows of the binned layout), node 1 out-degree 2,000 (a hub
+    of the transpose), every second node a self-loop, the last 500 nodes
+    no edges."""
     from gala_tpu_torch.data.csr import coo_to_csr
     from gala_tpu_torch.ops.graph import Graph
 
@@ -118,7 +146,8 @@ def hub_graph(device, attention=False):
                           rng.integers(0, 4500, 2000), np.arange(0, 4500, 2)])
     vals = rng.uniform(0.5, 1.5, src.shape[0]).astype(np.float32)
     host = coo_to_csr(src, dst, vals, n_rows=n)
-    return host, Graph.from_host(host, strategy="bell", device=device, attention=attention)
+    return host, Graph.from_host(host, strategy=strategy, device=device, attention=attention,
+                                 edge_vals=strategy != "bell")
 
 
 def phase_train(gala_tpu_torch, kernel):
@@ -363,6 +392,172 @@ def phase_attn_kernel(cm, ak):
     return max_err, timings
 
 
+def _train_checked(tag, cm, min_accuracy):
+    """20 epochs (warmup 2) of a compiled model with every launch count
+    zeroed just before; prints and checks the run.  Returns the result
+    and the run's launches by kernel."""
+    from gala_tpu_torch.ops.kernels._build import all_counts, reset_counts
+
+    reset_counts()
+    t0 = time.perf_counter()
+    res = cm.train(iters=20, warmup=2)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in all_counts().items()}
+    on_cuda = {name: c.reference_calls_on_cuda for name, c in all_counts().items()}
+    print(f"[{tag}] csv {res.csv(print_accuracy=True)}")
+    print(f"[{tag}] seconds/epoch: train {res.total_time:.6f}, inference "
+          f"{res.inference_time:.6f}; 20 epochs with accuracy in {train_s:.1f} s")
+    print(f"[{tag}] losses {json.dumps([round(v, 5) for v in res.losses])}")
+    print(f"[{tag}] accuracies {json.dumps([round(v, 5) for v in res.accuracies])}")
+    print(f"[{tag}] kernel launches {json.dumps(launches)}, plain-version calls on cuda "
+          f"{json.dumps(on_cuda)}")
+    print(f"[{tag}] peak memory allocated {torch.cuda.max_memory_allocated() / 1e6:.1f} MB")
+    if any(on_cuda.values()):
+        raise AssertionError(f"[{tag}] the path ran plain versions on the card: {on_cuda}")
+    if not all(math.isfinite(v) for v in res.losses):
+        raise AssertionError(f"[{tag}] non-finite loss: {res.losses}")
+    if not res.losses[-1] < res.losses[0]:
+        raise AssertionError(f"[{tag}] loss did not fall: {res.losses[0]} -> {res.losses[-1]}")
+    if res.max_accuracy < min_accuracy:
+        raise AssertionError(f"[{tag}] max test accuracy {res.max_accuracy} < {min_accuracy}")
+    g = cm.full_graphs[0]
+    with torch.no_grad():
+        logits = cm.forward(res.params, cm.full_graphs, cm.invariant(cm.full_graphs, cm.x))
+    if logits.shape != (g.n_pad, cm.n_classes) or not torch.isfinite(logits).all():
+        raise AssertionError(f"[{tag}] logits {tuple(logits.shape)} not finite or not "
+                             "(n_pad, classes)")
+    return res, launches
+
+
+def _compile_spec(tag, spec):
+    import gala_tpu_torch
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cm = gala_tpu_torch.compile_model(spec, mode="train", scale=1.0, device="cuda")
+    compile_s = time.perf_counter() - t0
+    g = cm.full_graphs[0]
+    ops = [(n.op.name, len(n.inputs)) for n in cm.program.all_nodes()]
+    print(f"[{tag}] compiled in {compile_s:.1f} s: strategy {g.strategy}, {g.n_nodes} nodes, "
+          f"{g.n_edges} edges (e_pad {g.e_pad}); program "
+          f"{','.join(name for name, _ in ops)}")
+    if g.ell is not None:
+        for side, lay in (("fwd", g.ell), ("t", g.t_ell)):
+            print(f"[{tag}] ELL layout {side}: K {lay.k}, {lay.flat_cols.shape[0]} slots "
+                  f"({int(lay.row_len.sum())} in rows), longest row "
+                  f"{int(lay.row_len.max())} slots")
+    if g.strategy != "ell":
+        raise AssertionError(f"[{tag}] strategy {g.strategy}, expected ell")
+    return cm, ops
+
+
+def phase_gat_edge():
+    from __graft_entry__ import GAT_DSL
+    from gala_tpu_torch.dsl.parser import parse_source
+
+    spec = parse_source(GAT_DSL)
+    spec.passes.attention_fusion = False
+    cm, ops = _compile_spec("gat-edge", spec)
+    names = [name for name, _ in ops]
+    if ("AGGREGATE_EDGE_SUM" not in names or "SOFTMAX" not in names
+            or ("AGGREGATE_MUL_SUM", 3) not in ops or "FUSED_ATTENTION" in names):
+        raise AssertionError(f"[gat-edge] not the unfused GAT chain: {ops}")
+    _, launches = _train_checked("gat-edge", cm, 0.6)
+    for name in ("sddmm", "bell_spmm"):
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"[gat-edge] the path never launched the {name} kernel")
+    attn = {k: v for k, v in launches.items() if k.startswith("attn_") and v}
+    if attn:
+        raise AssertionError(f"[gat-edge] the path launched attention kernels: {attn}")
+    return cm, launches
+
+
+def phase_gcn_sparser():
+    from __graft_entry__ import GCN_DSL
+    from gala_tpu_torch.dsl.parser import parse_source
+
+    spec = parse_source(GCN_DSL + "\nG = G.is_sparser(true);\n")
+    if not spec.graph.sparser:
+        raise AssertionError("[gcn-sparser] the schedule did not set is_sparser")
+    cm, ops = _compile_spec("gcn-sparser", spec)
+    if ("AGGREGATE_EDGE_MUL" not in [name for name, _ in ops]
+            or ("AGGREGATE_MUL_SUM", 3) not in ops):
+        raise AssertionError(f"[gcn-sparser] not the sparse rewrite: {ops}")
+    _, launches = _train_checked("gcn-sparser", cm, 0.7)
+    if launches.get("bell_spmm", 0) <= 0:
+        raise AssertionError("[gcn-sparser] the path never launched the bell SpMM kernel")
+    if launches.get("sddmm", 0) != 0:
+        raise AssertionError(f"[gcn-sparser] the path launched the SDDMM kernel "
+                             f"{launches['sddmm']} times: its edge values need no gradient")
+    return launches
+
+
+def phase_sddmm_kernel(cm, ks, kernel):
+    """Returns (max |kernel - plain| of the SDDMM, of the SpMM with slot
+    values, times)."""
+    full, sub = cm.full_graphs[0], cm.train_graphs[0]
+    hub = hub_graph("cuda", strategy="ell")[1]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rand = lambda *shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
+    cases = [("arxiv full", full, (32, 40)), ("arxiv training subgraph", sub, (32, 40)),
+             ("hub graph", hub, (1, 33, 40, 128))]
+    max_err = 0.0
+    for name, g, widths in cases:
+        for f in widths:
+            a, b = rand(g.c_pad, f), rand(g.n_pad, f)
+            out = ks.sddmm(g.src, g.dst, a, b)
+            ref = ks.sddmm_reference(g.src, g.dst, a, b)
+            scale = ks.sddmm_reference(g.src, g.dst, a.abs(), b.abs())
+            err = (out - ref).abs()
+            bad = int((err > ATOL + RTOL * scale).sum())
+            max_err = max(max_err, err.max().item())
+            print(f"[sddmm-kernel] {name} ({g.e_pad} edges) F={f}: max |kernel - plain| "
+                  f"{err.max().item():.3e}, max of that / (sum |a||b|) "
+                  f"{(err / scale.clamp_min(1e-30)).max().item():.3e}, {bad} out of tolerance")
+            if bad:
+                raise AssertionError(f"[sddmm-kernel] {name} F={f}: {bad} edges out of tolerance")
+
+    spmm_err = 0.0
+    for name, g, _ in cases[0:1] + cases[2:3]:
+        evals = torch.rand((g.e_pad,), generator=gen, device="cuda")
+        for side, lay, rows, n_out in (("ell", g.ell, g.c_pad, g.n_pad),
+                                       ("t_ell", g.t_ell, g.n_pad, g.c_pad)):
+            vals = lay.slot_values(evals)
+            for f in (32, 40):
+                x = rand(rows, f)
+                out = kernel.bell_spmm(lay, x, n_out, vals=vals)
+                ref = kernel.bell_spmm_rows_reference(lay, x, n_out, vals)
+                scale = kernel.bell_spmm_rows_reference(lay, x.abs(), n_out, vals)
+                err = (out - ref).abs()
+                bad = int((err > ATOL + RTOL * scale).sum())
+                spmm_err = max(spmm_err, err.max().item())
+                print(f"[sddmm-kernel] bell_spmm with slot values, {name} {side} F={f}: "
+                      f"max |kernel - plain| {err.max().item():.3e}, {bad} out of tolerance")
+                if bad:
+                    raise AssertionError(f"bell_spmm slot values {name} {side} F={f}: {bad} "
+                                         "elements out of tolerance")
+
+    timings = {}
+    for f in (32, 40):
+        a, b = rand(full.c_pad, f), rand(full.n_pad, f)
+        t_kernel = cuda_ms(lambda: ks.sddmm(full.src, full.dst, a, b), reps=20)
+        t_plain = cuda_ms(lambda: ks.sddmm_reference(full.src, full.dst, a, b), reps=5)
+        timings[("sddmm", f)] = (t_kernel, t_plain)
+        print(f"[sddmm-kernel] time sddmm arxiv full F={f}: kernel {t_kernel:.4f} ms, "
+              f"plain {t_plain:.4f} ms")
+        evals = torch.rand((full.e_pad,), generator=gen, device="cuda")
+        vals = full.ell.slot_values(evals)
+        x = rand(full.c_pad, f)
+        t_kernel = cuda_ms(lambda: kernel.bell_spmm(full.ell, x, full.n_pad, vals=vals), reps=20)
+        t_plain = cuda_ms(lambda: kernel.bell_spmm_rows_reference(full.ell, x, full.n_pad, vals),
+                          reps=5)
+        timings[("bell_spmm ell", f)] = (t_kernel, t_plain)
+        print(f"[sddmm-kernel] time bell_spmm on the ELL layout with slot values, arxiv full "
+              f"F={f}: kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms")
+    return max_err, spmm_err, timings
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: torch.cuda.is_available() is false: needs an NVIDIA GPU")
@@ -373,10 +568,11 @@ def main() -> int:
     import gala_tpu_torch
     from gala_tpu_torch.ops.kernels import attn_bell as ak
     from gala_tpu_torch.ops.kernels import bell_spmm as kernel
+    from gala_tpu_torch.ops.kernels import sddmm as ks
     from gala_tpu_torch.ops.kernels._build import all_counts
 
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        builds = [pool.submit(kernel.build), pool.submit(ak.build)]
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        builds = [pool.submit(kernel.build), pool.submit(ak.build), pool.submit(ks.build)]
         builds = [b.result() for b in builds]
     for build in builds:
         print(f"[build] {build.path} in {build.seconds:.1f} s")
@@ -391,12 +587,20 @@ def main() -> int:
     before = {name: c.launches for name, c in all_counts().items()}
     attn_err, attn_timings = phase_attn_kernel(gat, ak)
     phase_launches = {name: c.launches - before.get(name, 0) for name, c in all_counts().items()}
+    del gat
+    gat_edge, edge_launches = phase_gat_edge()
+    sddmm_err, ev_err, sddmm_timings = phase_sddmm_kernel(gat_edge, ks, kernel)
+    del gat_edge
+    sparser_launches = phase_gcn_sparser()
 
     t_kernel, t_plain = timings[("arxiv full bell", 32)]
     kernels = [{
         "name": "bell_spmm", "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES,
-        "launches": launches, "max_abs_err": max_err, "ms": t_kernel, "plain_ms": t_plain,
-        "at": "arxiv full bell, F=32", "path": "gcn",
+        "launches": launches, "max_abs_err": max(max_err, ev_err), "ms": t_kernel,
+        "plain_ms": t_plain, "at": "arxiv full bell, F=32",
+        "path": "gcn, gat-edge, gcn-sparser",
+        "path_launches": {"gcn": launches, "gat-edge": edge_launches.get("bell_spmm", 0),
+                          "gcn-sparser": sparser_launches.get("bell_spmm", 0)},
     }]
     for name in ak.NAMES:
         t_kernel, t_plain = attn_timings[(name, 32)]
@@ -409,6 +613,14 @@ def main() -> int:
             "path": "gat" if name != "attn_bwd1" else "kernel phase only (the GAT path "
                                                       "takes the flash identity)",
         })
+    t_kernel, t_plain = sddmm_timings[("sddmm", 32)]
+    kernels.append({
+        "name": "sddmm", "route": "cuda", "source": SDDMM_SOURCE, "replaces": SDDMM_REPLACES,
+        "launches": edge_launches.get("sddmm", 0), "max_abs_err": sddmm_err, "ms": t_kernel,
+        "plain_ms": t_plain, "at": "arxiv full edge list, F=32", "path": "gat-edge",
+        "path_launches": {"gat-edge": edge_launches.get("sddmm", 0),
+                          "gcn-sparser": sparser_launches.get("sddmm", 0)},
+    })
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

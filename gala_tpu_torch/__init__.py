@@ -7,9 +7,12 @@ module's counterpart is found at the same place.  The host layer (DSL,
 IR, passes, host graph layouts) is a verbatim copy of `gala_tpu`'s
 JAX-free modules with the package renamed; everything that touches a
 device is written in PyTorch, and the sparse ops run on hand-written
-CUDA kernels: the binned-ELL SpMM (`gala_tpu_torch/csrc/bell_spmm.cu`)
-and GAT's fused slot-space attention, forward and backward
-(`gala_tpu_torch/csrc/attn_bell.cu`).
+CUDA kernels: the SpMM over row descriptors for every sparse layout,
+with structural or learned edge values
+(`gala_tpu_torch/csrc/bell_spmm.cu`), GAT's fused slot-space attention,
+forward and backward (`gala_tpu_torch/csrc/attn_bell.cu`), and the
+per-edge SDDMM, the gradient of learned edge values
+(`gala_tpu_torch/csrc/sddmm.cu`).
 
 Public API (the same as gala_tpu's, with the device passed explicitly):
 

@@ -2,9 +2,11 @@
 gala_tpu.lowering.interp).
 
 Each ComputeNode maps to a PyTorch op, run eagerly; the sparse
-aggregation goes through gala_tpu_torch.ops.spmm (the bell kernel on the
-GPU) and the fused attention through gala_tpu_torch.ops.attention (the
-attention kernels on the GPU).
+aggregation goes through gala_tpu_torch.ops.spmm (the SpMM kernel on the
+GPU, with the SDDMM kernel for the gradient of learned edge values), the
+fused attention through gala_tpu_torch.ops.attention (the attention
+kernels on the GPU) and the edge ops of the unfused chain through
+gala_tpu_torch.ops.edge.
 
 Contract (shared with gala_tpu_torch.train.train):
     init_params(gen, dim_env)            -> params (nn.ModuleDict)
@@ -21,12 +23,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gala_tpu_torch.ir.compute_ir import CompOpt, ComputeNode, ComputeOp, Program
+from gala_tpu_torch.ir.compute_ir import CompOpt, ComputeNode, ComputeOp, OpType, Program
 from gala_tpu_torch.ir.data_ir import DataFormat
 from gala_tpu_torch.models.common import linear, linear_init
 from gala_tpu_torch.ops.attention import attention_aggregate
+from gala_tpu_torch.ops.edge import edge_softmax, leaky_relu, sddvv_add, sddvv_mul
 from gala_tpu_torch.ops.graph import Graph, not_ported
-from gala_tpu_torch.ops.spmm import spmm, spmm_direct
+from gala_tpu_torch.ops.spmm import spmm, spmm_direct, spmm_ev
 
 _FFN_OPS = (ComputeOp.FFN, ComputeOp.FFN_EDGE, ComputeOp.FFN_SELF, ComputeOp.FFN_REPEAT)
 
@@ -108,19 +111,29 @@ def _eval_node(node: ComputeNode, env, params, graphs):
     if op is ComputeOp.ROW_BROADCAST:
         return ins[0].to(ins[1].dtype) * ins[1]
     if op is ComputeOp.AGGREGATE_MUL_SUM:
+        g = _graph_for(node, graphs)
         if len(node.inputs) >= 3:  # [feats, graph, edge_vals]
-            raise not_ported("aggregation with learned edge values",
-                             "ROADMAP Queue 1 item 7")
+            return spmm_ev(g, env[node.inputs[2].uid], ins[0])
         if node.get_opt(CompOpt.SAMPLE_DYNAMIC):
             raise not_ported("dynamic sampling", "ROADMAP Queue 1 item 8")
-        return spmm(_graph_for(node, graphs), ins[0])
+        return spmm(g, ins[0])
     if op is ComputeOp.FUSED_ATTENTION:
         g = _graph_for(node, graphs)
+        x, vl, vr = ins[0], ins[1], ins[2]
         slope = float(node.params[0]) if node.params else 0.2
-        if g.attn is None:
-            raise not_ported("attention without the fused layout (the unfused chain)",
-                             "ROADMAP Queue 1 item 7")
-        return attention_aggregate(g.n_pad, g.c_pad, slope, g.attn, ins[0], ins[1], ins[2])
+        if g.attn is not None:
+            return attention_aggregate(g.n_pad, g.c_pad, slope, g.attn, x, vl, vr)
+        # unfused fallback (graph built without the attention layout)
+        logits = leaky_relu(sddvv_add(g, vl, vr), slope)
+        return spmm_ev(g, edge_softmax(g, logits), x)
+    if op is ComputeOp.AGGREGATE_EDGE_SUM:
+        return sddvv_add(_graph_for(node, graphs), ins[0], ins[1])
+    if op is ComputeOp.AGGREGATE_EDGE_MUL:
+        g = _graph_for(node, graphs)
+        # structural vals mask padding (and carry weights when weighted)
+        return sddvv_mul(g, ins[0], ins[1]) * g.vals
+    if op is ComputeOp.SOFTMAX and node.op_type is OpType.UPDATE_EDGE:
+        return edge_softmax(_graph_for(node, graphs), ins[0])
     if op is ComputeOp.LEAKY_RELU:
         slope = float(node.params[0]) if node.params else 0.2
         return F.leaky_relu(ins[0], slope)

@@ -151,6 +151,11 @@ def lower(
 
     if spec.graph.sample or spec.compute.sample or spec.compute.sample_dynamic:
         raise not_ported("graph sampling", "ROADMAP Queue 1 item 8")
+    # graphs with learned per-edge values (the unfused GAT chain, the
+    # sparse rewrite's precomputed values) need the edge lists and, above
+    # the dense gate, the row-split ELL's slot -> edge-id permutation;
+    # unless the attention chain was fused into the slot-space op
+    edge_vals = uses_edge_values(prog)
     attention = uses_fused_attention(prog)
     nh = max(int(getattr(spec, "attention_heads", 1)), 1)
     if nh > 1:
@@ -169,12 +174,10 @@ def lower(
                 f"attention_heads={nh} must divide every hidden GAT layer "
                 f"width; offending sizes: {bad}"
             )
-    if uses_edge_values(prog):
-        raise not_ported("learned edge values (the unfused attention chain)",
-                         "ROADMAP Queue 1 item 7")
 
     if strategy == "auto":
-        strategy = choose_strategy(g_host.n_rows + NODE_PAD, g_host.n_cols + NODE_PAD)
+        strategy = choose_strategy(g_host.n_rows + NODE_PAD, g_host.n_cols + NODE_PAD,
+                                   g_host.n_edges, edge_vals=edge_vals)
     if strategy == "bell":
         # relabel nodes in degree-class order so the binned layout's
         # output order is the identity (no reorder at run time); fused
@@ -189,7 +192,7 @@ def lower(
         )
 
     full_g = Graph.from_host(g_host, strategy=strategy, undirected=spec.graph.undirected,
-                             device=device, attention=attention)
+                             device=device, edge_vals=edge_vals, attention=attention)
     n_layers = spec.num_layers
     full_graphs = [full_g] * n_layers
 
@@ -198,7 +201,7 @@ def lower(
         subs = mask_subgraphs(g_host, masks["train"], n_layers)
         train_graphs = [
             Graph.from_host(s, strategy=strategy, undirected=False, device=device,
-                            attention=attention)
+                            edge_vals=edge_vals, attention=attention)
             for s in subs
         ]
 

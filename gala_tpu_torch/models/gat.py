@@ -1,6 +1,5 @@
 """GAT: additive attention with edge softmax, single- or multi-head, the
-hand-written oracle of the compiled GAT (the port of gala_tpu.models.gat,
-its fused branch).
+hand-written oracle of the compiled GAT (the port of gala_tpu.models.gat).
 
     res   = x @ W + b                        (FFN)
     attnL = per-head <res_h, aL_h> + bL_h    (H scores per node)
@@ -8,6 +7,10 @@ its fused branch).
     res   = attention_aggregate(res, attnL, attnR)   (fused: SDDVV-add,
             leaky-relu, edge softmax and SpMM with the softmax values)
     x     = relu(res)                        (skipped on the last layer)
+
+A graph without the fused layout (any strategy but 'bell' with
+attention=True) runs the same chain unfused, head by head: SDDVV-add,
+leaky ReLU, edge softmax and spmm_ev (ops.edge, ops.spmm).
 
 Multi-head: each head h owns attention vectors of size fh; hidden layers
 concatenate heads, the final layer averages them.  Parameters keep
@@ -23,7 +26,9 @@ from torch import nn
 
 from gala_tpu_torch.models.common import layer_sizes, linear, linear_init
 from gala_tpu_torch.ops.attention import attention_aggregate
-from gala_tpu_torch.ops.graph import Graph, not_ported
+from gala_tpu_torch.ops.edge import edge_softmax, leaky_relu, sddvv_add
+from gala_tpu_torch.ops.graph import Graph
+from gala_tpu_torch.ops.spmm import spmm_ev
 
 
 def _attn_vec_init(gen: torch.Generator, n_heads: int, fh: int) -> nn.ParameterDict:
@@ -57,15 +62,20 @@ def forward(params, graphs: list[Graph], x: torch.Tensor, negative_slope: float 
     n_layers = len(params["fc"])
     for li in range(n_layers):
         g = graphs[li]
-        if g.attn is None:
-            raise not_ported("the unfused GAT chain (graph without attention=True)",
-                             "ROADMAP Queue 1 item 7")
         res = linear(params["fc"][li], x)                          # (N, H*fh)
         fh = res.shape[1] // n_heads
         attn_l = _head_scores(params["attn_l"][li], res, n_heads)  # (N, H)
         attn_r = _head_scores(params["attn_r"][li], res, n_heads)
-        res = attention_aggregate(g.n_pad, g.c_pad, negative_slope, g.attn,
-                                  res, attn_l, attn_r)
+        if g.attn is not None:
+            res = attention_aggregate(g.n_pad, g.c_pad, negative_slope, g.attn,
+                                      res, attn_l, attn_r)
+        else:
+            h_outs = []
+            for h in range(n_heads):
+                logits = sddvv_add(g, attn_l[:, h : h + 1], attn_r[:, h : h + 1])
+                vals = edge_softmax(g, leaky_relu(logits, negative_slope))
+                h_outs.append(spmm_ev(g, vals, res[:, h * fh : (h + 1) * fh]))
+            res = torch.cat(h_outs, dim=1) if n_heads > 1 else h_outs[0]
         if li == n_layers - 1 and n_heads > 1:
             res = res.view(res.shape[0], n_heads, fh).mean(dim=1)
         x = torch.relu(res) if li < n_layers - 1 else res

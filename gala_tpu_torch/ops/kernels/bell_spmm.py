@@ -1,5 +1,5 @@
 """Binned-ELL SpMM: the hand-written Hopper kernel, its build, its wrapper
-and its plain PyTorch version.
+and its plain PyTorch versions.
 
 Replaces gala_tpu/ops/pallas/bell_spmm.py::bell_spmm_planned (and, in
 the default JAX path, the XLA gathers of gala_tpu.ops.spmm._bell_raw).
@@ -11,8 +11,15 @@ Build: nvcc for sm_90a into a shared library with a plain C interface,
 loaded with ctypes, at first use, into `gala_tpu_torch/_build/`
 (git-ignored), by `ops.kernels._build.build_library`.
 
-Dispatch (`bell_spmm`): a CPU tensor runs `bell_spmm_reference`; a CUDA
-tensor runs the kernel or raises (no fallback).  `counts` records
+The kernel reads any layout through its row descriptors, so it also
+executes the 'ell' and 'segment' layouts (ops.graph.SlotRows), with
+their structural values or with per-slot values passed as `vals` (the
+learned-edge-value SpMM of ops.spmm.spmm_ev).
+
+Dispatch (`bell_spmm`): a CPU tensor runs a plain version, the
+bin-by-bin `bell_spmm_reference` for a binned layout with its own values
+and the slot-by-slot `bell_spmm_rows_reference` for every other call; a
+CUDA tensor runs the kernel or raises (no fallback).  `counts` records
 kernel launches and plain-version calls on CUDA tensors, so a run can
 show that its aggregations went through the kernel.
 """
@@ -23,6 +30,7 @@ import os
 
 import torch
 
+from gala_tpu_torch.ops.graph import BellDev
 from gala_tpu_torch.ops.kernels._build import CSRC_DIR, Build, build_library, counts_for
 
 _SRC = os.path.join(CSRC_DIR, "bell_spmm.cu")
@@ -76,7 +84,30 @@ def bell_spmm_reference(bell, x: torch.Tensor, n_out_pad: int) -> torch.Tensor:
     return out
 
 
-def _check(bell, x: torch.Tensor, n_out_pad: int) -> None:
+def bell_spmm_rows_reference(layout, x: torch.Tensor, n_out_pad: int,
+                             vals: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain PyTorch SpMM from the row descriptors, for any layout the
+    kernel takes (ops.graph.BellDev or SlotRows): every described slot
+    gathers its row of x, weighted by its value (`vals`, or the layout's
+    flat_vals), and is summed into its row's node with index_add_; the
+    diag*x term added.  Slots no descriptor names are not read.  Output
+    in global node order, padded to n_out_pad rows."""
+    if x.is_cuda:
+        counts.reference_calls_on_cuda += 1
+    vals = layout.flat_vals if vals is None else vals
+    lens = layout.row_len.long()
+    row = torch.repeat_interleave(torch.arange(lens.shape[0], device=x.device), lens)
+    first = torch.cumsum(lens, 0) - lens
+    slot = layout.row_start.long()[row] + torch.arange(row.shape[0], device=x.device) - first[row]
+    msg = vals[slot].to(x.dtype).unsqueeze(1) * x.index_select(0, layout.flat_cols[slot])
+    out = torch.zeros((n_out_pad, x.shape[1]), dtype=x.dtype, device=x.device)
+    out.index_add_(0, layout.row_node[row], msg)
+    if layout.diag is not None:
+        out = out + layout.diag.to(x.dtype) * x
+    return out
+
+
+def _check(bell, x: torch.Tensor, n_out_pad: int, vals: torch.Tensor | None) -> None:
     if x.dtype != torch.float32:
         raise TypeError(f"bell_spmm takes float32 features, got {x.dtype}")
     if x.dim() != 2 or not x.is_contiguous():
@@ -95,14 +126,27 @@ def _check(bell, x: torch.Tensor, n_out_pad: int) -> None:
         raise NotImplementedError(
             "more than 2^31 slots needs int64 slot offsets: ROADMAP Queue 1 item 9"
         )
+    if vals is not None:
+        if vals.dtype != torch.float32:
+            raise TypeError(f"bell_spmm takes float32 slot values, got {vals.dtype}")
+        if vals.shape != bell.flat_vals.shape or not vals.is_contiguous():
+            raise ValueError(f"slot values must be a contiguous {tuple(bell.flat_vals.shape)} "
+                             f"tensor, got {tuple(vals.shape)}")
+        if vals.device != x.device:
+            raise ValueError(f"slot values on {vals.device}, features on {x.device}")
 
 
-def bell_spmm(bell, x: torch.Tensor, n_out_pad: int) -> torch.Tensor:
-    """out = A @ x on a binned-ELL layout (ops.graph.BellDev): the kernel
-    on a CUDA tensor, the plain version on a CPU tensor."""
-    _check(bell, x, n_out_pad)
+def bell_spmm(bell, x: torch.Tensor, n_out_pad: int,
+              vals: torch.Tensor | None = None) -> torch.Tensor:
+    """out = A @ x on a row-descriptor layout (ops.graph.BellDev or
+    SlotRows), A's values the layout's flat_vals or, when given, `vals`
+    (one f32 per slot): the kernel on a CUDA tensor, a plain version on a
+    CPU tensor."""
+    _check(bell, x, n_out_pad, vals)
     if x.device.type == "cpu":
-        return bell_spmm_reference(bell, x, n_out_pad)
+        if vals is None and isinstance(bell, BellDev):
+            return bell_spmm_reference(bell, x, n_out_pad)
+        return bell_spmm_rows_reference(bell, x, n_out_pad, vals)
     if x.device.type != "cuda":
         raise ValueError(f"bell_spmm runs on cpu or cuda tensors, got {x.device}")
     lib = build().lib
@@ -116,7 +160,8 @@ def bell_spmm(bell, x: torch.Tensor, n_out_pad: int) -> torch.Tensor:
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.gala_bell_spmm_f32(
-            x.data_ptr(), bell.flat_cols.data_ptr(), bell.flat_vals.data_ptr(),
+            x.data_ptr(), bell.flat_cols.data_ptr(),
+            (bell.flat_vals if vals is None else vals).data_ptr(),
             bell.row_start.data_ptr(), bell.row_len.data_ptr(),
             bell.row_node.data_ptr(), diag, out.data_ptr(),
             n_rows, f, vec, stream,

@@ -51,35 +51,43 @@ def main() -> int:
     import gala_tpu_torch
     from __graft_entry__ import GCN_DSL
 
+    cm = gala_tpu_torch.compile_source(GCN_DSL, mode="train", scale=1.0, device="cuda")
+    profile_train(cm, args.epochs, args.trace)
+    split_kernel_time(cm.full_graphs[0])
+    return 0
+
+
+def profile_train(cm, epochs: int, trace: str = "") -> None:
+    """Warm up with one short training run, then profile one `train()`
+    call of `epochs` epochs with torch.profiler; print the card's name and
+    power limit, the device's busy share of the profiled wall time and
+    the device time by kernel; write a Chrome trace to `trace` if given."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
-    cm = gala_tpu_torch.compile_source(GCN_DSL, mode="train", scale=1.0, device="cuda")
     cm.train(iters=3, warmup=1)  # cuBLAS, allocator and kernel build warm-up
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         t0 = time.perf_counter()
-        res = cm.train(iters=args.epochs, warmup=0)
+        res = cm.train(iters=epochs, warmup=0)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = [e for e in prof.key_averages() if _is_kernel(e) and _device_us(e) > 0]
     events.sort(key=_device_us, reverse=True)
     busy_us = sum(_device_us(e) for e in events)
-    print(f"{smi}; {args.epochs} epochs; csv {res.csv(print_accuracy=True)}")
+    print(f"{smi}; {epochs} epochs; csv {res.csv(print_accuracy=True)}")
     print(f"profiled wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms "
           f"({100 * busy_us / wall_us:.1f}%)")
     print(f"{'device ms':>10} {'share':>6} {'calls':>6}  name")
     for e in events[:25]:
         print(f"{_device_us(e) / 1e3:10.3f} {100 * _device_us(e) / busy_us:5.1f}% "
               f"{e.count:6d}  {e.key[:100]}")
-    if args.trace:
-        os.makedirs(os.path.dirname(args.trace) or ".", exist_ok=True)
-        prof.export_chrome_trace(args.trace)
-    split_kernel_time(cm.full_graphs[0])
-    return 0
+    if trace:
+        os.makedirs(os.path.dirname(trace) or ".", exist_ok=True)
+        prof.export_chrome_trace(trace)
 
 
 def _cuda_ms(fn, reps: int = 20) -> float:

@@ -105,11 +105,27 @@ def test_choose_strategy_gate():
     from gala_tpu_torch.ops.graph import choose_strategy as tchoose
 
     for n in (1000, 16384, 16392, 200_000):
-        assert tchoose(n, n) == jchoose(n, n, 10 * n)
+        for edge_vals in (False, True):
+            assert (tchoose(n, n, 10 * n, edge_vals=edge_vals)
+                    == jchoose(n, n, 10 * n, edge_vals=edge_vals))
 
 
 @pytest.mark.parametrize("strategy", ["ell", "segment", "segment_scan", "pallas_bell"])
 def test_unported_strategies_raise(strategy):
+    """'pallas_bell' still raises; 'ell' and the 'segment' strategies are
+    ported and build gala_tpu's edge lists (and, on 'ell', its ELL
+    arrays), held in full by tests/test_torch_edge.py."""
     g, _ = host_graph("directed", "torch")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TGraph.from_host(g, strategy=strategy)
+    if strategy == "pallas_bell":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TGraph.from_host(g, strategy=strategy)
+        return
+    gj, und = host_graph("directed", "jax")
+    jg = JGraph.from_host(gj, strategy=strategy, undirected=und)
+    tg = TGraph.from_host(g, strategy=strategy, undirected=und)
+    assert tg.strategy == jg.strategy == strategy and tg.e_pad == jg.e_pad
+    for name in ("src", "dst", "vals", "t_src", "t_dst", "t_vals", "t_perm", "row_ptr"):
+        _eq(getattr(tg, name), getattr(jg, name))
+    if strategy == "ell":
+        _eq(tg.ell.flat_cols.view(-1, tg.ell.k), jg.ell_cols)
+        _eq(tg.t_ell.perm.view(-1, tg.t_ell.k), jg.t_ell_perm)

@@ -1,4 +1,4 @@
-"""The CUDA kernels (bell SpMM, and the three attention kernels) against
+"""The CUDA kernels (bell SpMM, the three attention kernels, SDDMM) against
 their plain PyTorch versions, on the card.
 
 This file imports neither jax nor gala_tpu, so it runs on a machine with
@@ -26,6 +26,7 @@ from gala_tpu_torch.ops.graph import Graph
 from gala_tpu_torch.ops.kernels import _build
 from gala_tpu_torch.ops.kernels import attn_bell
 from gala_tpu_torch.ops.kernels import bell_spmm as kernel
+from gala_tpu_torch.ops.kernels import sddmm
 
 CASES = ["symmetric_relabelled", "directed", "train_subgraph", "hub_selfloops"]
 WIDTHS = [1, 32, 40, 128]
@@ -92,6 +93,10 @@ def test_kernel_source_targets_hopper_and_names_what_it_replaces():
     for name in ("attn_fwd_planned", "attn_bwd1_planned", "attn_bwd2_planned"):
         assert name in src
     assert os.path.dirname(attn_bell._SRC) == os.path.dirname(kernel._SRC)
+    with open(sddmm._SRC) as f:
+        src = f.read()
+    assert "gala_tpu/ops/pallas/sddmm.py::sddmm_planned" in src
+    assert os.path.dirname(sddmm._SRC) == os.path.dirname(kernel._SRC)
 
 
 @pytest.fixture
@@ -159,3 +164,72 @@ def test_attention_kernels_match_plain_versions_on_the_card(cuda, case, hf, nh):
     torch.cuda.synchronize()
     assert all(attn_bell.counts[n].launches == before[n] + 1 for n in attn_bell.NAMES)
     assert {k: v for k, v in res.items() if v[1]} == {}
+
+
+SDDMM_WIDTHS = [1, 3, 32, 33, 40, 128]  # ragged widths take scalar loads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", SDDMM_WIDTHS)
+@pytest.mark.parametrize("case", CASES)
+def test_sddmm_matches_plain_version_on_the_card(cuda, case, f):
+    """Over the padded edge list, |kernel - plain| <= 1e-4 + 1e-4 *
+    sum_f |a||b| per edge (the two sum a row in different orders)."""
+    host, undirected = torch_case(case)
+    g = Graph.from_host(host, strategy="ell", undirected=undirected, device=cuda,
+                        edge_vals=True)
+    gen = torch.Generator(device=cuda).manual_seed(f)
+    a = torch.randn((g.c_pad, f), generator=gen, device=cuda)
+    b = torch.randn((g.n_pad, f), generator=gen, device=cuda)
+    launches = sddmm.counts.launches
+    out = sddmm.sddmm(g.src, g.dst, a, b)
+    torch.cuda.synchronize()
+    assert sddmm.counts.launches == launches + 1 and out.shape == (g.e_pad,)
+    ref = sddmm.sddmm_reference(g.src, g.dst, a, b)
+    scale = sddmm.sddmm_reference(g.src, g.dst, a.abs(), b.abs())
+    assert ((out - ref).abs() <= 1e-4 + 1e-4 * scale).all()
+    # an unaligned view of a takes the scalar path
+    a2 = torch.randn((g.c_pad * f + 1,), generator=gen, device=cuda)[1:].view(g.c_pad, f)
+    out2 = sddmm.sddmm(g.src, g.dst, a2, b)
+    ref2 = sddmm.sddmm_reference(g.src, g.dst, a2, b)
+    assert ((out2 - ref2).abs() <= 1e-4 + 1e-4 * sddmm.sddmm_reference(
+        g.src, g.dst, a2.abs(), b.abs())).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [1, 32, 40])
+@pytest.mark.parametrize("case", CASES)
+def test_kernel_with_slot_values_on_ell_matches_plain_version(cuda, case, f):
+    """bell_spmm with learned per-slot values on the ELL layout and its
+    transpose against the descriptor plain version (values >= 0, so the
+    tolerance scale is the plain version on |x|)."""
+    host, undirected = torch_case(case)
+    g = Graph.from_host(host, strategy="ell", undirected=undirected, device=cuda,
+                        edge_vals=True)
+    gen = torch.Generator(device=cuda).manual_seed(100 + f)
+    evals = torch.rand((g.e_pad,), generator=gen, device=cuda)
+    x = torch.randn((g.c_pad, f), generator=gen, device=cuda)
+    dz = torch.randn((g.n_pad, f), generator=gen, device=cuda)
+    for lay, inp, n_out in ((g.ell, x, g.n_pad), (g.t_ell, dz, g.c_pad)):
+        vals = lay.slot_values(evals)
+        out = kernel.bell_spmm(lay, inp, n_out, vals=vals)
+        torch.cuda.synchronize()
+        ref = kernel.bell_spmm_rows_reference(lay, inp, n_out, vals)
+        scale = kernel.bell_spmm_rows_reference(lay, inp.abs(), n_out, vals)
+        assert ((out - ref).abs() <= 1e-4 + 1e-4 * scale).all()
+
+
+@pytest.mark.cuda
+def test_sddmm_refuses_what_it_does_not_take(cuda):
+    host, _ = torch_case("hub_selfloops")
+    g = Graph.from_host(host, strategy="segment", device=cuda)
+    a = torch.zeros((g.c_pad, 8), device=cuda)
+    b = torch.zeros((g.n_pad, 8), device=cuda)
+    with pytest.raises(TypeError):
+        sddmm.sddmm(g.src, g.dst, a.half(), b)
+    with pytest.raises(ValueError, match="width"):
+        sddmm.sddmm(g.src, g.dst, a, torch.zeros((g.n_pad, 4), device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        sddmm.sddmm(g.src, g.dst, torch.zeros((8, g.c_pad), device=cuda).t(), b)
+    with pytest.raises(ValueError):
+        sddmm.sddmm(g.src, g.dst, a.cpu(), b)
