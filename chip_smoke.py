@@ -66,7 +66,10 @@ and prints no "ok" line:
             1e-4 + 1e-4 * sum_f |a||b| (the plain version on |a|, |b|).
             Then the SpMM kernel with learned per-slot values on the ELL
             layout and its transpose against the row-descriptor plain
-            version (phase 4's tolerance form), and the SDDMM kernel's and
+            version (phase 4's tolerance form), on the full graph and
+            every training subgraph at F = 1, 32, 40 and 128 (the widths
+            phases 7 and 9 give it) and on the generated hub graph at F =
+            1, 33, 40 and 128; then the SDDMM kernel's and
             plain version's times at F = 32 and 40 on the full graph.
 9. gcn-sparser  GCN_DSL with `G = G.is_sparser(true);` (the sparsity-
             aware rewrite: precomputed edge values norm_src * norm_dst)
@@ -150,11 +153,47 @@ def hub_graph(device, attention=False, strategy="bell"):
                                  edge_vals=strategy != "bell")
 
 
-def phase_train(gala_tpu_torch, kernel):
-    from __graft_entry__ import GCN_DSL
-    from gala_tpu_torch.ops.kernels._build import reset_counts
+def _train_checked(tag, cm, min_accuracy):
+    """20 epochs (warmup 2) of a compiled model with every launch count
+    zeroed just before; prints and checks the run.  Returns the result
+    and the run's launches by kernel."""
+    from gala_tpu_torch.ops.kernels._build import all_counts, reset_counts
 
     reset_counts()
+    t0 = time.perf_counter()
+    res = cm.train(iters=20, warmup=2)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in all_counts().items()}
+    on_cuda = {name: c.reference_calls_on_cuda for name, c in all_counts().items()}
+    print(f"[{tag}] csv {res.csv(print_accuracy=True)}")
+    print(f"[{tag}] seconds/epoch: train {res.total_time:.6f}, inference "
+          f"{res.inference_time:.6f}; 20 epochs with accuracy in {train_s:.1f} s")
+    print(f"[{tag}] losses {json.dumps([round(v, 5) for v in res.losses])}")
+    print(f"[{tag}] accuracies {json.dumps([round(v, 5) for v in res.accuracies])}")
+    print(f"[{tag}] kernel launches {json.dumps(launches)}, plain-version calls on cuda "
+          f"{json.dumps(on_cuda)}")
+    print(f"[{tag}] peak memory allocated {torch.cuda.max_memory_allocated() / 1e6:.1f} MB")
+    if any(on_cuda.values()):
+        raise AssertionError(f"[{tag}] the path ran plain versions on the card: {on_cuda}")
+    if not all(math.isfinite(v) for v in res.losses):
+        raise AssertionError(f"[{tag}] non-finite loss: {res.losses}")
+    if not res.losses[-1] < res.losses[0]:
+        raise AssertionError(f"[{tag}] loss did not fall: {res.losses[0]} -> {res.losses[-1]}")
+    if res.max_accuracy < min_accuracy:
+        raise AssertionError(f"[{tag}] max test accuracy {res.max_accuracy} < {min_accuracy}")
+    g = cm.full_graphs[0]
+    with torch.no_grad():
+        logits = cm.forward(res.params, cm.full_graphs, cm.invariant(cm.full_graphs, cm.x))
+    if logits.shape != (g.n_pad, cm.n_classes) or not torch.isfinite(logits).all():
+        raise AssertionError(f"[{tag}] logits {tuple(logits.shape)} not finite or not "
+                             "(n_pad, classes)")
+    return res, launches
+
+
+def phase_train(gala_tpu_torch):
+    from __graft_entry__ import GCN_DSL
+
     t0 = time.perf_counter()
     cm = gala_tpu_torch.compile_source(GCN_DSL, mode="train", scale=1.0, device="cuda")
     compile_s = time.perf_counter() - t0
@@ -162,37 +201,12 @@ def phase_train(gala_tpu_torch, kernel):
     print(f"[train] compiled in {compile_s:.1f} s: strategy {g.strategy}, {g.n_nodes} nodes, "
           f"{g.n_edges} edges, {int(cm.x.shape[1])} features, {cm.n_classes} classes, "
           f"{g.bell.flat_cols.shape[0]} slots, {len(g.bell.bin_ks)} bins, {g.bell.n_big} hubs")
-    t0 = time.perf_counter()
-    res = cm.train(iters=20, warmup=2)
-    torch.cuda.synchronize()
-    train_s = time.perf_counter() - t0
-    launches = kernel.counts.launches
-    on_cuda = kernel.counts.reference_calls_on_cuda
-    print(f"[train] csv {res.csv(print_accuracy=True)}")
-    print(f"[train] seconds/epoch: train {res.total_time:.6f}, inference {res.inference_time:.6f};"
-          f" 20 epochs with accuracy in {train_s:.1f} s")
-    print(f"[train] losses {json.dumps([round(v, 5) for v in res.losses])}")
-    print(f"[train] accuracies {json.dumps([round(v, 5) for v in res.accuracies])}")
-    print(f"[train] bell_spmm launches {launches}, plain-version calls on cuda {on_cuda}")
-    print(f"[train] peak memory allocated {torch.cuda.max_memory_allocated() / 1e6:.1f} MB")
-
     if g.strategy != "bell":
         raise AssertionError(f"strategy {g.strategy}, expected bell")
-    if launches <= 0:
+    _, launches = _train_checked("train", cm, 0.7)
+    if launches.get("bell_spmm", 0) <= 0:
         raise AssertionError("the main path never launched the bell SpMM kernel")
-    if on_cuda != 0:
-        raise AssertionError(f"the main path ran the plain SpMM on the card {on_cuda} times")
-    if not all(math.isfinite(v) for v in res.losses):
-        raise AssertionError(f"non-finite loss: {res.losses}")
-    if not res.losses[-1] < res.losses[0]:
-        raise AssertionError(f"loss did not fall: {res.losses[0]} -> {res.losses[-1]}")
-    if res.max_accuracy < 0.7:
-        raise AssertionError(f"max test accuracy {res.max_accuracy} < 0.7")
-    with torch.no_grad():
-        logits = cm.forward(res.params, cm.full_graphs, cm.invariant(cm.full_graphs, cm.x))
-    if logits.shape != (g.n_pad, cm.n_classes) or not torch.isfinite(logits).all():
-        raise AssertionError(f"logits {tuple(logits.shape)} not finite or not (n_pad, classes)")
-    return cm, launches
+    return cm, launches["bell_spmm"]
 
 
 def phase_kernel(cm, kernel):
@@ -252,10 +266,8 @@ def phase_kernel(cm, kernel):
 
 def phase_gat(gala_tpu_torch):
     from __graft_entry__ import GAT_DSL
-    from gala_tpu_torch.ops.kernels._build import all_counts, reset_counts
 
     torch.cuda.reset_peak_memory_stats()
-    reset_counts()
     t0 = time.perf_counter()
     cm = gala_tpu_torch.compile_source(GAT_DSL, mode="train", scale=1.0, device="cuda")
     compile_s = time.perf_counter() - t0
@@ -268,43 +280,17 @@ def phase_gat(gala_tpu_torch):
             print(f"[gat] attention layout {side}: {lay.flat_cols.shape[0]} slots, "
                   f"{len(lay.bin_ks)} bins, {lay.n_big} hubs, longest row "
                   f"{int(lay.row_len.max())} slots")
-    t0 = time.perf_counter()
-    res = cm.train(iters=20, warmup=2)
-    torch.cuda.synchronize()
-    train_s = time.perf_counter() - t0
-    launches = {name: c.launches for name, c in all_counts().items()}
-    on_cuda = {name: c.reference_calls_on_cuda for name, c in all_counts().items()}
-    print(f"[gat] csv {res.csv(print_accuracy=True)}")
-    print(f"[gat] seconds/epoch: train {res.total_time:.6f}, inference {res.inference_time:.6f};"
-          f" 20 epochs with accuracy in {train_s:.1f} s")
-    print(f"[gat] losses {json.dumps([round(v, 5) for v in res.losses])}")
-    print(f"[gat] accuracies {json.dumps([round(v, 5) for v in res.accuracies])}")
-    print(f"[gat] kernel launches {json.dumps(launches)}, plain-version calls on cuda "
-          f"{json.dumps(on_cuda)}")
-    print(f"[gat] peak memory allocated {torch.cuda.max_memory_allocated() / 1e6:.1f} MB")
-
     if g.strategy != "bell" or g.attn is None:
         raise AssertionError(f"strategy {g.strategy}, attention layout {g.attn is not None}: "
                              "expected bell with the fused attention layout")
     if ops.count("FUSED_ATTENTION") != 2:
         raise AssertionError(f"expected two fused attention ops, program {ops}")
+    _, launches = _train_checked("gat", cm, 0.6)
     for name in ("attn_fwd", "attn_bwd2"):
         if launches.get(name, 0) <= 0:
             raise AssertionError(f"the GAT path never launched the {name} kernel")
-    if any(on_cuda.values()):
-        raise AssertionError(f"the GAT path ran plain versions on the card: {on_cuda}")
     if launches.get("bell_spmm", 0):
         raise AssertionError(f"the GAT path launched the bell SpMM {launches['bell_spmm']} times")
-    if not all(math.isfinite(v) for v in res.losses):
-        raise AssertionError(f"non-finite loss: {res.losses}")
-    if not res.losses[-1] < res.losses[0]:
-        raise AssertionError(f"loss did not fall: {res.losses[0]} -> {res.losses[-1]}")
-    if res.max_accuracy < 0.6:
-        raise AssertionError(f"max test accuracy {res.max_accuracy} < 0.6")
-    with torch.no_grad():
-        logits = cm.forward(res.params, cm.full_graphs, cm.invariant(cm.full_graphs, cm.x))
-    if logits.shape != (g.n_pad, cm.n_classes) or not torch.isfinite(logits).all():
-        raise AssertionError(f"logits {tuple(logits.shape)} not finite or not (n_pad, classes)")
     return cm, launches
 
 
@@ -390,44 +376,6 @@ def phase_attn_kernel(cm, ak):
             print(f"[attn-kernel] time {name} arxiv full hf={hf} H={nh}: kernel "
                   f"{t_kernel:.4f} ms, plain {t_plain:.4f} ms")
     return max_err, timings
-
-
-def _train_checked(tag, cm, min_accuracy):
-    """20 epochs (warmup 2) of a compiled model with every launch count
-    zeroed just before; prints and checks the run.  Returns the result
-    and the run's launches by kernel."""
-    from gala_tpu_torch.ops.kernels._build import all_counts, reset_counts
-
-    reset_counts()
-    t0 = time.perf_counter()
-    res = cm.train(iters=20, warmup=2)
-    torch.cuda.synchronize()
-    train_s = time.perf_counter() - t0
-    launches = {name: c.launches for name, c in all_counts().items()}
-    on_cuda = {name: c.reference_calls_on_cuda for name, c in all_counts().items()}
-    print(f"[{tag}] csv {res.csv(print_accuracy=True)}")
-    print(f"[{tag}] seconds/epoch: train {res.total_time:.6f}, inference "
-          f"{res.inference_time:.6f}; 20 epochs with accuracy in {train_s:.1f} s")
-    print(f"[{tag}] losses {json.dumps([round(v, 5) for v in res.losses])}")
-    print(f"[{tag}] accuracies {json.dumps([round(v, 5) for v in res.accuracies])}")
-    print(f"[{tag}] kernel launches {json.dumps(launches)}, plain-version calls on cuda "
-          f"{json.dumps(on_cuda)}")
-    print(f"[{tag}] peak memory allocated {torch.cuda.max_memory_allocated() / 1e6:.1f} MB")
-    if any(on_cuda.values()):
-        raise AssertionError(f"[{tag}] the path ran plain versions on the card: {on_cuda}")
-    if not all(math.isfinite(v) for v in res.losses):
-        raise AssertionError(f"[{tag}] non-finite loss: {res.losses}")
-    if not res.losses[-1] < res.losses[0]:
-        raise AssertionError(f"[{tag}] loss did not fall: {res.losses[0]} -> {res.losses[-1]}")
-    if res.max_accuracy < min_accuracy:
-        raise AssertionError(f"[{tag}] max test accuracy {res.max_accuracy} < {min_accuracy}")
-    g = cm.full_graphs[0]
-    with torch.no_grad():
-        logits = cm.forward(res.params, cm.full_graphs, cm.invariant(cm.full_graphs, cm.x))
-    if logits.shape != (g.n_pad, cm.n_classes) or not torch.isfinite(logits).all():
-        raise AssertionError(f"[{tag}] logits {tuple(logits.shape)} not finite or not "
-                             "(n_pad, classes)")
-    return res, launches
 
 
 def _compile_spec(tag, spec):
@@ -518,13 +466,20 @@ def phase_sddmm_kernel(cm, ks, kernel):
             if bad:
                 raise AssertionError(f"[sddmm-kernel] {name} F={f}: {bad} edges out of tolerance")
 
+    # every ELL layout and width the gat-edge and gcn-sparser paths give the
+    # SpMM with slot values: 32/40 in training, 128 and 1 in the hoisted
+    # prefix on the full graph
+    spmm_cases = [("arxiv full", full, (1, 32, 40, 128))]
+    spmm_cases += [(f"arxiv training subgraph {i}", t, (1, 32, 40, 128))
+                   for i, t in enumerate(cm.train_graphs)]
+    spmm_cases += [("hub graph", hub, (1, 33, 40, 128))]
     spmm_err = 0.0
-    for name, g, _ in cases[0:1] + cases[2:3]:
+    for name, g, widths in spmm_cases:
         evals = torch.rand((g.e_pad,), generator=gen, device="cuda")
         for side, lay, rows, n_out in (("ell", g.ell, g.c_pad, g.n_pad),
                                        ("t_ell", g.t_ell, g.n_pad, g.c_pad)):
             vals = lay.slot_values(evals)
-            for f in (32, 40):
+            for f in widths:
                 x = rand(rows, f)
                 out = kernel.bell_spmm(lay, x, n_out, vals=vals)
                 ref = kernel.bell_spmm_rows_reference(lay, x, n_out, vals)
@@ -580,7 +535,7 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"[build] {line.strip()}")
 
-    cm, launches = phase_train(gala_tpu_torch, kernel)
+    cm, launches = phase_train(gala_tpu_torch)
     max_err, timings = phase_kernel(cm, kernel)
     del cm
     gat, gat_launches = phase_gat(gala_tpu_torch)

@@ -21,8 +21,8 @@ Every sparse layout is read by the kernels through per-row descriptors
 (`row_start`, `row_len`, `row_node` over `flat_cols`/`flat_vals`), so
 one SpMM kernel executes all of them.
 
-Edge lists (`src`, `dst`, `vals`, `t_*`, `t_perm`) are kept as gala_tpu
-keeps them (`keep_edges='auto'`: with edge values or off 'bell'), padded
+Edge lists (`src`, `dst`, `vals`, `t_*`, `t_perm`) are kept where gala_tpu
+keeps them by default (with edge values, or off 'bell'), padded
 to e_pad = round_up(E+1, 128) edges with dst = the phantom row, src 0
 and value 0.  Node dimensions are padded as in gala_tpu (n_pad =
 round_up(n+1, 8): at least one phantom row, which absorbs padding
@@ -252,7 +252,7 @@ class Graph:
     """A graph's aggregation layout on one device (+ transpose)."""
 
     # edge lists, forward (dst-sorted) and transpose (src-sorted), padded
-    # to e_pad; None unless kept (keep_edges)
+    # to e_pad; None on 'bell' without edge values
     src: torch.Tensor | None        # (e_pad,) int32
     dst: torch.Tensor | None        # (e_pad,) int32 ascending
     vals: torch.Tensor | None       # (e_pad,) f32 structural values (0 on padding)
@@ -292,12 +292,11 @@ class Graph:
         device="cpu",
         edge_vals: bool = False,
         attention: bool = False,
-        keep_edges: bool | str = "auto",
     ) -> "Graph":
-        """keep_edges: build the padded edge lists, their transpose
-        permutation and their layouts (`seg`, `t_seg`).  'auto' keeps them
-        where gala_tpu does: with edge values, or on any strategy but
-        'bell' (which never reads them)."""
+        """The padded edge lists, their transpose permutation and their
+        layouts (`seg`, `t_seg`) are built where gala_tpu keeps them by
+        default: with edge values, or on any strategy but 'bell' (which
+        never reads them)."""
         device = torch.device(device)
         # is_symmetric costs two full edge argsorts: only pay it when
         # the answer is consulted
@@ -321,8 +320,7 @@ class Graph:
             raise not_ported(f"strategy {strategy!r}", _NOT_PORTED[strategy])
         if strategy not in _STRATEGIES:
             raise ValueError(f"unknown strategy {strategy!r}")
-        if keep_edges == "auto":
-            keep_edges = edge_vals or strategy != "bell"
+        keep_edges = edge_vals or strategy != "bell"
 
         def pad_edges(dstv, srcv, valsv, phantom_dst):
             pad = e_pad - dstv.shape[0]

@@ -132,7 +132,7 @@ def spmm_ev(g: Graph, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     over the edge lists, as gala_tpu falls back to its segment path."""
     if g.src is None:
         raise ValueError(f"spmm_ev on a {g.strategy!r} graph built without edge lists; "
-                         "rebuild with keep_edges=True (or edge_vals=True)")
+                         "rebuild with edge_vals=True")
     x = x.contiguous()
     if g.strategy == "dense":
         return DenseSpmmEv.apply(vals, x, g.src, g.dst, g.n_pad, g.c_pad)
