@@ -11,7 +11,10 @@ and prints no "ok" line:
 2. build    builds the four kernel libraries from gala_tpu_torch/csrc/
             (the bell SpMM, the three attention kernels, the SDDMM, the
             row gather), one nvcc each, started together, for sm_90a into
-            gala_tpu_torch/_build/.
+            gala_tpu_torch/_build/; prints ptxas's registers and spills
+            and, from the CUDA runtime, the launch limits of the unit
+            kernels (registers, static and dynamic shared memory per
+            block, resident blocks per SM; fails if no block fits).
 3. train    the port's GCN path, as a user calls it: compile
             __graft_entry__.GCN_DSL (2-layer GCN, hidden 32) on the Arxiv
             stand-in at full size (scale 1.0, strategy auto -> bell) on
@@ -29,11 +32,14 @@ and prints no "ok" line:
             (up to 6,656 on a hub row), not with the result, which
             cancellation can make small; the two sum in different orders,
             and the plain version's hub sum (index_add_) is not even
-            bitwise reproducible on CUDA.  Then the kernel's and the plain
-            version's times at the path's shapes (CUDA events, after a
-            warm-up), and of torch.sparse.mm on the CSR form of the full
-            layout's matrix (the library yardstick, held to the kernel
-            first), beside the bound.
+            bitwise reproducible on CUDA.  Two calls of the kernel must be
+            bitwise equal.  Then the kernel's and the plain version's
+            times at the path's shapes (CUDA events, after a warm-up), the
+            kernel's on the full layout against the same layout without
+            its rows over 128 slots (the hub tail, per slot), and
+            torch.sparse.mm's on the CSR form of the full layout's matrix
+            (the library yardstick, held to the kernel first), beside the
+            bound.
 5. gat      the port's GAT path: compile __graft_entry__.GAT_DSL (2-layer
             GAT, hidden 32, one head) on the Arxiv stand-in at full size on
             "cuda" (strategy auto -> bell, fused attention layout) and
@@ -47,11 +53,13 @@ and prints no "ok" line:
             docstring states the tolerance: 1e-4 + 1e-4 * the magnitudes
             of the summed terms), bwd1 also against the flash identity, on
             the GAT run's full-graph and training-subgraph layouts and on
-            the generated hub graph, at (hf, H) = (32, 1), (40, 1), (32, 4);
-            then attention_aggregate forward and backward on the hub graph
-            on the card against the same call on CPU tensors (same
-            tolerance form); then each kernel's and plain version's times
-            at the GAT path's shapes.
+            the generated hub graph, at (hf, H) = (32, 1), (40, 1), (32, 4),
+            and two forward calls bitwise equal; then attention_aggregate
+            forward and backward on the hub graph on the card against the
+            same call on CPU tensors (same tolerance form); then each
+            kernel's and plain version's times at the GAT path's shapes,
+            and the forward's on the full layout against the layout
+            without its rows over 128 slots.
 7. gat-edge the port's edge-valued GAT path: GAT_DSL with the
             attention_fusion pass off (the reference GALA's own GAT: SDDVV,
             leaky ReLU, edge softmax, SpMM with edge values) on the Arxiv
@@ -208,6 +216,25 @@ def layout_csr(lay, n_out: int, n_src: int):
     return coo.coalesce().to_sparse_csr()
 
 
+def tail_ratio(tag, what, lay, call):
+    """`call(layout)`'s time on the full layout and on the same layout
+    without its rows over UNIT_SLOTS slots (ops.graph.select_rows), and
+    the ratio of the two times per slot: near 1 when a slot of a long row
+    costs what a slot of a short one does.  Returns (full ms, short ms,
+    ratio)."""
+    from gala_tpu_torch.ops.graph import UNIT_SLOTS, select_rows
+
+    short = select_rows(lay, lay.row_len <= UNIT_SLOTS)
+    slots_full, slots_short = int(lay.row_len.sum()), int(short.row_len.sum())
+    t_full = cuda_ms(lambda: call(lay), reps=20)
+    t_short = cuda_ms(lambda: call(short), reps=20)
+    ratio = (t_full / slots_full) / (t_short / slots_short)
+    print(f"[{tag}] tail, {what}: full layout {t_full:.4f} ms ({slots_full} slots), without "
+          f"its rows over {UNIT_SLOTS} slots {t_short:.4f} ms ({slots_short} slots); time per "
+          f"slot full / short {ratio:.3f}")
+    return t_full, t_short, ratio
+
+
 def hub_graph(device, attention=False, strategy="bell"):
     """Weighted directed graph on 5,000 nodes: node 0 has in-degree 3,000
     (24 virtual rows of the binned layout), node 1 out-degree 2,000 (a hub
@@ -312,11 +339,14 @@ def phase_kernel(cm, kernel):
             err = (out - ref).abs()
             bad = int((err > ATOL + RTOL * scale).sum())
             max_err = max(max_err, err.max().item())
+            same = torch.equal(out, kernel.bell_spmm(lay, x, n_out))
             print(f"[kernel] {name} F={f}: max |kernel - plain| {err.max().item():.3e}, "
                   f"max of that / (|A| @ |x|) {(err / scale.clamp_min(1e-30)).max().item():.3e}, "
-                  f"{bad} elements out of tolerance")
+                  f"{bad} elements out of tolerance; a second call bitwise equal: {same}")
             if bad:
                 raise AssertionError(f"{name} F={f}: {bad} elements out of tolerance")
+            if not same:
+                raise AssertionError(f"{name} F={f}: two calls of the kernel differ")
     # the generated graph against the dense product, in float64
     x = torch.randn((hub.c_pad, 32), generator=gen, device="cuda")
     a = torch.from_numpy(densify(hub_host)).double()
@@ -336,6 +366,13 @@ def phase_kernel(cm, kernel):
             t_plain = cuda_ms(lambda: kernel.bell_spmm_reference(lay, x, n_out), reps=5)
             timings[(name, f)] = (t_kernel, t_plain)
             print(f"[kernel] time {name} F={f}: kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms")
+    # the hub tail: the full layout against the same layout without its
+    # rows over UNIT_SLOTS slots, per slot
+    for f in WIDTHS:
+        x = torch.randn((full.c_pad, f), generator=gen, device="cuda")
+        timings[("tail", f)] = tail_ratio(
+            "kernel", f"arxiv full bell F={f}", full.bell,
+            lambda lay: kernel.bell_spmm(lay, x, full.n_pad))
 
     # the library's one call for the same product: torch.sparse.mm on a CSR
     # tensor of the full layout's matrix (checked against the kernel first)
@@ -411,16 +448,21 @@ def phase_attn_kernel(cm, ak):
     max_err = {name: 0.0 for name in ak.NAMES}
     for gname, g in graphs:
         for hf, nh in ATTN_SHAPES:
-            res = ak.compare_with_plain(g.attn, rand(g.c_pad, hf), rand(g.c_pad, nh),
-                                        rand(g.n_pad, nh), rand(g.n_pad, hf), SLOPE,
-                                        g.n_pad, g.c_pad)
+            inputs = (rand(g.c_pad, hf), rand(g.c_pad, nh), rand(g.n_pad, nh), rand(g.n_pad, hf))
+            res = ak.compare_with_plain(g.attn, *inputs, SLOPE, g.n_pad, g.c_pad)
+            twice = [ak.attn_fwd(g.attn.fwd, *inputs[:3], SLOPE, g.n_pad, True)
+                     for _ in range(2)]
             torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(*twice))
             bad = {k: v for k, v in res.items() if v[1]}
             print(f"[attn-kernel] {gname} hf={hf} H={nh}: max |kernel - plain| "
                   + ", ".join(f"{k} {v[0]:.2e}" for k, v in res.items())
-                  + f"; {sum(v[1] for v in res.values())} elements out of tolerance")
+                  + f"; {sum(v[1] for v in res.values())} elements out of tolerance; two "
+                  f"forward calls bitwise equal: {same}")
             if bad:
                 raise AssertionError(f"{gname} hf={hf} H={nh}: out of tolerance {bad}")
+            if not same:
+                raise AssertionError(f"{gname} hf={hf} H={nh}: two forward calls differ")
             for k, (err, _) in res.items():
                 name = "attn_" + k.split()[0]
                 if "=" not in k:
@@ -483,6 +525,9 @@ def phase_attn_kernel(cm, ak):
             print(f"[attn-kernel] time {name} arxiv full hf={hf} H={nh}: kernel "
                   f"{t_kernel:.4f} ms, plain {t_plain:.4f} ms, bound {ms:.4f} ms ({by}); "
                   f"no single library call computes it")
+        timings[("tail", hf)] = tail_ratio(
+            "attn-kernel", f"attn_fwd arxiv full hf={hf} H={nh}", lay_f,
+            lambda lay: ak.attn_fwd(lay, x, vl, vr, SLOPE, full.n_pad, True))
     return max_err, timings
 
 
@@ -635,6 +680,8 @@ def phase_sddmm_kernel(cm, ks, kernel):
         timings[("bell_spmm ell", f)] = (t_kernel, t_plain)
         print(f"[sddmm-kernel] time bell_spmm on the ELL layout with slot values, arxiv full "
               f"F={f}: kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms")
+        tail_ratio("sddmm-kernel", f"bell_spmm on the ELL layout with slot values F={f}",
+                   full.ell, lambda lay: kernel.bell_spmm(lay, x, full.n_pad, vals=vals))
     return max_err, spmm_err, timings
 
 
@@ -819,6 +866,17 @@ def main() -> int:
         for line in build.log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"[build] {line.strip()}")
+    # the unit kernels' launch limits, from the CUDA runtime (H = 1, the
+    # GAT path's heads, and H = 8, the most the forward takes)
+    limits = {**kernel.launch_limits(), **{f"{name} H=1": lim for name, lim in
+                                           ak.launch_limits(1).items()},
+              **{f"{name} H=8": lim for name, lim in ak.launch_limits(8).items()}}
+    for name, lim in limits.items():
+        print(f"[build] launch limits {name}: {lim['registers']} registers, "
+              f"{lim['static_smem']} B static and {lim['dynamic_smem']} B dynamic shared "
+              f"memory per block, {lim['blocks_per_sm']} blocks per SM")
+        if lim["blocks_per_sm"] < 1:
+            raise AssertionError(f"{name} cannot launch: no block fits an SM")
     seconds = {"build": time.perf_counter() - t_start}
 
     def timed(name, fn, *args):
@@ -855,6 +913,10 @@ def main() -> int:
         "launches": launches, "max_abs_err": max(max_err, ev_err), "ms": t_kernel,
         "plain_ms": t_plain, "bound_ms": ms, "bound_by": by,
         "library_ms": timings[("library", 32)], "at": "arxiv full bell, F=32",
+        "ms_by_width": {f: timings[("arxiv full bell", f)][0] for f in WIDTHS},
+        "library_ms_by_width": {f: timings[("library", f)] for f in WIDTHS},
+        "tail_by_width": {f: dict(zip(("full_ms", "short_rows_ms", "per_slot_ratio"),
+                                      timings[("tail", f)])) for f in WIDTHS},
         "path": "gcn, gat-edge, gcn-sparser, sage, gin, sage-minibatch (validation)",
         "path_launches": {"gcn": launches, "gat-edge": edge_launches.get("bell_spmm", 0),
                           "gcn-sparser": sparser_launches.get("bell_spmm", 0),
@@ -864,7 +926,13 @@ def main() -> int:
     }]
     for name in ak.NAMES:
         t_kernel, t_plain, ms, by = attn_timings[(name, 32)]
+        extra = {} if name != "attn_fwd" else {
+            "ms_by_width": {hf: attn_timings[(name, hf)][0] for hf, _ in ATTN_SHAPES[:2]},
+            "tail_by_width": {hf: dict(zip(("full_ms", "short_rows_ms", "per_slot_ratio"),
+                                           attn_timings[("tail", hf)]))
+                              for hf, _ in ATTN_SHAPES[:2]}}
         kernels.append({
+            **extra,
             "name": name, "route": "cuda", "source": ATTN_SOURCE,
             "replaces": ATTN_REPLACES[name], "launches": gat_launches.get(name, 0),
             "kernel_phase_launches": phase_launches.get(name, 0),

@@ -6,128 +6,147 @@
 // `_kernel`), which computes, for one degree-class segment,
 //     out[v, :] = sum_{k < K} vals[v, k] * x[cols[v, k], :]
 // in f32, with hub segments emitting one partial per virtual row that
-// XLA then segment-sums.  Here ONE launch covers the whole layout: every
-// output row (bin rows and hub rows alike) is described on the host by
-// (row_start, row_len, row_node) over the flat slot arrays.  A hub's
-// virtual rows are contiguous slots, so a hub is one long row and the
-// segment-sum, the out_index reorder and the diag*x term all fold into
-// the row loop: no atomics, and the result is deterministic.
+// XLA then segment-sums.  Here one call covers a whole layout in two
+// launches over its work units (ops/graph.py WorkUnits, built once on the
+// host; unit_gather.cuh):
+//   pass 1  one warp per unit of at most kUnitSlots = 128 slots.  A row of
+//           at most 128 slots (every bin row) is one unit that writes its
+//           node's row, diag*x included.  A longer row (a hub, a long ELL
+//           or edge-list row) is cut into ceil(len / 128) units, each
+//           writing one partial row of a scratch table; on a binned
+//           layout a hub's units are exactly its virtual rows (big_vrow),
+//           the TPU kernel's partials.
+//   pass 2  one block per split row sums its partials in unit order, adds
+//           diag*x and writes the node's row: gala_tpu's big_vrow
+//           segment-sum and diagonal term.
+// No atomics: every sum runs in a fixed order, so results are bitwise the
+// same from call to call.  Units run longest first and none is longer
+// than 128 slots, so no row is a serial tail at the end of the grid.
 //
 // What bounds it on the H100: bytes.  Each slot gathers one row of x
 // (4*F bytes) and reads 8 bytes of (col, val); there are 2 flops per
-// gathered float.  At F = 128 the Arxiv stand-in's 2.2M slots gather
-// ~1.1 GB per call, against 3.35 TB/s of HBM (and 50 MB of L2 that
-// holds a (169k, 32) f32 table whole, but not the (169k, 128) one).
-// The design answers with full 16-byte loads (float4, where F % 4 == 0)
-// on neighbouring lanes, so one warp reads a row of x as whole 128-byte
-// lines; with one coalesced load of 32 (col, val) pairs per warp,
-// broadcast by shuffles, so no lane waits on its own index load before
-// each gather; and, for narrow F, with several slots in flight per warp
-// (32 / lanes-per-row) summed by a shuffle tree at the end.
+// gathered float and no tile of x is reused across slots, so tensor cores
+// (wgmma) have no role: the product is a weighted gather.  At F = 128 the
+// Arxiv stand-in's 2.2M slots gather ~1.1 GB per call, against 3.35 TB/s
+// of HBM (and 50 MB of L2 that holds a (169k, 32) f32 table whole, but
+// not the (169k, 128) one).  The design answers with: the unit's
+// contiguous (col, val) pairs brought into shared memory by 4-byte
+// cp.async copies; full 16-byte gathers on neighbouring lanes, so one
+// warp reads a row of x as whole 128-byte lines, through a per-warp ring
+// of 2 stages of 16-byte cp.async.ca copies (unit_gather.cuh, which says
+// why 2 and .ca); 8 blocks of 8 warps resident per SM (32 registers);
+// plain loads with many slots in flight where F % 4 != 0 or x is not
+// 16-byte aligned; narrow rows' slot groups summed by a shuffle tree.
 //
-// Not done yet (later work, see ROADMAP): hub rows are one warp each, so
-// the longest row (6,656 slots on the Arxiv stand-in) is a serial tail;
-// no shared-memory staging, cp.async or TMA; f32 only.
+// Not done yet (later work, see ROADMAP): one warp per unit, so a unit of
+// a short row (k < 8 at F = 128) leaves most of its warp idle, and each
+// unit pays its own chain of dependent loads (descriptor, pairs, rows):
+// the gathers are latency-bound, not yet bytes-bound; f32 only.
 //
 // Padding slots point at the phantom source row with value 0, so padding
 // rows of x must be finite; the kernel does not special-case them.
-// Output rows that no descriptor names (padding) are left as the caller
+// Output rows that no unit writes (padding) are left as the caller
 // allocated them (zeros).
 
-#include <cuda_runtime.h>
-#include <stddef.h>
-#include <stdint.h>
+#include "unit_gather.cuh"
 
 namespace {
 
-constexpr int kWarp = 32;
-constexpr int kWarpsPerBlock = 8;
-constexpr unsigned kFullMask = 0xffffffffu;
+using namespace gala;
 
+constexpr int kMergeThreads = 128;
+
+// one warp's share of the dynamic shared memory
+struct WarpSmem {
+  RingSmem r;
+  float val[kUnitSlots];
+};
+constexpr size_t kBlockSmem = sizeof(WarpSmem) * kWarpsPerBlock;
+static_assert(kBlockSmem <= kDefaultSmem, "pass 1 would need cudaFuncSetAttribute");
+
+// Pass 1: one warp per unit.
 template <int VEC>
-__device__ __forceinline__ void load_vec(const float* __restrict__ p, float (&v)[VEC]) {
-  if constexpr (VEC == 4) {
-    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = t.x;
-    v[1] = t.y;
-    v[2] = t.z;
-    v[3] = t.w;
-  } else {
-    v[0] = __ldg(p);
+__global__ void __launch_bounds__(kWarp * kWarpsPerBlock, kMinBlocks)
+spmm_unit_kernel(const float* __restrict__ x, const int32_t* __restrict__ cols,
+                 const float* __restrict__ vals, const int32_t* __restrict__ unit_start,
+                 const int32_t* __restrict__ unit_len, const int32_t* __restrict__ unit_node,
+                 const int32_t* __restrict__ unit_part, const float* __restrict__ diag,
+                 float* __restrict__ out, float* __restrict__ part, int n_units, int f,
+                 int log2_g) {
+  extern __shared__ float4 smem[];
+  const int w = threadIdx.x / kWarp;
+  const int unit = blockIdx.x * kWarpsPerBlock + w;
+  if (unit >= n_units) return;  // the same for every lane of the warp
+  WarpSmem& sm = reinterpret_cast<WarpSmem*>(smem)[w];
+  const Lanes ln(log2_g, f, f, VEC);
+  const int start = unit_start[unit];
+  const int len = unit_len[unit];
+
+  for (int t = ln.lane; t < len; t += kWarp) {
+    cp_async4(&sm.r.col[t], cols + start + t);
+    cp_async4(&sm.val[t], vals + start + t);
   }
-}
-
-template <int VEC>
-__device__ __forceinline__ void store_vec(float* __restrict__ p, const float (&v)[VEC]) {
-  if constexpr (VEC == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  } else {
-    p[0] = v[0];
-  }
-}
-
-// One warp per output row.  Lanes split as (slot group, feature lane):
-// g = 2^log2_g lanes across the row's F/VEC vectors, 32/g slots in
-// flight; blockIdx.y selects which g-vector slice of the row this warp
-// computes (F/VEC > 32 needs several).
-template <int VEC>
-__global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
-bell_spmm_kernel(const float* __restrict__ x, const int32_t* __restrict__ cols,
-                 const float* __restrict__ vals, const int32_t* __restrict__ row_start,
-                 const int32_t* __restrict__ row_len, const int32_t* __restrict__ row_node,
-                 const float* __restrict__ diag, float* __restrict__ out, int n_rows,
-                 int f, int log2_g) {
-  const int lane = threadIdx.x & (kWarp - 1);
-  const int row = blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
-  if (row >= n_rows) return;  // the same for every lane of the warp
-
-  const int g = 1 << log2_g;
-  const int s = kWarp >> log2_g;
-  const int sub = lane >> log2_g;
-  const int vcol = blockIdx.y * g + (lane & (g - 1));
-  const bool active = vcol < f / VEC;
-  const int start = row_start[row];
-  const int len = row_len[row];
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncwarp();
 
   float acc[VEC];
 #pragma unroll
   for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
-
-  for (int base = 0; base < len; base += kWarp) {
-    const int t = base + lane;
-    int c = 0;
-    float w = 0.f;
-    if (t < len) {
-      c = __ldg(cols + start + t);
-      w = __ldg(vals + start + t);
-    }
-    const int n = min(kWarp, len - base);  // the same for every lane
-#pragma unroll 4
-    for (int j = 0; j < n; j += s) {
-      const int src = j + sub;  // < 32: j is a multiple of s below 32
-      const int cj = __shfl_sync(kFullMask, c, src);
-      const float wj = __shfl_sync(kFullMask, w, src);
-      if (src < n && active) {
-        float v[VEC];
-        load_vec<VEC>(x + static_cast<size_t>(cj) * f + static_cast<size_t>(vcol) * VEC, v);
+  gather_unit<VEC>(sm.r, len, x, f, ln, [](int) { return true; },
+                   [&](int j, const float (&v)[VEC]) {
+                     const float wj = sm.val[j];
 #pragma unroll
-        for (int i = 0; i < VEC; ++i) acc[i] = fmaf(wj, v[i], acc[i]);
-      }
-    }
-  }
+                     for (int i = 0; i < VEC; ++i) acc[i] = fmaf(wj, v[i], acc[i]);
+                   });
 
-  // sum the s slot groups: lanes that share (lane % g) hold one vector
-  for (int off = kWarp / 2; off >= g; off >>= 1) {
+  // sum the slot groups: lanes that share (lane % g) hold one vector
+  for (int off = kWarp / 2; off >= ln.g; off >>= 1) {
 #pragma unroll
     for (int i = 0; i < VEC; ++i) acc[i] += __shfl_xor_sync(kFullMask, acc[i], off);
   }
+  if (ln.sub != 0 || !ln.active) return;
+  const int p = unit_part[unit];
+  const size_t col = static_cast<size_t>(ln.vcol) * VEC;
+  if (p >= 0) {
+    store_vec<VEC>(part + static_cast<size_t>(p) * f + col, acc);
+    return;
+  }
+  const int node = unit_node[unit];
+  const size_t o = static_cast<size_t>(node) * f + col;
+  if (diag != nullptr) {
+    const float d = __ldg(diag + node);
+    float v[VEC];
+    load_vec<VEC>(x + o, v);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) acc[i] = fmaf(d, v[i], acc[i]);
+  }
+  store_vec<VEC>(out + o, acc);
+}
 
-  if (sub == 0 && active) {
-    const int node = row_node[row];
-    const size_t o = static_cast<size_t>(node) * f + static_cast<size_t>(vcol) * VEC;
+// Pass 2: one block per split row; its partials summed in unit order.
+template <int VEC>
+__global__ void __launch_bounds__(kMergeThreads)
+spmm_merge_kernel(const float* __restrict__ x, const float* __restrict__ part,
+                  const int32_t* __restrict__ split_node, const int32_t* __restrict__ split_first,
+                  const int32_t* __restrict__ split_count, const float* __restrict__ diag,
+                  float* __restrict__ out, int f) {
+  const int r = blockIdx.x;
+  const int node = split_node[r];
+  const int first = split_first[r];
+  const int count = split_count[r];
+  const float d = diag != nullptr ? __ldg(diag + node) : 0.f;
+  for (int c = threadIdx.x * VEC; c < f; c += kMergeThreads * VEC) {
+    float acc[VEC], v[VEC];
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
+    for (int u = 0; u < count; ++u) {
+      load_vec<VEC>(part + static_cast<size_t>(first + u) * f + c, v);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) acc[i] += v[i];
+    }
+    const size_t o = static_cast<size_t>(node) * f + c;
     if (diag != nullptr) {
-      const float d = __ldg(diag + node);
-      float v[VEC];
       load_vec<VEC>(x + o, v);
 #pragma unroll
       for (int i = 0; i < VEC; ++i) acc[i] = fmaf(d, v[i], acc[i]);
@@ -136,37 +155,65 @@ bell_spmm_kernel(const float* __restrict__ x, const int32_t* __restrict__ cols,
   }
 }
 
+template <int VEC>
+int launch(const float* x, const int32_t* cols, const float* vals, const int32_t* unit_start,
+           const int32_t* unit_len, const int32_t* unit_node, const int32_t* unit_part,
+           const int32_t* split_node, const int32_t* split_first, const int32_t* split_count,
+           const float* diag, float* out, float* part, int n_units, int n_split, int f,
+           cudaStream_t st) {
+  int log2_g;
+  dim3 grid;
+  reduce_grid(n_units, f, VEC, &log2_g, &grid);
+  spmm_unit_kernel<VEC><<<grid, kWarp * kWarpsPerBlock, kBlockSmem, st>>>(
+      x, cols, vals, unit_start, unit_len, unit_node, unit_part, diag, out, part, n_units, f,
+      log2_g);
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err != 0 || n_split == 0) return err;
+  spmm_merge_kernel<VEC><<<n_split, kMergeThreads, 0, st>>>(x, part, split_node, split_first,
+                                                            split_count, diag, out, f);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // C interface, loaded with ctypes.  Pointers are device pointers; diag
-// may be null.  `vec` is 4 (F % 4 == 0 and 16-byte aligned x and out)
-// or 1.  Launches on `stream` without synchronising and returns
-// cudaGetLastError() (0 on success).
+// may be null, and part (n_partials, f) f32 scratch is read only when
+// n_split > 0.  The unit and split tables are ops/graph.py WorkUnits'.
+// `vec` is 4 (F % 4 == 0 and 16-byte aligned x and out) or 1.  Launches
+// pass 1 and, when a row is split, pass 2 on `stream` without
+// synchronising and returns cudaGetLastError() (0 on success).
 extern "C" int gala_bell_spmm_f32(const void* x, const void* cols, const void* vals,
-                                  const void* row_start, const void* row_len,
-                                  const void* row_node, const void* diag, void* out,
-                                  int n_rows, int f, int vec, void* stream) {
-  if (n_rows <= 0 || f <= 0) return 0;
+                                  const void* unit_start, const void* unit_len,
+                                  const void* unit_node, const void* unit_part,
+                                  const void* split_node, const void* split_first,
+                                  const void* split_count, const void* diag, void* out,
+                                  void* part, int n_units, int n_split, int f, int vec,
+                                  void* stream) {
+  if (n_units <= 0 || f <= 0) return 0;
   if (vec != 1 && vec != 4) return static_cast<int>(cudaErrorInvalidValue);
-  const int fv = f / vec;
-  int log2_g = 0;
-  while ((1 << log2_g) < fv && log2_g < 5) ++log2_g;
-  const int g = 1 << log2_g;
-  const dim3 block(kWarp * kWarpsPerBlock);
-  const dim3 grid((n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock, (fv + g - 1) / g);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* xf = static_cast<const float*>(x);
-  const int32_t* c = static_cast<const int32_t*>(cols);
-  const float* w = static_cast<const float*>(vals);
-  const int32_t* rs = static_cast<const int32_t*>(row_start);
-  const int32_t* rl = static_cast<const int32_t*>(row_len);
-  const int32_t* rn = static_cast<const int32_t*>(row_node);
-  const float* d = static_cast<const float*>(diag);
-  float* o = static_cast<float*>(out);
-  if (vec == 4) {
-    bell_spmm_kernel<4><<<grid, block, 0, st>>>(xf, c, w, rs, rl, rn, d, o, n_rows, f, log2_g);
-  } else {
-    bell_spmm_kernel<1><<<grid, block, 0, st>>>(xf, c, w, rs, rl, rn, d, o, n_rows, f, log2_g);
+  const auto i32 = [](const void* p) { return static_cast<const int32_t*>(p); };
+  const auto f32 = [](const void* p) { return static_cast<const float*>(p); };
+  const auto run = [&](auto vec_tag) {
+    return launch<decltype(vec_tag)::value>(
+        f32(x), i32(cols), f32(vals), i32(unit_start), i32(unit_len), i32(unit_node),
+        i32(unit_part), i32(split_node), i32(split_first), i32(split_count), f32(diag),
+        static_cast<float*>(out), static_cast<float*>(part), n_units, n_split, f,
+        static_cast<cudaStream_t>(stream));
+  };
+  return vec == 4 ? run(std::integral_constant<int, 4>{}) : run(std::integral_constant<int, 1>{});
+}
+
+// Launch limits of the library's kernels, four ints each in `out`:
+// registers per thread, static and dynamic shared memory per block,
+// resident blocks per SM.  Kernel k: 0 pass 1 (float4), 1 pass 1
+// (scalar), 2 pass 2 (float4), 3 pass 2 (scalar).  Returns the CUDA
+// error, 0 on success.
+extern "C" int gala_bell_spmm_limits(int k, int* out) {
+  switch (k) {
+    case 0: return launch_limits(spmm_unit_kernel<4>, kWarp * kWarpsPerBlock, kBlockSmem, out);
+    case 1: return launch_limits(spmm_unit_kernel<1>, kWarp * kWarpsPerBlock, kBlockSmem, out);
+    case 2: return launch_limits(spmm_merge_kernel<4>, kMergeThreads, 0, out);
+    case 3: return launch_limits(spmm_merge_kernel<1>, kMergeThreads, 0, out);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

@@ -17,9 +17,11 @@ device, for the strategies this port executes:
     'segment_scan'  the same executor: gala_tpu's lax.scan chunking is a
               TPU memory device that does not carry over.
 
-Every sparse layout is read by the kernels through per-row descriptors
-(`row_start`, `row_len`, `row_node` over `flat_cols`/`flat_vals`), so
-one SpMM kernel executes all of them.
+Every sparse layout is described by per-row descriptors (`row_start`,
+`row_len`, `row_node` over `flat_cols`/`flat_vals`), and the kernels run
+over the layout's work units (`WorkUnits`, cut from the descriptors
+once on the host: no unit holds more than UNIT_SLOTS slots), so one SpMM
+kernel executes all of them.
 
 Edge lists (`src`, `dst`, `vals`, `t_*`, `t_perm`) are kept where gala_tpu
 keeps them by default (with edge values, or off 'bell'), padded
@@ -50,6 +52,9 @@ NODE_PAD = 8
 _DENSE_MAX_NODES = 16384  # N_pad^2 f32 <= 1GB (gala_tpu's gate, unchanged)
 _STRATEGIES = ("dense", "bell", "ell", "segment", "segment_scan")
 _MAX_EDGES = 2**31 - 1  # int32 edge ids and slot offsets
+# L, the most slots of one work unit: kUnitSlots in csrc/unit_gather.cuh.
+# Equal to data.ell.K_BIG, so a hub's units are its virtual rows.
+UNIT_SLOTS = 128
 
 _NOT_PORTED = {
     "pallas_bell": "ROADMAP Queue 2 (the bell kernel is the only bell "
@@ -70,6 +75,73 @@ def _put(a: np.ndarray, device) -> torch.Tensor:
 
 
 @dataclasses.dataclass
+class WorkUnits:
+    """The kernels' work over a row-descriptor layout, cut once on the host.
+
+    Unit u reads slots [start[u], start[u] + length[u]) of the row of
+    node[u]; length[u] <= UNIT_SLOTS.  A row of at most UNIT_SLOTS slots
+    is one unit with part[u] = -1: it writes its node's output row (and,
+    on a layout with a diagonal, the diag*x term).  A longer row is cut
+    into ceil(len / UNIT_SLOTS) units, each writing its partial to row
+    part[u] of a scratch table; one split row's partials are contiguous
+    and in slot order, and split row r (node split_node[r]) owns partials
+    [split_first[r], split_first[r] + split_count[r]), which the merge
+    sums in that order.  A row of no slots keeps one unit of length 0:
+    its node still gets its epilogue.  Units are ordered longest first
+    (stably), so no long unit starts last."""
+
+    start: torch.Tensor          # (U,) int32 first slot of unit u
+    length: torch.Tensor         # (U,) int32 slots of unit u
+    node: torch.Tensor           # (U,) int32 global row of unit u's row
+    part: torch.Tensor           # (U,) int32 partial row of unit u, -1: writes its node
+    split_node: torch.Tensor     # (R_split,) int32 node of split row r
+    split_first: torch.Tensor    # (R_split,) int32 its first partial
+    split_count: torch.Tensor    # (R_split,) int32 its partials
+    n_units: int
+    n_partials: int
+
+    @classmethod
+    def from_rows(cls, row_start, row_len, row_node, device) -> "WorkUnits":
+        t = work_unit_tables(row_start, row_len, row_node)
+        return cls(**{k: _put(v, device) for k, v in t.items()},
+                   n_units=t["start"].shape[0], n_partials=int(t["split_count"].sum()))
+
+
+def work_unit_tables(row_start, row_len, row_node) -> dict:
+    """WorkUnits' tables as numpy int32 arrays, from host descriptors."""
+    row_start, row_len = np.asarray(row_start, np.int64), np.asarray(row_len, np.int64)
+    row_node = np.asarray(row_node, np.int64)
+    n_u = np.maximum(-(-row_len // UNIT_SLOTS), 1)
+    row = np.repeat(np.arange(row_len.shape[0]), n_u)
+    k = np.arange(row.shape[0]) - np.repeat(np.cumsum(n_u) - n_u, n_u)
+    start = row_start[row] + k * UNIT_SLOTS
+    length = np.minimum(row_len[row] - k * UNIT_SLOTS, UNIT_SLOTS)
+    split = n_u > 1
+    in_split = split[row]
+    part = np.full(row.shape[0], -1, np.int64)
+    part[in_split] = np.arange(int(in_split.sum()))
+    count = n_u[split]
+    order = np.argsort(-length, kind="stable")
+    i32 = lambda a: a.astype(np.int32)  # noqa: E731
+    return dict(start=i32(start[order]), length=i32(length[order]),
+                node=i32(row_node[row][order]), part=i32(part[order]),
+                split_node=i32(row_node[split]), split_first=i32(np.cumsum(count) - count),
+                split_count=i32(count))
+
+
+def select_rows(layout, keep):
+    """The layout (BellDev or SlotRows) restricted to the row descriptors
+    where `keep` (bool, one per row) holds, with its work units cut
+    anew: what a kernel call on part of the rows runs (measurement)."""
+    keep = np.asarray(torch.as_tensor(keep).cpu())
+    rows = [t.cpu().numpy()[keep] for t in (layout.row_start, layout.row_len, layout.row_node)]
+    dev = layout.row_start.device
+    return dataclasses.replace(
+        layout, row_start=_put(rows[0], dev), row_len=_put(rows[1], dev),
+        row_node=_put(rows[2], dev), units=WorkUnits.from_rows(*rows, dev))
+
+
+@dataclasses.dataclass
 class BellDev:
     """Device tensors of a binned ELL (see data.ell.build_binned_ell).
 
@@ -83,8 +155,10 @@ class BellDev:
 
     A bin row has row_len = k_b.  A hub's virtual rows are contiguous
     slots (data.ell: (vbase + t//K)*K + t%K == vbase*K + t), so a hub
-    is ONE row of length n_virt*K_BIG and the big_vrow segment-sum
-    becomes the kernel's row loop."""
+    is ONE row of length n_virt*K_BIG.  The kernels run over `units`
+    (WorkUnits of these rows): a bin row is one unit, a hub's units of
+    UNIT_SLOTS = K_BIG slots are its virtual rows, and the merge of
+    their partials is the big_vrow segment-sum."""
 
     flat_cols: torch.Tensor              # (S,) int32
     flat_vals: torch.Tensor              # (S,) f32: bin_vals then big_vals
@@ -96,6 +170,7 @@ class BellDev:
     row_start: torch.Tensor              # (n_real,) int32 first slot of row i
     row_len: torch.Tensor                # (n_real,) int32 slots of row i
     row_node: torch.Tensor               # (n_real,) int32 global row of row i
+    units: WorkUnits                     # the kernels' work units of these rows
     bin_ks: tuple
     bin_counts: tuple
     n_big: int
@@ -143,6 +218,7 @@ class BellDev:
             row_start=put(row_start),
             row_len=put(row_len),
             row_node=put(row_node),
+            units=WorkUnits.from_rows(row_start, row_len, row_node, device),
             bin_ks=hb.bin_ks,
             bin_counts=hb.bin_counts,
             n_big=hb.n_big,
@@ -189,6 +265,7 @@ class SlotRows:
     row_start: torch.Tensor          # (R,) int32 first slot of row i
     row_len: torch.Tensor            # (R,) int32 slots of row i
     row_node: torch.Tensor           # (R,) int32 global row of row i
+    units: WorkUnits                 # the kernels' work units of these rows
     k: int                           # ELL width (slots per virtual row); 0 for an edge list
     n_real: int                      # rows with a descriptor (R)
     n_src: int                       # feature rows the slots may read (> max col)
@@ -206,11 +283,12 @@ class SlotRows:
                   row_ptr: np.ndarray, n_src: int, device) -> "SlotRows":
         """A padded dst-sorted edge list, one slot per edge, one row per
         padded destination (`row_ptr`: (rows + 1,) offsets)."""
+        rows = (row_ptr[:-1].astype(np.int32), np.diff(row_ptr).astype(np.int32),
+                np.arange(row_ptr.shape[0] - 1, dtype=np.int32))
         return cls(
             flat_cols=src, flat_vals=vals, perm=perm, mask=None,
-            row_start=_put(row_ptr[:-1].astype(np.int32), device),
-            row_len=_put(np.diff(row_ptr).astype(np.int32), device),
-            row_node=_put(np.arange(row_ptr.shape[0] - 1, dtype=np.int32), device),
+            row_start=_put(rows[0], device), row_len=_put(rows[1], device),
+            row_node=_put(rows[2], device), units=WorkUnits.from_rows(*rows, device),
             k=0, n_real=row_ptr.shape[0] - 1, n_src=n_src,
         )
 
@@ -234,14 +312,15 @@ class SlotRows:
             raise ValueError("row descriptors do not cover the real ELL slots exactly")
         vstart = np.zeros(n_rows, np.int64)
         np.cumsum(nvirt[:-1], out=vstart[1:])
+        rows = ((vstart * k).astype(np.int32), (nvirt * k).astype(np.int32),
+                np.arange(n_rows, dtype=np.int32))
         return cls(
             flat_cols=_put(he.cols.reshape(-1), device),
             flat_vals=_put(he.vals.reshape(-1), device),
             perm=_put(perm, device),
             mask=_put(real.astype(np.float32), device),
-            row_start=_put((vstart * k).astype(np.int32), device),
-            row_len=_put((nvirt * k).astype(np.int32), device),
-            row_node=_put(np.arange(n_rows, dtype=np.int32), device),
+            row_start=_put(rows[0], device), row_len=_put(rows[1], device),
+            row_node=_put(rows[2], device), units=WorkUnits.from_rows(*rows, device),
             k=k, n_real=n_rows,
             n_src=int(he.cols.max()) + 1 if he.cols.size else 0,
         )

@@ -5,8 +5,8 @@ Every kernel library is one `.cu` file under `gala_tpu_torch/csrc/` with a
 plain C interface.  `build_library` compiles it with nvcc for sm_90a into
 a shared library in `gala_tpu_torch/_build/` (git-ignored) at first use,
 loads it with ctypes and declares the argument types of its functions.
-The library's name carries a hash of the source, so an edited source is
-rebuilt.  Builds may run in parallel threads (each is one nvcc process
+The library's name carries a hash of the source and of the shared
+headers (`csrc/*.cuh`), so an edited source or header is rebuilt.  Builds may run in parallel threads (each is one nvcc process
 writing its own temporary file, renamed into place when done).
 
 `counts_for(name)` is the launch record of one kernel: its wrapper adds
@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import glob
 import hashlib
 import os
 import shutil
@@ -64,6 +65,20 @@ def reset_counts() -> None:
         c.reset()
 
 
+LIMIT_KEYS = ("registers", "static_smem", "dynamic_smem", "blocks_per_sm")
+
+
+def read_limits(fn, *args) -> dict:
+    """A library's launch-limit function (`gala_*_limits(..., int out[4])`)
+    as {registers per thread, static and dynamic shared memory bytes per
+    block, resident blocks per SM}.  Raises on a CUDA error."""
+    out = (ctypes.c_int * 4)()
+    err = fn(*args, out)
+    if err != 0:
+        raise RuntimeError(f"launch-limit query failed with CUDA error {err}")
+    return dict(zip(LIMIT_KEYS, out))
+
+
 @dataclasses.dataclass
 class Build:
     lib: ctypes.CDLL
@@ -83,8 +98,11 @@ def build_library(source: str, stem: str, functions: dict[str, list]) -> Build:
     nvcc is missing or the build fails."""
     if source in _BUILDS:
         return _BUILDS[source]
-    with open(source, "rb") as f:
-        digest = hashlib.sha1(f.read()).hexdigest()[:12]
+    sha = hashlib.sha1()
+    for path in [source] + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
+        with open(path, "rb") as f:
+            sha.update(f.read())
+    digest = sha.hexdigest()[:12]
     path = os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
     seconds, log = 0.0, ""
     if not os.path.exists(path):

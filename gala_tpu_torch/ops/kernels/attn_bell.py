@@ -6,8 +6,12 @@ attn_bwd1_planned, attn_bwd2_planned); the maths is that of
 gala_tpu/ops/attention.py (_head_softmax_pos and the hub branch of
 _attn_fwd_chunked, _head_bwd_stats, _slot_grads).  The kernels
 (`gala_tpu_torch/csrc/attn_bell.cu`) each cover a whole layout in one
-launch from the per-row descriptors (ops.graph.BellDev.row_*); a hub is
-one contiguous row.  Heads: x is (rows, hf) with head h in columns
+call: the forward in two launches over the layout's work units
+(ops.graph.WorkUnits: units of at most UNIT_SLOTS slots, a hub's units
+its virtual rows, whose unnormalised partials the second launch merges
+by the online-softmax rescaling), the backward passes in one launch
+from the per-row descriptors (ops.graph.BellDev.row_*; a hub is one
+contiguous row).  Heads: x is (rows, hf) with head h in columns
 [h*fh, (h+1)*fh), fh = hf / H, 1 <= H <= 8.
 
 Layouts are ops.attention.AttnBell's: `flat_vals` holds slot occupancy
@@ -21,6 +25,8 @@ plain-version calls on CUDA tensors for `attn_fwd`, `attn_bwd1` and
 The plain versions work slot by slot (one entry per slot of the flat
 layout, a row's max by scatter_reduce and its sums by index_add_), so
 they share nothing with the kernels but the layout.
+`attn_fwd_units_reference` repeats the forward kernel's two passes in
+plain PyTorch, for the tests and the card's checks only.
 """
 from __future__ import annotations
 
@@ -29,7 +35,10 @@ import os
 
 import torch
 
-from gala_tpu_torch.ops.kernels._build import CSRC_DIR, Build, build_library, counts_for
+from gala_tpu_torch.ops.kernels._build import (
+    CSRC_DIR, Build, build_library, counts_for, read_limits,
+)
+from gala_tpu_torch.ops.kernels.bell_spmm import unit_slots
 
 _SRC = os.path.join(CSRC_DIR, "attn_bell.cu")
 _MAX_SLOTS = 2**31 - 1  # int32 slot offsets
@@ -38,6 +47,8 @@ NEG = -1e30  # masked score; a row's max is floored at NEG / 2 (gala_tpu's _NEG)
 
 NAMES = ("attn_fwd", "attn_bwd1", "attn_bwd2")
 counts = {name: counts_for(name) for name in NAMES}
+# the forward's kernels, in the order of gala_attn_fwd_limits
+FWD_KERNELS = ("attn_fwd_kernel<4>", "attn_fwd_kernel<1>", "attn_fwd_merge_kernel")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -46,10 +57,20 @@ def build() -> Build:
     """Compile (once per source version) and load the kernel library.
     Raises when nvcc is missing or the build fails."""
     return build_library(_SRC, "attn_bell", {
-        "gala_attn_fwd_f32": [_P] * 13 + [_I, _I, _I, _F, _I, _P],
+        "gala_attn_fwd_f32": [_P] * 18 + [_I] * 5 + [_F, _I, _P],
         "gala_attn_bwd1_f32": [_P] * 14 + [_I, _I, _I, _F, _I, _P],
         "gala_attn_bwd2_f32": [_P] * 9 + [_I, _I, _I, _F, _I, _P],
+        "gala_attn_fwd_limits": [_I, _I, _P],
     })
+
+
+def launch_limits(nh: int = 1) -> dict:
+    """{kernel: registers, static and dynamic shared memory per block,
+    resident blocks per SM} of the forward's kernels at `nh` heads, from
+    the CUDA runtime."""
+    lib = build().lib
+    return {name: read_limits(lib.gala_attn_fwd_limits, k, nh)
+            for k, name in enumerate(FWD_KERNELS)}
 
 
 # --------------------------------------------------------------------------- #
@@ -114,6 +135,64 @@ def attn_fwd_reference(lay, x, vl, vr, slope: float, n_pad: int, flash: bool):
         spos = _to_nodes(lay, _row_sum(rows, ppos, n_rows), n_pad)
     return (_to_nodes(lay, out, n_pad), _to_nodes(lay, m, n_pad), _to_nodes(lay, s, n_pad),
             outpos, spos)
+
+
+def attn_fwd_units_reference(lay, x, vl, vr, slope: float, n_pad: int, flash: bool):
+    """The forward kernel's two passes in plain PyTorch (for tests and the
+    card's checks), the same function as attn_fwd_reference.  Pass 1, per
+    work unit and head: m_u = max(max z, NEG/2), p = e^(z - m_u),
+    s_u = sum p, acc_u = sum p x (and s+_u, acc+_u over zpre > 0); a unit
+    that is its whole row writes out = acc_u / s_u, m_u, s_u (s = 1 where
+    the sum is 0).  Pass 2 merges each split row's partials by gala_tpu's
+    online-softmax rescaling: m = max m_u, s = sum s_u e^(m_u - m), the
+    same for acc, s+ and acc+."""
+    units = lay.units
+    hf, nh = x.shape[1], vl.shape[1]
+    fh = hf // nh
+    n_u = units.n_units
+    unit, slot = unit_slots(units, x.device)
+    col = lay.flat_cols.long()[slot]
+    real = (lay.flat_vals[slot] != 0)[:, None]
+    zpre = vl[col] + vr[units.node.long()[unit]]
+    z = torch.where(real, _lrelu(zpre, slope), NEG)
+    m_u = torch.full((n_u, nh), NEG / 2, dtype=z.dtype, device=z.device)
+    m_u = m_u.scatter_reduce(0, unit[:, None].expand(-1, nh), z, "amax")
+    p = torch.where(real, torch.exp(z - m_u[unit]), 0.0)
+    ppos = torch.where(zpre > 0, p, 0.0)
+    xs = x[col].view(-1, nh, fh)
+    stats = [_row_sum(unit, v, n_u) for v in (p, ppos)]
+    accs = [_row_sum(unit, (v[..., None] * xs).view(-1, hf), n_u) for v in (p, ppos)]
+
+    out = x.new_zeros((n_pad, hf))
+    m, s, spos = (x.new_zeros((n_pad, nh)) for _ in range(3))
+    outpos = torch.zeros_like(out)
+    whole = units.part < 0
+    heads = lambda t: t.repeat_interleave(fh, dim=1)  # noqa: E731
+
+    def write(node, m_r, s_r, sp_r, acc_r, accp_r):
+        s_r = torch.where(s_r > 0, s_r, 1.0)
+        out[node], m[node], s[node] = acc_r / heads(s_r), m_r, s_r
+        outpos[node], spos[node] = accp_r / heads(s_r), sp_r / s_r
+
+    write(units.node[whole].long(), m_u[whole], stats[0][whole], stats[1][whole],
+          accs[0][whole], accs[1][whole])
+    if units.n_partials:
+        idx = units.part[~whole].long()
+
+        def partials(v):  # partial rows in partial order
+            return v.new_empty((units.n_partials,) + v.shape[1:]).index_copy_(0, idx, v[~whole])
+
+        pm, ps, psp, pacc, paccp = (partials(v) for v in (m_u, *stats, *accs))
+        n_split = units.split_node.shape[0]
+        owner = torch.repeat_interleave(torch.arange(n_split, device=x.device),
+                                        units.split_count.long())
+        mm = torch.full((n_split, nh), NEG / 2, dtype=pm.dtype, device=pm.device)
+        mm = mm.scatter_reduce(0, owner[:, None].expand(-1, nh), pm, "amax")
+        sc = torch.exp(pm - mm[owner])
+        write(units.split_node.long(), mm, _row_sum(owner, ps * sc, n_split),
+              _row_sum(owner, psp * sc, n_split), _row_sum(owner, pacc * heads(sc), n_split),
+              _row_sum(owner, paccp * heads(sc), n_split))
+    return (out, m, s, outpos, spos) if flash else (out, m, s, None, None)
 
 
 def attn_bwd1_reference(lay, x, vl, vr, dout, m, s, slope: float):
@@ -228,11 +307,19 @@ def attn_fwd(lay, x, vl, vr, slope: float, n_pad: int, flash: bool):
     s = torch.zeros_like(m)
     outpos = torch.zeros_like(out) if flash else None
     spos = torch.zeros_like(m) if flash else None
-    ptr = (lambda t: t.data_ptr() if t is not None else None)
+    u = lay.units
+    # the split rows' partials: acc, acc+ (P, hf) then m, s, s+ (P, H)
+    part = (torch.empty((u.n_partials * (2 * hf + 3 * nh),), dtype=torch.float32,
+                        device=x.device) if u.n_partials else None)
+    ptr = (lambda t: t.data_ptr() if t is not None else None)  # noqa: E731
     _launch("attn_fwd", lib.gala_attn_fwd_f32, x,
-            x.data_ptr(), vl.data_ptr(), vr.data_ptr(), *_lay_ptrs(lay),
-            out.data_ptr(), m.data_ptr(), s.data_ptr(), ptr(outpos), ptr(spos),
-            lay.row_node.shape[0], hf, nh, float(slope), _vec(x, nh, out))
+            x.data_ptr(), vl.data_ptr(), vr.data_ptr(), lay.flat_cols.data_ptr(),
+            lay.flat_vals.data_ptr(), u.start.data_ptr(), u.length.data_ptr(),
+            u.node.data_ptr(), u.part.data_ptr(), u.split_node.data_ptr(),
+            u.split_first.data_ptr(), u.split_count.data_ptr(),
+            out.data_ptr(), m.data_ptr(), s.data_ptr(), ptr(outpos), ptr(spos), ptr(part),
+            u.n_units, u.split_node.shape[0], u.n_partials, hf, nh, float(slope),
+            _vec(x, nh, out))
     return out, m, s, outpos, spos
 
 

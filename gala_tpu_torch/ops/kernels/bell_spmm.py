@@ -4,24 +4,29 @@ and its plain PyTorch versions.
 Replaces gala_tpu/ops/pallas/bell_spmm.py::bell_spmm_planned (and, in
 the default JAX path, the XLA gathers of gala_tpu.ops.spmm._bell_raw).
 The kernel (`gala_tpu_torch/csrc/bell_spmm.cu`) covers a whole layout in
-one launch from per-row descriptors (ops.graph.BellDev.row_*); its note
+one call of two launches over the layout's work units
+(ops.graph.WorkUnits): pass 1 reduces each unit of at most UNIT_SLOTS
+slots, writing a node's row or, for a row split into several units, one
+partial; pass 2 sums each split row's partials in unit order.  Its note
 says what bounds it on the H100 and what the design does about that.
 
 Build: nvcc for sm_90a into a shared library with a plain C interface,
 loaded with ctypes, at first use, into `gala_tpu_torch/_build/`
 (git-ignored), by `ops.kernels._build.build_library`.
 
-The kernel reads any layout through its row descriptors, so it also
-executes the 'ell' and 'segment' layouts (ops.graph.SlotRows), with
-their structural values or with per-slot values passed as `vals` (the
+The kernel reads any layout through its work units, so it also executes
+the 'ell' and 'segment' layouts (ops.graph.SlotRows), with their
+structural values or with per-slot values passed as `vals` (the
 learned-edge-value SpMM of ops.spmm.spmm_ev).
 
 Dispatch (`bell_spmm`): a CPU tensor runs a plain version, the
 bin-by-bin `bell_spmm_reference` for a binned layout with its own values
 and the slot-by-slot `bell_spmm_rows_reference` for every other call; a
 CUDA tensor runs the kernel or raises (no fallback).  `counts` records
-kernel launches and plain-version calls on CUDA tensors, so a run can
-show that its aggregations went through the kernel.
+kernel calls (one per product, both passes) and plain-version calls on
+CUDA tensors, so a run can show that its aggregations went through the
+kernel.  `bell_spmm_units_reference` repeats the kernel's two passes in
+plain PyTorch, for the tests and the card's checks only.
 """
 from __future__ import annotations
 
@@ -31,10 +36,15 @@ import os
 import torch
 
 from gala_tpu_torch.ops.graph import BellDev
-from gala_tpu_torch.ops.kernels._build import CSRC_DIR, Build, build_library, counts_for
+from gala_tpu_torch.ops.kernels._build import (
+    CSRC_DIR, Build, build_library, counts_for, read_limits,
+)
 
 _SRC = os.path.join(CSRC_DIR, "bell_spmm.cu")
 _MAX_SLOTS = 2**31 - 1  # int32 slot offsets
+# the library's kernels, in the order of gala_bell_spmm_limits
+KERNELS = ("spmm_unit_kernel<4>", "spmm_unit_kernel<1>", "spmm_merge_kernel<4>",
+           "spmm_merge_kernel<1>")
 
 counts = counts_for("bell_spmm")
 
@@ -43,10 +53,17 @@ def build() -> Build:
     """Compile (once per source version) and load the kernel library.
     Raises when nvcc is missing or the build fails."""
     return build_library(_SRC, "bell_spmm", {
-        "gala_bell_spmm_f32": [ctypes.c_void_p] * 8 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ],
+        "gala_bell_spmm_f32": [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+        "gala_bell_spmm_limits": [ctypes.c_int, ctypes.c_void_p],
     })
+
+
+def launch_limits() -> dict:
+    """{kernel: registers, static and dynamic shared memory per block,
+    resident blocks per SM} of the library's kernels, from the CUDA
+    runtime (cudaFuncGetAttributes, cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    lib = build().lib
+    return {name: read_limits(lib.gala_bell_spmm_limits, k) for k, name in enumerate(KERNELS)}
 
 
 def bell_spmm_reference(bell, x: torch.Tensor, n_out_pad: int) -> torch.Tensor:
@@ -107,6 +124,46 @@ def bell_spmm_rows_reference(layout, x: torch.Tensor, n_out_pad: int,
     return out
 
 
+def unit_slots(units, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(unit of each slot, slot index) over the work units' slots, unit by
+    unit in table order: what pass 1 reads."""
+    lens = units.length.long()
+    unit = torch.repeat_interleave(torch.arange(lens.shape[0], device=device), lens)
+    first = torch.cumsum(lens, 0) - lens
+    slot = units.start.long()[unit] + torch.arange(unit.shape[0], device=device) - first[unit]
+    return unit, slot
+
+
+def bell_spmm_units_reference(layout, x: torch.Tensor, n_out_pad: int,
+                              vals: torch.Tensor | None = None) -> torch.Tensor:
+    """The kernel's two passes in plain PyTorch (for tests and the card's
+    checks): pass 1 sums each work unit's weighted rows of x; a unit that
+    is its whole row writes its node with diag*x, the others fill their
+    partial rows; pass 2 sums each split row's partials in unit order and
+    adds diag*x.  The same function as bell_spmm_rows_reference."""
+    units = layout.units
+    vals = layout.flat_vals if vals is None else vals
+    f = x.shape[1]
+    unit, slot = unit_slots(units, x.device)
+    msg = vals[slot].to(x.dtype).unsqueeze(1) * x.index_select(0, layout.flat_cols[slot])
+    acc = torch.zeros((units.n_units, f), dtype=x.dtype, device=x.device).index_add_(0, unit, msg)
+    diag = (layout.diag.to(x.dtype) * x) if layout.diag is not None else None
+    out = torch.zeros((n_out_pad, f), dtype=x.dtype, device=x.device)
+    whole = units.part < 0
+    node = units.node[whole].long()
+    out[node] = acc[whole] + (diag[node] if diag is not None else 0)
+    if units.n_partials:
+        part = torch.empty((units.n_partials, f), dtype=x.dtype, device=x.device)
+        part[units.part[~whole].long()] = acc[~whole]
+        owner = torch.repeat_interleave(
+            torch.arange(units.split_node.shape[0], device=x.device), units.split_count.long())
+        merged = torch.zeros((units.split_node.shape[0], f), dtype=x.dtype,
+                             device=x.device).index_add_(0, owner, part)
+        node = units.split_node.long()
+        out[node] = merged + (diag[node] if diag is not None else 0)
+    return out
+
+
 def _check(bell, x: torch.Tensor, n_out_pad: int, vals: torch.Tensor | None) -> None:
     if x.dtype != torch.float32:
         raise TypeError(f"bell_spmm takes float32 features, got {x.dtype}")
@@ -152,19 +209,22 @@ def bell_spmm(bell, x: torch.Tensor, n_out_pad: int,
     lib = build().lib
     f = x.shape[1]
     out = torch.zeros((n_out_pad, f), dtype=torch.float32, device=x.device)
-    n_rows = bell.row_node.shape[0]
-    if n_rows == 0 or f == 0:
+    units = bell.units
+    if units.n_units == 0 or f == 0:
         return out
+    part = (torch.empty((units.n_partials, f), dtype=torch.float32, device=x.device)
+            if units.n_partials else None)
     vec = 4 if f % 4 == 0 and x.data_ptr() % 16 == 0 else 1
-    diag = bell.diag.data_ptr() if bell.diag is not None else None
+    ptr = (lambda t: t.data_ptr() if t is not None else None)  # noqa: E731
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.gala_bell_spmm_f32(
             x.data_ptr(), bell.flat_cols.data_ptr(),
             (bell.flat_vals if vals is None else vals).data_ptr(),
-            bell.row_start.data_ptr(), bell.row_len.data_ptr(),
-            bell.row_node.data_ptr(), diag, out.data_ptr(),
-            n_rows, f, vec, stream,
+            units.start.data_ptr(), units.length.data_ptr(), units.node.data_ptr(),
+            units.part.data_ptr(), units.split_node.data_ptr(), units.split_first.data_ptr(),
+            units.split_count.data_ptr(), ptr(bell.diag), out.data_ptr(), ptr(part),
+            units.n_units, units.split_node.shape[0], f, vec, stream,
         )
     if err != 0:
         raise RuntimeError(f"bell_spmm kernel launch failed with CUDA error {err}")

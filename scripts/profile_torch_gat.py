@@ -15,7 +15,6 @@ on the hub rows alone.  Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import os
 import sys
 
@@ -44,9 +43,12 @@ def main() -> int:
 
 
 def _rows(lay, lo, hi):
-    """The layout restricted to row descriptors [lo, hi)."""
-    return dataclasses.replace(lay, row_start=lay.row_start[lo:hi], row_len=lay.row_len[lo:hi],
-                               row_node=lay.row_node[lo:hi])
+    """The layout restricted to row descriptors [lo, hi), its work units
+    cut anew."""
+    from gala_tpu_torch.ops.graph import select_rows
+
+    i = torch.arange(lay.n_real)
+    return select_rows(lay, (i >= lo) & (i < hi))
 
 
 def split_kernel_time(g) -> None:

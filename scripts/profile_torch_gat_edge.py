@@ -16,7 +16,6 @@ against its plain version.  Imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import os
 import sys
 
@@ -49,13 +48,8 @@ def main() -> int:
     return 0
 
 
-def _rows(lay, keep):
-    """The layout restricted to the row descriptors where `keep` holds."""
-    return dataclasses.replace(lay, row_start=lay.row_start[keep], row_len=lay.row_len[keep],
-                               row_node=lay.row_node[keep])
-
-
 def split_kernel_time(g) -> None:
+    from gala_tpu_torch.ops.graph import select_rows
     from gala_tpu_torch.ops.kernels import sddmm as ks
     from gala_tpu_torch.ops.kernels.bell_spmm import bell_spmm
 
@@ -66,7 +60,8 @@ def split_kernel_time(g) -> None:
         print(f"{side}: K {lay.k}, {int(long.sum())} rows over {_LONG_ROW} slots with "
               f"{int(lay.row_len[long].sum())} slots (longest {int(lay.row_len.max())}), "
               f"{int(lay.row_len[~long].sum())} slots in the other rows")
-        parts = {"all rows": lay, "short rows": _rows(lay, ~long), "long rows": _rows(lay, long)}
+        parts = {"all rows": lay, "short rows": select_rows(lay, ~long),
+                 "long rows": select_rows(lay, long)}
         vals = lay.slot_values(evals)
         for f in (32, 40):
             x = torch.randn((rows, f), device="cuda")

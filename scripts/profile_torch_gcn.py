@@ -106,16 +106,16 @@ def _cuda_ms(fn, reps: int = 20) -> float:
 def split_kernel_time(g) -> None:
     """Kernel time on all rows, bin rows only and hub rows only (the hub
     rows are the last n_big row descriptors)."""
+    from gala_tpu_torch.ops.graph import select_rows
     from gala_tpu_torch.ops.kernels.bell_spmm import bell_spmm
 
     b = g.bell
     nb = b.n_real - b.n_big
+    hub = torch.arange(b.n_real) >= nb
     parts = {
         "all rows": b,
-        "bin rows": dataclasses.replace(b, row_start=b.row_start[:nb], row_len=b.row_len[:nb],
-                                        row_node=b.row_node[:nb], diag=None),
-        "hub rows": dataclasses.replace(b, row_start=b.row_start[nb:], row_len=b.row_len[nb:],
-                                        row_node=b.row_node[nb:], diag=None),
+        "bin rows": dataclasses.replace(select_rows(b, ~hub), diag=None),
+        "hub rows": dataclasses.replace(select_rows(b, hub), diag=None),
     }
     hub_len = b.row_len[nb:]
     print(f"bell layout: {b.n_big} hub rows with {int(hub_len.sum())} slots (longest "

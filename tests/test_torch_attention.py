@@ -15,6 +15,8 @@ and computed once per H.
 
 The Pallas kernels themselves (interpret mode, which takes minutes here)
 are the `slow` test at the end."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,6 +32,7 @@ from gala_tpu_torch.models import gat as tgat
 from gala_tpu_torch.ops import attention as TA
 from gala_tpu_torch.ops.graph import Graph as TGraph
 from gala_tpu_torch.ops.kernels import attn_bell as K
+from gala_tpu_torch.ops.kernels.attn_bell import NEG
 from gala_tpu_torch.weights import params_from_jax, params_to_numpy
 
 torch.set_num_threads(2)
@@ -145,6 +148,54 @@ def test_fwd_reference_matches_jax(graphs, oracle):
     plain = K.attn_fwd_reference(tg.attn.fwd, x, vl, vr, SLOPE, tg.n_pad, flash=False)
     assert plain[3] is None and plain[4] is None
     np.testing.assert_array_equal(plain[0].numpy(), got[0].numpy())
+
+
+def _masked(jg, tg, vrows):
+    """The forward layouts of both packages with the occupancy of the
+    first hub's virtual rows `vrows` set to 0 (an all-masked unit; every
+    virtual row: an all-masked split row)."""
+    jb, tb = jg.attn.fwd, tg.attn.fwd
+    big = np.array(jb.big_vals)
+    hub0 = np.flatnonzero(np.asarray(jb.big_vrow) == 0)[list(vrows)]
+    big[hub0] = 0.0
+    flat = tb.flat_vals.clone()
+    off = sum(k * n for k, n in zip(tb.bin_ks, tb.bin_counts))
+    for v in hub0:
+        flat[off + v * big.shape[1] : off + (v + 1) * big.shape[1]] = 0.0
+    jab = dataclasses.replace(jg.attn, fwd=dataclasses.replace(jb, big_vals=jnp.asarray(big)))
+    return jab, dataclasses.replace(tb, flat_vals=flat)
+
+
+@pytest.mark.parametrize("masked", ["none", "one unit", "whole row"])
+def test_fwd_units_emulation_matches_jax(graphs, oracle, masked):
+    """The forward kernel's two passes in plain PyTorch (units, the hub's
+    unnormalised partials, their online-softmax merge) against gala_tpu's
+    chunked XLA forward and the port's plain version, at H = 1 and 4, as
+    built, with one all-masked unit of the in-hub and with the in-hub's
+    row wholly masked."""
+    jg, tg, _ = graphs
+    x, vl, vr, _ = oracle["inputs"]
+    lay = tg.attn.fwd
+    assert lay.units.n_partials >= 2, "the in-hub must split into units"
+    if masked == "none":
+        want = oracle["fwd"]
+    else:
+        nvirt = lay.units.split_count.numpy()[0]
+        jab, lay = _masked(jg, tg, [1] if masked == "one unit" else range(nvirt))
+        fwd = jax.jit(lambda *a: JA._attn_fwd_chunked(jab, *a, SLOPE, jg.n_pad))
+        out, _, _, _, m, s, flash = fwd(x, vl, vr)
+        want = [np.asarray(v) for v in (out, m, s, *flash)]
+    got = K.attn_fwd_units_reference(lay, *_t(x, vl, vr), SLOPE, tg.n_pad, flash=True)
+    plain = K.attn_fwd_reference(lay, *_t(x, vl, vr), SLOPE, tg.n_pad, flash=True)
+    out, m, s, _, outpos, spos = want
+    for name, g, p, w in zip(("out", "m", "s", "outpos", "spos"), got, plain,
+                             (out, m, s, outpos, spos)):
+        np.testing.assert_allclose(g.numpy(), w, err_msg=name, **TOL)
+        np.testing.assert_allclose(g.numpy(), p.numpy(), err_msg=name, **TOL)
+    if masked == "whole row":
+        hub = lay.units.split_node[0]
+        assert (got[0][hub] == 0).all() and (got[1][hub] == NEG / 2).all()
+        assert (got[2][hub] == 1).all()
 
 
 def test_bwd1_reference_matches_jax(graphs, oracle):

@@ -11,6 +11,7 @@ Elsewhere the card tests skip.  The graph cases are also the ones
 tests/test_torch_graph.py and tests/test_torch_spmm.py hold against
 gala_tpu, built there with each package's own host modules.
 """
+import dataclasses
 import os
 
 import numpy as np
@@ -22,7 +23,7 @@ import gala_tpu_torch.data.ell as tell
 import gala_tpu_torch.data.reordering as treo
 import gala_tpu_torch.data.subgraph as tsub
 import gala_tpu_torch.data.synthetic as tsyn
-from gala_tpu_torch.ops.graph import Graph
+from gala_tpu_torch.ops.graph import UNIT_SLOTS, Graph
 from gala_tpu_torch.ops.kernels import _build
 from gala_tpu_torch.ops.kernels import attn_bell
 from gala_tpu_torch.ops.kernels import bell_spmm as kernel
@@ -132,6 +133,103 @@ def test_kernel_matches_plain_version_on_the_card(cuda, case, f):
         ref = kernel.bell_spmm_reference(lay, inp, n_out)
         scale = kernel.bell_spmm_reference(lay, inp.abs(), n_out)
         assert ((out - ref).abs() <= 1e-4 + 1e-4 * scale).all()
+
+
+L = UNIT_SLOTS
+LONG_ROWS = [L - 1, L, L + 1, 2 * L, 52 * L]
+
+
+def long_row_host(length: int, seed=3):
+    """Directed graph on 7,000 nodes: node 0 has in-degree `length`, node
+    1 out-degree `length` (a long row of the transpose), 20,000 random
+    edges among the others, self-loops on every third of those, the last
+    300 nodes isolated."""
+    rng = np.random.default_rng(seed)
+    n, m = 7000, 6700
+    src = np.concatenate([rng.integers(2, m, 20000), rng.integers(2, m, length),
+                          np.full(length, 1), np.arange(3, m, 3)])
+    dst = np.concatenate([rng.integers(2, m, 20000), np.zeros(length, np.int64),
+                          rng.integers(2, m, length), np.arange(3, m, 3)])
+    vals = rng.uniform(0.5, 1.5, src.shape[0]).astype(np.float32)
+    return tcsr.coo_to_csr(src, dst, vals, n_rows=n)
+
+
+def masked_units(lay, every: int = 2):
+    """The layout with the occupancy of every `every`-th split unit set to
+    0 and one split row wholly masked: all-masked units and rows."""
+    vals = lay.flat_vals.clone()
+    u = lay.units
+    split = (u.part >= 0).nonzero().flatten().tolist()
+    for i in split[::every]:
+        s, n = int(u.start[i]), int(u.length[i])
+        vals[s : s + n] = 0
+    if u.split_node.numel():
+        row = (lay.row_node == u.split_node[0]).nonzero().flatten()[0]
+        s, n = int(lay.row_start[row]), int(lay.row_len[row])
+        vals[s : s + n] = 0
+    return dataclasses.replace(lay, flat_vals=vals)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [1, 32, 33, 128, 132])
+@pytest.mark.parametrize("length", LONG_ROWS)
+def test_kernel_on_long_rows_matches_plain_version(cuda, length, f):
+    """Rows of L-1 .. 52L slots on the edge-list layout (a row is exactly
+    its degree) and the binned one, each way: split into units, merged in
+    order; F = 132 takes two blockIdx.y slices, F = 33 scalar loads."""
+    host = long_row_host(length)
+    gen = torch.Generator(device=cuda).manual_seed(length + f)
+    for strategy in ("segment", "bell"):
+        g = Graph.from_host(host, strategy=strategy, device=cuda, edge_vals=strategy != "bell")
+        fwd, bwd = (g.seg, g.t_seg) if strategy == "segment" else (g.bell, g.t_bell)
+        if strategy == "segment":
+            assert int(fwd.row_len[0]) == int(bwd.row_len[1]) == length
+        for lay, rows, n_out in ((fwd, g.c_pad, g.n_pad), (bwd, g.n_pad, g.c_pad)):
+            x = torch.randn((rows, f), generator=gen, device=cuda)
+            launches = kernel.counts.launches
+            out = kernel.bell_spmm(lay, x, n_out)
+            torch.cuda.synchronize()
+            assert kernel.counts.launches == launches + 1
+            ref = kernel.bell_spmm_rows_reference(lay, x, n_out)
+            scale = kernel.bell_spmm_rows_reference(lay, x.abs(), n_out)
+            assert ((out - ref).abs() <= 1e-4 + 1e-4 * scale).all()
+            assert torch.equal(out, kernel.bell_spmm(lay, x, n_out))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hf,nh", [(32, 1), (40, 1), (32, 4)])
+@pytest.mark.parametrize("length", LONG_ROWS)
+def test_attention_forward_on_long_rows_and_masked_units(cuda, length, hf, nh):
+    """The forward kernel against its plain version and its units
+    emulation on rows of L-1 .. 52L slots, as built and with all-masked
+    units and a wholly masked split row; two calls bitwise equal; bwd1
+    and bwd2 against their plain versions as before."""
+    host = long_row_host(length)
+    g = Graph.from_host(host, strategy="bell", device=cuda, attention=True)
+    gen = torch.Generator(device=cuda).manual_seed(length * 10 + hf + nh)
+    rand = lambda *shape: torch.randn(shape, generator=gen, device=cuda)  # noqa: E731
+    x, vl, vr, dout = rand(g.c_pad, hf), rand(g.c_pad, nh), rand(g.n_pad, nh), rand(g.n_pad, hf)
+    res = attn_bell.compare_with_plain(g.attn, x, vl, vr, dout, 0.2, g.n_pad, g.c_pad)
+    assert {k: v for k, v in res.items() if v[1]} == {}
+    for lay in (g.attn.fwd, masked_units(g.attn.fwd)):
+        got = attn_bell.attn_fwd(lay, x, vl, vr, 0.2, g.n_pad, True)
+        again = attn_bell.attn_fwd(lay, x, vl, vr, 0.2, g.n_pad, True)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        assert all(torch.isfinite(t).all() for t in got)
+        scale = attn_bell.attn_fwd_reference(lay, x.abs(), vl, vr, 0.2, g.n_pad, True)
+        for want in (attn_bell.attn_fwd_reference(lay, x, vl, vr, 0.2, g.n_pad, True),
+                     attn_bell.attn_fwd_units_reference(lay, x, vl, vr, 0.2, g.n_pad, True)):
+            for a, b, sc in zip(got, want, (scale[0], 0.0, want[2], scale[3], want[4])):
+                assert ((a - b).abs() <= 1e-4 + 1e-4 * sc).all()
+
+
+@pytest.mark.cuda
+def test_launch_limits_are_readable(cuda):
+    """Registers, shared memory and resident blocks of the unit kernels:
+    every pass-1 kernel fits at least one block of 8 warps on an SM."""
+    for name, lim in {**kernel.launch_limits(), **attn_bell.launch_limits(8)}.items():
+        assert lim["blocks_per_sm"] >= 1 and 0 < lim["registers"] <= 255, (name, lim)
 
 
 @pytest.mark.cuda

@@ -81,6 +81,50 @@ def test_grad_matches_jax_vjp(graphs, jax_results, f):
     np.testing.assert_allclose(xt.grad.numpy(), want, **TOL)
 
 
+@pytest.mark.parametrize("f", WIDTHS)
+def test_units_emulation_matches_jax(graphs, jax_results, f):
+    """The kernel's two passes in plain PyTorch (work units, partials of
+    the split rows, their merge in unit order) against gala_tpu's
+    _bell_raw: the forward on bell and the backward's product on t_bell."""
+    _, tg, _, _ = graphs
+    x, dz, fwd, grad = (_cols(jax_results[i], f) for i in range(4))
+    got = kernel.bell_spmm_units_reference(tg.bell, torch.from_numpy(x), tg.n_pad)
+    np.testing.assert_allclose(got.numpy(), fwd, **TOL)
+    got = kernel.bell_spmm_units_reference(tg.t_bell, torch.from_numpy(dz), tg.c_pad)
+    np.testing.assert_allclose(got.numpy(), grad, **TOL)
+
+
+@pytest.mark.parametrize("strategy", ["ell", "segment"])
+def test_units_emulation_on_slot_rows_matches_jax(strategy):
+    """The same emulation on the 'ell' and edge-list layouts of the hub
+    graph (rows of more than UNIT_SLOTS slots on both sides), with
+    structural and with per-slot values, against gala_tpu's spmm and
+    spmm_ev."""
+    from gala_tpu.ops.graph import Graph as JGraph
+    from gala_tpu.ops.spmm import spmm_ev as jspmm_ev
+    from gala_tpu_torch.ops.graph import Graph as TGraph
+    from tests.test_torch_graph import host_graph
+
+    gj, und = host_graph("hub_selfloops", "jax")
+    jg = JGraph.from_host(gj, strategy=strategy, undirected=und, edge_vals=True)
+    tg = TGraph.from_host(host_graph("hub_selfloops", "torch")[0], strategy=strategy,
+                          undirected=und, device="cpu", edge_vals=True)
+    fwd, bwd = (tg.ell, tg.t_ell) if strategy == "ell" else (tg.seg, tg.t_seg)
+    assert fwd.units.n_partials and bwd.units.n_partials
+    x = _real(tg, _x(tg.c_pad, 33, seed=5))
+    evals = np.random.default_rng(6).uniform(0.5, 1.5, tg.e_pad).astype(np.float32)
+    got = kernel.bell_spmm_units_reference(fwd, torch.from_numpy(x), tg.n_pad)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jax.jit(jspmm)(jg, x)), **TOL)
+    vals = fwd.slot_values(torch.from_numpy(evals))
+    got = kernel.bell_spmm_units_reference(fwd, torch.from_numpy(x), tg.n_pad, vals)
+    want = jax.jit(jspmm_ev)(jg, evals, x)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    dz = torch.from_numpy(_x(tg.n_pad, 33, seed=7))
+    np.testing.assert_allclose(
+        kernel.bell_spmm_units_reference(bwd, dz, tg.c_pad).numpy(),
+        kernel.bell_spmm_rows_reference(bwd, dz, tg.c_pad).numpy(), **TOL)
+
+
 def test_wrapper_checks_its_input():
     _, tg, _ = graph_pair("hub_selfloops")
     x = torch.zeros((tg.c_pad, 8))
