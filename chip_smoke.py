@@ -10,11 +10,16 @@ and prints no "ok" line:
 1. device   needs torch.cuda; prints the card's name and power limit.
 2. build    builds the four kernel libraries from gala_tpu_torch/csrc/
             (the bell SpMM, the three attention kernels, the SDDMM, the
-            row gather), one nvcc each, started together, for sm_90a into
-            gala_tpu_torch/_build/; prints ptxas's registers and spills
-            and, from the CUDA runtime, the launch limits of the unit
-            kernels (registers, static and dynamic shared memory per
-            block, resident blocks per SM; fails if no block fits).
+            row gather), one nvcc each, started together with the
+            toolchain probe (ops.kernels._build.toolchain_available: a
+            child process builds and launches csrc/probe.cu, x * 2), for
+            sm_90a into gala_tpu_torch/_build/; prints ptxas's registers
+            and spills (fails if bwd2's or the SDDMM's kernels spill),
+            the probe's answer (fails unless True) and its kernel against
+            x * 2 in this process, and, from the CUDA runtime, the launch
+            limits of the unit kernels (registers, static and dynamic
+            shared memory per block, resident blocks per SM; fails if no
+            block fits).
 3. train    the port's GCN path, as a user calls it: compile
             __graft_entry__.GCN_DSL (2-layer GCN, hidden 32) on the Arxiv
             stand-in at full size (scale 1.0, strategy auto -> bell) on
@@ -54,12 +59,15 @@ and prints no "ok" line:
             of the summed terms), bwd1 also against the flash identity, on
             the GAT run's full-graph and training-subgraph layouts and on
             the generated hub graph, at (hf, H) = (32, 1), (40, 1), (32, 4),
-            and two forward calls bitwise equal; then attention_aggregate
-            forward and backward on the hub graph on the card against the
-            same call on CPU tensors (same tolerance form); then each
-            kernel's and plain version's times at the GAT path's shapes,
-            and the forward's on the full layout against the layout
-            without its rows over 128 slots.
+            and two forward calls bitwise equal; bwd2 (over the transpose
+            layout's work units) also against its units emulation and a
+            second call, bitwise, there and on the hub graph with masked
+            units; then attention_aggregate forward and backward on the
+            hub graph on the card against the same call on CPU tensors
+            (same tolerance form); then each kernel's and plain version's
+            times at the GAT path's shapes, and the forward's and bwd2's
+            on the full layout against the layout without its rows over
+            128 slots (bwd2 fails above 1.5x per slot).
 7. gat-edge the port's edge-valued GAT path: GAT_DSL with the
             attention_fusion pass off (the reference GALA's own GAT: SDDVV,
             leaky ReLU, edge softmax, SpMM with edge values) on the Arxiv
@@ -71,8 +79,9 @@ and prints no "ok" line:
             >= 0.6.
 8. sddmm-kernel  the SDDMM kernel against its plain version on the card,
             on that run's full-graph and training-subgraph edge lists at
-            F = 32 and 40 and on the generated hub graph's at F = 1, 33,
-            40 and 128.  Tolerance per edge, in f32: |kernel - plain| <=
+            F = 1, 32 and 40 and on the generated hub graph's at F = 1,
+            33, 40 and 128, and against a second call, bitwise.
+            Tolerance per edge, in f32: |kernel - plain| <=
             1e-4 + 1e-4 * sum_f |a||b| (the plain version on |a|, |b|).
             Then the SpMM kernel with learned per-slot values on the ELL
             layout and its transpose against the row-descriptor plain
@@ -81,8 +90,8 @@ and prints no "ok" line:
             phases 7 and 9 give it) and on the generated hub graph at F =
             1, 33, 40 and 128; then the SDDMM kernel's, its plain
             version's and torch.sparse.sampled_addmm's times (the library
-            call on the edge pattern, held to the kernel first) at F = 32
-            and 40 on the full graph.
+            call on the edge pattern, held to the kernel first) at F = 1,
+            32 and 40 on the full graph.
 9. gcn-sparser  GCN_DSL with `G = G.is_sparser(true);` (the sparsity-
             aware rewrite: precomputed edge values norm_src * norm_dst)
             on the same graph, strategy auto -> ell, 20 epochs: the SpMM
@@ -123,6 +132,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -145,6 +155,14 @@ ATTN_SHAPES = ((32, 1), (40, 1), (32, 4))  # (hf, H); the GAT path runs (32, 1),
 SLOPE = 0.2
 SDDMM_SOURCE = "gala_tpu_torch/csrc/sddmm.cu"
 SDDMM_REPLACES = "gala_tpu/ops/pallas/sddmm.py:183"
+SDDMM_WIDTHS = (1, 32, 40)  # timed; the gat-edge path runs 32 and 40
+PROBE_SOURCE = "gala_tpu_torch/csrc/probe.cu"
+PROBE_REPLACES = "gala_tpu/ops/pallas/__init__.py:29"
+LIMITS_SOURCE = "gala_tpu_torch/csrc/unit_gather.cuh"
+LIMITS_REPLACES = "scripts/pallas_bisect.py:40"
+# kernels this slice redesigned: ptxas must report no spill for them
+NO_SPILL = ("attn_bwd2_kernel", "attn_bwd2_merge_kernel", "sddmm_kernel")
+TAIL_LIMIT = 1.5
 GATHER_SOURCE = "gala_tpu_torch/csrc/gather_rows.cu"
 GATHER_REPLACES = "gala_tpu/ops/pallas/gather.py:77"
 GATHER_WIDTHS = (1, 33, 128, 602)  # 602: the Reddit stand-in's width
@@ -253,6 +271,50 @@ def hub_graph(device, attention=False, strategy="bell"):
     host = coo_to_csr(src, dst, vals, n_rows=n)
     return host, Graph.from_host(host, strategy=strategy, device=device, attention=attention,
                                  edge_vals=strategy != "bell")
+
+
+def check_bwd2(ak, what, lay, x, vl, w_tab, c_pad):
+    """bwd2 over units against its plain version and its units emulation
+    (compare_with_plain's tolerance: 1e-4 + 1e-4 * the plain version on
+    magnitudes) and against a second call, bitwise.  Returns the largest
+    |kernel - plain|."""
+    hf, nh = x.shape[1], vl.shape[1]
+    got = ak.attn_bwd2(lay, x, vl, w_tab, SLOPE, c_pad)
+    again = ak.attn_bwd2(lay, x, vl, w_tab, SLOPE, c_pad)
+    torch.cuda.synchronize()
+    a_tab = torch.cat([w_tab[:, :hf].abs(), w_tab[:, hf : hf + 3 * nh],
+                       -w_tab[:, hf + 3 * nh :].abs()], dim=1)
+    scale = ak.attn_bwd2_reference(lay, x.abs(), vl, a_tab, SLOPE, c_pad)
+    errs = {}
+    for name, want in (("plain", ak.attn_bwd2_reference(lay, x, vl, w_tab, SLOPE, c_pad)),
+                       ("units emulation",
+                        ak.attn_bwd2_units_reference(lay, x, vl, w_tab, SLOPE, c_pad))):
+        err = (got - want).abs()
+        errs[name] = (err.max().item(), int((err > ATOL + RTOL * scale).sum()))
+    same = torch.equal(got, again)
+    print(f"[attn-kernel] bwd2 over units, {what}: max |kernel - plain| {errs['plain'][0]:.2e}, "
+          f"- units emulation {errs['units emulation'][0]:.2e}; "
+          f"{sum(v[1] for v in errs.values())} elements out of tolerance; two calls bitwise "
+          f"equal: {same}")
+    if any(v[1] for v in errs.values()) or not torch.isfinite(got).all():
+        raise AssertionError(f"bwd2 {what}: out of tolerance {errs}")
+    if not same:
+        raise AssertionError(f"bwd2 {what}: two calls differ")
+    return errs["plain"][0]
+
+
+def spills(log: str) -> dict:
+    """{mangled kernel name: (spill store bytes, spill load bytes)} from
+    ptxas's -v report in an nvcc log."""
+    out, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and entry is not None:
+            out[entry] = (int(m.group(1)), int(m.group(2)))
+    return out
 
 
 def _train_checked(tag, cm, min_accuracy):
@@ -439,6 +501,8 @@ def _aggregate_on(device, ab, g, inputs):
 
 def phase_attn_kernel(cm, ak):
     """Returns (max |kernel - plain| per kernel, times)."""
+    from gala_tpu_torch.ops.graph import masked_units
+
     full, sub = cm.full_graphs[0], cm.train_graphs[0]
     hub = hub_graph("cuda", attention=True)[1]
     graphs = [("arxiv full", full), ("arxiv training subgraph", sub), ("hub graph", hub)]
@@ -467,6 +531,14 @@ def phase_attn_kernel(cm, ak):
                 name = "attn_" + k.split()[0]
                 if "=" not in k:
                     max_err[name] = max(max_err[name], err)
+            x, vl, vr, dout = inputs
+            out, m, s = twice[0][:3]
+            w_tab = torch.cat([dout, vr, m, s, ak.per_head_dot(dout, out, nh)], dim=1)
+            lays = [("", g.attn.t)] + ([(", masked units", masked_units(g.attn.t))]
+                                       if gname == "hub graph" else [])
+            for extra, lay in lays:
+                err = check_bwd2(ak, f"{gname}{extra} hf={hf} H={nh}", lay, x, vl, w_tab, g.c_pad)
+                max_err["attn_bwd2"] = max(max_err["attn_bwd2"], err)
 
     # the op with its autograd on the card against the same op on CPU tensors
     hub_cpu = hub_graph("cpu", attention=True)[1]
@@ -528,6 +600,13 @@ def phase_attn_kernel(cm, ak):
         timings[("tail", hf)] = tail_ratio(
             "attn-kernel", f"attn_fwd arxiv full hf={hf} H={nh}", lay_f,
             lambda lay: ak.attn_fwd(lay, x, vl, vr, SLOPE, full.n_pad, True))
+        timings[("tail bwd2", hf)] = tail_ratio(
+            "attn-kernel", f"attn_bwd2 arxiv full hf={hf} H={nh}", lay_t,
+            lambda lay: ak.attn_bwd2(lay, x, vl, w_tab, SLOPE, full.c_pad))
+        if timings[("tail bwd2", hf)][2] > TAIL_LIMIT:
+            raise AssertionError(f"attn_bwd2 hf={hf}: a slot of a long row costs "
+                                 f"{timings[('tail bwd2', hf)][2]:.3f}x one of a short row "
+                                 f"(limit {TAIL_LIMIT})")
     return max_err, timings
 
 
@@ -601,13 +680,14 @@ def phase_sddmm_kernel(cm, ks, kernel):
     hub = hub_graph("cuda", strategy="ell")[1]
     gen = torch.Generator(device="cuda").manual_seed(0)
     rand = lambda *shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
-    cases = [("arxiv full", full, (32, 40)), ("arxiv training subgraph", sub, (32, 40)),
+    cases = [("arxiv full", full, SDDMM_WIDTHS), ("arxiv training subgraph", sub, SDDMM_WIDTHS),
              ("hub graph", hub, (1, 33, 40, 128))]
     max_err = 0.0
     for name, g, widths in cases:
         for f in widths:
             a, b = rand(g.c_pad, f), rand(g.n_pad, f)
             out = ks.sddmm(g.src, g.dst, a, b)
+            same = torch.equal(out, ks.sddmm(g.src, g.dst, a, b))
             ref = ks.sddmm_reference(g.src, g.dst, a, b)
             scale = ks.sddmm_reference(g.src, g.dst, a.abs(), b.abs())
             err = (out - ref).abs()
@@ -615,9 +695,12 @@ def phase_sddmm_kernel(cm, ks, kernel):
             max_err = max(max_err, err.max().item())
             print(f"[sddmm-kernel] {name} ({g.e_pad} edges) F={f}: max |kernel - plain| "
                   f"{err.max().item():.3e}, max of that / (sum |a||b|) "
-                  f"{(err / scale.clamp_min(1e-30)).max().item():.3e}, {bad} out of tolerance")
+                  f"{(err / scale.clamp_min(1e-30)).max().item():.3e}, {bad} out of tolerance; "
+                  f"a second call bitwise equal: {same}")
             if bad:
                 raise AssertionError(f"[sddmm-kernel] {name} F={f}: {bad} edges out of tolerance")
+            if not same:
+                raise AssertionError(f"[sddmm-kernel] {name} F={f}: two calls differ")
 
     # every ELL layout and width the gat-edge and gcn-sparser paths give the
     # SpMM with slot values: 32/40 in training, 128 and 1 in the hoisted
@@ -655,7 +738,7 @@ def phase_sddmm_kernel(cm, ks, kernel):
     rows_p, cols_p = pattern.indices()
     pattern = pattern.to_sparse_csr()
     timings = {}
-    for f in (32, 40):
+    for f in SDDMM_WIDTHS:
         a, b = rand(full.c_pad, f), rand(full.n_pad, f)
         t_kernel = cuda_ms(lambda: ks.sddmm(full.src, full.dst, a, b), reps=20)
         t_plain = cuda_ms(lambda: ks.sddmm_reference(full.src, full.dst, a, b), reps=5)
@@ -671,6 +754,8 @@ def phase_sddmm_kernel(cm, ks, kernel):
         print(f"[sddmm-kernel] time sddmm arxiv full F={f}: kernel {t_kernel:.4f} ms, "
               f"plain {t_plain:.4f} ms, torch.sparse.sampled_addmm {t_lib:.4f} ms "
               f"({lib.values().numel()} stored values), bound {ms:.4f} ms ({by})")
+        if f == 1:
+            continue  # the SpMM with slot values runs at the path's widths, 32 and 40
         evals = torch.rand((full.e_pad,), generator=gen, device="cuda")
         vals = full.ell.slot_values(evals)
         x = rand(full.c_pad, f)
@@ -823,6 +908,28 @@ def phase_gather_kernel(arxiv, kg):
     return max_err, (t_kernel, t_plain, t_lib, ms, by)
 
 
+def phase_probe():
+    """The toolchain probe's kernel in this process (its library is the one
+    the probe's child process built): x * 2 on its 128 x 128 tile against
+    the plain product, bitwise, and timed beside torch.mul.  Returns
+    (max |kernel - plain|, kernel ms, plain ms, library ms, bound)."""
+    from gala_tpu_torch.ops.kernels._build import probe_x2
+
+    x = torch.randn((128, 128), generator=torch.Generator(device="cuda").manual_seed(0),
+                    device="cuda")
+    err = (probe_x2(x) - x * 2.0).abs().max().item()
+    if err != 0.0:
+        raise AssertionError(f"the probe kernel computes x * 2 wrongly: {err}")
+    t_kernel = cuda_ms(lambda: probe_x2(x), reps=50)
+    t_plain = cuda_ms(lambda: x * 2.0, reps=50)
+    t_lib = cuda_ms(lambda: torch.mul(x, 2.0), reps=50)
+    ms, by = bound(2 * nbytes(x), x.numel())
+    print(f"[build] probe kernel x * 2 (128 x 128 f32): bitwise equal to the plain product; "
+          f"kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms, torch.mul {t_lib:.4f} ms, "
+          f"bound {ms:.6f} ms ({by})")
+    return err, t_kernel, t_plain, t_lib, (ms, by)
+
+
 def phase_cli():
     """The CLI in-process, as `python -m gala_tpu_torch inference_sample
     examples/gin.txt --iters 8` (device default: the card; 8 epochs so
@@ -855,22 +962,46 @@ def main() -> int:
     from gala_tpu_torch.ops.kernels import bell_spmm as kernel
     from gala_tpu_torch.ops.kernels import gather as kg
     from gala_tpu_torch.ops.kernels import sddmm as ks
-    from gala_tpu_torch.ops.kernels._build import all_counts
+    from gala_tpu_torch.ops.kernels._build import all_counts, counts_for, toolchain_available
 
     t_start = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=4) as pool:
+    probe_counts = counts_for("toolchain_probe")
+    probe_counts.reset()  # the build phase is the probe's path
+    with ThreadPoolExecutor(max_workers=5) as pool:
+        probe = pool.submit(toolchain_available)
         builds = [pool.submit(mod.build) for mod in (kernel, ak, ks, kg)]
         builds = [b.result() for b in builds]
+        probe_ok = probe.result()
     for build in builds:
         print(f"[build] {build.path} in {build.seconds:.1f} s")
         for line in build.log.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"[build] {line.strip()}")
+    reported = {name: sp for build in builds for name, sp in spills(build.log).items()
+                if any(k in name for k in NO_SPILL)}
+    missing = [k for k in NO_SPILL if not any(k in name for name in reported)]
+    spilled = {name: sp for name, sp in reported.items() if any(sp)}
+    print(f"[build] ptxas reports {len(reported)} instantiations of {', '.join(NO_SPILL)}; "
+          f"spills: {spilled or 'none'}")
+    if missing or spilled:
+        raise AssertionError(f"ptxas spills in the redesigned kernels: {spilled}; no report "
+                             f"for {missing}")
+    print(f"[build] toolchain probe (csrc/probe.cu, built and launched in a child process): "
+          f"{probe_ok}")
+    if not probe_ok:
+        raise AssertionError("the toolchain probe failed")
+    probe_launches = probe_counts.launches
+    print(f"[build] toolchain probe kernel launches in the probe: {probe_launches}")
+    if probe_launches < 1:
+        raise AssertionError("the toolchain probe launched no kernel")
+    probe = phase_probe()
     # the unit kernels' launch limits, from the CUDA runtime (H = 1, the
-    # GAT path's heads, and H = 8, the most the forward takes)
+    # GAT path's heads, and H = 8, the most the attention kernels take)
+    t0 = time.perf_counter()
     limits = {**kernel.launch_limits(), **{f"{name} H=1": lim for name, lim in
                                            ak.launch_limits(1).items()},
               **{f"{name} H=8": lim for name, lim in ak.launch_limits(8).items()}}
+    limits_ms = (time.perf_counter() - t0) * 1e3
     for name, lim in limits.items():
         print(f"[build] launch limits {name}: {lim['registers']} registers, "
               f"{lim['static_smem']} B static and {lim['dynamic_smem']} B dynamic shared "
@@ -926,10 +1057,11 @@ def main() -> int:
     }]
     for name in ak.NAMES:
         t_kernel, t_plain, ms, by = attn_timings[(name, 32)]
-        extra = {} if name != "attn_fwd" else {
+        tail = {"attn_fwd": "tail", "attn_bwd2": "tail bwd2"}.get(name)
+        extra = {} if tail is None else {
             "ms_by_width": {hf: attn_timings[(name, hf)][0] for hf, _ in ATTN_SHAPES[:2]},
             "tail_by_width": {hf: dict(zip(("full_ms", "short_rows_ms", "per_slot_ratio"),
-                                           attn_timings[("tail", hf)]))
+                                           attn_timings[(tail, hf)]))
                               for hf, _ in ATTN_SHAPES[:2]}}
         kernels.append({
             **extra,
@@ -948,6 +1080,7 @@ def main() -> int:
         "launches": edge_launches.get("sddmm", 0), "max_abs_err": sddmm_err, "ms": t_kernel,
         "plain_ms": t_plain, "bound_ms": ms, "bound_by": by, "library_ms": t_lib,
         "at": "arxiv full edge list, F=32", "path": "gat-edge",
+        "ms_by_width": {f: sddmm_timings[("sddmm", f)][0] for f in SDDMM_WIDTHS},
         "path_launches": {"gat-edge": edge_launches.get("sddmm", 0),
                           "gcn-sparser": sparser_launches.get("sddmm", 0)},
     })
@@ -959,6 +1092,22 @@ def main() -> int:
         "bound_by": by, "library_ms": t_lib,
         "at": "arxiv feature table (169,343 x 128 f32), one batch's n2 (128,000 rows)",
         "path": "sage-minibatch",
+    })
+    err, t_kernel, t_plain, t_lib, (ms, by) = probe
+    kernels.append({
+        "name": "toolchain_probe", "route": "cuda", "source": PROBE_SOURCE,
+        "replaces": PROBE_REPLACES, "launches": probe_launches, "max_abs_err": err,
+        "ms": t_kernel, "plain_ms": t_plain, "bound_ms": ms, "bound_by": by, "library_ms": t_lib,
+        "at": "x * 2 on a 128 x 128 f32 tile",
+        "path": "build phase (toolchain_available: launched in its child process)",
+    })
+    kernels.append({
+        "name": "launch_limits", "route": "cuda", "source": LIMITS_SOURCE,
+        "replaces": LIMITS_REPLACES, "launches": None, "max_abs_err": None, "ms": limits_ms,
+        "plain_ms": None, "bound_ms": 0.0, "bound_by": "bytes", "library_ms": None,
+        "at": "a CUDA runtime query (cudaFuncGetAttributes, "
+              "cudaOccupancyMaxActiveBlocksPerMultiprocessor), host ms; no data kernel",
+        "path": "build phase only", "limits": limits,
     })
     print(f"[done] phase seconds {json.dumps({k: round(v, 1) for k, v in seconds.items()})}")
     print(json.dumps({"kernels": kernels}))

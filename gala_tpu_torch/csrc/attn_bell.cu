@@ -13,13 +13,13 @@
 //   out[r, h*fh:(h+1)*fh] = sum_c p * x[c, h*fh:(h+1)*fh]
 // The TPU kernels run one degree-class segment per call and emit
 // per-virtual-row partials for hub nodes, which XLA merges with segment
-// ops.  Here the forward covers a whole layout in one call of two
-// launches over the layout's work units (ops/graph.py WorkUnits;
-// unit_gather.cuh), as the bell SpMM does:
+// ops.  Here the forward and bwd2 each cover a whole layout in one call of
+// two launches over the layout's work units (ops/graph.py WorkUnits;
+// unit_gather.cuh), as the bell SpMM does.  The forward:
 //   pass 1  one warp per unit of at most 128 slots: the unit's softmax
 //           statistics (one max and two sums per head for the whole unit,
-//           not per 32-slot chunk), then its weighted gather of x through
-//           the shared-memory ring.  A unit that is its whole row writes
+//           not per 32-slot chunk), then its weighted gather of x.  A
+//           unit that is its whole row writes
 //           out, m, s (and out+, s+); a unit of a longer row (a hub: its
 //           units are its virtual rows) writes the unnormalised partial
 //           (m_u, s_u, s+_u, acc_u, acc+_u), the TPU kernel's
@@ -28,29 +28,42 @@
 //           gala_tpu's online-softmax rescaling (attention.py:663-695):
 //           m = max(m_u, floor), s = sum s_u e^(m_u - m), the same for
 //           acc, s+ and acc+; s = 1 where the sum is 0; out = acc / s.
-// The backward passes keep one warp per descriptor row; a hub is one row
-// that its warp walks whole (their split is later work, see ROADMAP).
-// No atomics: every sum is taken in a fixed order, so results are
+// bwd2, on the transpose layout (rows = sources c, slots = destinations
+// r), over that layout's units:
+//   pass 1  one warp per unit: p lane-per-slot from the destination's
+//           saved [vr | m | s | sds], then one gather of the rows' dout
+//           slices that sums dx = sum p dout and q = sum p lrelu' dout
+//           together; dvl = <q, x[c]> - sum p lrelu' sds once per unit
+//           (x[c] is one row for the whole unit).  A whole row writes
+//           [dx | dvl]; a unit of a split row writes that plain partial.
+//   pass 2  one block per split row sums its partials in unit order.
+// bwd1 (off the GAT path: it takes the flash identity) keeps one warp per
+// descriptor row; a hub is one row that its warp walks whole.  No
+// atomics: every sum is taken in a fixed order, so results are
 // deterministic.
 //
 // What bounds them on the H100: bytes.  Per real slot the forward reads
 // 8 bytes of (col, occupancy), H scores of vl and one hf-wide row of x;
-// bwd2 reads one (hf + 4H)-wide row [dout | vr | m | s | sds] of the
-// destination.  There are a few flops per gathered float (an exp per
-// slot and head), and no tile is reused, so tensor cores have no role.
+// bwd2 reads 8 bytes of (col, occupancy) and one (hf + 4H)-wide row
+// [dout | vr | m | s | sds] of the destination, once.  There are a few
+// flops per gathered float (an exp per slot and head), and no tile is
+// reused, so tensor cores have no role.
 // The forward's design: per-slot scalar work lane-per-slot (a unit's 128
 // slots are 4 per lane), then the weighted row reduce with lanes across
-// the features, gathering through the ring of 16-byte cp.async copies of
-// unit_gather.cuh (float4 where fh % 4 == 0 and the tables are 16-byte
-// aligned; plain loads with 32 / g slots in flight otherwise); slot
-// columns and probabilities pass between the phases through shared
-// memory.  The forward is instantiated for one head and for up to 8, so
-// the one-head GAT path keeps 32 registers and 8 blocks per SM.  The
-// backward kernels gather with plain loads, 32 slots a chunk.
+// the features, gathering with unit_gather.cuh's plain loads (float4
+// where fh % 4 == 0 and the tables are 16-byte aligned, scalar otherwise;
+// 32 / g slots in flight per step); slot columns and probabilities pass
+// between the phases through shared memory.  bwd2's pass 1 has the same
+// shape: its scalar phase keeps its per-head sums in shared memory, not
+// registers, and one warp walks every g-vector slice of a wide row
+// itself, so dvl's dot sees the whole head.
+// Both are instantiated for one head and for up to 8, so the one-head GAT
+// path keeps 32 registers and 8 blocks per SM (bwd2's 8-head form asks
+// for 5 blocks per SM, and so does not spill).  bwd1 gathers with plain
+// loads, 32 slots a chunk.
 //
-// Not done yet (later work, see ROADMAP): the backward passes' hub rows
-// are one warp each (bwd2 is the next to take the work units); whether
-// plain loads beat the ring here (PERF.md, open questions); f32 only.
+// Not done yet (later work, see ROADMAP): bwd1's hub rows are one warp
+// each (it is off the path); f32 only.
 //
 // Masked slots (occupancy 0: padding and the phantom column) are skipped
 // without reading their rows.  Output rows that no unit or row writes
@@ -109,12 +122,12 @@ __device__ __forceinline__ float dot(const float* __restrict__ a, const float* _
   return acc;
 }
 
-// The forward's dynamic shared memory per warp: the ring and the unit's
-// columns, then H rows of kUnitSlots probabilities, each stored with the
+// The forward's dynamic shared memory per warp: the unit's columns, then
+// H rows of kUnitSlots probabilities, each stored with the
 // sign of its zpre (+p where zpre > 0, -p elsewhere: the flash
 // statistics' mask rides in the sign bit).
 __host__ __device__ constexpr size_t fwd_warp_smem(int nh) {
-  return sizeof(RingSmem) + static_cast<size_t>(nh) * kUnitSlots * sizeof(float);
+  return sizeof(UnitSmem) + static_cast<size_t>(nh) * kUnitSlots * sizeof(float);
 }
 static_assert(fwd_warp_smem(kMaxHeads) * kWarpsPerBlock <= kDefaultSmem,
               "the forward would need cudaFuncSetAttribute");
@@ -140,8 +153,8 @@ attn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ vl,
   const int unit = blockIdx.x * kWarpsPerBlock + w;
   if (unit >= n_units) return;  // the same for every lane of the warp
   char* base = reinterpret_cast<char*>(smem) + w * fwd_warp_smem(nh);
-  RingSmem& sm = *reinterpret_cast<RingSmem*>(base);
-  float* sh_p = reinterpret_cast<float*>(base + sizeof(RingSmem));  // [H][kUnitSlots]
+  UnitSmem& sm = *reinterpret_cast<UnitSmem*>(base);
+  float* sh_p = reinterpret_cast<float*>(base + sizeof(UnitSmem));  // [H][kUnitSlots]
 
   const bool flash = outpos != nullptr;
   const int fh = hf / nh;
@@ -199,8 +212,7 @@ attn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ vl,
   }
   __syncwarp();
 
-  // reduce phase: lanes across features, gathering through the ring; a
-  // slot of weight 0 (masked, or underflowed) is not read
+  // reduce phase: lanes across features; a slot of weight 0 (masked, or underflowed) is not read
   float acc[VEC], accp[VEC];
 #pragma unroll
   for (int i = 0; i < VEC; ++i) acc[i] = accp[i] = 0.f;
@@ -384,102 +396,190 @@ attn_bwd1_kernel(const float* __restrict__ x, const float* __restrict__ vl,
   }
 }
 
-// Backward pass 2: one warp per transpose row (source node c).  Lane t
-// reads destination r's row [dout | vr | m | s | sds] of `wtab`,
-// recomputes p, forms dp = <dout[r], x[c]>, ds = p (dp - sds[r]) and
-// dz = ds lrelu', and keeps its share of dvl[c] = sum dz; then lanes
-// across features sum dx[c] = sum p dout[r].  Output row c of `out` is
-// [dx | dvl], hf + H wide.
-template <int VEC>
-__global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
+// bwd2's dynamic shared memory per warp: the forward's (the unit's
+// destinations, H rows of kUnitSlots signed probabilities), then
+// two per-head sums: sum p lrelu' sds and <q, x[c]>.
+__host__ __device__ constexpr size_t bwd2_warp_smem(int nh) {
+  return fwd_warp_smem(nh) + 2 * kMaxHeads * sizeof(float);
+}
+static_assert(bwd2_warp_smem(kMaxHeads) * kWarpsPerBlock <= kDefaultSmem,
+              "bwd2 would need cudaFuncSetAttribute");
+// resident blocks per SM that bwd2's multi-head instantiation asks of the
+// compiler: asking for 8 capped it at 32 registers, where it spilled
+// (at 8 heads a block takes 37,376 B of shared memory, so 6 fit an SM)
+constexpr int kBwd2MinBlocksHeads = 5;
+
+// Backward pass 2, pass 1: one warp per unit of the transpose layout (a
+// unit reads up to 128 destinations r of one source c).  With
+// p = e^(lrelu(zpre) - m_r) / s_r and lr' = lrelu'(zpre),
+//   dx[c]     = sum_r p dout[r]
+//   dvl[c, h] = sum_r p lr' (<dout[r, h], x[c, h]> - sds[r, h])
+//             = <q_h, x[c, h]> - sum_r p lr' sds[r, h],  q = sum_r p lr' dout[r]
+// (x[c] is the same for every slot of the row), so each destination row
+// is read once: its scalars [vr | m | s | sds] lane-per-slot, its dout
+// slice in the gather, which sums dx and q together.  Output row [dx |
+// dvl] (hf + H wide) goes to the node's row of `out` for a unit that is
+// its whole row, else to the unit's partial row of `part` (plain partial
+// sums: the TPU kernel's per-virtual-row output).  One warp walks all
+// n_slices g-vector slices of the row, so dvl's dot sees its whole head.
+template <int VEC, int MAXH>
+__global__ void __launch_bounds__(kWarp * kWarpsPerBlock,
+                                  MAXH == 1 ? kMinBlocks : kBwd2MinBlocksHeads)
 attn_bwd2_kernel(const float* __restrict__ wtab, const float* __restrict__ x,
                  const float* __restrict__ vl, const int32_t* __restrict__ cols,
-                 const float* __restrict__ occ, const int32_t* __restrict__ row_start,
-                 const int32_t* __restrict__ row_len, const int32_t* __restrict__ row_node,
-                 float* __restrict__ out, int n_rows, int hf, int nh, float slope, int log2_g) {
-  __shared__ int sh_col[kWarpsPerBlock][kWarp];
-  __shared__ float sh_p[kWarpsPerBlock][kMaxHeads][kWarp];
+                 const float* __restrict__ occ, const int32_t* __restrict__ unit_start,
+                 const int32_t* __restrict__ unit_len, const int32_t* __restrict__ unit_node,
+                 const int32_t* __restrict__ unit_part, float* __restrict__ out,
+                 float* __restrict__ part, int n_units, int hf, int nh, float slope, int log2_g,
+                 int n_slices) {
+  extern __shared__ float4 smem[];
   const int w = threadIdx.x / kWarp;
-  const int row = blockIdx.x * kWarpsPerBlock + w;
-  if (row >= n_rows) return;
+  const int unit = blockIdx.x * kWarpsPerBlock + w;
+  if (unit >= n_units) return;  // the same for every lane of the warp
+  const int heads = MAXH == 1 ? 1 : nh;
+  char* base = reinterpret_cast<char*>(smem) + w * bwd2_warp_smem(heads);
+  UnitSmem& sm = *reinterpret_cast<UnitSmem*>(base);
+  float* sh_p = reinterpret_cast<float*>(base + sizeof(UnitSmem));  // [H][kUnitSlots]
+  float* sh_sds = sh_p + heads * kUnitSlots;                         // [H] sum p lr' sds
+  float* sh_dot = sh_sds + kMaxHeads;                                // [H] <q, x[c]>
 
-  const int fh = hf / nh;
-  const int wt = hf + 4 * nh;
-  const Lanes ln(log2_g, hf, fh, VEC);
-  const int hd = ln.hd;
-  const int node = row_node[row];
-  const int start = row_start[row];
-  const int len = row_len[row];
-  const float* x_c = x + static_cast<size_t>(node) * hf;
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int fh = hf / heads;
+  const int wt = hf + 4 * heads;
+  const int start = unit_start[unit];
+  const int len = unit_len[unit];
 
-  float vl_c[kMaxHeads], dvl[kMaxHeads];
-#pragma unroll
-  for (int h = 0; h < kMaxHeads; ++h) {
-    vl_c[h] = h < nh ? __ldg(vl + static_cast<size_t>(node) * nh + h) : 0.f;
-    dvl[h] = 0.f;
-  }
-  float dx[VEC];
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) dx[i] = 0.f;
+  // the unit's destinations; a masked slot (occupancy 0) is stored as -1
+  // and never read
+  for (int t = lane; t < len; t += kWarp)
+    sm.col[t] = __ldg(occ + start + t) != 0.f ? __ldg(cols + start + t) : -1;
 
-  for (int base = 0; base < len; base += kWarp) {
-    const int t = base + ln.lane;
-    int r = 0;
-    bool real = false;
-    if (t < len) {
-      r = __ldg(cols + start + t);
-      real = __ldg(occ + start + t) != 0.f;
-    }
-    const float* wr = wtab + static_cast<size_t>(r) * wt;
-#pragma unroll
-    for (int h = 0; h < kMaxHeads; ++h) {
-      if (h < nh) {
-        float p = 0.f;
-        if (real) {
-          const float zpre = vl_c[h] + __ldg(wr + hf + h);
-          p = expf(lrelu(zpre, slope) - __ldg(wr + hf + nh + h)) / __ldg(wr + hf + 2 * nh + h);
-          const float dp = dot<VEC>(wr + h * fh, x_c + h * fh, fh);
-          const float ds = p * (dp - __ldg(wr + hf + 3 * nh + h));
-          dvl[h] = fmaf(ds, zpre > 0.f ? 1.f : slope, dvl[h]);
+  // scalar phase: lane t takes slots t, t + 32, t + 64 and t + 96 (the
+  // column entries it wrote itself); p is stored with the sign of zpre
+  // (+p where zpre > 0, -p elsewhere), as the forward stores it
+  for (int h = 0; h < heads; ++h) {
+    const float vl_c = __ldg(vl + static_cast<size_t>(unit_node[unit]) * heads + h);
+    float sp = 0.f;
+    // two slots at a time: all four held four 16-byte loads in registers
+    // and spilled at the 32-register cap (PERF.md)
+#pragma unroll 2
+    for (int i = 0; i < kPer; ++i) {
+      const int t = lane + i * kWarp;
+      if (t < len) {
+        const int r = sm.col[t];
+        float pv = 0.f;
+        if (r >= 0) {
+          const float* wr = wtab + static_cast<size_t>(r) * wt + hf + h;
+          float vr_r, m_r, s_r, sds_r;
+          if constexpr (MAXH == 1 && VEC == 4) {
+            // [vr | m | s | sds] of one head: one 16-byte load (hf and wt
+            // are multiples of 4 and wtab is 16-byte aligned under VEC 4)
+            const float4 v = __ldg(reinterpret_cast<const float4*>(wr));
+            vr_r = v.x;
+            m_r = v.y;
+            s_r = v.z;
+            sds_r = v.w;
+          } else {
+            vr_r = __ldg(wr);
+            m_r = __ldg(wr + heads);
+            s_r = __ldg(wr + 2 * heads);
+            sds_r = __ldg(wr + 3 * heads);
+          }
+          const float zpre = vl_c + vr_r;
+          const float p = expf(lrelu(zpre, slope) - m_r) / s_r;
+          const bool pos = zpre > 0.f;
+          sp = fmaf(pos ? p : slope * p, sds_r, sp);
+          pv = pos ? p : -p;
         }
-        sh_p[w][h][ln.lane] = p;
+        sh_p[h * kUnitSlots + t] = pv;
       }
     }
-    sh_col[w][ln.lane] = r;
-    __syncwarp();
+    sp = warp_sum(sp);
+    if (lane == 0) {
+      sh_sds[h] = sp;
+      sh_dot[h] = 0.f;
+    }
+  }
+  __syncwarp();
 
-    const int n = min(kWarp, len - base);
+  for (int y = 0; y < n_slices; ++y) {
+    // gather phase: lanes across features; one read of each destination's
+    // dout slice feeds dx += p v and q += p lr' v; a slot of weight 0
+    // (masked, or underflowed) is not read
+    const Lanes ln(log2_g, hf, fh, VEC, y);
+    float dx[VEC], q[VEC];
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) dx[i] = q[i] = 0.f;
+    // one head: hd is 0 (not taking it from ln saved the register whose
+    // spill ptxas reported at the 32-register cap)
+    const float* ph = MAXH == 1 ? sh_p : sh_p + ln.hd * kUnitSlots;
+    gather_unit<VEC>(sm, len, wtab, wt, ln, [&](int j) { return ph[j] != 0.f; },
+                     [&](int j, const float (&v)[VEC]) {
+                       const float pv = ph[j];
+                       const float p = fabsf(pv);
+                       const float pl = pv > 0.f ? p : slope * p;
+#pragma unroll
+                       for (int i = 0; i < VEC; ++i) {
+                         dx[i] = fmaf(p, v[i], dx[i]);
+                         q[i] = fmaf(pl, v[i], q[i]);
+                       }
+                     });
+
+    // sum the slot groups: lanes that share (lane % g) hold one vector
+    for (int off = kWarp / 2; off >= ln.g; off >>= 1) {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        dx[i] += __shfl_xor_sync(kFullMask, dx[i], off);
+        q[i] += __shfl_xor_sync(kFullMask, q[i], off);
+      }
+    }
+    // <q, x[c]> on the lane's vector, then over each head's lanes.  The
+    // output row [dx | dvl] (the node's row of out, or the unit's partial
+    // row) is addressed here, not held through the gather: at the
+    // 32-register cap that one register spilled.
+    const int c = unit_node[unit];
+    const int pr = unit_part[unit];
+    float* orow = pr >= 0 ? part + static_cast<size_t>(pr) * (hf + heads)
+                          : out + static_cast<size_t>(c) * (hf + heads);
+    float d = 0.f;
     if (ln.active) {
-      for (int j = ln.sub; j < n; j += ln.groups) {
-        const float p = sh_p[w][hd][j];
-        if (p == 0.f) continue;
-        float v[VEC];
-        load_vec<VEC>(wtab + static_cast<size_t>(sh_col[w][j]) * wt + ln.vcol * VEC, v);
+      float xv[VEC];
+      load_vec<VEC>(x + static_cast<size_t>(c) * hf + static_cast<size_t>(ln.vcol) * VEC, xv);
 #pragma unroll
-        for (int i = 0; i < VEC; ++i) dx[i] = fmaf(p, v[i], dx[i]);
+      for (int i = 0; i < VEC; ++i) d = fmaf(q[i], xv[i], d);
+      if (ln.sub == 0) {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) orow[ln.vcol * VEC + i] = dx[i];  // rows of hf + H floats
       }
     }
-    __syncwarp();
+    for (int h = 0; h < heads; ++h) {
+      float v = ln.active && ln.hd == h ? d : 0.f;
+      for (int off = ln.g / 2; off > 0; off >>= 1) v += __shfl_xor_sync(kFullMask, v, off);
+      if (lane == 0) sh_dot[h] += v;
+    }
   }
+  __syncwarp();
+  if (lane < heads) {
+    const int pr = unit_part[unit];
+    float* orow = pr >= 0 ? part + static_cast<size_t>(pr) * (hf + heads)
+                          : out + static_cast<size_t>(unit_node[unit]) * (hf + heads);
+    orow[hf + lane] = sh_dot[lane] - sh_sds[lane];
+  }
+}
 
-  for (int off = kWarp / 2; off >= ln.g; off >>= 1) {
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) dx[i] += __shfl_xor_sync(kFullMask, dx[i], off);
-  }
-  const int ow = hf + nh;
-  if (ln.sub == 0 && ln.active) {
-    float* o = out + static_cast<size_t>(node) * ow + static_cast<size_t>(ln.vcol) * VEC;
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) o[i] = dx[i];  // rows of hf + H floats: no vector stores
-  }
-  if (blockIdx.y == 0) {
-#pragma unroll
-    for (int h = 0; h < kMaxHeads; ++h) {
-      if (h < nh) {
-        const float v = warp_sum(dvl[h]);
-        if (ln.lane == 0) out[static_cast<size_t>(node) * ow + hf + h] = v;
-      }
-    }
+// Backward pass 2, pass 2: one block per split row; its partial [dx | dvl]
+// rows summed in unit order (gala_tpu's big_vrow segment-sum).
+__global__ void __launch_bounds__(kMergeThreads)
+attn_bwd2_merge_kernel(const float* __restrict__ part, const int32_t* __restrict__ split_node,
+                       const int32_t* __restrict__ split_first,
+                       const int32_t* __restrict__ split_count, float* __restrict__ out, int ow) {
+  const int node = split_node[blockIdx.x];
+  const int first = split_first[blockIdx.x];
+  const int count = split_count[blockIdx.x];
+  for (int c = threadIdx.x; c < ow; c += kMergeThreads) {
+    float acc = 0.f;
+    for (int u = 0; u < count; ++u) acc += part[static_cast<size_t>(first + u) * ow + c];
+    out[static_cast<size_t>(node) * ow + c] = acc;
   }
 }
 
@@ -519,6 +619,32 @@ int launch_fwd(const void* x, const void* vl, const void* vr, const void* cols, 
       pacc, paccp, pm, ps, psp, i32(split_node), i32(split_first), i32(split_count),
       static_cast<float*>(out), static_cast<float*>(m), static_cast<float*>(s),
       static_cast<float*>(outpos), static_cast<float*>(spos), hf, nh);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int VEC, int MAXH>
+int launch_bwd2(const void* wtab, const void* x, const void* vl, const void* cols,
+                const void* occ, const void* unit_start, const void* unit_len,
+                const void* unit_node, const void* unit_part, const void* split_node,
+                const void* split_first, const void* split_count, void* out, void* part,
+                int n_units, int n_split, int hf, int nh, float slope, cudaStream_t st) {
+  const size_t smem = bwd2_warp_smem(nh) * kWarpsPerBlock;
+  const auto f32 = [](const void* p) { return static_cast<const float*>(p); };
+  const auto i32 = [](const void* p) { return static_cast<const int32_t*>(p); };
+  int log2_g;
+  dim3 grid;
+  reduce_grid(n_units, hf, VEC, &log2_g, &grid);
+  const int n_slices = static_cast<int>(grid.y);  // walked inside the warp
+  grid.y = 1;
+  attn_bwd2_kernel<VEC, MAXH><<<grid, kWarp * kWarpsPerBlock, smem, st>>>(
+      f32(wtab), f32(x), f32(vl), i32(cols), f32(occ), i32(unit_start), i32(unit_len),
+      i32(unit_node), i32(unit_part), static_cast<float*>(out), static_cast<float*>(part),
+      n_units, hf, nh, slope, log2_g, n_slices);
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err != 0 || n_split == 0) return err;
+  attn_bwd2_merge_kernel<<<n_split, kMergeThreads, 0, st>>>(
+      f32(part), i32(split_node), i32(split_first), i32(split_count), static_cast<float*>(out),
+      hf + nh);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -589,33 +715,31 @@ extern "C" int gala_attn_bwd1_f32(const void* x, const void* vl, const void* vr,
   return static_cast<int>(cudaGetLastError());
 }
 
-// wtab (n_pad, hf + 4H) = [dout | vr | m | s | sds]; out (c_pad, hf + H).
+// wtab (n_pad, hf + 4H) = [dout | vr | m | s | sds]; out (c_pad, hf + H);
+// the unit and split tables are the transpose layout's WorkUnits; part is
+// f32 scratch of n_partials * (hf + H) floats, read only when n_split > 0.
+// Pass 2 is launched only when a row is split.
 extern "C" int gala_attn_bwd2_f32(const void* wtab, const void* x, const void* vl,
-                                  const void* cols, const void* occ, const void* row_start,
-                                  const void* row_len, const void* row_node, void* out,
-                                  int n_rows, int hf, int nh, float slope, int vec,
-                                  void* stream) {
-  if (n_rows <= 0) return 0;
-  if (bad_shape(hf, nh, vec)) return static_cast<int>(cudaErrorInvalidValue);
-  int log2_g;
-  dim3 grid;
-  reduce_grid(n_rows, hf, vec, &log2_g, &grid);
-  const dim3 block(kWarp * kWarpsPerBlock);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define GALA_ATTN_BWD2(V)                                                                      \
-  attn_bwd2_kernel<V><<<grid, block, 0, st>>>(                                                 \
-      static_cast<const float*>(wtab), static_cast<const float*>(x),                           \
-      static_cast<const float*>(vl), static_cast<const int32_t*>(cols),                        \
-      static_cast<const float*>(occ), static_cast<const int32_t*>(row_start),                  \
-      static_cast<const int32_t*>(row_len), static_cast<const int32_t*>(row_node),             \
-      static_cast<float*>(out), n_rows, hf, nh, slope, log2_g)
-  if (vec == 4) {
-    GALA_ATTN_BWD2(4);
-  } else {
-    GALA_ATTN_BWD2(1);
-  }
-#undef GALA_ATTN_BWD2
-  return static_cast<int>(cudaGetLastError());
+                                  const void* cols, const void* occ, const void* unit_start,
+                                  const void* unit_len, const void* unit_node,
+                                  const void* unit_part, const void* split_node,
+                                  const void* split_first, const void* split_count, void* out,
+                                  void* part, int n_units, int n_split, int hf, int nh,
+                                  float slope, int vec, void* stream) {
+  if (n_units <= 0) return 0;
+  if (bad_shape(hf, nh, vec) || (n_split > 0 && part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto run = [&](auto vec_tag, auto maxh_tag) {
+    return launch_bwd2<decltype(vec_tag)::value, decltype(maxh_tag)::value>(
+        wtab, x, vl, cols, occ, unit_start, unit_len, unit_node, unit_part, split_node,
+        split_first, split_count, out, part, n_units, n_split, hf, nh, slope,
+        static_cast<cudaStream_t>(stream));
+  };
+  using One = std::integral_constant<int, 1>;
+  using Four = std::integral_constant<int, 4>;
+  using Max = std::integral_constant<int, kMaxHeads>;
+  if (vec == 4) return nh == 1 ? run(Four{}, One{}) : run(Four{}, Max{});
+  return nh == 1 ? run(One{}, One{}) : run(One{}, Max{});
 }
 
 // Launch limits of the forward's kernels at H heads (the instantiation
@@ -635,6 +759,24 @@ extern "C" int gala_attn_fwd_limits(int k, int nh, int* out) {
       return nh == 1 ? launch_limits(attn_fwd_kernel<1, 1>, block, smem, out)
                      : launch_limits(attn_fwd_kernel<1, kMaxHeads>, block, smem, out);
     case 2: return launch_limits(attn_fwd_merge_kernel, kMergeThreads, 0, out);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Launch limits of bwd2's kernels at H heads, as gala_attn_fwd_limits:
+// kernel k 0 pass 1 (float4), 1 pass 1 (scalar), 2 pass 2.
+extern "C" int gala_attn_bwd2_limits(int k, int nh, int* out) {
+  if (nh < 1 || nh > kMaxHeads) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = bwd2_warp_smem(nh) * kWarpsPerBlock;
+  const int block = kWarp * kWarpsPerBlock;
+  switch (k) {
+    case 0:
+      return nh == 1 ? launch_limits(attn_bwd2_kernel<4, 1>, block, smem, out)
+                     : launch_limits(attn_bwd2_kernel<4, kMaxHeads>, block, smem, out);
+    case 1:
+      return nh == 1 ? launch_limits(attn_bwd2_kernel<1, 1>, block, smem, out)
+                     : launch_limits(attn_bwd2_kernel<1, kMaxHeads>, block, smem, out);
+    case 2: return launch_limits(attn_bwd2_merge_kernel, kMergeThreads, 0, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -31,12 +31,12 @@
 // of HBM (and 50 MB of L2 that holds a (169k, 32) f32 table whole, but
 // not the (169k, 128) one).  The design answers with: the unit's
 // contiguous (col, val) pairs brought into shared memory by 4-byte
-// cp.async copies; full 16-byte gathers on neighbouring lanes, so one
-// warp reads a row of x as whole 128-byte lines, through a per-warp ring
-// of 2 stages of 16-byte cp.async.ca copies (unit_gather.cuh, which says
-// why 2 and .ca); 8 blocks of 8 warps resident per SM (32 registers);
-// plain loads with many slots in flight where F % 4 != 0 or x is not
-// 16-byte aligned; narrow rows' slot groups summed by a shuffle tree.
+// cp.async copies; full 16-byte loads on neighbouring lanes, so one warp
+// reads a row of x as whole 128-byte lines, with 32 / g slots in flight
+// per step (unit_gather.cuh, which says why plain loads and not a ring of
+// cp.async copies); scalar loads where F % 4 != 0 or x is not 16-byte
+// aligned; 8 blocks of 8 warps resident per SM (32 registers); narrow
+// rows' slot groups summed by a shuffle tree.
 //
 // Not done yet (later work, see ROADMAP): one warp per unit, so a unit of
 // a short row (k < 8 at F = 128) leaves most of its warp idle, and each
@@ -58,7 +58,7 @@ constexpr int kMergeThreads = 128;
 
 // one warp's share of the dynamic shared memory
 struct WarpSmem {
-  RingSmem r;
+  UnitSmem r;
   float val[kUnitSlots];
 };
 constexpr size_t kBlockSmem = sizeof(WarpSmem) * kWarpsPerBlock;

@@ -15,69 +15,151 @@
 // (2.1M edges, F = 32 and 40) the a-rows are ~2.1M x (128, 160) B per
 // call against 3.35 TB/s of HBM, and the (169k, F) tables fit in the
 // 50 MB L2.  Consecutive edges share their destination (the list is
-// dst-sorted), so b's rows are served from L1.
+// dst-sorted), so b's rows repeat.  The gathers are latency-bound: the
+// design keeps several of them in flight per lane.
 //
 // Design: the work is split by EDGES, not by destination rows, so a
-// hub's thousands of edges spread over many warps: no serial tail (the
-// measured bottleneck of the row-per-warp bell and attention kernels).
-// A group of g lanes (the power of two >= F/VEC, at most 32) takes one
-// edge: each lane strides over the row in VEC-float vectors (float4
-// where F % 4 == 0 and both tables are 16-byte aligned, so a group reads
-// whole 16-byte pieces of a row; scalar for ragged F), then the group
-// sums its lanes with a shuffle tree.  Every edge is one group's, summed
-// in a fixed order: deterministic, no atomics.
+// hub's thousands of edges spread over many warps: no serial tail.
+//   - A warp takes a run of 32 * kEdgesPerLane = 128 consecutive edges.
+//     Lane l loads the (src, dst) of edges 4l .. 4l + 3 of the run with
+//     one 16-byte load each (coalesced across the warp), so no lane waits
+//     on an index load before its row loads.
+//   - A group of gs lanes takes one edge at a time, each lane one VEC-float
+//     vector of the row (float4 where F % 4 == 0 and both tables are
+//     16-byte aligned); gs = min(F / VEC, 32), not rounded to a power of
+//     two, and 32 / gs groups share the warp: at F = 40 (10 float4s)
+//     three edges' groups use 30 lanes, where a power-of-two group of 16
+//     would idle 6 of every 16.  Wider rows (F / VEC > 32) take rounds of
+//     32 vectors.
+//   - A group takes the indices of four consecutive edges from their
+//     holder lane by shuffle and loads the four rows of a before it
+//     reduces any of them: four gathers in flight per lane.  b[dst] is
+//     loaded only when dst changes from the group's previous edge.
+//   - The group's lanes are summed by a shuffle tree to the group's first
+//     lane, in a fixed order: deterministic, no atomics.
 //
-// Not done yet (later work, see ROADMAP): no shared-memory staging or
-// cp.async; f32 only; lanes idle when F/VEC is not a power of two
-// (F = 40: 10 of 16).
+// Not done yet (later work, see ROADMAP): f32 only; no shared-memory
+// staging of a's rows (the (169k, F) tables sit in L2 at the path's
+// widths); a 128-edge run per warp and four edges in flight per lane are
+// not tuned.
 
-#include <cuda_runtime.h>
-#include <stddef.h>
-#include <stdint.h>
+#include "unit_gather.cuh"  // kWarp, kWarpsPerBlock, kFullMask, load_vec
 
 namespace {
 
-constexpr int kWarp = 32;
-constexpr int kThreads = 256;
-constexpr unsigned kFullMask = 0xffffffffu;
+using namespace gala;
 
-template <int VEC>
-__device__ __forceinline__ float dot_vec(const float* __restrict__ pa,
-                                         const float* __restrict__ pb) {
-  if constexpr (VEC == 4) {
-    const float4 u = __ldg(reinterpret_cast<const float4*>(pa));
-    const float4 v = __ldg(reinterpret_cast<const float4*>(pb));
-    return fmaf(u.w, v.w, fmaf(u.z, v.z, fmaf(u.y, v.y, u.x * v.x)));
+constexpr int kThreads = kWarp * kWarpsPerBlock;
+constexpr int kEdgesPerLane = 4;  // consecutive edges a lane holds the indices of
+constexpr int kRun = kWarp * kEdgesPerLane;  // edges per warp
+
+// The edge list's run of one warp: lane l holds the (src, dst) of edges
+// first + 4l + u, u < 4 (one 16-byte load each where the run is whole
+// and aligned); an edge past n_edges holds index 0 and is never used.
+__device__ __forceinline__ void load_indices(const int32_t* __restrict__ src,
+                                             const int32_t* __restrict__ dst, long long e0,
+                                             long long n_edges, int (&s)[kEdgesPerLane],
+                                             int (&d)[kEdgesPerLane]) {
+  const bool whole = e0 + kEdgesPerLane <= n_edges &&
+                     reinterpret_cast<uintptr_t>(src + e0) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(dst + e0) % 16 == 0;
+  if (whole) {
+    const int4 a = __ldg(reinterpret_cast<const int4*>(src + e0));
+    const int4 b = __ldg(reinterpret_cast<const int4*>(dst + e0));
+    s[0] = a.x, s[1] = a.y, s[2] = a.z, s[3] = a.w;
+    d[0] = b.x, d[1] = b.y, d[2] = b.z, d[3] = b.w;
   } else {
-    return __ldg(pa) * __ldg(pb);
+#pragma unroll
+    for (int u = 0; u < kEdgesPerLane; ++u) {
+      const bool in = e0 + u < n_edges;
+      s[u] = in ? __ldg(src + e0 + u) : 0;
+      d[u] = in ? __ldg(dst + e0 + u) : 0;
+    }
   }
 }
 
-// Group (thread >> log2_g) of the grid takes edge e; the groups of one
-// warp are consecutive edges.
+// One warp per run of kRun edges; gs lanes per group, 32 / gs groups.
+// Group k of the warp takes the 4-edge batches of holder lanes k, k + ng,
+// k + 2 ng, ...; in a batch, lane `sub` of the group reads vectors sub,
+// sub + gs, ... of each edge's rows.
 template <int VEC>
 __global__ void __launch_bounds__(kThreads)
 sddmm_kernel(const float* __restrict__ a, const float* __restrict__ b,
              const int32_t* __restrict__ src, const int32_t* __restrict__ dst,
-             float* __restrict__ out, int n_edges, int f, int log2_g) {
-  const int g = 1 << log2_g;
-  const long long tid = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  const long long warp_first = (tid & ~static_cast<long long>(kWarp - 1)) >> log2_g;
-  if (warp_first >= n_edges) return;  // the same for every lane of the warp
+             float* __restrict__ out, long long n_edges, int f, int gs) {
+  const long long warp =
+      static_cast<long long>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / kWarp;
+  const long long first = warp * kRun;
+  if (first >= n_edges) return;  // the same for every lane of the warp
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int fv = f / VEC;
+  const int ng = kWarp / gs;        // groups in the warp
+  const int grp = lane / gs;        // ng for the lanes past the last group
+  const int sub = lane - grp * gs;
+  const bool in_group = grp < ng;
+  const bool one_round = fv <= gs;  // each lane reads at most one vector of a row
+  int top = 0;  // the largest power of two below gs: the reduction's first step
+  for (int t = 1; t < gs; t <<= 1) top = t;
 
-  const long long e = tid >> log2_g;
-  const int sub = threadIdx.x & (g - 1);
-  const bool valid = e < n_edges;
-  float acc = 0.f;
-  if (valid) {
-    const float* pa = a + static_cast<size_t>(__ldg(src + e)) * f;
-    const float* pb = b + static_cast<size_t>(__ldg(dst + e)) * f;
-    const int fv = f / VEC;
-    for (int j = sub; j < fv; j += g) acc += dot_vec<VEC>(pa + j * VEC, pb + j * VEC);
+  int hs[kEdgesPerLane], hd[kEdgesPerLane];
+  load_indices(src, dst, first + static_cast<long long>(lane) * kEdgesPerLane, n_edges, hs, hd);
+
+  int d_cur = -1;  // the destination whose b vector the lane holds
+  float bv[VEC];
+  const int n_batches = (kWarp + ng - 1) / ng;
+  for (int k = 0; k < n_batches; ++k) {
+    const int holder = grp + k * ng;  // >= 32 for a group with no batch left
+    int s[kEdgesPerLane], d[kEdgesPerLane];
+#pragma unroll
+    for (int u = 0; u < kEdgesPerLane; ++u) {
+      s[u] = __shfl_sync(kFullMask, hs[u], holder & (kWarp - 1));
+      d[u] = __shfl_sync(kFullMask, hd[u], holder & (kWarp - 1));
+    }
+    const long long e0 = first + static_cast<long long>(holder) * kEdgesPerLane;
+    const bool live = in_group && holder < kWarp;
+    float acc[kEdgesPerLane];
+#pragma unroll
+    for (int u = 0; u < kEdgesPerLane; ++u) acc[u] = 0.f;
+    if (live) {
+      for (int j = sub; j < fv; j += gs) {
+        if (!one_round) d_cur = -1;  // bv holds another vector of the row
+        float av[kEdgesPerLane][VEC];
+#pragma unroll
+        for (int u = 0; u < kEdgesPerLane; ++u) {
+          if (e0 + u < n_edges) load_vec<VEC>(a + static_cast<size_t>(s[u]) * f + j * VEC, av[u]);
+        }
+#pragma unroll
+        for (int u = 0; u < kEdgesPerLane; ++u) {
+          if (e0 + u < n_edges) {
+            if (d[u] != d_cur) {
+              load_vec<VEC>(b + static_cast<size_t>(d[u]) * f + j * VEC, bv);
+              d_cur = d[u];
+            }
+#pragma unroll
+            for (int i = 0; i < VEC; ++i) acc[u] = fmaf(av[u][i], bv[i], acc[u]);
+          }
+        }
+      }
+    }
+    // sum the group's lanes into its lane 0: lane sub adds lane sub + off
+    // while that is in the group (gs need not be a power of two)
+    for (int off = top; off > 0; off >>= 1) {
+#pragma unroll
+      for (int u = 0; u < kEdgesPerLane; ++u) {
+        const float v = __shfl_down_sync(kFullMask, acc[u], off);
+        if (sub + off < gs) acc[u] += v;
+      }
+    }
+    if (live && sub == 0) {
+      if (e0 + kEdgesPerLane <= n_edges && reinterpret_cast<uintptr_t>(out + e0) % 16 == 0) {
+        *reinterpret_cast<float4*>(out + e0) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+      } else {
+#pragma unroll
+        for (int u = 0; u < kEdgesPerLane; ++u)
+          if (e0 + u < n_edges) out[e0 + u] = acc[u];
+      }
+    }
   }
-  // sum the group's lanes: xor partners below g stay inside the group
-  for (int off = g >> 1; off > 0; off >>= 1) acc += __shfl_xor_sync(kFullMask, acc, off);
-  if (valid && sub == 0) out[e] = acc;
 }
 
 }  // namespace
@@ -93,21 +175,19 @@ extern "C" int gala_sddmm_f32(const void* a, const void* b, const void* src, con
   if (n_edges <= 0 || f <= 0) return 0;
   if (vec != 1 && vec != 4) return static_cast<int>(cudaErrorInvalidValue);
   const int fv = f / vec;
-  int log2_g = 0;
-  while ((1 << log2_g) < fv && log2_g < 5) ++log2_g;
-  const long long edges_per_block = kThreads >> log2_g;
-  const long long blocks = (static_cast<long long>(n_edges) + edges_per_block - 1) / edges_per_block;
+  const int gs = fv < kWarp ? fv : kWarp;
+  const long long warps = (static_cast<long long>(n_edges) + kRun - 1) / kRun;
+  const dim3 grid(static_cast<unsigned>((warps + kWarpsPerBlock - 1) / kWarpsPerBlock));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* af = static_cast<const float*>(a);
   const float* bf = static_cast<const float*>(b);
   const int32_t* s = static_cast<const int32_t*>(src);
   const int32_t* d = static_cast<const int32_t*>(dst);
   float* o = static_cast<float*>(out);
-  const dim3 grid(static_cast<unsigned>(blocks));
   if (vec == 4) {
-    sddmm_kernel<4><<<grid, kThreads, 0, st>>>(af, bf, s, d, o, n_edges, f, log2_g);
+    sddmm_kernel<4><<<grid, kThreads, 0, st>>>(af, bf, s, d, o, n_edges, f, gs);
   } else {
-    sddmm_kernel<1><<<grid, kThreads, 0, st>>>(af, bf, s, d, o, n_edges, f, log2_g);
+    sddmm_kernel<1><<<grid, kThreads, 0, st>>>(af, bf, s, d, o, n_edges, f, gs);
   }
   return static_cast<int>(cudaGetLastError());
 }

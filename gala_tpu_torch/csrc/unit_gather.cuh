@@ -3,21 +3,17 @@
 // reduces rows of x, and the warp's gather of one unit's rows of x.
 //
 // A work unit (ops/graph.py WorkUnits) is at most kUnitSlots contiguous
-// slots of one row; one warp computes one unit.  Its gathers go through a
-// per-warp ring of kStages stages in shared memory, 512 bytes each (one
-// 16-byte cp.async per lane), so kStages stages are in flight per warp
-// whatever the width: one row of x per stage at F = 128, four at F = 32.
-// Each lane reads back only the 16 bytes that it copied itself, so
-// cp.async.wait_group orders the ring without a barrier.  Widths that are
-// not a multiple of 4, or a base that is not 16-byte aligned, take plain
-// loads instead, with 32 / g slots in flight per step.
+// slots of one row; one warp computes one unit.  Its gather is plain
+// loads, float4 where the row allows, with 32 / g slots in flight per step
+// of the warp (g lanes across a row's vectors).
 //
-// The ring's depth was measured (Arxiv stand-in, H100 80GB HBM3 at 700 W;
-// PERF.md): the gathers are latency-bound, and occupancy (warps per
-// SM) and L1 capacity count for more than depth.  8 stages of .cg copies
-// (40 KB a block, 5 blocks per SM, L1 bypassed) took the SpMM 0.176 /
-// 0.329 ms at F = 32 / 128; 2 stages of .ca copies at 8 blocks per SM
-// (16 KB a block) 0.114 / 0.242.
+// Plain loads were measured against a per-warp ring of 16-byte
+// cp.async.ca copies in shared memory (H100 80GB HBM3 at 700 W, Arxiv
+// stand-in; scripts/ring_vs_plain_torch.py, PERF.md): the results were
+// bitwise the same and plain loads were the faster in every case (the
+// SpMM by 1-4%, the attention forward by 10-15%, bwd2 by 5-10%), so the
+// ring was taken out.  The gathers are latency-bound: occupancy (warps
+// per SM) and L1 count for more than explicit staging.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -31,16 +27,14 @@ namespace gala {
 constexpr int kWarp = 32;
 constexpr int kWarpsPerBlock = 8;
 constexpr int kUnitSlots = 128;  // L: ops/graph.py UNIT_SLOTS (= data.ell.K_BIG)
-constexpr int kStages = 2;       // ring depth, in 512-byte stages
 constexpr unsigned kFullMask = 0xffffffffu;
 // resident blocks per SM that the unit kernels ask of the compiler (their
 // __launch_bounds__): 8 blocks of 8 warps, so at most 32 registers
 constexpr int kMinBlocks = 8;
 
-// the gather ring and the unit's columns: the head of each warp's share
-// of the dynamic shared memory (16-byte aligned: a multiple of 16 bytes)
-struct RingSmem {
-  float4 ring[kStages][kWarp];
+// the unit's columns: the head of each warp's share of the dynamic shared
+// memory (a multiple of 16 bytes, so what follows stays 16-byte aligned)
+struct UnitSmem {
   int32_t col[kUnitSlots];
 };
 
@@ -50,14 +44,6 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src)
-               : "memory");
-}
-
-// .ca: the copy is cached in L1 on its way, where a popular row of x is
-// read again by the other warps of the SM (.cg copies, L2 only, were
-// the slower on the Arxiv stand-in, most at F = 40)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
                : "memory");
 }
 
@@ -93,19 +79,21 @@ __device__ __forceinline__ void store_vec(float* __restrict__ p, const float (&v
 }
 
 // Lane roles of a warp that reduces rows of x: g = 2^log2_g lanes across
-// the row's width/VEC vectors, 32/g slot groups; blockIdx.y selects which
-// g-vector slice of the row this warp reduces.  hd is the head of the
-// lane's vector for heads of fh columns (VEC divides fh, so a vector never
-// straddles two heads; fh = width gives hd = 0).
+// the row's width/VEC vectors, 32/g slot groups; `slice` (blockIdx.y
+// unless given) selects which g-vector slice of the row this warp reduces.
+// hd is the head of the lane's vector for heads of fh columns (VEC divides
+// fh, so a vector never straddles two heads; fh = width gives hd = 0).
 struct Lanes {
   int lane, sub, groups, g, vcol, hd;
   bool active;
-  __device__ Lanes(int log2_g, int width, int fh, int vec) {
+  __device__ Lanes(int log2_g, int width, int fh, int vec)
+      : Lanes(log2_g, width, fh, vec, static_cast<int>(blockIdx.y)) {}
+  __device__ Lanes(int log2_g, int width, int fh, int vec, int slice) {
     lane = threadIdx.x & (kWarp - 1);
     g = 1 << log2_g;
     groups = kWarp >> log2_g;
     sub = lane >> log2_g;
-    vcol = blockIdx.y * g + (lane & (g - 1));
+    vcol = slice * g + (lane & (g - 1));
     active = vcol < width / vec;
     hd = active ? (vcol * vec) / fh : 0;
   }
@@ -113,45 +101,21 @@ struct Lanes {
 
 // The warp's gather of one unit: for each slot j < len of this lane's slot
 // group for which want(j) holds, use(j, v) with v the lane's VEC floats of
-// row col[j] of x (row width f).  col is the unit's columns in shared
-// memory, filled before the call and visible to the whole warp.  A slot
-// that want() refuses is not read.
+// row col[j] of x (row stride f floats).  col is the unit's columns in
+// shared memory, filled before the call and visible to the whole warp.  A
+// slot that want() refuses is not read.
 template <int VEC, class Want, class Use>
-__device__ __forceinline__ void gather_unit(RingSmem& sm, int len, const float* __restrict__ x,
-                                            int f, const Lanes& ln, Want want, Use use) {
-  if constexpr (VEC == 4) {
-    const int n_steps = (len + ln.groups - 1) / ln.groups;
-    const float* xv = x + static_cast<size_t>(ln.vcol) * 4;
-    auto issue = [&](int q) {
-      const int j = q * ln.groups + ln.sub;
-      if (ln.active && j < len && want(j))
-        cp_async16(&sm.ring[q % kStages][ln.lane], xv + static_cast<size_t>(sm.col[j]) * f);
-    };
-#pragma unroll
-    for (int q = 0; q < kStages - 1; ++q) {
-      if (q < n_steps) issue(q);
-      cp_async_commit();
-    }
-    for (int q = 0; q < n_steps; ++q) {
-      // refill the stage consumed in step q - 1, then wait for stage q
-      if (q + kStages - 1 < n_steps) issue(q + kStages - 1);
-      cp_async_commit();
-      cp_async_wait<kStages - 1>();
-      const int j = q * ln.groups + ln.sub;
-      if (ln.active && j < len && want(j)) {
-        const float4 t = sm.ring[q % kStages][ln.lane];
-        const float v[4] = {t.x, t.y, t.z, t.w};
-        use(j, v);
-      }
-    }
-  } else {
-    if (!ln.active) return;
+__device__ __forceinline__ void gather_unit(const UnitSmem& sm, int len,
+                                            const float* __restrict__ x, int f, const Lanes& ln,
+                                            Want want, Use use) {
+  if (!ln.active) return;
+  const float* xv = x + static_cast<size_t>(ln.vcol) * VEC;
 #pragma unroll 4
-    for (int j = ln.sub; j < len; j += ln.groups) {
-      if (want(j)) {
-        const float v[1] = {__ldg(x + static_cast<size_t>(sm.col[j]) * f + ln.vcol)};
-        use(j, v);
-      }
+  for (int j = ln.sub; j < len; j += ln.groups) {
+    if (want(j)) {
+      float v[VEC];
+      load_vec<VEC>(xv + static_cast<size_t>(sm.col[j]) * f, v);
+      use(j, v);
     }
   }
 }

@@ -141,6 +141,22 @@ def select_rows(layout, keep):
         row_node=_put(rows[2], dev), units=WorkUnits.from_rows(*rows, dev))
 
 
+def masked_units(layout, every: int = 2):
+    """The layout with the occupancy (flat_vals) of every `every`-th unit
+    of a split row set to 0 and its first split row wholly masked: units
+    and rows that are all masked, for the kernels' checks (measurement and
+    tests; nothing on the path calls it)."""
+    vals = layout.flat_vals.clone()
+    u = layout.units
+    for i in (u.part >= 0).nonzero().flatten().tolist()[::every]:
+        vals[int(u.start[i]) : int(u.start[i]) + int(u.length[i])] = 0
+    if u.split_node.numel():
+        row = int((layout.row_node == u.split_node[0]).nonzero().flatten()[0])
+        s, n = int(layout.row_start[row]), int(layout.row_len[row])
+        vals[s : s + n] = 0
+    return dataclasses.replace(layout, flat_vals=vals)
+
+
 @dataclasses.dataclass
 class BellDev:
     """Device tensors of a binned ELL (see data.ell.build_binned_ell).

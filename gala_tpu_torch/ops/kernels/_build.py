@@ -5,14 +5,21 @@ Every kernel library is one `.cu` file under `gala_tpu_torch/csrc/` with a
 plain C interface.  `build_library` compiles it with nvcc for sm_90a into
 a shared library in `gala_tpu_torch/_build/` (git-ignored) at first use,
 loads it with ctypes and declares the argument types of its functions.
-The library's name carries a hash of the source and of the shared
-headers (`csrc/*.cuh`), so an edited source or header is rebuilt.  Builds may run in parallel threads (each is one nvcc process
-writing its own temporary file, renamed into place when done).
+The library's name carries a hash of the source and of the headers
+beside it (`csrc/*.cuh`), so an edited source or header is rebuilt.
+Builds may run in parallel threads (each is one nvcc process writing its
+own temporary file, renamed into place when done).
 
 `counts_for(name)` is the launch record of one kernel: its wrapper adds
 one to `launches` where it launches the kernel, and one to
 `reference_calls_on_cuda` where the plain version runs on CUDA tensors,
 so a run can show that its work went through the kernels.
+
+`toolchain_available()` is the port of gala_tpu's `mosaic_available`: a
+child process builds and launches `csrc/probe.cu` (x * 2, through
+`probe_x2`, whose launches count under "toolchain_probe") and checks the
+result.  Only `chip_smoke.py`'s build phase asks it; no module of the
+package chooses an executor by it.
 """
 from __future__ import annotations
 
@@ -23,8 +30,12 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import threading
 import time
+import warnings
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -84,22 +95,24 @@ class Build:
     lib: ctypes.CDLL
     path: str
     seconds: float   # 0.0 when the library was already built
-    log: str         # nvcc's output (ptxas register and spill report)
+    log: str         # nvcc's output (ptxas register and spill report), kept beside the library
 
 
-_BUILDS: dict[str, Build] = {}  # by source path: the wrappers call build() per launch
+_BUILDS: dict[str, Build] = {}  # by source: the wrappers call build() per launch
 
 
 def build_library(source: str, stem: str, functions: dict[str, list]) -> Build:
     """Compile `source` into lib<stem>_<hash>.so (unless a library of
     this source version is there), load it and set argtypes
     (`functions`: C name -> ctypes argtypes; every function returns an
-    int, the CUDA error code); once per process and source.  Raises when
-    nvcc is missing or the build fails."""
+    int, the CUDA error code); once per process and source.  nvcc's
+    output is kept in lib<stem>_<hash>.so.log, so a library built earlier
+    still reports its registers and spills.  Raises when nvcc is missing
+    or the build fails."""
     if source in _BUILDS:
         return _BUILDS[source]
     sha = hashlib.sha1()
-    for path in [source] + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
+    for path in [source] + sorted(glob.glob(os.path.join(os.path.dirname(source), "*.cuh"))):
         with open(path, "rb") as f:
             sha.update(f.read())
     digest = sha.hexdigest()[:12]
@@ -120,7 +133,13 @@ def build_library(source: str, stem: str, functions: dict[str, list]) -> Build:
         log = res.stdout + res.stderr
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed to build {source}:\n{log}")
+        with open(f"{tmp}.log", "w") as f:
+            f.write(log)
+        os.replace(f"{tmp}.log", f"{path}.log")
         os.replace(tmp, path)
+    elif os.path.exists(f"{path}.log"):
+        with open(f"{path}.log") as f:
+            log = f.read()
     lib = ctypes.CDLL(path)
     for name, argtypes in functions.items():
         fn = getattr(lib, name)
@@ -128,3 +147,70 @@ def build_library(source: str, stem: str, functions: dict[str, list]) -> Build:
         fn.restype = ctypes.c_int
     _BUILDS[source] = Build(lib=lib, path=path, seconds=seconds, log=log)
     return _BUILDS[source]
+
+
+def probe_library() -> Build:
+    """The toolchain probe's library (csrc/probe.cu: gala_probe_f32, out =
+    2 * x), built like every kernel library."""
+    return build_library(os.path.join(CSRC_DIR, "probe.cu"), "probe", {
+        "gala_probe_f32": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
+    })
+
+
+def probe_x2(x: torch.Tensor) -> torch.Tensor:
+    """2 * x by the probe kernel (x a contiguous f32 tensor); adds one to
+    the "toolchain_probe" launch count.  A CPU tensor takes the plain
+    product.  Raises on a failed launch."""
+    if x.device.type != "cuda":
+        return x * 2.0
+    out = torch.empty_like(x)
+    err = probe_library().lib.gala_probe_f32(x.data_ptr(), out.data_ptr(), x.numel(),
+                                             torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"the probe kernel failed to launch: CUDA error {err}")
+    counts_for("toolchain_probe").launches += 1
+    return out
+
+
+# The toolchain probe, run in a child process: build csrc/probe.cu, launch
+# it on a 128 x 128 tile, check 2 * x and report the launches.
+_PROBE_SRC = """
+import torch
+from gala_tpu_torch.ops.kernels._build import counts_for, probe_library, probe_x2
+probe_library()  # the build first: a missing nvcc is the first thing to report
+x = torch.arange(128 * 128, dtype=torch.float32, device="cuda").view(128, 128)
+assert torch.equal(probe_x2(x), 2 * x), "wrong result"
+print("toolchain-ok", counts_for("toolchain_probe").launches)
+"""
+
+_toolchain_ok: bool | None = None
+
+
+def toolchain_available(timeout: float = 150.0) -> bool:
+    """True when nvcc builds a trivial sm_90a kernel (csrc/probe.cu, out =
+    2 * x on a 128 x 128 f32 tile) and it launches on the card with the
+    right result: the counterpart of gala_tpu's mosaic_available.
+
+    Probed once per process, in a child process that can be killed at
+    `timeout` seconds (a broken CUDA install may hang rather than fail).  On
+    failure it returns False and warns with the reason; it never raises.
+    Nothing in the port chooses an executor by it: a CUDA tensor runs
+    its kernel or raises."""
+    global _toolchain_ok
+    if _toolchain_ok is not None:
+        return _toolchain_ok
+    try:
+        proc = subprocess.run([sys.executable, "-c", _PROBE_SRC], cwd=os.path.dirname(_PKG),
+                              timeout=timeout, capture_output=True, text=True)
+        answer = proc.stdout.split()
+        _toolchain_ok = proc.returncode == 0 and answer[:1] == ["toolchain-ok"]
+        if _toolchain_ok:  # the child's launches count in this process too
+            counts_for("toolchain_probe").launches += int(answer[1])
+        lines = (proc.stderr or proc.stdout).strip().splitlines()
+        reason = lines[-1] if lines else f"exit code {proc.returncode}"
+    except (subprocess.TimeoutExpired, OSError) as exc:
+        _toolchain_ok = False
+        reason = str(exc)
+    if not _toolchain_ok:
+        warnings.warn(f"CUDA toolchain probe failed: {reason}", stacklevel=2)
+    return _toolchain_ok

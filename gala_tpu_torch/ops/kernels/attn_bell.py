@@ -6,13 +6,14 @@ attn_bwd1_planned, attn_bwd2_planned); the maths is that of
 gala_tpu/ops/attention.py (_head_softmax_pos and the hub branch of
 _attn_fwd_chunked, _head_bwd_stats, _slot_grads).  The kernels
 (`gala_tpu_torch/csrc/attn_bell.cu`) each cover a whole layout in one
-call: the forward in two launches over the layout's work units
+call: the forward and bwd2 in two launches over the layout's work units
 (ops.graph.WorkUnits: units of at most UNIT_SLOTS slots, a hub's units
-its virtual rows, whose unnormalised partials the second launch merges
-by the online-softmax rescaling), the backward passes in one launch
-from the per-row descriptors (ops.graph.BellDev.row_*; a hub is one
-contiguous row).  Heads: x is (rows, hf) with head h in columns
-[h*fh, (h+1)*fh), fh = hf / H, 1 <= H <= 8.
+its virtual rows; the second launch merges the split rows' partials, the
+forward's unnormalised ones by the online-softmax rescaling, bwd2's plain
+[dx | dvl] sums by addition), bwd1 in one launch from the per-row
+descriptors (ops.graph.BellDev.row_*; a hub is one contiguous row).
+Heads: x is (rows, hf) with head h in columns [h*fh, (h+1)*fh),
+fh = hf / H, 1 <= H <= 8.
 
 Layouts are ops.attention.AttnBell's: `flat_vals` holds slot occupancy
 (1.0 per real edge, 0.0 on padding slots), used only as a mask.
@@ -25,8 +26,9 @@ plain-version calls on CUDA tensors for `attn_fwd`, `attn_bwd1` and
 The plain versions work slot by slot (one entry per slot of the flat
 layout, a row's max by scatter_reduce and its sums by index_add_), so
 they share nothing with the kernels but the layout.
-`attn_fwd_units_reference` repeats the forward kernel's two passes in
-plain PyTorch, for the tests and the card's checks only.
+`attn_fwd_units_reference` and `attn_bwd2_units_reference` repeat the
+forward's and bwd2's two passes in plain PyTorch (bwd2's with its dvl
+rewrite), for the tests and the card's checks only.
 """
 from __future__ import annotations
 
@@ -47,30 +49,38 @@ NEG = -1e30  # masked score; a row's max is floored at NEG / 2 (gala_tpu's _NEG)
 
 NAMES = ("attn_fwd", "attn_bwd1", "attn_bwd2")
 counts = {name: counts_for(name) for name in NAMES}
-# the forward's kernels, in the order of gala_attn_fwd_limits
+# the unit kernels, in the order of gala_attn_fwd_limits / gala_attn_bwd2_limits
 FWD_KERNELS = ("attn_fwd_kernel<4>", "attn_fwd_kernel<1>", "attn_fwd_merge_kernel")
+BWD2_KERNELS = ("attn_bwd2_kernel<4>", "attn_bwd2_kernel<1>", "attn_bwd2_merge_kernel")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+# the library's C functions and their argument types
+FUNCTIONS = {
+    "gala_attn_fwd_f32": [_P] * 18 + [_I] * 5 + [_F, _I, _P],
+    "gala_attn_bwd1_f32": [_P] * 14 + [_I, _I, _I, _F, _I, _P],
+    "gala_attn_bwd2_f32": [_P] * 14 + [_I] * 4 + [_F, _I, _P],
+    "gala_attn_fwd_limits": [_I, _I, _P],
+    "gala_attn_bwd2_limits": [_I, _I, _P],
+}
 
 
 def build() -> Build:
     """Compile (once per source version) and load the kernel library.
     Raises when nvcc is missing or the build fails."""
-    return build_library(_SRC, "attn_bell", {
-        "gala_attn_fwd_f32": [_P] * 18 + [_I] * 5 + [_F, _I, _P],
-        "gala_attn_bwd1_f32": [_P] * 14 + [_I, _I, _I, _F, _I, _P],
-        "gala_attn_bwd2_f32": [_P] * 9 + [_I, _I, _I, _F, _I, _P],
-        "gala_attn_fwd_limits": [_I, _I, _P],
-    })
+    return build_library(_SRC, "attn_bell", FUNCTIONS)
 
 
 def launch_limits(nh: int = 1) -> dict:
     """{kernel: registers, static and dynamic shared memory per block,
-    resident blocks per SM} of the forward's kernels at `nh` heads, from
-    the CUDA runtime."""
+    resident blocks per SM} of the forward's and bwd2's unit kernels at
+    `nh` heads, from the CUDA runtime."""
     lib = build().lib
-    return {name: read_limits(lib.gala_attn_fwd_limits, k, nh)
-            for k, name in enumerate(FWD_KERNELS)}
+    return {name: read_limits(fn, k, nh)
+            for fn, names in ((lib.gala_attn_fwd_limits, FWD_KERNELS),
+                              (lib.gala_attn_bwd2_limits, BWD2_KERNELS))
+            for k, name in enumerate(names)}
 
 
 # --------------------------------------------------------------------------- #
@@ -239,6 +249,46 @@ def attn_bwd2_reference(lay, x, vl, w_tab, slope: float, c_pad: int):
     return _to_nodes(lay, torch.cat([dx, dvl], dim=1), c_pad)
 
 
+def attn_bwd2_units_reference(lay, x, vl, w_tab, slope: float, c_pad: int):
+    """The bwd2 kernel's two passes in plain PyTorch (for tests and the
+    card's checks), the same function as attn_bwd2_reference.  Pass 1, per
+    work unit of the transpose layout (source c) and head, from one read of
+    each destination row: p = e^(lrelu(zpre) - m_r) / s_r, lr' =
+    lrelu'(zpre), dx_u = sum p dout_r, q_u = sum p lr' dout_r and
+    dvl_u = <q_u, x[c]> - sum p lr' sds_r; a unit that is its whole row
+    writes [dx_u | dvl_u] to its node, the others to their partial rows.
+    Pass 2 sums each split row's partials in unit order."""
+    units = lay.units
+    hf, nh = x.shape[1], vl.shape[1]
+    fh = hf // nh
+    n_u = units.n_units
+    unit, slot = unit_slots(units, x.device)
+    c = units.node.long()[unit]
+    w = w_tab[lay.flat_cols.long()[slot]]
+    real = (lay.flat_vals[slot] != 0)[:, None]
+    do = w[:, :hf].view(-1, nh, fh)
+    vr_g, m_g, s_g, sds_g = (w[:, hf + i * nh : hf + (i + 1) * nh] for i in range(4))
+    zpre = vl[c] + vr_g
+    p = torch.where(real, torch.exp(_lrelu(zpre, slope) - m_g) / s_g, 0.0)
+    pl = p * torch.where(zpre > 0, 1.0, slope)
+    dx = _row_sum(unit, (p[..., None] * do).view(-1, hf), n_u)
+    q = _row_sum(unit, (pl[..., None] * do).view(-1, hf), n_u)
+    dvl = per_head_dot(q, x[units.node.long()], nh) - _row_sum(unit, pl * sds_g, n_u)
+    acc = torch.cat([dx, dvl], dim=1)
+
+    out = x.new_zeros((c_pad, hf + nh))
+    whole = units.part < 0
+    out[units.node[whole].long()] = acc[whole]
+    if units.n_partials:
+        part = acc.new_empty((units.n_partials, hf + nh))
+        part[units.part[~whole].long()] = acc[~whole]
+        n_split = units.split_node.shape[0]
+        owner = torch.repeat_interleave(torch.arange(n_split, device=x.device),
+                                        units.split_count.long())
+        out[units.split_node.long()] = _row_sum(owner, part, n_split)
+    return out
+
+
 # --------------------------------------------------------------------------- #
 # wrappers
 # --------------------------------------------------------------------------- #
@@ -290,6 +340,16 @@ def _lay_ptrs(lay):
             lay.row_len.data_ptr(), lay.row_node.data_ptr())
 
 
+def _unit_ptrs(u):
+    """A WorkUnits' tables in the kernels' argument order."""
+    return tuple(t.data_ptr() for t in (u.start, u.length, u.node, u.part, u.split_node,
+                                        u.split_first, u.split_count))
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
+
+
 def attn_fwd(lay, x, vl, vr, slope: float, n_pad: int, flash: bool):
     """Attention forward on a fwd layout (see attn_fwd_reference): the
     kernel on CUDA tensors, the plain version on CPU tensors."""
@@ -311,13 +371,10 @@ def attn_fwd(lay, x, vl, vr, slope: float, n_pad: int, flash: bool):
     # the split rows' partials: acc, acc+ (P, hf) then m, s, s+ (P, H)
     part = (torch.empty((u.n_partials * (2 * hf + 3 * nh),), dtype=torch.float32,
                         device=x.device) if u.n_partials else None)
-    ptr = (lambda t: t.data_ptr() if t is not None else None)  # noqa: E731
     _launch("attn_fwd", lib.gala_attn_fwd_f32, x,
             x.data_ptr(), vl.data_ptr(), vr.data_ptr(), lay.flat_cols.data_ptr(),
-            lay.flat_vals.data_ptr(), u.start.data_ptr(), u.length.data_ptr(),
-            u.node.data_ptr(), u.part.data_ptr(), u.split_node.data_ptr(),
-            u.split_first.data_ptr(), u.split_count.data_ptr(),
-            out.data_ptr(), m.data_ptr(), s.data_ptr(), ptr(outpos), ptr(spos), ptr(part),
+            lay.flat_vals.data_ptr(), *_unit_ptrs(u),
+            out.data_ptr(), m.data_ptr(), s.data_ptr(), _ptr(outpos), _ptr(spos), _ptr(part),
             u.n_units, u.split_node.shape[0], u.n_partials, hf, nh, float(slope),
             _vec(x, nh, out))
     return out, m, s, outpos, spos
@@ -359,9 +416,14 @@ def attn_bwd2(lay, x, vl, w_tab, slope: float, c_pad: int):
     _cuda_only(x, "attn_bwd2")
     lib = build().lib
     out = torch.zeros((c_pad, hf + nh), dtype=torch.float32, device=x.device)
+    u = lay.units
+    # the split rows' partial [dx | dvl] rows
+    part = (torch.empty((u.n_partials * (hf + nh),), dtype=torch.float32, device=x.device)
+            if u.n_partials else None)
     _launch("attn_bwd2", lib.gala_attn_bwd2_f32, x,
-            w_tab.data_ptr(), x.data_ptr(), vl.data_ptr(), *_lay_ptrs(lay), out.data_ptr(),
-            lay.row_node.shape[0], hf, nh, float(slope), _vec(x, nh, w_tab))
+            w_tab.data_ptr(), x.data_ptr(), vl.data_ptr(), lay.flat_cols.data_ptr(),
+            lay.flat_vals.data_ptr(), *_unit_ptrs(u), out.data_ptr(), _ptr(part),
+            u.n_units, u.split_node.shape[0], hf, nh, float(slope), _vec(x, nh, w_tab))
     return out
 
 

@@ -49,13 +49,17 @@ KERNELS = ("spmm_unit_kernel<4>", "spmm_unit_kernel<1>", "spmm_merge_kernel<4>",
 counts = counts_for("bell_spmm")
 
 
+# the library's C functions and their argument types
+FUNCTIONS = {
+    "gala_bell_spmm_f32": [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    "gala_bell_spmm_limits": [ctypes.c_int, ctypes.c_void_p],
+}
+
+
 def build() -> Build:
     """Compile (once per source version) and load the kernel library.
     Raises when nvcc is missing or the build fails."""
-    return build_library(_SRC, "bell_spmm", {
-        "gala_bell_spmm_f32": [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
-        "gala_bell_spmm_limits": [ctypes.c_int, ctypes.c_void_p],
-    })
+    return build_library(_SRC, "bell_spmm", FUNCTIONS)
 
 
 def launch_limits() -> dict:

@@ -8,11 +8,13 @@ kernel names its operands the other way round, `a` by destination):
 
     out[e] = <a[src[e]], b[dst[e]]>     f32, one value per listed edge
 
-The kernel (`gala_tpu_torch/csrc/sddmm.cu`) splits the work by edges, a
-group of lanes per edge; its note says what bounds it on the H100.  Built
-like the other kernels: nvcc for sm_90a into a plain-C shared library in
-`gala_tpu_torch/_build/` (git-ignored) at first use, loaded with ctypes
-by `ops.kernels._build.build_library`.
+The kernel (`gala_tpu_torch/csrc/sddmm.cu`) splits the work by edges: a
+warp takes a run of 128 edges whose indices it loads once, and groups of
+up to 32 lanes (one float4 or float of the row each) take them four at a
+time, their row gathers in flight together; its note says what bounds it
+on the H100.  Built like the other kernels: nvcc for sm_90a into a
+plain-C shared library in `gala_tpu_torch/_build/` (git-ignored) at
+first use, loaded with ctypes by `ops.kernels._build.build_library`.
 
 Dispatch (`sddmm`): a CPU tensor runs `sddmm_reference`; a CUDA tensor
 runs the kernel or raises (no fallback).  `counts` records kernel

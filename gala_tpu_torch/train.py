@@ -74,11 +74,14 @@ class TrainResult:
 
 
 def device_memory_mb(device) -> float:
-    """Peak device memory allocated by PyTorch on `device`, in MB (0.0 on
-    the CPU, which has no device memory to report)."""
+    """Live device memory allocated by PyTorch on `device` at the call, in
+    MB: gala_tpu's `bytes_in_use` (the reference's cudaMemGetInfo analog),
+    read at the warm-up boundary.  Not the peak: that would carry the
+    warm-up's activations and an earlier model's high-water mark.  0.0 on
+    the CPU, which has no device memory to report."""
     device = torch.device(device)
     if device.type == "cuda":
-        return torch.cuda.max_memory_allocated(device) / 1e6
+        return torch.cuda.memory_allocated(device) / 1e6
     return 0.0
 
 

@@ -43,29 +43,42 @@ HEADS = [1, 4]
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
-def attn_coo(seed=5):
+def attn_coo(seed=5, n=400, out_hub=200):
     """(src, dst, n) of the test graph: 400 nodes, node 3 an in-hub (300
-    extra sources), node 5 an out-hub (200 extra destinations), self-loops
-    on every second node below 390, nodes 390-399 isolated; duplicate
-    edges dropped (every slot is a distinct softmax term)."""
+    extra sources), node 5 an out-hub (`out_hub` extra destinations),
+    self-loops on every second node below n - 10, the last 10 nodes
+    isolated; duplicate edges dropped (every slot is a distinct softmax
+    term)."""
     rng = np.random.default_rng(seed)
-    n, m = 400, 390
-    src = np.concatenate([rng.integers(0, m, 4000), rng.integers(0, m, 300), np.full(200, 5),
-                          np.arange(0, m, 2)])
-    dst = np.concatenate([rng.integers(0, m, 4000), np.full(300, 3), rng.integers(0, m, 200),
-                          np.arange(0, m, 2)])
+    m = n - 10
+    src = np.concatenate([rng.integers(0, m, 4000), rng.integers(0, m, 300),
+                          np.full(out_hub, 5), np.arange(0, m, 2)])
+    dst = np.concatenate([rng.integers(0, m, 4000), np.full(300, 3),
+                          rng.integers(0, m, out_hub), np.arange(0, m, 2)])
     key = np.unique(src.astype(np.int64) * n + dst)
     return key // n, key % n, n
 
 
-@pytest.fixture(scope="module")
-def graphs():
-    src, dst, n = attn_coo()
+def _graph_pair(**kw):
+    src, dst, n = attn_coo(**kw)
     jg = JGraph.from_host(jcoo_to_csr(src, dst, None, n_rows=n), strategy="bell", attention=True)
     host = tcoo_to_csr(src, dst, None, n_rows=n)
     tg = TGraph.from_host(host, strategy="bell", attention=True, device="cpu")
     assert tg.attn.fwd.n_big and tg.attn.t.n_big, "the graph must have hubs on both sides"
     return jg, tg, host
+
+
+@pytest.fixture(scope="module")
+def graphs():
+    return _graph_pair()
+
+
+@pytest.fixture(scope="module")
+def wide_hub_graphs():
+    """The same shape of graph on 900 nodes, whose out-hub has 1,300 extra
+    destinations (683 distinct): a transpose row of 6 units (six partials
+    to merge)."""
+    return _graph_pair(n=900, out_hub=1300)
 
 
 def _inputs(g, nh, seed):
@@ -150,11 +163,11 @@ def test_fwd_reference_matches_jax(graphs, oracle):
     np.testing.assert_array_equal(plain[0].numpy(), got[0].numpy())
 
 
-def _masked(jg, tg, vrows):
-    """The forward layouts of both packages with the occupancy of the
-    first hub's virtual rows `vrows` set to 0 (an all-masked unit; every
-    virtual row: an all-masked split row)."""
-    jb, tb = jg.attn.fwd, tg.attn.fwd
+def _masked(jg, tg, vrows, side="fwd"):
+    """The `side` layouts (fwd or t) of both packages with the occupancy of
+    the first hub's virtual rows `vrows` set to 0 (an all-masked unit;
+    every virtual row: an all-masked split row)."""
+    jb, tb = getattr(jg.attn, side), getattr(tg.attn, side)
     big = np.array(jb.big_vals)
     hub0 = np.flatnonzero(np.asarray(jb.big_vrow) == 0)[list(vrows)]
     big[hub0] = 0.0
@@ -162,7 +175,7 @@ def _masked(jg, tg, vrows):
     off = sum(k * n for k, n in zip(tb.bin_ks, tb.bin_counts))
     for v in hub0:
         flat[off + v * big.shape[1] : off + (v + 1) * big.shape[1]] = 0.0
-    jab = dataclasses.replace(jg.attn, fwd=dataclasses.replace(jb, big_vals=jnp.asarray(big)))
+    jab = dataclasses.replace(jg.attn, **{side: dataclasses.replace(jb, big_vals=jnp.asarray(big))})
     return jab, dataclasses.replace(tb, flat_vals=flat)
 
 
@@ -228,6 +241,65 @@ def test_bwd2_reference_matches_jax(graphs, oracle):
     dx, dvl = oracle["pass2"]
     np.testing.assert_allclose(got[:, :HF].numpy(), dx, **TOL)
     np.testing.assert_allclose(got[:, HF:].numpy(), dvl, **TOL)
+
+
+def _bwd2_tables(tg, nh, seed):
+    """Inputs of pass 2 at H heads: x, vl and a destination table [dout |
+    vr | m | s | sds] drawn directly (pass 2 is a function of the table
+    alone: m, s need not come from a forward)."""
+    rng = np.random.default_rng(seed)
+    x, vl, vr, dout = _inputs(tg, nh, seed)
+    m = rng.standard_normal((tg.n_pad, nh)).astype(np.float32)
+    s = rng.uniform(0.5, 2.0, (tg.n_pad, nh)).astype(np.float32)
+    sds = rng.standard_normal((tg.n_pad, nh)).astype(np.float32)
+    return x, vl, (dout, vr, m, s, sds)
+
+
+@pytest.mark.parametrize("case", ["as built", "one unit masked", "whole row masked",
+                                  "six-unit hub"])
+@pytest.mark.parametrize("nh", HEADS)
+def test_bwd2_units_emulation_matches_jax(graphs, wide_hub_graphs, case, nh):
+    """The bwd2 kernel's two passes in plain PyTorch (units of the
+    transpose layout, the dvl rewrite, partials summed in unit order)
+    against gala_tpu's pass 2 (`_attn_bwd_pass2`, its XLA executor) on the
+    same numpy inputs: the out-hub's row split into 2 units as built, with
+    one unit or the whole row masked, and a hub row of 6 units.  Tolerance
+    1e-4 + 1e-4 * scale, scale the plain version on magnitudes (as
+    compare_with_plain takes it): the rewrite sums in another order."""
+    jg, tg, _ = wide_hub_graphs if case == "six-unit hub" else graphs
+    jab, lay = jg.attn, tg.attn.t
+    units = lay.units
+    assert units.n_partials == (6 if case == "six-unit hub" else 2) == units.split_count.sum()
+    if "masked" in case:
+        nvirt = int(units.split_count[0])
+        jab, lay = _masked(jg, tg, [1] if case == "one unit masked" else range(nvirt), side="t")
+    x, vl, tab = _bwd2_tables(tg, nh, seed=20 + nh)
+    dout, vr, m, s, sds = tab
+    dx, dvl, _ = jax.jit(lambda *a: JA._attn_bwd_pass2(jab, *a, SLOPE, dout, tg.c_pad))(
+        x, vl, vr, m, s, sds, sds)
+    want = np.concatenate([np.asarray(dx), np.asarray(dvl)], axis=1)
+    got = K.attn_bwd2_units_reference(lay, *_t(x, vl), torch.cat(_t(*tab), dim=1), SLOPE,
+                                      tg.c_pad).numpy()
+    a_tab = torch.cat(_t(np.abs(dout), vr, m, s, -np.abs(sds)), dim=1)
+    scale = K.attn_bwd2_reference(lay, *_t(np.abs(x), vl), a_tab, SLOPE, tg.c_pad).numpy()
+    assert got.shape == want.shape == (tg.c_pad, HF + nh)
+    assert (np.abs(got - want) <= 1e-4 + 1e-4 * scale).all(), np.abs(got - want).max()
+    if case == "whole row masked":
+        assert (got[int(units.split_node[0])] == 0).all()
+
+
+@pytest.mark.parametrize("nh", HEADS)
+def test_bwd2_dvl_rewrite_is_exact_in_float64(graphs, wide_hub_graphs, nh):
+    """dvl = sum p lr' (<dout, x[c]> - sds) taken as <sum p lr' dout, x[c]>
+    - sum p lr' sds: the same number up to rounding, so the units emulation
+    equals the slot-by-slot plain version in float64 to 1e-10."""
+    for _, tg, _ in (graphs, wide_hub_graphs):
+        x, vl, tab = _bwd2_tables(tg, nh, seed=40 + nh)
+        args = (*(t.double() for t in _t(x, vl)), torch.cat(_t(*tab), dim=1).double())
+        got = K.attn_bwd2_units_reference(tg.attn.t, *args, SLOPE, tg.c_pad)
+        want = K.attn_bwd2_reference(tg.attn.t, *args, SLOPE, tg.c_pad)
+        assert got.dtype == torch.float64
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-10)
 
 
 def test_attention_aggregate_matches_jax(graphs, oracle):

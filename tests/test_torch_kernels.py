@@ -23,7 +23,7 @@ import gala_tpu_torch.data.ell as tell
 import gala_tpu_torch.data.reordering as treo
 import gala_tpu_torch.data.subgraph as tsub
 import gala_tpu_torch.data.synthetic as tsyn
-from gala_tpu_torch.ops.graph import UNIT_SLOTS, Graph
+from gala_tpu_torch.ops.graph import UNIT_SLOTS, Graph, masked_units
 from gala_tpu_torch.ops.kernels import _build
 from gala_tpu_torch.ops.kernels import attn_bell
 from gala_tpu_torch.ops.kernels import bell_spmm as kernel
@@ -103,6 +103,8 @@ def test_kernel_source_targets_hopper_and_names_what_it_replaces():
         src = f.read()
     assert "gala_tpu/ops/pallas/gather.py::gather_rows" in src
     assert os.path.dirname(gather._SRC) == os.path.dirname(kernel._SRC)
+    with open(os.path.join(_build.CSRC_DIR, "probe.cu")) as f:
+        assert "gala_tpu/ops/pallas/__init__.py::mosaic_available" in f.read()
 
 
 @pytest.fixture
@@ -152,22 +154,6 @@ def long_row_host(length: int, seed=3):
                           rng.integers(2, m, length), np.arange(3, m, 3)])
     vals = rng.uniform(0.5, 1.5, src.shape[0]).astype(np.float32)
     return tcsr.coo_to_csr(src, dst, vals, n_rows=n)
-
-
-def masked_units(lay, every: int = 2):
-    """The layout with the occupancy of every `every`-th split unit set to
-    0 and one split row wholly masked: all-masked units and rows."""
-    vals = lay.flat_vals.clone()
-    u = lay.units
-    split = (u.part >= 0).nonzero().flatten().tolist()
-    for i in split[::every]:
-        s, n = int(u.start[i]), int(u.length[i])
-        vals[s : s + n] = 0
-    if u.split_node.numel():
-        row = (lay.row_node == u.split_node[0]).nonzero().flatten()[0]
-        s, n = int(lay.row_start[row]), int(lay.row_len[row])
-        vals[s : s + n] = 0
-    return dataclasses.replace(lay, flat_vals=vals)
 
 
 @pytest.mark.cuda
@@ -222,6 +208,49 @@ def test_attention_forward_on_long_rows_and_masked_units(cuda, length, hf, nh):
                      attn_bell.attn_fwd_units_reference(lay, x, vl, vr, 0.2, g.n_pad, True)):
             for a, b, sc in zip(got, want, (scale[0], 0.0, want[2], scale[3], want[4])):
                 assert ((a - b).abs() <= 1e-4 + 1e-4 * sc).all()
+
+
+BWD2_ROWS = [L + 1, 1000, 52 * L]  # transpose rows of 2, 8 and 52 units
+BWD2_SHAPES = [(32, 1), (40, 1), (33, 1), (32, 4), (32, 8), (40, 8)]  # (hf, H)
+
+
+def bwd2_inputs(g, hf, nh, gen):
+    """x, vl and a destination table [dout | vr | m | s | sds] drawn on the
+    card (pass 2 is a function of the table alone)."""
+    rand = lambda *shape: torch.randn(shape, generator=gen, device=g.device)  # noqa: E731
+    s = torch.rand((g.n_pad, nh), generator=gen, device=g.device) * 1.5 + 0.5
+    w_tab = torch.cat([rand(g.n_pad, hf), rand(g.n_pad, nh), rand(g.n_pad, nh), s,
+                       rand(g.n_pad, nh)], dim=1)
+    return rand(g.c_pad, hf), rand(g.c_pad, nh), w_tab
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hf,nh", BWD2_SHAPES)
+@pytest.mark.parametrize("length", BWD2_ROWS)
+def test_bwd2_over_units_matches_plain_versions(cuda, length, hf, nh):
+    """bwd2 over the transpose layout's work units against attn_bwd2_reference
+    and attn_bwd2_units_reference, on a source row of `length` slots as
+    built and with masked units; one head, 4 and 8 (fh 40 / 33 / 5 take
+    scalar loads, 33 and 40 at 8 heads two 32-vector slices); two calls
+    bitwise equal; one launch counted per call.  Tolerance 1e-4 + 1e-4 *
+    the plain version on magnitudes, as compare_with_plain takes it."""
+    g = Graph.from_host(long_row_host(length), strategy="bell", device=cuda, attention=True)
+    assert int(g.attn.t.row_len.max()) >= length and g.attn.t.units.n_partials
+    gen = torch.Generator(device=cuda).manual_seed(length + hf * 10 + nh)
+    x, vl, w_tab = bwd2_inputs(g, hf, nh, gen)
+    a_tab = torch.cat([w_tab[:, :hf].abs(), w_tab[:, hf : hf + 3 * nh],
+                       -w_tab[:, hf + 3 * nh :].abs()], dim=1)
+    for lay in (g.attn.t, masked_units(g.attn.t)):
+        launches = attn_bell.counts["attn_bwd2"].launches
+        got = attn_bell.attn_bwd2(lay, x, vl, w_tab, 0.2, g.c_pad)
+        again = attn_bell.attn_bwd2(lay, x, vl, w_tab, 0.2, g.c_pad)
+        torch.cuda.synchronize()
+        assert attn_bell.counts["attn_bwd2"].launches == launches + 2
+        assert torch.equal(got, again) and torch.isfinite(got).all()
+        scale = attn_bell.attn_bwd2_reference(lay, x.abs(), vl, a_tab, 0.2, g.c_pad)
+        for want in (attn_bell.attn_bwd2_reference(lay, x, vl, w_tab, 0.2, g.c_pad),
+                     attn_bell.attn_bwd2_units_reference(lay, x, vl, w_tab, 0.2, g.c_pad)):
+            assert ((got - want).abs() <= 1e-4 + 1e-4 * scale).all()
 
 
 @pytest.mark.cuda
@@ -320,6 +349,81 @@ def test_kernel_with_slot_values_on_ell_matches_plain_version(cuda, case, f):
         ref = kernel.bell_spmm_rows_reference(lay, inp, n_out, vals)
         scale = kernel.bell_spmm_rows_reference(lay, inp.abs(), n_out, vals)
         assert ((out - ref).abs() <= 1e-4 + 1e-4 * scale).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [1, 32, 33, 40])
+@pytest.mark.parametrize("length", [L + 1, 52 * L])
+def test_sddmm_on_hub_edge_lists_is_repeatable(cuda, length, f):
+    """The SDDMM over an edge list with a destination of `length` edges and
+    a source of `length` edges: within 1e-4 + 1e-4 * sum_f |a||b| of the
+    plain version, and two calls bitwise equal; then with an unaligned
+    table (scalar loads) and unaligned, odd-length edge lists (the
+    indices' scalar path and a ragged last run)."""
+    g = Graph.from_host(long_row_host(length), strategy="segment", device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(length + f)
+    a = torch.randn((g.c_pad, f), generator=gen, device=cuda)
+    b = torch.randn((g.n_pad, f), generator=gen, device=cuda)
+    a2 = torch.randn((g.c_pad * f + 1,), generator=gen, device=cuda)[1:].view(g.c_pad, f)
+    for src, dst, av in ((g.src, g.dst, a), (g.src, g.dst, a2), (g.src[1:], g.dst[1:], a),
+                         (g.src[3:-2], g.dst[3:-2], a2)):
+        out = sddmm.sddmm(src, dst, av, b)
+        again = sddmm.sddmm(src, dst, av, b)
+        torch.cuda.synchronize()
+        assert torch.equal(out, again) and out.shape == src.shape
+        ref = sddmm.sddmm_reference(src, dst, av, b)
+        scale = sddmm.sddmm_reference(src, dst, av.abs(), b.abs())
+        assert ((out - ref).abs() <= 1e-4 + 1e-4 * scale).all()
+
+
+@pytest.mark.cuda
+def test_toolchain_probe_passes_on_the_card(cuda):
+    assert _build.toolchain_available() is True
+
+
+@pytest.mark.cuda
+def test_memory_field_is_each_models_live_memory(cuda):
+    """memMB (print_memory) is the live allocation at the warm-up
+    boundary: a small model compiled after a large one in the same
+    process reports far less than the large one's peak, which the field
+    (a peak reading) used to carry over.  What outlives a model is
+    cuBLAS's workspaces alone (one per thread that ran a matmul: the
+    forward's and autograd's), which the small model's memMB includes as
+    live memory: clearing them leaves not a byte of either model."""
+    import gc
+
+    from __graft_entry__ import GCN_DSL
+    from gala_tpu_torch.api import compile_model
+    from gala_tpu_torch.dsl.parser import parse_source
+
+    def memory_mb(n, feats):
+        data = tsyn.synthetic_dataset(n=n, avg_degree=8, n_feats=feats, n_classes=5, seed=1,
+                                      undirected=True)
+        spec = parse_source(GCN_DSL)
+        spec.print_memory = True
+        cm = compile_model(spec, data=data, device=cuda)
+        return cm.train(iters=3, warmup=1).memory_mb
+
+    def workspaces_mb():
+        """What stays allocated after a model is gone, which clearing
+        cuBLAS's workspaces frees to the byte."""
+        gc.collect()
+        live = torch.cuda.memory_allocated(cuda)
+        torch._C._cuda_clearCublasWorkspaces()
+        assert torch.cuda.memory_allocated(cuda) == base
+        return (live - base) / 1e6
+
+    gc.collect()
+    torch._C._cuda_clearCublasWorkspaces()
+    base = torch.cuda.memory_allocated(cuda)  # what earlier tests keep
+    torch.cuda.reset_peak_memory_stats(cuda)
+    large = memory_mb(60000, 512) - base / 1e6
+    peak = torch.cuda.max_memory_allocated(cuda) / 1e6 - base / 1e6
+    assert workspaces_mb() > 0
+    small = memory_mb(20000, 16) - base / 1e6  # above the dense gate: bell
+    workspaces = workspaces_mb()
+    assert 0 < small < large < peak
+    assert small - workspaces < peak / 10
 
 
 @pytest.mark.cuda

@@ -172,6 +172,55 @@ def test_trainresult_csv_has_the_jax_format():
         assert TrainResult(**kw).csv(*flags) == JaxTrainResult(**kw).csv(*flags)
 
 
+def test_memory_field_reads_live_memory_at_the_warm_up_boundary(models, monkeypatch):
+    """memMB is gala_tpu's quantity: the live allocation (torch.cuda.
+    memory_allocated, gala_tpu's bytes_in_use), not the process's peak,
+    read once, when the warm-up epochs are done."""
+    import sys
+
+    from gala_tpu_torch import train as T
+
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda device=None: 123_000_000)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda device=None: 999_000_000)
+    assert T.device_memory_mb(torch.device("cuda", 0)) == 123.0
+    assert T.device_memory_mb("cpu") == 0.0
+
+    calls, live = [], T.device_memory_mb
+
+    def at_boundary(device):
+        calls.append(len(sys._getframe(1).f_locals["losses"]))  # epochs run so far
+        return live(device)
+
+    monkeypatch.setattr(T, "device_memory_mb", at_boundary)
+    _, tcm, _ = models
+    monkeypatch.setattr(tcm.spec, "print_memory", True)
+    res = tcm.train(iters=4, warmup=2)
+    assert calls == [2] and res.memory_mb == 0.0  # CPU graphs: no device memory
+    assert res.csv(print_memory=True).startswith("0.0,")
+
+
+def test_toolchain_probe_fails_here_with_a_warning(monkeypatch):
+    """Without nvcc and a card the probe answers False and warns with the
+    reason, and does not raise; it is asked once per process.  No module
+    of the port but ops/kernels/_build.py refers to it: no executor is
+    chosen by it."""
+    import shutil
+
+    from gala_tpu_torch.ops.kernels import _build
+
+    if torch.cuda.is_available() or shutil.which("nvcc"):
+        pytest.skip("a CUDA toolchain is present: the card test holds the probe")
+    monkeypatch.setattr(_build, "_toolchain_ok", None)
+    with pytest.warns(UserWarning, match="toolchain probe failed: .*nvcc"):
+        assert _build.toolchain_available(timeout=120) is False
+    assert _build.toolchain_available() is False
+    pkg = os.path.join(REPO, "gala_tpu_torch")
+    users = sorted(os.path.relpath(os.path.join(d, f), pkg)
+                   for d, _, files in os.walk(pkg) for f in files if f.endswith(".py")
+                   and "toolchain_available" in open(os.path.join(d, f)).read())
+    assert users == [os.path.join("ops", "kernels", "_build.py")]
+
+
 def test_weights_round_trip(models):
     _, _, jparams = models
     back = params_to_numpy(params_from_jax(jparams))
