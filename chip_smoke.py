@@ -14,12 +14,16 @@ and prints no "ok" line:
             toolchain probe (ops.kernels._build.toolchain_available: a
             child process builds and launches csrc/probe.cu, x * 2), for
             sm_90a into gala_tpu_torch/_build/; prints ptxas's registers
-            and spills (fails if bwd2's or the SDDMM's kernels spill),
-            the probe's answer (fails unless True) and its kernel against
-            x * 2 in this process, and, from the CUDA runtime, the launch
-            limits of the unit kernels (registers, static and dynamic
-            shared memory per block, resident blocks per SM; fails if no
-            block fits).
+            and spills (fails if bwd1's, bwd2's, their merge's or the
+            SDDMM's kernels spill), the probe's answer (fails unless
+            True) and its kernel against x * 2 in this process, bitwise,
+            at n = 1, 3, 16,384 and 2^20 + 3 and on views one float in,
+            then timed beside torch.mul at its 128 x 128 tile and at 2^26
+            floats (medians of 5 runs with their min-max, and the host's
+            time per call at the tile), and, from the CUDA runtime, the
+            launch limits of the unit kernels (registers, static and
+            dynamic shared memory per block, resident blocks per SM;
+            fails if no block fits).
 3. train    the port's GCN path, as a user calls it: compile
             __graft_entry__.GCN_DSL (2-layer GCN, hidden 32) on the Arxiv
             stand-in at full size (scale 1.0, strategy auto -> bell) on
@@ -59,15 +63,16 @@ and prints no "ok" line:
             of the summed terms), bwd1 also against the flash identity, on
             the GAT run's full-graph and training-subgraph layouts and on
             the generated hub graph, at (hf, H) = (32, 1), (40, 1), (32, 4),
-            and two forward calls bitwise equal; bwd2 (over the transpose
-            layout's work units) also against its units emulation and a
-            second call, bitwise, there and on the hub graph with masked
-            units; then attention_aggregate forward and backward on the
-            hub graph on the card against the same call on CPU tensors
-            (same tolerance form); then each kernel's and plain version's
-            times at the GAT path's shapes, and the forward's and bwd2's
-            on the full layout against the layout without its rows over
-            128 slots (bwd2 fails above 1.5x per slot).
+            and two forward calls bitwise equal; bwd1 (over the fwd
+            layout's work units) and bwd2 (over the transpose layout's)
+            also against their units emulations and a second call,
+            bitwise, there and on the hub graph with masked units; then
+            attention_aggregate forward and backward on the hub graph on
+            the card against the same call on CPU tensors (same tolerance
+            form); then each kernel's and plain version's times at the GAT
+            path's shapes, and each kernel's on the full layout against
+            the layout without its rows over 128 slots (bwd1 and bwd2
+            fail above 1.5x per slot).
 7. gat-edge the port's edge-valued GAT path: GAT_DSL with the
             attention_fusion pass off (the reference GALA's own GAT: SDDVV,
             leaky ReLU, edge softmax, SpMM with edge values) on the Arxiv
@@ -160,13 +165,15 @@ PROBE_SOURCE = "gala_tpu_torch/csrc/probe.cu"
 PROBE_REPLACES = "gala_tpu/ops/pallas/__init__.py:29"
 LIMITS_SOURCE = "gala_tpu_torch/csrc/unit_gather.cuh"
 LIMITS_REPLACES = "scripts/pallas_bisect.py:40"
-# kernels this slice redesigned: ptxas must report no spill for them
-NO_SPILL = ("attn_bwd2_kernel", "attn_bwd2_merge_kernel", "sddmm_kernel")
+# kernels redesigned since the first slices: ptxas must report no spill for them
+NO_SPILL = ("attn_bwd1_kernel", "attn_bwd2_kernel", "attn_merge_sum_kernel", "sddmm_kernel")
 TAIL_LIMIT = 1.5
 GATHER_SOURCE = "gala_tpu_torch/csrc/gather_rows.cu"
 GATHER_REPLACES = "gala_tpu/ops/pallas/gather.py:77"
 GATHER_WIDTHS = (1, 33, 128, 602)  # 602: the Reddit stand-in's width
 GATHER_ROWS = (0, 1, 2047, 2049)
+PROBE_SIZES = (1, 3, 16384, 2**20 + 3)  # the probe kernel against x * 2, bitwise
+PROBE_TIMED = {"128x128": (128, 128), "2^26": (2**26,)}  # its tile; 512 MB moved
 # the least time of a call: the larger of its bytes over the HBM rate and
 # its operations over the f32 rate outside the tensor cores (NVIDIA's H100
 # SXM data sheet, at a 700 W power limit)
@@ -273,33 +280,42 @@ def hub_graph(device, attention=False, strategy="bell"):
                                  edge_vals=strategy != "bell")
 
 
-def check_bwd2(ak, what, lay, x, vl, w_tab, c_pad):
-    """bwd2 over units against its plain version and its units emulation
-    (compare_with_plain's tolerance: 1e-4 + 1e-4 * the plain version on
-    magnitudes) and against a second call, bitwise.  Returns the largest
-    |kernel - plain|."""
-    hf, nh = x.shape[1], vl.shape[1]
-    got = ak.attn_bwd2(lay, x, vl, w_tab, SLOPE, c_pad)
-    again = ak.attn_bwd2(lay, x, vl, w_tab, SLOPE, c_pad)
+def check_units(ak, kind, what, lay, *args):
+    """bwd1 or bwd2 over units against its plain version and its units
+    emulation (compare_with_plain's tolerance: 1e-4 + 1e-4 * the plain
+    version on magnitudes) and against a second call, bitwise.  kind
+    "bwd1": args x, vl, vr, dout, m, s on a fwd layout (its sds, A, B side
+    by side); "bwd2": x, vl, w_tab, c_pad on a transpose layout.  Returns
+    the largest |kernel - plain|."""
+    if kind == "bwd1":
+        x, vl, vr, dout, m, s = args
+        call = lambda fn: torch.cat(fn(lay, x, vl, vr, dout, m, s, SLOPE), dim=1)  # noqa: E731
+        a_sds, _, a_b = ak.attn_bwd1_reference(lay, x.abs(), vl, vr, dout.abs(), m, s, SLOPE)
+        scale = torch.cat([a_sds, a_sds, a_b], dim=1)
+    else:
+        x, vl, w_tab, c_pad = args
+        hf, nh = x.shape[1], vl.shape[1]
+        call = lambda fn: fn(lay, x, vl, w_tab, SLOPE, c_pad)  # noqa: E731
+        a_tab = torch.cat([w_tab[:, :hf].abs(), w_tab[:, hf : hf + 3 * nh],
+                           -w_tab[:, hf + 3 * nh :].abs()], dim=1)
+        scale = ak.attn_bwd2_reference(lay, x.abs(), vl, a_tab, SLOPE, c_pad)
+    kernel, plain, units = (getattr(ak, f"attn_{kind}{end}")
+                            for end in ("", "_reference", "_units_reference"))
+    got, again = call(kernel), call(kernel)
     torch.cuda.synchronize()
-    a_tab = torch.cat([w_tab[:, :hf].abs(), w_tab[:, hf : hf + 3 * nh],
-                       -w_tab[:, hf + 3 * nh :].abs()], dim=1)
-    scale = ak.attn_bwd2_reference(lay, x.abs(), vl, a_tab, SLOPE, c_pad)
     errs = {}
-    for name, want in (("plain", ak.attn_bwd2_reference(lay, x, vl, w_tab, SLOPE, c_pad)),
-                       ("units emulation",
-                        ak.attn_bwd2_units_reference(lay, x, vl, w_tab, SLOPE, c_pad))):
+    for name, want in (("plain", call(plain)), ("units emulation", call(units))):
         err = (got - want).abs()
         errs[name] = (err.max().item(), int((err > ATOL + RTOL * scale).sum()))
     same = torch.equal(got, again)
-    print(f"[attn-kernel] bwd2 over units, {what}: max |kernel - plain| {errs['plain'][0]:.2e}, "
-          f"- units emulation {errs['units emulation'][0]:.2e}; "
+    print(f"[attn-kernel] {kind} over units, {what}: max |kernel - plain| "
+          f"{errs['plain'][0]:.2e}, - units emulation {errs['units emulation'][0]:.2e}; "
           f"{sum(v[1] for v in errs.values())} elements out of tolerance; two calls bitwise "
           f"equal: {same}")
     if any(v[1] for v in errs.values()) or not torch.isfinite(got).all():
-        raise AssertionError(f"bwd2 {what}: out of tolerance {errs}")
+        raise AssertionError(f"{kind} {what}: out of tolerance {errs}")
     if not same:
-        raise AssertionError(f"bwd2 {what}: two calls differ")
+        raise AssertionError(f"{kind} {what}: two calls differ")
     return errs["plain"][0]
 
 
@@ -534,11 +550,18 @@ def phase_attn_kernel(cm, ak):
             x, vl, vr, dout = inputs
             out, m, s = twice[0][:3]
             w_tab = torch.cat([dout, vr, m, s, ak.per_head_dot(dout, out, nh)], dim=1)
-            lays = [("", g.attn.t)] + ([(", masked units", masked_units(g.attn.t))]
-                                       if gname == "hub graph" else [])
-            for extra, lay in lays:
-                err = check_bwd2(ak, f"{gname}{extra} hf={hf} H={nh}", lay, x, vl, w_tab, g.c_pad)
-                max_err["attn_bwd2"] = max(max_err["attn_bwd2"], err)
+            for side, kind in (("fwd", "bwd1"), ("t", "bwd2")):
+                lay = getattr(g.attn, side)
+                lays = [("", lay)] + ([(", masked units", masked_units(lay))]
+                                      if gname == "hub graph" else [])
+                for extra, lay in lays:
+                    if kind == "bwd1":  # under the forward's (m, s) on this layout
+                        args = (x, vl, vr, dout,
+                                *ak.attn_fwd_reference(lay, x, vl, vr, SLOPE, g.n_pad, False)[1:3])
+                    else:
+                        args = (x, vl, w_tab, g.c_pad)
+                    err = check_units(ak, kind, f"{gname}{extra} hf={hf} H={nh}", lay, *args)
+                    max_err[f"attn_{kind}"] = max(max_err[f"attn_{kind}"], err)
 
     # the op with its autograd on the card against the same op on CPU tensors
     hub_cpu = hub_graph("cpu", attention=True)[1]
@@ -600,13 +623,17 @@ def phase_attn_kernel(cm, ak):
         timings[("tail", hf)] = tail_ratio(
             "attn-kernel", f"attn_fwd arxiv full hf={hf} H={nh}", lay_f,
             lambda lay: ak.attn_fwd(lay, x, vl, vr, SLOPE, full.n_pad, True))
+        timings[("tail bwd1", hf)] = tail_ratio(
+            "attn-kernel", f"attn_bwd1 arxiv full hf={hf} H={nh}", lay_f,
+            lambda lay: ak.attn_bwd1(lay, x, vl, vr, dout, m, s, SLOPE))
         timings[("tail bwd2", hf)] = tail_ratio(
             "attn-kernel", f"attn_bwd2 arxiv full hf={hf} H={nh}", lay_t,
             lambda lay: ak.attn_bwd2(lay, x, vl, w_tab, SLOPE, full.c_pad))
-        if timings[("tail bwd2", hf)][2] > TAIL_LIMIT:
-            raise AssertionError(f"attn_bwd2 hf={hf}: a slot of a long row costs "
-                                 f"{timings[('tail bwd2', hf)][2]:.3f}x one of a short row "
-                                 f"(limit {TAIL_LIMIT})")
+        for tail in ("tail bwd1", "tail bwd2"):
+            if timings[(tail, hf)][2] > TAIL_LIMIT:
+                raise AssertionError(f"attn_{tail[5:]} hf={hf}: a slot of a long row costs "
+                                     f"{timings[(tail, hf)][2]:.3f}x one of a short row "
+                                     f"(limit {TAIL_LIMIT})")
     return max_err, timings
 
 
@@ -910,24 +937,61 @@ def phase_gather_kernel(arxiv, kg):
 
 def phase_probe():
     """The toolchain probe's kernel in this process (its library is the one
-    the probe's child process built): x * 2 on its 128 x 128 tile against
-    the plain product, bitwise, and timed beside torch.mul.  Returns
-    (max |kernel - plain|, kernel ms, plain ms, library ms, bound)."""
+    the probe's child process built): x * 2 against the plain product,
+    bitwise, at PROBE_SIZES and on views one float in (scalar stores);
+    then the kernel, the plain product and torch.mul timed at the probe's
+    128 x 128 tile and at 2^26 floats, each the median of 5 runs of 50
+    calls with its min-max, and the host's time per call at the tile.
+    Returns (max |kernel - plain|, {size: times})."""
+    import statistics
+
     from gala_tpu_torch.ops.kernels._build import probe_x2
 
-    x = torch.randn((128, 128), generator=torch.Generator(device="cuda").manual_seed(0),
-                    device="cuda")
-    err = (probe_x2(x) - x * 2.0).abs().max().item()
-    if err != 0.0:
-        raise AssertionError(f"the probe kernel computes x * 2 wrongly: {err}")
-    t_kernel = cuda_ms(lambda: probe_x2(x), reps=50)
-    t_plain = cuda_ms(lambda: x * 2.0, reps=50)
-    t_lib = cuda_ms(lambda: torch.mul(x, 2.0), reps=50)
-    ms, by = bound(2 * nbytes(x), x.numel())
-    print(f"[build] probe kernel x * 2 (128 x 128 f32): bitwise equal to the plain product; "
-          f"kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms, torch.mul {t_lib:.4f} ms, "
-          f"bound {ms:.6f} ms ({by})")
-    return err, t_kernel, t_plain, t_lib, (ms, by)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    err = 0.0
+    for n in PROBE_SIZES:
+        x = torch.randn((n + 1,), generator=gen, device="cuda")
+        for v in (x[:n], x[1:]):
+            got = probe_x2(v)
+            if got.shape != v.shape or not torch.equal(got, v * 2.0):
+                raise AssertionError(f"the probe kernel computes x * 2 wrongly at n={n}, "
+                                     f"offset {v.storage_offset()}")
+            err = max(err, (got - v * 2.0).abs().max().item())
+    print(f"[build] probe kernel x * 2: bitwise equal to the plain product at n = "
+          f"{', '.join(map(str, PROBE_SIZES))}, aligned and one float in")
+
+    def runs(fn):
+        t = sorted(cuda_ms(fn, reps=50) for _ in range(5))
+        return statistics.median(t), (t[0], t[-1])
+
+    def host_ms(fn, calls=200):
+        """The host's time per call, enqueue only (the card may lag)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (t1 - t0) / calls * 1e3
+
+    times = {}
+    for label, shape in PROBE_TIMED.items():
+        x = torch.randn(shape, generator=gen, device="cuda")
+        t = {"ms": runs(lambda: probe_x2(x)), "plain_ms": runs(lambda: x * 2.0),
+             "library_ms": runs(lambda: torch.mul(x, 2.0)),
+             "bound": bound(2 * nbytes(x), x.numel())}
+        if label == "128x128":
+            t["host_ms"] = {"probe_x2": host_ms(lambda: probe_x2(x)),
+                            "torch.mul": host_ms(lambda: torch.mul(x, 2.0))}
+        times[label] = t
+        print(f"[build] probe kernel x * 2 at {label} f32: kernel {t['ms'][0]:.4f} ms "
+              f"({t['ms'][1][0]:.4f}-{t['ms'][1][1]:.4f}), plain {t['plain_ms'][0]:.4f} ms, "
+              f"torch.mul {t['library_ms'][0]:.4f} ms ({t['library_ms'][1][0]:.4f}-"
+              f"{t['library_ms'][1][1]:.4f}), bound {t['bound'][0]:.6f} ms ({t['bound'][1]})"
+              + ("" if "host_ms" not in t else
+                 f"; host per call: probe_x2 {t['host_ms']['probe_x2']:.4f} ms, torch.mul "
+                 f"{t['host_ms']['torch.mul']:.4f} ms"))
+    return err, times
 
 
 def phase_cli():
@@ -1057,14 +1121,12 @@ def main() -> int:
     }]
     for name in ak.NAMES:
         t_kernel, t_plain, ms, by = attn_timings[(name, 32)]
-        tail = {"attn_fwd": "tail", "attn_bwd2": "tail bwd2"}.get(name)
-        extra = {} if tail is None else {
+        tail = {"attn_fwd": "tail", "attn_bwd1": "tail bwd1", "attn_bwd2": "tail bwd2"}[name]
+        kernels.append({
             "ms_by_width": {hf: attn_timings[(name, hf)][0] for hf, _ in ATTN_SHAPES[:2]},
             "tail_by_width": {hf: dict(zip(("full_ms", "short_rows_ms", "per_slot_ratio"),
                                            attn_timings[(tail, hf)]))
-                              for hf, _ in ATTN_SHAPES[:2]}}
-        kernels.append({
-            **extra,
+                              for hf, _ in ATTN_SHAPES[:2]},
             "name": name, "route": "cuda", "source": ATTN_SOURCE,
             "replaces": ATTN_REPLACES[name], "launches": gat_launches.get(name, 0),
             "kernel_phase_launches": phase_launches.get(name, 0),
@@ -1093,12 +1155,20 @@ def main() -> int:
         "at": "arxiv feature table (169,343 x 128 f32), one batch's n2 (128,000 rows)",
         "path": "sage-minibatch",
     })
-    err, t_kernel, t_plain, t_lib, (ms, by) = probe
+    err, probe_times = probe
+    tile = probe_times["128x128"]
     kernels.append({
         "name": "toolchain_probe", "route": "cuda", "source": PROBE_SOURCE,
         "replaces": PROBE_REPLACES, "launches": probe_launches, "max_abs_err": err,
-        "ms": t_kernel, "plain_ms": t_plain, "bound_ms": ms, "bound_by": by, "library_ms": t_lib,
-        "at": "x * 2 on a 128 x 128 f32 tile",
+        "ms": tile["ms"][0], "plain_ms": tile["plain_ms"][0], "bound_ms": tile["bound"][0],
+        "bound_by": tile["bound"][1], "library_ms": tile["library_ms"][0],
+        "at": "x * 2 on a 128 x 128 f32 tile (medians of 5 runs of 50 calls)",
+        "by_size": {label: {"ms": t["ms"][0], "ms_min_max": t["ms"][1],
+                            "plain_ms": t["plain_ms"][0], "library_ms": t["library_ms"][0],
+                            "library_ms_min_max": t["library_ms"][1], "bound_ms": t["bound"][0],
+                            "bound_by": t["bound"][1], **({"host_ms_per_call": t["host_ms"]}
+                                                          if "host_ms" in t else {})}
+                    for label, t in probe_times.items()},
         "path": "build phase (toolchain_available: launched in its child process)",
     })
     kernels.append({

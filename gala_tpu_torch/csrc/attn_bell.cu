@@ -13,8 +13,8 @@
 //   out[r, h*fh:(h+1)*fh] = sum_c p * x[c, h*fh:(h+1)*fh]
 // The TPU kernels run one degree-class segment per call and emit
 // per-virtual-row partials for hub nodes, which XLA merges with segment
-// ops.  Here the forward and bwd2 each cover a whole layout in one call of
-// two launches over the layout's work units (ops/graph.py WorkUnits;
+// ops.  Here each kernel covers a whole layout in one call of two
+// launches over the layout's work units (ops/graph.py WorkUnits;
 // unit_gather.cuh), as the bell SpMM does.  The forward:
 //   pass 1  one warp per unit of at most 128 slots: the unit's softmax
 //           statistics (one max and two sums per head for the whole unit,
@@ -37,15 +37,26 @@
 //           (x[c] is one row for the whole unit).  A whole row writes
 //           [dx | dvl]; a unit of a split row writes that plain partial.
 //   pass 2  one block per split row sums its partials in unit order.
-// bwd1 (off the GAT path: it takes the flash identity) keeps one warp per
-// descriptor row; a hub is one row that its warp walks whole.  No
-// atomics: every sum is taken in a fixed order, so results are
+// bwd1 (off the GAT path: it takes the flash identity), on the fwd
+// layout's units, with the rows' saved (m, s):
+//   pass 1  one warp per unit: the forward's scalar and gather phases
+//           under the row's max m_r (no max, no rescaling), so one read
+//           of each x[c] slice sums acc = sum p x and acc+ = sum_{zpre>0}
+//           p x; then sds = <dout[r], acc> and A = slope sds + (1 - slope)
+//           <dout[r], acc+> once per unit (dout[r] is one row for the
+//           whole unit), B from the probabilities' two sums.  A whole row
+//           writes [sds | A | B]; a unit of a split row that plain
+//           partial.
+//   pass 2  bwd2's: one block per split row sums its partials in unit
+//           order.
+// No atomics: every sum is taken in a fixed order, so results are
 // deterministic.
 //
 // What bounds them on the H100: bytes.  Per real slot the forward reads
 // 8 bytes of (col, occupancy), H scores of vl and one hf-wide row of x;
 // bwd2 reads 8 bytes of (col, occupancy) and one (hf + 4H)-wide row
-// [dout | vr | m | s | sds] of the destination, once.  There are a few
+// [dout | vr | m | s | sds] of the destination, once; bwd1 what the
+// forward reads, and writes 3H floats a row.  There are a few
 // flops per gathered float (an exp per slot and head), and no tile is
 // reused, so tensor cores have no role.
 // The forward's design: per-slot scalar work lane-per-slot (a unit's 128
@@ -57,13 +68,14 @@
 // shape: its scalar phase keeps its per-head sums in shared memory, not
 // registers, and one warp walks every g-vector slice of a wide row
 // itself, so dvl's dot sees the whole head.
-// Both are instantiated for one head and for up to 8, so the one-head GAT
-// path keeps 32 registers and 8 blocks per SM (bwd2's 8-head form asks
-// for 5 blocks per SM, and so does not spill).  bwd1 gathers with plain
-// loads, 32 slots a chunk.
+// bwd1's pass 1 calls the forward's phases (unit_scores, unit_probs,
+// unit_gather), one head at a time in its scalar phase, and walks the
+// slices as bwd2 does.  All three are instantiated for one head and for
+// up to 8, so the one-head GAT path keeps 32 registers and 8 blocks per
+// SM (bwd2's 8-head form asks for 5 blocks per SM, and so does not
+// spill).
 //
-// Not done yet (later work, see ROADMAP): bwd1's hub rows are one warp
-// each (it is off the path); f32 only.
+// Not done yet (later work, see ROADMAP): f32 only.
 //
 // Masked slots (occupancy 0: padding and the phantom column) are skipped
 // without reading their rows.  Output rows that no unit or row writes
@@ -107,21 +119,6 @@ __device__ __forceinline__ float pick(const float (&a)[N], int h) {
   return v;
 }
 
-// <a[0:n], b[0:n]>, n a multiple of VEC
-template <int VEC>
-__device__ __forceinline__ float dot(const float* __restrict__ a, const float* __restrict__ b,
-                                     int n) {
-  float acc = 0.f;
-  for (int f = 0; f < n; f += VEC) {
-    float u[VEC], w[VEC];
-    load_vec<VEC>(a + f, u);
-    load_vec<VEC>(b + f, w);
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) acc = fmaf(u[i], w[i], acc);
-  }
-  return acc;
-}
-
 // The forward's dynamic shared memory per warp: the unit's columns, then
 // H rows of kUnitSlots probabilities, each stored with the
 // sign of its zpre (+p where zpre > 0, -p elsewhere: the flash
@@ -131,6 +128,89 @@ __host__ __device__ constexpr size_t fwd_warp_smem(int nh) {
 }
 static_assert(fwd_warp_smem(kMaxHeads) * kWarpsPerBlock <= kDefaultSmem,
               "the forward would need cudaFuncSetAttribute");
+
+// The phases that the forward and bwd1 share (bwd1 runs them under the
+// row's saved max instead of the unit's own).
+//
+// Scalar phase, loads: lane t takes slots t, t + 32, t + 64 and t + 96 of
+// the unit, writes their columns to sm.col and keeps each slot's mask
+// (real: occupancy != 0) and its scores zpre = vl[c, h0 + j] + vr_n[j]
+// for the N heads from h0 (0 on a masked slot or a head >= nh).
+template <int N>
+__device__ __forceinline__ void unit_scores(UnitSmem& sm, const int32_t* __restrict__ cols,
+                                            const float* __restrict__ occ,
+                                            const float* __restrict__ vl,
+                                            const float (&vr_n)[N], int start, int len, int nh,
+                                            int h0, int lane, float (&zpre)[kPer][N],
+                                            bool (&real)[kPer]) {
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int t = lane + i * kWarp;
+    int c = 0;
+    real[i] = false;
+    if (t < len) {
+      c = __ldg(cols + start + t);
+      real[i] = __ldg(occ + start + t) != 0.f;
+      sm.col[t] = c;
+    }
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      zpre[i][j] = 0.f;
+      if (h0 + j < nh && real[i])
+        zpre[i][j] = __ldg(vl + static_cast<size_t>(c) * nh + h0 + j) + vr_n[j];
+    }
+  }
+}
+
+// Scalar phase, probabilities of score column j under the max m: p =
+// e^(lrelu(zpre) - m) on a real slot, 0 on a masked one, stored at ph[t]
+// with the sign of zpre; adds the lane's p to s and, where zpre > 0, to sp.
+template <int N>
+__device__ __forceinline__ void unit_probs(const float (&zpre)[kPer][N], const bool (&real)[kPer],
+                                           int j, float m, float slope, int len, int lane,
+                                           float* ph, float& s, float& sp) {
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int t = lane + i * kWarp;
+    const float p = real[i] ? expf(lrelu(zpre[i][j], slope) - m) : 0.f;
+    const bool pos = zpre[i][j] > 0.f;
+    s += p;
+    if (pos) sp += p;
+    if (t < len) ph[t] = pos ? p : -p;
+  }
+}
+
+// Gather phase, lanes across features: acc = sum |ph[j]| x[col[j]] and,
+// with `pos`, acc+ = the same over the slots of ph[j] > 0 (zpre > 0), over
+// the lane's slot group, then summed over the slot groups (lanes that
+// share lane % g hold one vector).  A slot of weight 0 (masked, or
+// underflowed) is not read.
+template <int VEC>
+__device__ __forceinline__ void unit_gather(const UnitSmem& sm, int len,
+                                            const float* __restrict__ x, int hf, const Lanes& ln,
+                                            const float* ph, bool pos, float (&acc)[VEC],
+                                            float (&accp)[VEC]) {
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) acc[i] = accp[i] = 0.f;
+  gather_unit<VEC>(sm, len, x, hf, ln, [&](int j) { return ph[j] != 0.f; },
+                   [&](int j, const float (&v)[VEC]) {
+                     const float pv = ph[j];
+                     const float p = fabsf(pv);
+#pragma unroll
+                     for (int i = 0; i < VEC; ++i) acc[i] = fmaf(p, v[i], acc[i]);
+                     if (pos && pv > 0.f) {
+#pragma unroll
+                       for (int i = 0; i < VEC; ++i) accp[i] = fmaf(pv, v[i], accp[i]);
+                     }
+                   });
+  for (int off = kWarp / 2; off >= ln.g; off >>= 1) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      acc[i] += __shfl_xor_sync(kFullMask, acc[i], off);
+      if (pos) accp[i] += __shfl_xor_sync(kFullMask, accp[i], off);
+    }
+  }
+}
 
 // Forward pass 1: one warp per unit.  With outpos != null the flash
 // statistics out+ = sum_{zpre>0} p x and s+ = sum_{zpre>0} p are taken
@@ -163,8 +243,8 @@ attn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ vl,
   const int start = unit_start[unit];
   const int len = unit_len[unit];
 
-  // scalar phase: lane t scores slots t, t + 32, t + 64 and t + 96 of the
-  // unit for every head; one max and two sums per head for the unit
+  // scalar phase: every head's scores, then one max and two sums per head
+  // for the unit
   float vr_n[MAXH], m_u[MAXH], s_u[MAXH], sp_u[MAXH];
 #pragma unroll
   for (int h = 0; h < MAXH; ++h) {
@@ -174,69 +254,27 @@ attn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ vl,
   }
   float zpre[kPer][MAXH];
   bool real[kPer];
+  unit_scores<MAXH>(sm, cols, occ, vl, vr_n, start, len, nh, 0, ln.lane, zpre, real);
 #pragma unroll
   for (int i = 0; i < kPer; ++i) {
-    const int t = ln.lane + i * kWarp;
-    int c = 0;
-    real[i] = false;
-    if (t < len) {
-      c = __ldg(cols + start + t);
-      real[i] = __ldg(occ + start + t) != 0.f;
-      sm.col[t] = c;
-    }
 #pragma unroll
-    for (int h = 0; h < MAXH; ++h) {
-      zpre[i][h] = 0.f;
-      if (h < nh && real[i]) {
-        zpre[i][h] = __ldg(vl + static_cast<size_t>(c) * nh + h) + vr_n[h];
-        m_u[h] = fmaxf(m_u[h], lrelu(zpre[i][h], slope));
-      }
-    }
+    for (int h = 0; h < MAXH; ++h)
+      if (h < nh && real[i]) m_u[h] = fmaxf(m_u[h], lrelu(zpre[i][h], slope));
   }
 #pragma unroll
   for (int h = 0; h < MAXH; ++h) {
     if (h < nh) {
       m_u[h] = warp_max(m_u[h]);
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) {
-        const int t = ln.lane + i * kWarp;
-        const float p = real[i] ? expf(lrelu(zpre[i][h], slope) - m_u[h]) : 0.f;
-        const bool pos = zpre[i][h] > 0.f;
-        s_u[h] += p;
-        if (pos) sp_u[h] += p;
-        if (t < len) sh_p[h * kUnitSlots + t] = pos ? p : -p;
-      }
+      unit_probs<MAXH>(zpre, real, h, m_u[h], slope, len, ln.lane, sh_p + h * kUnitSlots, s_u[h],
+                       sp_u[h]);
       s_u[h] = warp_sum(s_u[h]);
       if (flash) sp_u[h] = warp_sum(sp_u[h]);
     }
   }
   __syncwarp();
 
-  // reduce phase: lanes across features; a slot of weight 0 (masked, or underflowed) is not read
   float acc[VEC], accp[VEC];
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) acc[i] = accp[i] = 0.f;
-  const float* ph = sh_p + ln.hd * kUnitSlots;
-  gather_unit<VEC>(sm, len, x, hf, ln, [&](int j) { return ph[j] != 0.f; },
-                   [&](int j, const float (&v)[VEC]) {
-                     const float pv = ph[j];
-                     const float p = fabsf(pv);
-#pragma unroll
-                     for (int i = 0; i < VEC; ++i) acc[i] = fmaf(p, v[i], acc[i]);
-                     if (flash && pv > 0.f) {
-#pragma unroll
-                       for (int i = 0; i < VEC; ++i) accp[i] = fmaf(pv, v[i], accp[i]);
-                     }
-                   });
-
-  // sum the slot groups: lanes that share (lane % g) hold one vector
-  for (int off = kWarp / 2; off >= ln.g; off >>= 1) {
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) {
-      acc[i] += __shfl_xor_sync(kFullMask, acc[i], off);
-      if (flash) accp[i] += __shfl_xor_sync(kFullMask, accp[i], off);
-    }
-  }
+  unit_gather<VEC>(sm, len, x, hf, ln, sh_p + ln.hd * kUnitSlots, flash, acc, accp);
 
   const int p = unit_part[unit];
   const size_t col = static_cast<size_t>(ln.vcol) * VEC;
@@ -331,68 +369,123 @@ attn_fwd_merge_kernel(const float* __restrict__ pacc, const float* __restrict__ 
   }
 }
 
-// Backward pass 1: one warp per forward row, lane per slot.  p is
-// recomputed from the node's saved (m, s); dp = <dout[r], x[c]> per
-// head; sds = sum p dp, A = sum p dp lrelu', B = sum p lrelu'.
-template <int VEC>
-__global__ void __launch_bounds__(kWarp * kWarpsPerBlock)
+// The sum over each head's lanes of a per-lane dot v (lanes across a
+// g-vector slice, hd the head of the lane's vector), added by lane 0 to
+// sh[h]: a dot over a whole head, slice by slice.
+__device__ __forceinline__ void add_head_dots(const Lanes& ln, int heads, float v, float* sh) {
+  for (int h = 0; h < heads; ++h) {
+    float d = ln.active && ln.hd == h ? v : 0.f;
+    for (int off = ln.g / 2; off > 0; off >>= 1) d += __shfl_xor_sync(kFullMask, d, off);
+    if (ln.lane == 0) sh[h] += d;
+  }
+}
+
+// bwd1's dynamic shared memory per warp: the forward's (the unit's
+// columns, H rows of kUnitSlots signed probabilities), then three per-head
+// sums: <dout[r], acc>, <dout[r], acc+> and slope s + (1 - slope) s+.
+__host__ __device__ constexpr size_t bwd1_warp_smem(int nh) {
+  return fwd_warp_smem(nh) + 3 * kMaxHeads * sizeof(float);
+}
+static_assert(bwd1_warp_smem(kMaxHeads) * kWarpsPerBlock <= kDefaultSmem,
+              "bwd1 would need cudaFuncSetAttribute");
+
+// Backward pass 1, pass 1: one warp per unit of the fwd layout (a unit
+// reads up to 128 sources c of one destination r).  With the row's saved
+// (m, s), p = e^(lrelu(zpre) - m_r) / s_r and lr' = lrelu'(zpre) =
+// slope + (1 - slope) [zpre > 0]:
+//   sds = sum p <dout[r], x[c]>        = <dout[r], acc> / s_r
+//   A   = sum p lr' <dout[r], x[c]>    = slope sds + (1 - slope) <dout[r], acc+> / s_r
+//   B   = sum p lr'                    = (slope s + (1 - slope) s+) / s_r
+// where acc = sum e^(lrelu(zpre) - m_r) x[c], acc+ the same over zpre > 0,
+// s and s+ the matching sums of e^(lrelu(zpre) - m_r): the forward's
+// scalar and gather phases under the row's max (dout[r] is the same for
+// every slot of the row, so each x[c] slice is read once and dout[r]'s
+// once per unit).  Output row [sds | A | B] (3H wide) goes to the node's
+// row of `out` for a unit that is its whole row, else to the unit's
+// partial row of `part` (plain partial sums: p is already the row's, as
+// in gala_tpu's per-virtual-row partials).  One warp walks all n_slices
+// g-vector slices of the row, so each head's dot sees the whole head.
+template <int VEC, int MAXH>
+__global__ void __launch_bounds__(kWarp * kWarpsPerBlock, kMinBlocks)
 attn_bwd1_kernel(const float* __restrict__ x, const float* __restrict__ vl,
                  const float* __restrict__ vr, const float* __restrict__ dout,
                  const float* __restrict__ m, const float* __restrict__ s,
                  const int32_t* __restrict__ cols, const float* __restrict__ occ,
-                 const int32_t* __restrict__ row_start, const int32_t* __restrict__ row_len,
-                 const int32_t* __restrict__ row_node, float* __restrict__ sds_out,
-                 float* __restrict__ a_out, float* __restrict__ b_out, int n_rows, int hf, int nh,
-                 float slope) {
+                 const int32_t* __restrict__ unit_start, const int32_t* __restrict__ unit_len,
+                 const int32_t* __restrict__ unit_node, const int32_t* __restrict__ unit_part,
+                 float* __restrict__ out, float* __restrict__ part, int n_units, int hf, int nh,
+                 float slope, int log2_g, int n_slices) {
+  extern __shared__ float4 smem[];
+  const int w = threadIdx.x / kWarp;
+  const int unit = blockIdx.x * kWarpsPerBlock + w;
+  if (unit >= n_units) return;  // the same for every lane of the warp
+  const int heads = MAXH == 1 ? 1 : nh;
+  char* base = reinterpret_cast<char*>(smem) + w * bwd1_warp_smem(heads);
+  UnitSmem& sm = *reinterpret_cast<UnitSmem*>(base);
+  float* sh_p = reinterpret_cast<float*>(base + sizeof(UnitSmem));  // [H][kUnitSlots]
+  float* sh_sds = sh_p + heads * kUnitSlots;                         // [H] <dout[r], acc>
+  float* sh_pdp = sh_sds + kMaxHeads;                                // [H] <dout[r], acc+>
+  float* sh_b = sh_pdp + kMaxHeads;                                  // [H] slope s + (1 - slope) s+
+
   const int lane = threadIdx.x & (kWarp - 1);
-  const int row = blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
-  if (row >= n_rows) return;
+  const int fh = hf / heads;
+  const int start = unit_start[unit];
+  const int len = unit_len[unit];
 
-  const int fh = hf / nh;
-  const int node = row_node[row];
-  const int start = row_start[row];
-  const int len = row_len[row];
-  const float* dout_r = dout + static_cast<size_t>(node) * hf;
-
-  float vr_n[kMaxHeads], m_n[kMaxHeads], s_n[kMaxHeads];
-  float sds[kMaxHeads], a[kMaxHeads], b[kMaxHeads];
-#pragma unroll
-  for (int h = 0; h < kMaxHeads; ++h) {
-    const size_t o = static_cast<size_t>(node) * nh + h;
-    vr_n[h] = h < nh ? __ldg(vr + o) : 0.f;
-    m_n[h] = h < nh ? __ldg(m + o) : 0.f;
-    s_n[h] = h < nh ? __ldg(s + o) : 1.f;
-    sds[h] = a[h] = b[h] = 0.f;
-  }
-
-  for (int t = lane; t < len; t += kWarp) {
-    if (__ldg(occ + start + t) == 0.f) continue;
-    const int c = __ldg(cols + start + t);
-    const float* x_c = x + static_cast<size_t>(c) * hf;
-#pragma unroll
-    for (int h = 0; h < kMaxHeads; ++h) {
-      if (h < nh) {
-        const float zpre = __ldg(vl + static_cast<size_t>(c) * nh + h) + vr_n[h];
-        const float p = expf(lrelu(zpre, slope) - m_n[h]) / s_n[h];
-        const float dp = dot<VEC>(dout_r + h * fh, x_c + h * fh, fh);
-        const float lr = zpre > 0.f ? 1.f : slope;
-        sds[h] = fmaf(p, dp, sds[h]);
-        a[h] = fmaf(p * dp, lr, a[h]);
-        b[h] = fmaf(p, lr, b[h]);
-      }
+  // scalar phase, one head at a time (a head's scores take 4 registers,
+  // not 4 H): the forward's, under the row's saved max
+  for (int h = 0; h < heads; ++h) {
+    const size_t o = static_cast<size_t>(unit_node[unit]) * heads + h;
+    const float vr_h[1] = {__ldg(vr + o)};
+    float zpre[kPer][1];
+    bool real[kPer];
+    unit_scores<1>(sm, cols, occ, vl, vr_h, start, len, heads, h, lane, zpre, real);
+    float sp = 0.f, spp = 0.f;
+    unit_probs<1>(zpre, real, 0, __ldg(m + o), slope, len, lane, sh_p + h * kUnitSlots, sp, spp);
+    sp = warp_sum(sp);
+    spp = warp_sum(spp);
+    if (lane == 0) {
+      sh_b[h] = fmaf(slope, sp, (1.f - slope) * spp);
+      sh_sds[h] = sh_pdp[h] = 0.f;
     }
   }
+  __syncwarp();
+
+  for (int y = 0; y < n_slices; ++y) {
+    // gather phase: the forward's, acc and acc+ from one read of each x[c]
+    // slice; at one head the probabilities need no head index
+    const Lanes ln(log2_g, hf, fh, VEC, y);
+    float acc[VEC], accp[VEC];
+    unit_gather<VEC>(sm, len, x, hf, ln, MAXH == 1 ? sh_p : sh_p + ln.hd * kUnitSlots, true,
+                     acc, accp);
+    // <dout[r], acc> and <dout[r], acc+> on the lane's vector, from one
+    // read of the unit's dout slice, then over each head's lanes
+    float d = 0.f, dp = 0.f;
+    if (ln.active) {
+      float dv[VEC];
+      load_vec<VEC>(dout + static_cast<size_t>(unit_node[unit]) * hf +
+                        static_cast<size_t>(ln.vcol) * VEC,
+                    dv);
 #pragma unroll
-  for (int h = 0; h < kMaxHeads; ++h) {
-    if (h < nh) {
-      const float vs = warp_sum(sds[h]), va = warp_sum(a[h]), vb = warp_sum(b[h]);
-      if (lane == 0) {
-        const size_t o = static_cast<size_t>(node) * nh + h;
-        sds_out[o] = vs;
-        a_out[o] = va;
-        b_out[o] = vb;
+      for (int i = 0; i < VEC; ++i) {
+        d = fmaf(acc[i], dv[i], d);
+        dp = fmaf(accp[i], dv[i], dp);
       }
     }
+    add_head_dots(ln, heads, d, sh_sds);
+    add_head_dots(ln, heads, dp, sh_pdp);
+  }
+  __syncwarp();
+  if (lane < heads) {
+    const int node = unit_node[unit];
+    const int pr = unit_part[unit];
+    float* orow = pr >= 0 ? part + static_cast<size_t>(pr) * 3 * heads
+                          : out + static_cast<size_t>(node) * 3 * heads;
+    const float s_r = __ldg(s + static_cast<size_t>(node) * heads + lane);
+    const float sds = sh_sds[lane] / s_r;
+    orow[lane] = sds;
+    orow[heads + lane] = fmaf(slope, sds, (1.f - slope) * (sh_pdp[lane] / s_r));
+    orow[2 * heads + lane] = sh_b[lane] / s_r;
   }
 }
 
@@ -552,11 +645,7 @@ attn_bwd2_kernel(const float* __restrict__ wtab, const float* __restrict__ x,
         for (int i = 0; i < VEC; ++i) orow[ln.vcol * VEC + i] = dx[i];  // rows of hf + H floats
       }
     }
-    for (int h = 0; h < heads; ++h) {
-      float v = ln.active && ln.hd == h ? d : 0.f;
-      for (int off = ln.g / 2; off > 0; off >>= 1) v += __shfl_xor_sync(kFullMask, v, off);
-      if (lane == 0) sh_dot[h] += v;
-    }
+    add_head_dots(ln, heads, d, sh_dot);
   }
   __syncwarp();
   if (lane < heads) {
@@ -567,12 +656,13 @@ attn_bwd2_kernel(const float* __restrict__ wtab, const float* __restrict__ x,
   }
 }
 
-// Backward pass 2, pass 2: one block per split row; its partial [dx | dvl]
-// rows summed in unit order (gala_tpu's big_vrow segment-sum).
+// bwd1's and bwd2's pass 2: one block per split row; its partial rows
+// (bwd1's [sds | A | B], bwd2's [dx | dvl], ow floats) summed in unit
+// order (gala_tpu's big_vrow segment-sum).
 __global__ void __launch_bounds__(kMergeThreads)
-attn_bwd2_merge_kernel(const float* __restrict__ part, const int32_t* __restrict__ split_node,
-                       const int32_t* __restrict__ split_first,
-                       const int32_t* __restrict__ split_count, float* __restrict__ out, int ow) {
+attn_merge_sum_kernel(const float* __restrict__ part, const int32_t* __restrict__ split_node,
+                      const int32_t* __restrict__ split_first,
+                      const int32_t* __restrict__ split_count, float* __restrict__ out, int ow) {
   const int node = split_node[blockIdx.x];
   const int first = split_first[blockIdx.x];
   const int count = split_count[blockIdx.x];
@@ -622,6 +712,41 @@ int launch_fwd(const void* x, const void* vl, const void* vr, const void* cols, 
   return static_cast<int>(cudaGetLastError());
 }
 
+// After a backward pass 1 (checked here): bwd1's or bwd2's pass 2, only
+// when a row is split
+int merge_sums(const void* part, const void* split_node, const void* split_first,
+               const void* split_count, void* out, int n_split, int ow, cudaStream_t st) {
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err != 0 || n_split == 0) return err;
+  attn_merge_sum_kernel<<<n_split, kMergeThreads, 0, st>>>(
+      static_cast<const float*>(part), static_cast<const int32_t*>(split_node),
+      static_cast<const int32_t*>(split_first), static_cast<const int32_t*>(split_count),
+      static_cast<float*>(out), ow);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int VEC, int MAXH>
+int launch_bwd1(const void* x, const void* vl, const void* vr, const void* dout, const void* m,
+                const void* s, const void* cols, const void* occ, const void* unit_start,
+                const void* unit_len, const void* unit_node, const void* unit_part,
+                const void* split_node, const void* split_first, const void* split_count,
+                void* out, void* part, int n_units, int n_split, int hf, int nh, float slope,
+                cudaStream_t st) {
+  const size_t smem = bwd1_warp_smem(nh) * kWarpsPerBlock;
+  const auto f32 = [](const void* p) { return static_cast<const float*>(p); };
+  const auto i32 = [](const void* p) { return static_cast<const int32_t*>(p); };
+  int log2_g;
+  dim3 grid;
+  reduce_grid(n_units, hf, VEC, &log2_g, &grid);
+  const int n_slices = static_cast<int>(grid.y);  // walked inside the warp
+  grid.y = 1;
+  attn_bwd1_kernel<VEC, MAXH><<<grid, kWarp * kWarpsPerBlock, smem, st>>>(
+      f32(x), f32(vl), f32(vr), f32(dout), f32(m), f32(s), i32(cols), f32(occ), i32(unit_start),
+      i32(unit_len), i32(unit_node), i32(unit_part), static_cast<float*>(out),
+      static_cast<float*>(part), n_units, hf, nh, slope, log2_g, n_slices);
+  return merge_sums(part, split_node, split_first, split_count, out, n_split, 3 * nh, st);
+}
+
 template <int VEC, int MAXH>
 int launch_bwd2(const void* wtab, const void* x, const void* vl, const void* cols,
                 const void* occ, const void* unit_start, const void* unit_len,
@@ -640,20 +765,15 @@ int launch_bwd2(const void* wtab, const void* x, const void* vl, const void* col
       f32(wtab), f32(x), f32(vl), i32(cols), f32(occ), i32(unit_start), i32(unit_len),
       i32(unit_node), i32(unit_part), static_cast<float*>(out), static_cast<float*>(part),
       n_units, hf, nh, slope, log2_g, n_slices);
-  const int err = static_cast<int>(cudaGetLastError());
-  if (err != 0 || n_split == 0) return err;
-  attn_bwd2_merge_kernel<<<n_split, kMergeThreads, 0, st>>>(
-      f32(part), i32(split_node), i32(split_first), i32(split_count), static_cast<float*>(out),
-      hf + nh);
-  return static_cast<int>(cudaGetLastError());
+  return merge_sums(part, split_node, split_first, split_count, out, n_split, hf + nh, st);
 }
 
 }  // namespace
 
 // C interface, loaded with ctypes.  Pointers are device pointers; the
 // layout arrays are ops.graph.BellDev's (flat_cols, flat_vals as slot
-// occupancy) and its WorkUnits tables (units for the forward, row
-// descriptors for the backward passes).  `vec` is 4 (fh % 4 == 0 and
+// occupancy) and its WorkUnits tables (the fwd layout's for the forward
+// and bwd1, the transpose layout's for bwd2).  `vec` is 4 (fh % 4 == 0 and
 // 16-byte aligned feature tables) or 1.  Each launches on `stream`
 // without synchronising and returns cudaGetLastError() (0 on success).
 
@@ -686,33 +806,32 @@ extern "C" int gala_attn_fwd_f32(const void* x, const void* vl, const void* vr, 
   return nh == 1 ? run(One{}, One{}) : run(One{}, Max{});
 }
 
-// sds, a, b (n_pad, H); m, s the forward's saved statistics.
+// out (n_pad, 3H) = [sds | A | B]; m, s (n_pad, H) the forward's saved
+// statistics; the unit and split tables are the fwd layout's WorkUnits;
+// part is f32 scratch of n_partials * 3H floats, read only when
+// n_split > 0.  Pass 2 is launched only when a row is split.
 extern "C" int gala_attn_bwd1_f32(const void* x, const void* vl, const void* vr, const void* dout,
                                   const void* m, const void* s, const void* cols, const void* occ,
-                                  const void* row_start, const void* row_len,
-                                  const void* row_node, void* sds, void* a, void* b, int n_rows,
-                                  int hf, int nh, float slope, int vec, void* stream) {
-  if (n_rows <= 0) return 0;
-  if (bad_shape(hf, nh, vec)) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((n_rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  const dim3 block(kWarp * kWarpsPerBlock);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define GALA_ATTN_BWD1(V)                                                                      \
-  attn_bwd1_kernel<V><<<grid, block, 0, st>>>(                                                 \
-      static_cast<const float*>(x), static_cast<const float*>(vl),                             \
-      static_cast<const float*>(vr), static_cast<const float*>(dout),                          \
-      static_cast<const float*>(m), static_cast<const float*>(s),                              \
-      static_cast<const int32_t*>(cols), static_cast<const float*>(occ),                       \
-      static_cast<const int32_t*>(row_start), static_cast<const int32_t*>(row_len),            \
-      static_cast<const int32_t*>(row_node), static_cast<float*>(sds), static_cast<float*>(a), \
-      static_cast<float*>(b), n_rows, hf, nh, slope)
-  if (vec == 4) {
-    GALA_ATTN_BWD1(4);
-  } else {
-    GALA_ATTN_BWD1(1);
-  }
-#undef GALA_ATTN_BWD1
-  return static_cast<int>(cudaGetLastError());
+                                  const void* unit_start, const void* unit_len,
+                                  const void* unit_node, const void* unit_part,
+                                  const void* split_node, const void* split_first,
+                                  const void* split_count, void* out, void* part, int n_units,
+                                  int n_split, int hf, int nh, float slope, int vec,
+                                  void* stream) {
+  if (n_units <= 0) return 0;
+  if (bad_shape(hf, nh, vec) || (n_split > 0 && part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto run = [&](auto vec_tag, auto maxh_tag) {
+    return launch_bwd1<decltype(vec_tag)::value, decltype(maxh_tag)::value>(
+        x, vl, vr, dout, m, s, cols, occ, unit_start, unit_len, unit_node, unit_part, split_node,
+        split_first, split_count, out, part, n_units, n_split, hf, nh, slope,
+        static_cast<cudaStream_t>(stream));
+  };
+  using One = std::integral_constant<int, 1>;
+  using Four = std::integral_constant<int, 4>;
+  using Max = std::integral_constant<int, kMaxHeads>;
+  if (vec == 4) return nh == 1 ? run(Four{}, One{}) : run(Four{}, Max{});
+  return nh == 1 ? run(One{}, One{}) : run(One{}, Max{});
 }
 
 // wtab (n_pad, hf + 4H) = [dout | vr | m | s | sds]; out (c_pad, hf + H);
@@ -776,7 +895,25 @@ extern "C" int gala_attn_bwd2_limits(int k, int nh, int* out) {
     case 1:
       return nh == 1 ? launch_limits(attn_bwd2_kernel<1, 1>, block, smem, out)
                      : launch_limits(attn_bwd2_kernel<1, kMaxHeads>, block, smem, out);
-    case 2: return launch_limits(attn_bwd2_merge_kernel, kMergeThreads, 0, out);
+    case 2: return launch_limits(attn_merge_sum_kernel, kMergeThreads, 0, out);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Launch limits of bwd1's kernels at H heads, as gala_attn_fwd_limits:
+// kernel k 0 pass 1 (float4), 1 pass 1 (scalar), 2 pass 2.
+extern "C" int gala_attn_bwd1_limits(int k, int nh, int* out) {
+  if (nh < 1 || nh > kMaxHeads) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = bwd1_warp_smem(nh) * kWarpsPerBlock;
+  const int block = kWarp * kWarpsPerBlock;
+  switch (k) {
+    case 0:
+      return nh == 1 ? launch_limits(attn_bwd1_kernel<4, 1>, block, smem, out)
+                     : launch_limits(attn_bwd1_kernel<4, kMaxHeads>, block, smem, out);
+    case 1:
+      return nh == 1 ? launch_limits(attn_bwd1_kernel<1, 1>, block, smem, out)
+                     : launch_limits(attn_bwd1_kernel<1, kMaxHeads>, block, smem, out);
+    case 2: return launch_limits(attn_merge_sum_kernel, kMergeThreads, 0, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -157,18 +157,32 @@ def probe_library() -> Build:
     })
 
 
+_probe_fn = None  # gala_probe_f32, looked up at the first launch
+_probe_counts = counts_for("toolchain_probe")
+
+
 def probe_x2(x: torch.Tensor) -> torch.Tensor:
-    """2 * x by the probe kernel (x a contiguous f32 tensor); adds one to
-    the "toolchain_probe" launch count.  A CPU tensor takes the plain
-    product.  Raises on a failed launch."""
+    """2 * x by the probe kernel (x a contiguous f32 tensor of < 2^31
+    elements); adds one to the "toolchain_probe" launch count.  A CPU
+    tensor takes the plain product.  Raises on a failed launch.
+
+    At the probe's 128 x 128 tile the host's work per call, not the
+    kernel, sets the time, so the launch path is kept short: the C
+    function is looked up once, and the stream is read as a raw handle
+    (torch.cuda.current_stream() builds a Stream object per call)."""
+    global _probe_fn
     if x.device.type != "cuda":
         return x * 2.0
+    if x.dtype != torch.float32 or not x.is_contiguous() or x.numel() >= 2**31:
+        raise ValueError("probe_x2 takes a contiguous float32 tensor of < 2^31 elements")
+    if _probe_fn is None:
+        _probe_fn = probe_library().lib.gala_probe_f32
     out = torch.empty_like(x)
-    err = probe_library().lib.gala_probe_f32(x.data_ptr(), out.data_ptr(), x.numel(),
-                                             torch.cuda.current_stream().cuda_stream)
+    err = _probe_fn(x.data_ptr(), out.data_ptr(), x.numel(),
+                    torch._C._cuda_getCurrentRawStream(x.device.index))
     if err != 0:
         raise RuntimeError(f"the probe kernel failed to launch: CUDA error {err}")
-    counts_for("toolchain_probe").launches += 1
+    _probe_counts.launches += 1
     return out
 
 

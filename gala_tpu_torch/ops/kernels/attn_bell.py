@@ -6,12 +6,15 @@ attn_bwd1_planned, attn_bwd2_planned); the maths is that of
 gala_tpu/ops/attention.py (_head_softmax_pos and the hub branch of
 _attn_fwd_chunked, _head_bwd_stats, _slot_grads).  The kernels
 (`gala_tpu_torch/csrc/attn_bell.cu`) each cover a whole layout in one
-call: the forward and bwd2 in two launches over the layout's work units
-(ops.graph.WorkUnits: units of at most UNIT_SLOTS slots, a hub's units
-its virtual rows; the second launch merges the split rows' partials, the
-forward's unnormalised ones by the online-softmax rescaling, bwd2's plain
-[dx | dvl] sums by addition), bwd1 in one launch from the per-row
-descriptors (ops.graph.BellDev.row_*; a hub is one contiguous row).
+call of two launches over the layout's work units (ops.graph.WorkUnits:
+units of at most UNIT_SLOTS slots, a hub's units its virtual rows; the
+forward and bwd1 over the fwd layout's, bwd2 over the transpose's).  The
+second launch merges the split rows' partials: the forward's
+unnormalised ones by the online-softmax rescaling, bwd1's plain
+[sds | A | B] and bwd2's plain [dx | dvl] sums by addition.  bwd1 runs the
+forward's two phases under the rows' saved (m, s): one read of each x[c]
+slice sums acc = sum p x and acc+ = sum_{zpre>0} p x, then one dot of
+each with dout[r] per unit gives sds and A.
 Heads: x is (rows, hf) with head h in columns [h*fh, (h+1)*fh),
 fh = hf / H, 1 <= H <= 8.
 
@@ -26,9 +29,10 @@ plain-version calls on CUDA tensors for `attn_fwd`, `attn_bwd1` and
 The plain versions work slot by slot (one entry per slot of the flat
 layout, a row's max by scatter_reduce and its sums by index_add_), so
 they share nothing with the kernels but the layout.
-`attn_fwd_units_reference` and `attn_bwd2_units_reference` repeat the
-forward's and bwd2's two passes in plain PyTorch (bwd2's with its dvl
-rewrite), for the tests and the card's checks only.
+`attn_fwd_units_reference`, `attn_bwd1_units_reference` and
+`attn_bwd2_units_reference` repeat the kernels' two passes in plain
+PyTorch (bwd1's with its dot rewrite, bwd2's with its dvl rewrite), for
+the tests and the card's checks only.
 """
 from __future__ import annotations
 
@@ -49,9 +53,10 @@ NEG = -1e30  # masked score; a row's max is floored at NEG / 2 (gala_tpu's _NEG)
 
 NAMES = ("attn_fwd", "attn_bwd1", "attn_bwd2")
 counts = {name: counts_for(name) for name in NAMES}
-# the unit kernels, in the order of gala_attn_fwd_limits / gala_attn_bwd2_limits
+# the unit kernels, in the order of gala_attn_{fwd,bwd1,bwd2}_limits
 FWD_KERNELS = ("attn_fwd_kernel<4>", "attn_fwd_kernel<1>", "attn_fwd_merge_kernel")
-BWD2_KERNELS = ("attn_bwd2_kernel<4>", "attn_bwd2_kernel<1>", "attn_bwd2_merge_kernel")
+BWD1_KERNELS = ("attn_bwd1_kernel<4>", "attn_bwd1_kernel<1>", "attn_merge_sum_kernel (bwd1)")
+BWD2_KERNELS = ("attn_bwd2_kernel<4>", "attn_bwd2_kernel<1>", "attn_merge_sum_kernel (bwd2)")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -59,9 +64,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the library's C functions and their argument types
 FUNCTIONS = {
     "gala_attn_fwd_f32": [_P] * 18 + [_I] * 5 + [_F, _I, _P],
-    "gala_attn_bwd1_f32": [_P] * 14 + [_I, _I, _I, _F, _I, _P],
+    "gala_attn_bwd1_f32": [_P] * 17 + [_I] * 4 + [_F, _I, _P],
     "gala_attn_bwd2_f32": [_P] * 14 + [_I] * 4 + [_F, _I, _P],
     "gala_attn_fwd_limits": [_I, _I, _P],
+    "gala_attn_bwd1_limits": [_I, _I, _P],
     "gala_attn_bwd2_limits": [_I, _I, _P],
 }
 
@@ -74,11 +80,12 @@ def build() -> Build:
 
 def launch_limits(nh: int = 1) -> dict:
     """{kernel: registers, static and dynamic shared memory per block,
-    resident blocks per SM} of the forward's and bwd2's unit kernels at
-    `nh` heads, from the CUDA runtime."""
+    resident blocks per SM} of the three kernels' unit kernels at `nh`
+    heads, from the CUDA runtime."""
     lib = build().lib
     return {name: read_limits(fn, k, nh)
             for fn, names in ((lib.gala_attn_fwd_limits, FWD_KERNELS),
+                              (lib.gala_attn_bwd1_limits, BWD1_KERNELS),
                               (lib.gala_attn_bwd2_limits, BWD2_KERNELS))
             for k, name in enumerate(names)}
 
@@ -226,6 +233,39 @@ def attn_bwd1_reference(lay, x, vl, vr, dout, m, s, slope: float):
                  for v in (p * dp, p * dp * lr, p * lr))
 
 
+def attn_bwd1_units_reference(lay, x, vl, vr, dout, m, s, slope: float):
+    """The bwd1 kernel's two passes in plain PyTorch (for tests and the
+    card's checks), the same function as attn_bwd1_reference.  Pass 1, per
+    work unit of the fwd layout (destination r) and head, with the row's
+    saved (m, s): p = e^(lrelu(zpre) - m_r), lr' = lrelu'(zpre), acc_u =
+    sum p x_c and acc'_u = sum p lr' x_c from one read of each x_c, then
+    sds_u = <dout_r, acc_u> / s_r, A_u = <dout_r, acc'_u> / s_r and B_u =
+    sum p lr' / s_r (the kernel takes acc' as slope acc + (1 - slope) acc+,
+    acc+ the sum over zpre > 0: lr' = slope + (1 - slope) [zpre > 0]); a
+    unit that is its whole row writes [sds_u | A_u | B_u] to its node, the
+    others to their partial rows.  Pass 2 sums each split row's partials
+    in unit order.  Returns sds, A, B (n_pad, H)."""
+    units = lay.units
+    hf, nh = x.shape[1], vl.shape[1]
+    fh = hf // nh
+    n_u = units.n_units
+    unit, slot = unit_slots(units, x.device)
+    node_u = units.node.long()
+    node = node_u[unit]
+    col = lay.flat_cols.long()[slot]
+    real = (lay.flat_vals[slot] != 0)[:, None]
+    zpre = vl[col] + vr[node]
+    p = torch.where(real, torch.exp(_lrelu(zpre, slope) - m[node]), 0.0)
+    pl = p * torch.where(zpre > 0, 1.0, slope)
+    xs = x[col].view(-1, nh, fh)
+    acc, accl = (_row_sum(unit, (v[..., None] * xs).view(-1, hf), n_u) for v in (p, pl))
+    s_u, do = s[node_u], dout[node_u]
+    sab = [per_head_dot(do, acc, nh) / s_u, per_head_dot(do, accl, nh) / s_u,
+           _row_sum(unit, pl, n_u) / s_u]
+    out = _sum_units(units, torch.cat(sab, dim=1), dout.shape[0])
+    return out[:, :nh], out[:, nh : 2 * nh], out[:, 2 * nh :]
+
+
 def attn_bwd2_reference(lay, x, vl, w_tab, slope: float, c_pad: int):
     """Plain backward pass 2 on a transpose layout (rows = source nodes c,
     slots = destinations r): w_tab (n_pad, hf + 4H) = [dout | vr | m | s |
@@ -274,16 +314,22 @@ def attn_bwd2_units_reference(lay, x, vl, w_tab, slope: float, c_pad: int):
     dx = _row_sum(unit, (p[..., None] * do).view(-1, hf), n_u)
     q = _row_sum(unit, (pl[..., None] * do).view(-1, hf), n_u)
     dvl = per_head_dot(q, x[units.node.long()], nh) - _row_sum(unit, pl * sds_g, n_u)
-    acc = torch.cat([dx, dvl], dim=1)
+    return _sum_units(units, torch.cat([dx, dvl], dim=1), c_pad)
 
-    out = x.new_zeros((c_pad, hf + nh))
+
+def _sum_units(units, acc, n_out):
+    """Pass 2 of bwd1 and bwd2: each unit's row of `acc` goes to its node
+    where the unit is its whole row, else to its partial row, and each
+    split row's partials are summed in unit order.  (n_out, width), 0 on
+    rows that no unit writes."""
+    out = acc.new_zeros((n_out, acc.shape[1]))
     whole = units.part < 0
     out[units.node[whole].long()] = acc[whole]
     if units.n_partials:
-        part = acc.new_empty((units.n_partials, hf + nh))
+        part = acc.new_empty((units.n_partials, acc.shape[1]))
         part[units.part[~whole].long()] = acc[~whole]
         n_split = units.split_node.shape[0]
-        owner = torch.repeat_interleave(torch.arange(n_split, device=x.device),
+        owner = torch.repeat_interleave(torch.arange(n_split, device=acc.device),
                                         units.split_count.long())
         out[units.split_node.long()] = _row_sum(owner, part, n_split)
     return out
@@ -335,11 +381,6 @@ def _cuda_only(x, name):
         raise ValueError(f"{name} runs on cpu or cuda tensors, got {x.device}")
 
 
-def _lay_ptrs(lay):
-    return (lay.flat_cols.data_ptr(), lay.flat_vals.data_ptr(), lay.row_start.data_ptr(),
-            lay.row_len.data_ptr(), lay.row_node.data_ptr())
-
-
 def _unit_ptrs(u):
     """A WorkUnits' tables in the kernels' argument order."""
     return tuple(t.data_ptr() for t in (u.start, u.length, u.node, u.part, u.split_node,
@@ -381,7 +422,9 @@ def attn_fwd(lay, x, vl, vr, slope: float, n_pad: int, flash: bool):
 
 
 def attn_bwd1(lay, x, vl, vr, dout, m, s, slope: float):
-    """Backward pass 1 on a fwd layout (see attn_bwd1_reference)."""
+    """Backward pass 1 on a fwd layout (see attn_bwd1_reference): sds, A,
+    B (n_pad, H); on CUDA tensors three column views of one (n_pad, 3H)
+    table."""
     n_pad = dout.shape[0]
     _check(lay, x, vl, {"vr": vr, "dout": dout, "m": m, "s": s}, n_pad)
     nh = vl.shape[1]
@@ -393,13 +436,17 @@ def attn_bwd1(lay, x, vl, vr, dout, m, s, slope: float):
         return attn_bwd1_reference(lay, x, vl, vr, dout, m, s, slope)
     _cuda_only(x, "attn_bwd1")
     lib = build().lib
-    sds, a, b = (torch.zeros((n_pad, nh), dtype=torch.float32, device=x.device)
-                 for _ in range(3))
+    out = torch.zeros((n_pad, 3 * nh), dtype=torch.float32, device=x.device)
+    u = lay.units
+    # the split rows' partial [sds | A | B] rows
+    part = (torch.empty((u.n_partials * 3 * nh,), dtype=torch.float32, device=x.device)
+            if u.n_partials else None)
     _launch("attn_bwd1", lib.gala_attn_bwd1_f32, x,
             x.data_ptr(), vl.data_ptr(), vr.data_ptr(), dout.data_ptr(), m.data_ptr(),
-            s.data_ptr(), *_lay_ptrs(lay), sds.data_ptr(), a.data_ptr(), b.data_ptr(),
-            lay.row_node.shape[0], x.shape[1], nh, float(slope), _vec(x, nh, dout))
-    return sds, a, b
+            s.data_ptr(), lay.flat_cols.data_ptr(), lay.flat_vals.data_ptr(), *_unit_ptrs(u),
+            out.data_ptr(), _ptr(part), u.n_units, u.split_node.shape[0], x.shape[1], nh,
+            float(slope), _vec(x, nh, dout))
+    return out[:, :nh], out[:, nh : 2 * nh], out[:, 2 * nh :]
 
 
 def attn_bwd2(lay, x, vl, w_tab, slope: float, c_pad: int):

@@ -43,17 +43,17 @@ HEADS = [1, 4]
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
-def attn_coo(seed=5, n=400, out_hub=200):
-    """(src, dst, n) of the test graph: 400 nodes, node 3 an in-hub (300
-    extra sources), node 5 an out-hub (`out_hub` extra destinations),
+def attn_coo(seed=5, n=400, out_hub=200, in_hub=300):
+    """(src, dst, n) of the test graph: 400 nodes, node 3 an in-hub
+    (`in_hub` extra sources), node 5 an out-hub (`out_hub` extra destinations),
     self-loops on every second node below n - 10, the last 10 nodes
     isolated; duplicate edges dropped (every slot is a distinct softmax
     term)."""
     rng = np.random.default_rng(seed)
     m = n - 10
-    src = np.concatenate([rng.integers(0, m, 4000), rng.integers(0, m, 300),
+    src = np.concatenate([rng.integers(0, m, 4000), rng.integers(0, m, in_hub),
                           np.full(out_hub, 5), np.arange(0, m, 2)])
-    dst = np.concatenate([rng.integers(0, m, 4000), np.full(300, 3),
+    dst = np.concatenate([rng.integers(0, m, 4000), np.full(in_hub, 3),
                           rng.integers(0, m, out_hub), np.arange(0, m, 2)])
     key = np.unique(src.astype(np.int64) * n + dst)
     return key // n, key % n, n
@@ -81,6 +81,26 @@ def wide_hub_graphs():
     return _graph_pair(n=900, out_hub=1300)
 
 
+@pytest.fixture(scope="module")
+def wide_in_hub_graphs():
+    """The same shape of graph on 900 nodes, whose in-hub has 1,300 extra
+    sources (683 distinct): a forward row of 6 units."""
+    return _graph_pair(n=900, in_hub=1300)
+
+
+def _pass1(jab, c_pad, *fwd_tables, dout):
+    """gala_tpu's pass 1 of the backward without the flash identity (its
+    XLA executor): (sds, dvr = A - sds B) by node.  Pass 2 is replaced so
+    the call returns pass 1's node tables; fwd_tables are x, vl, vr and
+    the chunked forward's vr_bin, m_bin, s_bin, m_node, s_node."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JA, "_attn_bwd_pass2", lambda ab_, x_, vl_, vr_, m_, s_, sds, dvr, *r:
+                   (sds, dvr))
+        return jax.jit(lambda *a, dout: JA._attn_bwd_chunked(jab, *a, SLOPE, dout, c_pad,
+                                                              flash=None))(*fwd_tables,
+                                                                           dout=dout)
+
+
 def _inputs(g, nh, seed):
     rng = np.random.default_rng(seed)
     f = lambda *shape: rng.standard_normal(shape).astype(np.float32)  # noqa: E731
@@ -104,16 +124,7 @@ def oracle(request, graphs):
     fwd = jax.jit(lambda *a: JA._attn_fwd_chunked(ab, *a, SLOPE, n_pad))
     out, vr_bin, m_bin, s_bin, m_node, s_node, flash = fwd(x, vl, vr)
 
-    def pass1_stats(*a, dout):
-        # pass 1 of the backward without the flash identity; pass 2 is
-        # replaced so the call returns pass 1's node tables
-        with pytest.MonkeyPatch.context() as mp:
-            mp.setattr(JA, "_attn_bwd_pass2", lambda ab_, x_, vl_, vr_, m_, s_, sds, dvr, *r:
-                       (sds, dvr))
-            return JA._attn_bwd_chunked(ab, *a, SLOPE, dout, c_pad, flash=None)
-
-    sds, dvr1 = jax.jit(pass1_stats)(x, vl, vr, vr_bin, m_bin, s_bin, m_node, s_node,
-                                     dout=dout)
+    sds, dvr1 = _pass1(ab, c_pad, x, vl, vr, vr_bin, m_bin, s_bin, m_node, s_node, dout=dout)
     pass2 = jax.jit(lambda *a, dout: JA._attn_bwd_pass2(ab, *a, SLOPE, dout, c_pad))
     dx2, dvl2, _ = pass2(x, vl, vr, m_node, s_node, sds, dvr1, dout=dout)
 
@@ -243,6 +254,60 @@ def test_bwd2_reference_matches_jax(graphs, oracle):
     np.testing.assert_allclose(got[:, HF:].numpy(), dvl, **TOL)
 
 
+UNIT_CASES = ["as built", "one unit masked", "whole row masked", "six-unit hub"]
+
+
+@pytest.mark.parametrize("case", UNIT_CASES)
+@pytest.mark.parametrize("nh", HEADS)
+def test_bwd1_units_emulation_matches_jax(graphs, wide_in_hub_graphs, case, nh):
+    """The bwd1 kernel's two passes in plain PyTorch (units of the fwd
+    layout under the rows' saved (m, s), one dot with dout[r] per unit,
+    partials summed in unit order) against gala_tpu's pass 1 (its XLA
+    executor) on the same numpy inputs: sds and dvr = A - sds B, with the
+    in-hub's row split into 2 units as built, with one unit or the whole
+    row masked, and a hub row of 6 units.  (m, s) come from gala_tpu's
+    forward on the same layout.  Tolerance 1e-4 + 1e-4 * scale, scale
+    sum p |<dout, x>| (the plain version on magnitudes, as
+    compare_with_plain takes it): the rewrite sums in another order."""
+    jg, tg, _ = wide_in_hub_graphs if case == "six-unit hub" else graphs
+    jab, lay = jg.attn, tg.attn.fwd
+    units = lay.units
+    assert units.n_partials == (6 if case == "six-unit hub" else 2) == units.split_count.sum()
+    if "masked" in case:
+        nvirt = int(units.split_count[0])
+        jab, lay = _masked(jg, tg, [1] if case == "one unit masked" else range(nvirt))
+    x, vl, vr, dout = _inputs(tg, nh, seed=30 + nh)
+    fwd = jax.jit(lambda *a: JA._attn_fwd_chunked(jab, *a, SLOPE, jg.n_pad))
+    _, vr_bin, m_bin, s_bin, m, s, _ = fwd(x, vl, vr)
+    sds, dvr = (np.asarray(v) for v in _pass1(jab, jg.c_pad, x, vl, vr, vr_bin, m_bin, s_bin,
+                                             m, s, dout=dout))
+    m, s = np.asarray(m), np.asarray(s)
+    g_sds, g_a, g_b = K.attn_bwd1_units_reference(lay, *_t(x, vl, vr, dout, m, s), SLOPE)
+    scale = K.attn_bwd1_reference(lay, *_t(np.abs(x), vl, vr, np.abs(dout), m, s), SLOPE)[0]
+    for name, got, want in (("sds", g_sds, sds), ("dvr", g_a - g_sds * g_b, dvr)):
+        assert got.shape == want.shape == (tg.n_pad, nh), name
+        err = np.abs(got.numpy() - want)
+        assert (err <= 1e-4 + 1e-4 * scale.numpy()).all(), (name, err.max())
+    if case == "whole row masked":
+        hub = int(units.split_node[0])
+        assert all((t[hub] == 0).all() for t in (g_sds, g_a, g_b))
+
+
+@pytest.mark.parametrize("nh", HEADS)
+def test_bwd1_dot_rewrite_is_exact_in_float64(graphs, wide_in_hub_graphs, nh):
+    """sds = sum p <dout[r], x[c]> taken as <dout[r], sum p x[c]> (and A as
+    <dout[r], sum p lr' x[c]>) over units, partials summed: the same
+    numbers up to rounding, so the units emulation equals the
+    slot-by-slot plain version in float64 to 1e-10."""
+    for _, tg, _ in (graphs, wide_in_hub_graphs):
+        x, vl, vr, dout = (t.double() for t in _t(*_inputs(tg, nh, seed=50 + nh)))
+        _, m, s, _, _ = K.attn_fwd_reference(tg.attn.fwd, x, vl, vr, SLOPE, tg.n_pad, False)
+        args = (tg.attn.fwd, x, vl, vr, dout, m, s, SLOPE)
+        for got, want in zip(K.attn_bwd1_units_reference(*args), K.attn_bwd1_reference(*args)):
+            assert got.dtype == torch.float64
+            np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-10)
+
+
 def _bwd2_tables(tg, nh, seed):
     """Inputs of pass 2 at H heads: x, vl and a destination table [dout |
     vr | m | s | sds] drawn directly (pass 2 is a function of the table
@@ -255,8 +320,7 @@ def _bwd2_tables(tg, nh, seed):
     return x, vl, (dout, vr, m, s, sds)
 
 
-@pytest.mark.parametrize("case", ["as built", "one unit masked", "whole row masked",
-                                  "six-unit hub"])
+@pytest.mark.parametrize("case", UNIT_CASES)
 @pytest.mark.parametrize("nh", HEADS)
 def test_bwd2_units_emulation_matches_jax(graphs, wide_hub_graphs, case, nh):
     """The bwd2 kernel's two passes in plain PyTorch (units of the

@@ -186,10 +186,11 @@ def test_kernel_on_long_rows_matches_plain_version(cuda, length, f):
 @pytest.mark.parametrize("hf,nh", [(32, 1), (40, 1), (32, 4)])
 @pytest.mark.parametrize("length", LONG_ROWS)
 def test_attention_forward_on_long_rows_and_masked_units(cuda, length, hf, nh):
-    """The forward kernel against its plain version and its units
-    emulation on rows of L-1 .. 52L slots, as built and with all-masked
-    units and a wholly masked split row; two calls bitwise equal; bwd1
-    and bwd2 against their plain versions as before."""
+    """The forward and bwd1 kernels against their plain versions and
+    their units emulations on rows of L-1 .. 52L slots, as built and with
+    all-masked units and a wholly masked split row (bwd1 under the
+    forward's (m, s) on that layout); two calls bitwise equal; bwd2
+    against its plain version as before."""
     host = long_row_host(length)
     g = Graph.from_host(host, strategy="bell", device=cuda, attention=True)
     gen = torch.Generator(device=cuda).manual_seed(length * 10 + hf + nh)
@@ -208,6 +209,19 @@ def test_attention_forward_on_long_rows_and_masked_units(cuda, length, hf, nh):
                      attn_bell.attn_fwd_units_reference(lay, x, vl, vr, 0.2, g.n_pad, True)):
             for a, b, sc in zip(got, want, (scale[0], 0.0, want[2], scale[3], want[4])):
                 assert ((a - b).abs() <= 1e-4 + 1e-4 * sc).all()
+        args = (lay, x, vl, vr, dout, got[1], got[2], 0.2)
+        launches = attn_bell.counts["attn_bwd1"].launches
+        b1 = torch.cat(attn_bell.attn_bwd1(*args), dim=1)
+        again = torch.cat(attn_bell.attn_bwd1(*args), dim=1)
+        torch.cuda.synchronize()
+        assert attn_bell.counts["attn_bwd1"].launches == launches + 2
+        assert torch.equal(b1, again) and torch.isfinite(b1).all()
+        a_sds, _, a_b = attn_bell.attn_bwd1_reference(lay, x.abs(), vl, vr, dout.abs(),
+                                                      *args[5:])
+        scale = torch.cat([a_sds, a_sds, a_b], dim=1)
+        for want in (attn_bell.attn_bwd1_reference(*args),
+                     attn_bell.attn_bwd1_units_reference(*args)):
+            assert ((b1 - torch.cat(want, dim=1)).abs() <= 1e-4 + 1e-4 * scale).all()
 
 
 BWD2_ROWS = [L + 1, 1000, 52 * L]  # transpose rows of 2, 8 and 52 units
@@ -376,9 +390,36 @@ def test_sddmm_on_hub_edge_lists_is_repeatable(cuda, length, f):
         assert ((out - ref).abs() <= 1e-4 + 1e-4 * scale).all()
 
 
+PROBE_SIZES = [1, 3, 16384, 2**20 + 3]
+
+
 @pytest.mark.cuda
 def test_toolchain_probe_passes_on_the_card(cuda):
+    """The probe answers True, and its kernel equals x * 2 bit for bit at
+    n = 1, 3, 16,384 and 2^20 + 3 (float4 stores and a ragged end) and on
+    views one float in (scalar stores), one launch counted per call."""
     assert _build.toolchain_available() is True
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    counts = _build.counts_for("toolchain_probe")
+    for n in PROBE_SIZES:
+        x = torch.randn((n + 1,), generator=gen, device=cuda)
+        for v in (x[:n], x[1:]):
+            launches = counts.launches
+            out = _build.probe_x2(v)
+            torch.cuda.synchronize()
+            assert counts.launches == launches + 1
+            assert out.shape == v.shape and torch.equal(out, v * 2.0)
+
+
+@pytest.mark.parametrize("n", [0, 1, 3, 16384])
+def test_probe_x2_takes_the_plain_product_on_cpu_tensors(n):
+    """On a CPU tensor probe_x2 is the plain product and records no
+    launch."""
+    x = torch.from_numpy(np.random.default_rng(n).standard_normal(n).astype(np.float32))
+    counts = _build.counts_for("toolchain_probe")
+    launches = counts.launches
+    assert torch.equal(_build.probe_x2(x), x * 2.0)
+    assert counts.launches == launches
 
 
 @pytest.mark.cuda
