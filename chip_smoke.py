@@ -126,12 +126,44 @@ and prints no "ok" line:
             --iters 8`, in-process on the default device (the card):
             three finite CSV fields.
 
+Then bf16 activations with f32 params (dtype=torch.bfloat16, gala_tpu's
+mixed precision), on the Arxiv stand-in loaded once in phase 10's data
+step; each phase is its f32 counterpart's with bf16 inputs and the bf16
+forms of the kernels, whose launches count as "<kernel>_bf16":
+15. train-bf16  GCN_DSL at bf16, 20 epochs: bell_spmm_bf16 launched, no
+            plain version on the card, accuracy >= 0.7, bf16 features and
+            f32 params after training.
+16. kernel-bf16  phase 4 on bf16 inputs: the plain version computes in
+            f32 from the same bf16 values and rounds once, so the
+            tolerance is phase 4's plus one bf16 unit in the last place of
+            the larger of the two results; times beside the bound with
+            bf16 bytes, and torch.sparse.mm on a bf16 CSR matrix.
+17. gat-bf16    GAT_DSL at bf16, 20 epochs: attn_fwd_bf16 and attn_bwd2_bf16
+            launched, accuracy >= 0.6.
+18. attn-kernel-bf16  phase 6 with x, vl, vr and dout in bf16 (the
+            kernels' outputs are f32 at both types: phase 6's tolerance;
+            attention_aggregate's bf16 out and gradients one unit more).
+19. gat-edge-bf16  the unfused GAT at bf16, 5 epochs: sddmm_bf16 and
+            bell_spmm_bf16 launched (no validation epoch after the first,
+            so no accuracy is asked).
+20. sddmm-kernel-bf16  phase 8 on bf16 operands (bf16 dots: one unit of
+            slack), sampled_addmm on a bf16 pattern where the library
+            takes one.
+21. sage-minibatch-bf16  2 epochs from a bf16 feature table: 3 gather
+            launches a batch (the byte-copy kernel takes both types),
+            bell_spmm_bf16 in validation, accuracy >= 0.6.
+22. gather-kernel-bf16  phase 13's path shapes and time with the bf16
+            table.
+NO_SPILL holds the bf16 forms of bwd1, bwd2 and the SDDMM too.
+
 Every kernel's bound is the larger of its bytes (each input read once,
-each output written once) over 3.35 TB/s and its operations over 67
-TFLOP/s (f32 outside the tensor cores), from this run's inputs.  It
-ends with each phase's seconds, a JSON line of the kernels (launches on
-the main path of each kernel's phase, times, bound, library call), the
-nvidia-smi line, and the last line {"ok": true, "device": {...}}.
+each output written once, in its own dtype) over 3.35 TB/s and its
+operations over 67 TFLOP/s (f32 outside the tensor cores: the bf16
+forms compute in f32), from this run's inputs.  It ends with each
+phase's seconds, a JSON line of the kernels (launches on the main path
+of each kernel's phase, times, bound, library call; each bf16 form
+beside its f32 time), the nvidia-smi line, and the last line
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -165,8 +197,13 @@ PROBE_SOURCE = "gala_tpu_torch/csrc/probe.cu"
 PROBE_REPLACES = "gala_tpu/ops/pallas/__init__.py:29"
 LIMITS_SOURCE = "gala_tpu_torch/csrc/unit_gather.cuh"
 LIMITS_REPLACES = "scripts/pallas_bisect.py:40"
-# kernels redesigned since the first slices: ptxas must report no spill for them
+# kernels redesigned since the first slices: ptxas must report no spill for them,
+# and for the bf16 forms of those that have one (the merge sums f32 partials at
+# both types, so it has none)
 NO_SPILL = ("attn_bwd1_kernel", "attn_bwd2_kernel", "attn_merge_sum_kernel", "sddmm_kernel")
+NO_SPILL_BF16 = ("attn_bwd1_kernel", "attn_bwd2_kernel", "sddmm_kernel")
+BF16_MANGLED = "__nv_bfloat16"  # in the mangled name of every bf16 instantiation
+BF16 = torch.bfloat16
 TAIL_LIMIT = 1.5
 GATHER_SOURCE = "gala_tpu_torch/csrc/gather_rows.cu"
 GATHER_REPLACES = "gala_tpu/ops/pallas/gather.py:77"
@@ -206,6 +243,19 @@ def cuda_ms(fn, reps: int) -> float:
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def dtag(tag: str, dtype) -> str:
+    """A phase's tag at `dtype`: the f32 phase's own, "-bf16" appended."""
+    return tag if dtype == torch.float32 else f"{tag}-bf16"
+
+
+def slack(got, want):
+    """One bf16 unit in the last place where the result is bf16 (each side
+    rounds its f32 sum once), 0 at f32: ops.kernels._build.rounding_slack."""
+    from gala_tpu_torch.ops.kernels._build import rounding_slack
+
+    return rounding_slack(got, want)
 
 
 def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -280,7 +330,7 @@ def hub_graph(device, attention=False, strategy="bell"):
                                  edge_vals=strategy != "bell")
 
 
-def check_units(ak, kind, what, lay, *args):
+def check_units(ak, kind, what, lay, *args, tag="attn-kernel"):
     """bwd1 or bwd2 over units against its plain version and its units
     emulation (compare_with_plain's tolerance: 1e-4 + 1e-4 * the plain
     version on magnitudes) and against a second call, bitwise.  kind
@@ -308,7 +358,7 @@ def check_units(ak, kind, what, lay, *args):
         err = (got - want).abs()
         errs[name] = (err.max().item(), int((err > ATOL + RTOL * scale).sum()))
     same = torch.equal(got, again)
-    print(f"[attn-kernel] {kind} over units, {what}: max |kernel - plain| "
+    print(f"[{tag}] {kind} over units, {what}: max |kernel - plain| "
           f"{errs['plain'][0]:.2e}, - units emulation {errs['units emulation'][0]:.2e}; "
           f"{sum(v[1] for v in errs.values())} elements out of tolerance; two calls bitwise "
           f"equal: {same}")
@@ -333,22 +383,23 @@ def spills(log: str) -> dict:
     return out
 
 
-def _train_checked(tag, cm, min_accuracy):
-    """20 epochs (warmup 2) of a compiled model with every launch count
-    zeroed just before; prints and checks the run.  Returns the result
+def _train_checked(tag, cm, min_accuracy, iters=20):
+    """`iters` epochs (warmup 2) of a compiled model with every launch
+    count zeroed just before; prints and checks the run (at bf16 also the
+    bf16 features and the f32 params after training).  Returns the result
     and the run's launches by kernel."""
     from gala_tpu_torch.ops.kernels._build import all_counts, reset_counts
 
     reset_counts()
     t0 = time.perf_counter()
-    res = cm.train(iters=20, warmup=2)
+    res = cm.train(iters=iters, warmup=2)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     launches = {name: c.launches for name, c in all_counts().items()}
     on_cuda = {name: c.reference_calls_on_cuda for name, c in all_counts().items()}
     print(f"[{tag}] csv {res.csv(print_accuracy=True)}")
     print(f"[{tag}] seconds/epoch: train {res.total_time:.6f}, inference "
-          f"{res.inference_time:.6f}; 20 epochs with accuracy in {train_s:.1f} s")
+          f"{res.inference_time:.6f}; {iters} epochs with accuracy in {train_s:.1f} s")
     print(f"[{tag}] losses {json.dumps([round(v, 5) for v in res.losses])}")
     print(f"[{tag}] accuracies {json.dumps([round(v, 5) for v in res.accuracies])}")
     print(f"[{tag}] kernel launches {json.dumps(launches)}, plain-version calls on cuda "
@@ -368,34 +419,51 @@ def _train_checked(tag, cm, min_accuracy):
     if logits.shape != (g.n_pad, cm.n_classes) or not torch.isfinite(logits).all():
         raise AssertionError(f"[{tag}] logits {tuple(logits.shape)} not finite or not "
                              "(n_pad, classes)")
+    dtypes = sorted({str(p.dtype) for p in res.params.parameters()})
+    print(f"[{tag}] features {cm.x.dtype}, logits {logits.dtype}, params {', '.join(dtypes)}")
+    if dtypes != ["torch.float32"]:
+        raise AssertionError(f"[{tag}] params not all f32 after training: {dtypes}")
     return res, launches
 
 
-def phase_train(gala_tpu_torch):
+def phase_train(gala_tpu_torch, dtype=torch.float32, data=None):
+    """GCN_DSL on the Arxiv stand-in; at bf16 (dtype=torch.bfloat16, the
+    features bf16, params f32) from `data`, the stand-in loaded once."""
     from __graft_entry__ import GCN_DSL
+    from gala_tpu_torch.ops.kernels._build import dtype_counts
 
+    tag = dtag("train", dtype)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    cm = gala_tpu_torch.compile_source(GCN_DSL, mode="train", scale=1.0, device="cuda")
+    cm = gala_tpu_torch.compile_source(GCN_DSL, mode="train", scale=1.0, device="cuda",
+                                       dtype=dtype, data=data)
     compile_s = time.perf_counter() - t0
     g = cm.full_graphs[0]
-    print(f"[train] compiled in {compile_s:.1f} s: strategy {g.strategy}, {g.n_nodes} nodes, "
+    print(f"[{tag}] compiled in {compile_s:.1f} s: strategy {g.strategy}, {g.n_nodes} nodes, "
           f"{g.n_edges} edges, {int(cm.x.shape[1])} features, {cm.n_classes} classes, "
           f"{g.bell.flat_cols.shape[0]} slots, {len(g.bell.bin_ks)} bins, {g.bell.n_big} hubs")
-    if g.strategy != "bell":
-        raise AssertionError(f"strategy {g.strategy}, expected bell")
-    _, launches = _train_checked("train", cm, 0.7)
-    if launches.get("bell_spmm", 0) <= 0:
-        raise AssertionError("the main path never launched the bell SpMM kernel")
-    return cm, launches["bell_spmm"]
+    if g.strategy != "bell" or cm.x.dtype != dtype:
+        raise AssertionError(f"strategy {g.strategy}, features {cm.x.dtype}: expected bell, "
+                             f"{dtype}")
+    _, launches = _train_checked(tag, cm, 0.7)
+    name = dtype_counts("bell_spmm", dtype).name
+    if launches.get(name, 0) <= 0:
+        raise AssertionError(f"the main path never launched the {name} kernel")
+    return cm, launches[name]
 
 
-def phase_kernel(cm, kernel):
+def phase_kernel(cm, kernel, dtype=torch.float32):
+    """The SpMM kernel in `dtype` (f32, or its bf16 form on bf16 features)
+    against its plain version, then timed.  Returns (max |kernel - plain|,
+    times)."""
     from gala_tpu_torch.data.csr import densify
 
+    tag = dtag("kernel", dtype)
     full, sub = cm.full_graphs[0], cm.train_graphs[0]
     if sub.bell.out_index is None or sub.t_bell is sub.bell:
         raise AssertionError("the training subgraph should have its own order and transpose")
     gen = torch.Generator(device="cuda").manual_seed(0)
+    rand = lambda *shape: torch.randn(shape, generator=gen, device="cuda").to(dtype)  # noqa: E731
     layouts = [
         ("arxiv full bell", full.bell, full.c_pad, full.n_pad),
         ("arxiv subgraph bell", sub.bell, sub.c_pad, sub.n_pad),
@@ -410,83 +478,120 @@ def phase_kernel(cm, kernel):
         if (lay.flat_vals < 0).any() or (lay.diag is not None and (lay.diag < 0).any()):
             raise AssertionError(f"{name}: negative values, |A| @ |x| needs |A|")
         for f in WIDTHS + ((33, 40) if name.startswith("hub") else ()):
-            x = torch.randn((rows, f), generator=gen, device="cuda")
+            x = rand(rows, f)
             out = kernel.bell_spmm(lay, x, n_out)
             ref = kernel.bell_spmm_reference(lay, x, n_out)
-            scale = kernel.bell_spmm_reference(lay, x.abs(), n_out)  # |A| @ |x|
-            err = (out - ref).abs()
-            bad = int((err > ATOL + RTOL * scale).sum())
+            scale = kernel.bell_spmm_reference(lay, x.abs(), n_out).float()  # |A| @ |x|
+            err = (out.float() - ref.float()).abs()
+            bad = int((err > ATOL + RTOL * scale + slack(out, ref)).sum())
             max_err = max(max_err, err.max().item())
             same = torch.equal(out, kernel.bell_spmm(lay, x, n_out))
-            print(f"[kernel] {name} F={f}: max |kernel - plain| {err.max().item():.3e}, "
+            print(f"[{tag}] {name} F={f}: max |kernel - plain| {err.max().item():.3e}, "
                   f"max of that / (|A| @ |x|) {(err / scale.clamp_min(1e-30)).max().item():.3e}, "
                   f"{bad} elements out of tolerance; a second call bitwise equal: {same}")
-            if bad:
-                raise AssertionError(f"{name} F={f}: {bad} elements out of tolerance")
+            if bad or out.dtype != dtype:
+                raise AssertionError(f"{name} F={f}: {bad} elements out of tolerance, "
+                                     f"result {out.dtype}")
             if not same:
                 raise AssertionError(f"{name} F={f}: two calls of the kernel differ")
-    # the generated graph against the dense product, in float64
-    x = torch.randn((hub.c_pad, 32), generator=gen, device="cuda")
+    # the generated graph against the dense product, in float64 (at bf16 the
+    # kernel rounds each value to bf16, by at most 2^-9 of it, and the
+    # layout's diagonal sums a node's self-loops before that: 2^-8 |A| @ |x|)
+    x = rand(hub.c_pad, 32)
     a = torch.from_numpy(densify(hub_host)).double()
     dense = a @ x[: hub.n_cols].double().cpu()
     scale = a @ x[: hub.n_cols].double().abs().cpu()
-    out = kernel.bell_spmm(hub.bell, x, hub.n_pad)[: hub.n_nodes].double().cpu()
-    err = (out - dense).abs()
-    print(f"[kernel] hub graph F=32 vs dense A @ x in float64: max err {err.max().item():.3e}")
-    if (err > ATOL + RTOL * scale).any():
+    got = kernel.bell_spmm(hub.bell, x, hub.n_pad)[: hub.n_nodes]
+    err = (got.double().cpu() - dense).abs()
+    rounding = 0.0 if dtype == torch.float32 else 2.0**-8 * scale
+    print(f"[{tag}] hub graph F=32 vs dense A @ x in float64: max err {err.max().item():.3e}")
+    if (err > ATOL + RTOL * scale + rounding + slack(got.cpu(), dense.float())).any():
         raise AssertionError("the kernel disagrees with the dense product")
 
     timings = {}
     for name, lay, rows, n_out in layouts[:3]:
         for f in WIDTHS:
-            x = torch.randn((rows, f), generator=gen, device="cuda")
+            x = rand(rows, f)
             t_kernel = cuda_ms(lambda: kernel.bell_spmm(lay, x, n_out), reps=20)
             t_plain = cuda_ms(lambda: kernel.bell_spmm_reference(lay, x, n_out), reps=5)
             timings[(name, f)] = (t_kernel, t_plain)
-            print(f"[kernel] time {name} F={f}: kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms")
+            print(f"[{tag}] time {name} F={f}: kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms")
     # the hub tail: the full layout against the same layout without its
     # rows over UNIT_SLOTS slots, per slot
     for f in WIDTHS:
-        x = torch.randn((full.c_pad, f), generator=gen, device="cuda")
+        x = rand(full.c_pad, f)
         timings[("tail", f)] = tail_ratio(
-            "kernel", f"arxiv full bell F={f}", full.bell,
+            tag, f"arxiv full bell F={f}", full.bell,
             lambda lay: kernel.bell_spmm(lay, x, full.n_pad))
 
     # the library's one call for the same product: torch.sparse.mm on a CSR
-    # tensor of the full layout's matrix (checked against the kernel first)
+    # tensor of the full layout's matrix (checked against the kernel first;
+    # at bf16 a bf16 CSR matrix, where the library takes one)
     csr = layout_csr(full.bell, full.n_pad, full.c_pad)
+    if dtype != torch.float32:
+        csr = torch.sparse_csr_tensor(csr.crow_indices(), csr.col_indices(),
+                                      csr.values().to(dtype), csr.shape)
     for f in WIDTHS:
-        x = torch.randn((full.c_pad, f), generator=gen, device="cuda")
-        lib_out = torch.sparse.mm(csr, x)
+        x = rand(full.c_pad, f)
         out = kernel.bell_spmm(full.bell, x, full.n_pad)
-        scale = kernel.bell_spmm_reference(full.bell, x.abs(), full.n_pad)
-        if ((lib_out - out).abs() > ATOL + RTOL * scale).any():
-            raise AssertionError(f"torch.sparse.mm on the layout's CSR differs from the kernel "
-                                 f"at F={f}: the library yardstick computes something else")
-        t_lib = cuda_ms(lambda: torch.sparse.mm(csr, x), reps=20)
-        ms, by = bound(layout_bytes(full.bell) + nbytes(x) + full.n_pad * f * 4,
+        ms, by = bound(layout_bytes(full.bell) + nbytes(x, out),
                        2 * (full.bell.flat_cols.numel() + full.n_pad) * f)
-        timings[("library", f)] = t_lib
         timings[("bound", f)] = (ms, by)
-        print(f"[kernel] arxiv full bell F={f}: torch.sparse.mm (CSR, {csr.values().numel()} "
-              f"stored values) {t_lib:.4f} ms; bound {ms:.4f} ms ({by})")
+        t_lib = library_call(tag, "torch.sparse.mm", lambda: torch.sparse.mm(csr, x), out,
+                             kernel.bell_spmm_reference(full.bell, x.abs(), full.n_pad), f)
+        timings[("library", f)] = t_lib
+        print(f"[{tag}] arxiv full bell F={f}: torch.sparse.mm (CSR, {csr.values().numel()} "
+              f"stored values) {t_lib if t_lib is None else f'{t_lib:.4f}'} ms; bound "
+              f"{ms:.4f} ms ({by})")
     return max_err, timings
 
 
-def phase_gat(gala_tpu_torch):
-    from __graft_entry__ import GAT_DSL
+def library_call(tag, name, call, mine, scale, f):
+    """The library yardstick: `call()` held to the kernel's result `mine`
+    (f32 tolerance, plus one bf16 unit where the result is bf16), then
+    timed.  At f32 a result out of tolerance fails the run.  At bf16 the
+    yardstick is None where the library refuses the dtype or sums in less
+    than f32 (out of that tolerance), and the line says which: the port
+    never calls it."""
+    try:
+        lib_out = call()
+    except (RuntimeError, NotImplementedError) as exc:
+        print(f"[{tag}] {name} at F={f}: the library takes no such call: "
+              f"{str(exc).splitlines()[0][:200]}")
+        return None
+    if lib_out.is_sparse or lib_out.layout == torch.sparse_csr:
+        lib_out = lib_out.values()
+    err = (lib_out.float() - mine.float()).abs()
+    if (err > ATOL + RTOL * scale.float() + 2 * slack(mine, lib_out.to(mine.dtype))).any():
+        if mine.dtype == torch.float32:
+            raise AssertionError(f"{name} differs from the kernel at F={f}: the library "
+                                 "yardstick computes something else")
+        print(f"[{tag}] {name} at F={f}: not the same sum as the kernel's f32 one (max "
+              f"|library - kernel| {err.max().item():.3e}, "
+              f"{(err / scale.float().clamp_min(1e-30)).max().item():.3e} of the summed "
+              "magnitudes): no yardstick at this dtype")
+        return None
+    return cuda_ms(call, reps=20)
 
+
+def phase_gat(gala_tpu_torch, dtype=torch.float32, data=None):
+    """GAT_DSL (fused attention) on the Arxiv stand-in; at bf16 from `data`."""
+    from __graft_entry__ import GAT_DSL
+    from gala_tpu_torch.ops.kernels._build import dtype_counts
+
+    tag = dtag("gat", dtype)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    cm = gala_tpu_torch.compile_source(GAT_DSL, mode="train", scale=1.0, device="cuda")
+    cm = gala_tpu_torch.compile_source(GAT_DSL, mode="train", scale=1.0, device="cuda",
+                                       dtype=dtype, data=data)
     compile_s = time.perf_counter() - t0
     g = cm.full_graphs[0]
     ops = [n.op.name for n in cm.program.loop.nodes]
-    print(f"[gat] compiled in {compile_s:.1f} s: strategy {g.strategy}, {g.n_nodes} nodes, "
+    print(f"[{tag}] compiled in {compile_s:.1f} s: strategy {g.strategy}, {g.n_nodes} nodes, "
           f"{g.n_edges} edges; program {','.join(ops)}")
     if g.attn is not None:
         for side, lay in (("fwd", g.attn.fwd), ("t", g.attn.t)):
-            print(f"[gat] attention layout {side}: {lay.flat_cols.shape[0]} slots, "
+            print(f"[{tag}] attention layout {side}: {lay.flat_cols.shape[0]} slots, "
                   f"{len(lay.bin_ks)} bins, {lay.n_big} hubs, longest row "
                   f"{int(lay.row_len.max())} slots")
     if g.strategy != "bell" or g.attn is None:
@@ -494,12 +599,14 @@ def phase_gat(gala_tpu_torch):
                              "expected bell with the fused attention layout")
     if ops.count("FUSED_ATTENTION") != 2:
         raise AssertionError(f"expected two fused attention ops, program {ops}")
-    _, launches = _train_checked("gat", cm, 0.6)
+    _, launches = _train_checked(tag, cm, 0.6)
     for name in ("attn_fwd", "attn_bwd2"):
+        name = dtype_counts(name, dtype).name
         if launches.get(name, 0) <= 0:
             raise AssertionError(f"the GAT path never launched the {name} kernel")
-    if launches.get("bell_spmm", 0):
-        raise AssertionError(f"the GAT path launched the bell SpMM {launches['bell_spmm']} times")
+    spmm = {k: v for k, v in launches.items() if k.startswith("bell_spmm") and v}
+    if spmm:
+        raise AssertionError(f"the GAT path launched the bell SpMM: {spmm}")
     return cm, launches
 
 
@@ -515,15 +622,18 @@ def _aggregate_on(device, ab, g, inputs):
     return [t.detach().cpu() for t in (out, x.grad, vl.grad, vr.grad)]
 
 
-def phase_attn_kernel(cm, ak):
-    """Returns (max |kernel - plain| per kernel, times)."""
+def phase_attn_kernel(cm, ak, dtype=torch.float32):
+    """The three attention kernels in `dtype` (x, vl, vr and dout in it; m,
+    s, w_tab and every output f32).  Returns (max |kernel - plain| per
+    kernel, times)."""
     from gala_tpu_torch.ops.graph import masked_units
 
+    tag = dtag("attn-kernel", dtype)
     full, sub = cm.full_graphs[0], cm.train_graphs[0]
     hub = hub_graph("cuda", attention=True)[1]
     graphs = [("arxiv full", full), ("arxiv training subgraph", sub), ("hub graph", hub)]
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rand = lambda *shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
+    rand = lambda *shape: torch.randn(shape, generator=gen, device="cuda").to(dtype)  # noqa: E731
 
     max_err = {name: 0.0 for name in ak.NAMES}
     for gname, g in graphs:
@@ -535,7 +645,7 @@ def phase_attn_kernel(cm, ak):
             torch.cuda.synchronize()
             same = all(torch.equal(a, b) for a, b in zip(*twice))
             bad = {k: v for k, v in res.items() if v[1]}
-            print(f"[attn-kernel] {gname} hf={hf} H={nh}: max |kernel - plain| "
+            print(f"[{tag}] {gname} hf={hf} H={nh}: max |kernel - plain| "
                   + ", ".join(f"{k} {v[0]:.2e}" for k, v in res.items())
                   + f"; {sum(v[1] for v in res.values())} elements out of tolerance; two "
                   f"forward calls bitwise equal: {same}")
@@ -549,7 +659,8 @@ def phase_attn_kernel(cm, ak):
                     max_err[name] = max(max_err[name], err)
             x, vl, vr, dout = inputs
             out, m, s = twice[0][:3]
-            w_tab = torch.cat([dout, vr, m, s, ak.per_head_dot(dout, out, nh)], dim=1)
+            w_tab = torch.cat([dout.float(), vr.float(), m, s, ak.per_head_dot(dout, out, nh)],
+                              dim=1)
             for side, kind in (("fwd", "bwd1"), ("t", "bwd2")):
                 lay = getattr(g.attn, side)
                 lays = [("", lay)] + ([(", masked units", masked_units(lay))]
@@ -560,26 +671,28 @@ def phase_attn_kernel(cm, ak):
                                 *ak.attn_fwd_reference(lay, x, vl, vr, SLOPE, g.n_pad, False)[1:3])
                     else:
                         args = (x, vl, w_tab, g.c_pad)
-                    err = check_units(ak, kind, f"{gname}{extra} hf={hf} H={nh}", lay, *args)
+                    err = check_units(ak, kind, f"{gname}{extra} hf={hf} H={nh}", lay, *args,
+                                      tag=tag)
                     max_err[f"attn_{kind}"] = max(max_err[f"attn_{kind}"], err)
 
     # the op with its autograd on the card against the same op on CPU tensors
+    # (at bf16 out and the gradients are bf16: one unit of slack each)
     hub_cpu = hub_graph("cpu", attention=True)[1]
     cpu_gen = torch.Generator().manual_seed(1)
     for hf, nh in ATTN_SHAPES:
-        inputs = [torch.randn(shape, generator=cpu_gen) for shape in
+        inputs = [torch.randn(shape, generator=cpu_gen).to(dtype) for shape in
                   ((hub.c_pad, hf), (hub.c_pad, nh), (hub.n_pad, nh), (hub.n_pad, hf))]
         got = _aggregate_on("cuda", hub.attn, hub, inputs)
         want = _aggregate_on("cpu", hub_cpu.attn, hub_cpu, inputs)
         scales = ak.aggregate_scales(hub_cpu.attn, *inputs, SLOPE, hub.n_pad, hub.c_pad)
         errs = []
         for name, gt, wt, sc in zip(("out", "dx", "dvl", "dvr"), got, want, scales):
-            err = (gt - wt).abs()
+            err = (gt.float() - wt.float()).abs()
             errs.append(f"{name} {err.max().item():.2e}")
-            if (err > 1e-4 + 1e-4 * sc).any():
+            if gt.dtype != dtype or (err > 1e-4 + 1e-4 * sc + slack(gt, wt)).any():
                 raise AssertionError(f"attention_aggregate hf={hf} H={nh}: {name} on the card "
-                                     f"differs from CPU by {err.max().item():.3e}")
-        print(f"[attn-kernel] attention_aggregate hub graph hf={hf} H={nh}, card vs cpu: "
+                                     f"({gt.dtype}) differs from CPU by {err.max().item():.3e}")
+        print(f"[{tag}] attention_aggregate hub graph hf={hf} H={nh}, card vs cpu: "
               + ", ".join(errs))
 
     timings = {}
@@ -589,7 +702,7 @@ def phase_attn_kernel(cm, ak):
         vr, dout = rand(full.n_pad, nh), rand(full.n_pad, hf)
         out, m, s, _, _ = ak.attn_fwd(lay_f, x, vl, vr, SLOPE, full.n_pad, False)
         sds = ak.per_head_dot(dout, out, nh)
-        w_tab = torch.cat([dout, vr, m, s, sds], dim=1)
+        w_tab = torch.cat([dout.float(), vr.float(), m, s, sds], dim=1)
         calls = {
             "attn_fwd": (lambda: ak.attn_fwd(lay_f, x, vl, vr, SLOPE, full.n_pad, True),
                          lambda: ak.attn_fwd_reference(lay_f, x, vl, vr, SLOPE, full.n_pad,
@@ -600,34 +713,35 @@ def phase_attn_kernel(cm, ak):
                           lambda: ak.attn_bwd2_reference(lay_t, x, vl, w_tab, SLOPE,
                                                          full.c_pad)),
         }
-        # bytes: the layout, each input once, each output once; operations:
-        # per slot 2 a feature for each product over the row (fwd: out and
-        # out+; bwd2: dx and dp) and ~8-12 a head for the score
-        node, col = full.n_pad * nh * 4, full.c_pad * nh * 4
+        # bytes: the layout, each input once (in its dtype), each output
+        # once (f32); operations: per slot 2 a feature for each product over
+        # the row (fwd: out and out+; bwd2: dx and dp) and ~8-12 a head for
+        # the score, at the f32 rate (the kernels compute in f32)
+        node, col, f32 = full.n_pad * nh * 4, full.c_pad * nh * 4, 4
         work = {
-            "attn_fwd": (layout_bytes(lay_f) + nbytes(x, vl, vr) + 2 * nbytes(dout) + 3 * node,
-                         lay_f.flat_cols.numel() * (4 * hf + 8 * nh)),
+            "attn_fwd": (layout_bytes(lay_f) + nbytes(x, vl, vr) + 2 * full.n_pad * hf * f32
+                         + 3 * node, lay_f.flat_cols.numel() * (4 * hf + 8 * nh)),
             "attn_bwd1": (layout_bytes(lay_f) + nbytes(x, vl, vr, dout, m, s) + 3 * node,
                           lay_f.flat_cols.numel() * (2 * hf + 12 * nh)),
-            "attn_bwd2": (layout_bytes(lay_t) + nbytes(w_tab, x, vl) + nbytes(x) + col,
-                          lay_t.flat_cols.numel() * (4 * hf + 12 * nh)),
+            "attn_bwd2": (layout_bytes(lay_t) + nbytes(w_tab, x, vl) + full.c_pad * hf * f32
+                          + col, lay_t.flat_cols.numel() * (4 * hf + 12 * nh)),
         }
         for name, (kern, plain) in calls.items():
             t_kernel = cuda_ms(kern, reps=20)
             t_plain = cuda_ms(plain, reps=5)
             ms, by = bound(*work[name])
             timings[(name, hf)] = (t_kernel, t_plain, ms, by)
-            print(f"[attn-kernel] time {name} arxiv full hf={hf} H={nh}: kernel "
+            print(f"[{tag}] time {name} arxiv full hf={hf} H={nh}: kernel "
                   f"{t_kernel:.4f} ms, plain {t_plain:.4f} ms, bound {ms:.4f} ms ({by}); "
                   f"no single library call computes it")
         timings[("tail", hf)] = tail_ratio(
-            "attn-kernel", f"attn_fwd arxiv full hf={hf} H={nh}", lay_f,
+            tag, f"attn_fwd arxiv full hf={hf} H={nh}", lay_f,
             lambda lay: ak.attn_fwd(lay, x, vl, vr, SLOPE, full.n_pad, True))
         timings[("tail bwd1", hf)] = tail_ratio(
-            "attn-kernel", f"attn_bwd1 arxiv full hf={hf} H={nh}", lay_f,
+            tag, f"attn_bwd1 arxiv full hf={hf} H={nh}", lay_f,
             lambda lay: ak.attn_bwd1(lay, x, vl, vr, dout, m, s, SLOPE))
         timings[("tail bwd2", hf)] = tail_ratio(
-            "attn-kernel", f"attn_bwd2 arxiv full hf={hf} H={nh}", lay_t,
+            tag, f"attn_bwd2 arxiv full hf={hf} H={nh}", lay_t,
             lambda lay: ak.attn_bwd2(lay, x, vl, w_tab, SLOPE, full.c_pad))
         for tail in ("tail bwd1", "tail bwd2"):
             if timings[(tail, hf)][2] > TAIL_LIMIT:
@@ -637,12 +751,13 @@ def phase_attn_kernel(cm, ak):
     return max_err, timings
 
 
-def _compile_spec(tag, spec):
+def _compile_spec(tag, spec, dtype=torch.float32, data=None):
     import gala_tpu_torch
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    cm = gala_tpu_torch.compile_model(spec, mode="train", scale=1.0, device="cuda")
+    cm = gala_tpu_torch.compile_model(spec, mode="train", scale=1.0, device="cuda", dtype=dtype,
+                                      data=data)
     compile_s = time.perf_counter() - t0
     g = cm.full_graphs[0]
     ops = [(n.op.name, len(n.inputs)) for n in cm.program.all_nodes()]
@@ -659,24 +774,30 @@ def _compile_spec(tag, spec):
     return cm, ops
 
 
-def phase_gat_edge():
+def phase_gat_edge(dtype=torch.float32, data=None, iters=20, min_accuracy=0.6):
+    """GAT_DSL with the attention chain unfused; at bf16 from `data` (and
+    a shorter run: its 5 epochs pass no validation epoch after the first,
+    so no accuracy is asked of it)."""
     from __graft_entry__ import GAT_DSL
     from gala_tpu_torch.dsl.parser import parse_source
+    from gala_tpu_torch.ops.kernels._build import dtype_counts
 
+    tag = dtag("gat-edge", dtype)
     spec = parse_source(GAT_DSL)
     spec.passes.attention_fusion = False
-    cm, ops = _compile_spec("gat-edge", spec)
+    cm, ops = _compile_spec(tag, spec, dtype, data)
     names = [name for name, _ in ops]
     if ("AGGREGATE_EDGE_SUM" not in names or "SOFTMAX" not in names
             or ("AGGREGATE_MUL_SUM", 3) not in ops or "FUSED_ATTENTION" in names):
-        raise AssertionError(f"[gat-edge] not the unfused GAT chain: {ops}")
-    _, launches = _train_checked("gat-edge", cm, 0.6)
+        raise AssertionError(f"[{tag}] not the unfused GAT chain: {ops}")
+    _, launches = _train_checked(tag, cm, min_accuracy, iters=iters)
     for name in ("sddmm", "bell_spmm"):
+        name = dtype_counts(name, dtype).name
         if launches.get(name, 0) <= 0:
-            raise AssertionError(f"[gat-edge] the path never launched the {name} kernel")
+            raise AssertionError(f"[{tag}] the path never launched the {name} kernel")
     attn = {k: v for k, v in launches.items() if k.startswith("attn_") and v}
     if attn:
-        raise AssertionError(f"[gat-edge] the path launched attention kernels: {attn}")
+        raise AssertionError(f"[{tag}] the path launched attention kernels: {attn}")
     return cm, launches
 
 
@@ -700,13 +821,15 @@ def phase_gcn_sparser():
     return launches
 
 
-def phase_sddmm_kernel(cm, ks, kernel):
-    """Returns (max |kernel - plain| of the SDDMM, of the SpMM with slot
-    values, times)."""
+def phase_sddmm_kernel(cm, ks, kernel, dtype=torch.float32):
+    """The SDDMM kernel and the SpMM with slot values in `dtype`.  Returns
+    (max |kernel - plain| of the SDDMM, of the SpMM with slot values,
+    times)."""
+    tag = dtag("sddmm-kernel", dtype)
     full, sub = cm.full_graphs[0], cm.train_graphs[0]
     hub = hub_graph("cuda", strategy="ell")[1]
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rand = lambda *shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
+    rand = lambda *shape: torch.randn(shape, generator=gen, device="cuda").to(dtype)  # noqa: E731
     cases = [("arxiv full", full, SDDMM_WIDTHS), ("arxiv training subgraph", sub, SDDMM_WIDTHS),
              ("hub graph", hub, (1, 33, 40, 128))]
     max_err = 0.0
@@ -716,18 +839,19 @@ def phase_sddmm_kernel(cm, ks, kernel):
             out = ks.sddmm(g.src, g.dst, a, b)
             same = torch.equal(out, ks.sddmm(g.src, g.dst, a, b))
             ref = ks.sddmm_reference(g.src, g.dst, a, b)
-            scale = ks.sddmm_reference(g.src, g.dst, a.abs(), b.abs())
-            err = (out - ref).abs()
-            bad = int((err > ATOL + RTOL * scale).sum())
+            scale = ks.sddmm_reference(g.src, g.dst, a.abs(), b.abs()).float()
+            err = (out.float() - ref.float()).abs()
+            bad = int((err > ATOL + RTOL * scale + slack(out, ref)).sum())
             max_err = max(max_err, err.max().item())
-            print(f"[sddmm-kernel] {name} ({g.e_pad} edges) F={f}: max |kernel - plain| "
+            print(f"[{tag}] {name} ({g.e_pad} edges) F={f}: max |kernel - plain| "
                   f"{err.max().item():.3e}, max of that / (sum |a||b|) "
                   f"{(err / scale.clamp_min(1e-30)).max().item():.3e}, {bad} out of tolerance; "
                   f"a second call bitwise equal: {same}")
-            if bad:
-                raise AssertionError(f"[sddmm-kernel] {name} F={f}: {bad} edges out of tolerance")
+            if bad or out.dtype != dtype:
+                raise AssertionError(f"[{tag}] {name} F={f}: {bad} edges out of tolerance, "
+                                     f"result {out.dtype}")
             if not same:
-                raise AssertionError(f"[sddmm-kernel] {name} F={f}: two calls differ")
+                raise AssertionError(f"[{tag}] {name} F={f}: two calls differ")
 
     # every ELL layout and width the gat-edge and gcn-sparser paths give the
     # SpMM with slot values: 32/40 in training, 128 and 1 in the hoisted
@@ -746,11 +870,11 @@ def phase_sddmm_kernel(cm, ks, kernel):
                 x = rand(rows, f)
                 out = kernel.bell_spmm(lay, x, n_out, vals=vals)
                 ref = kernel.bell_spmm_rows_reference(lay, x, n_out, vals)
-                scale = kernel.bell_spmm_rows_reference(lay, x.abs(), n_out, vals)
-                err = (out - ref).abs()
-                bad = int((err > ATOL + RTOL * scale).sum())
+                scale = kernel.bell_spmm_rows_reference(lay, x.abs(), n_out, vals).float()
+                err = (out.float() - ref.float()).abs()
+                bad = int((err > ATOL + RTOL * scale + slack(out, ref)).sum())
                 spmm_err = max(spmm_err, err.max().item())
-                print(f"[sddmm-kernel] bell_spmm with slot values, {name} {side} F={f}: "
+                print(f"[{tag}] bell_spmm with slot values, {name} {side} F={f}: "
                       f"max |kernel - plain| {err.max().item():.3e}, {bad} out of tolerance")
                 if bad:
                     raise AssertionError(f"bell_spmm slot values {name} {side} F={f}: {bad} "
@@ -764,23 +888,25 @@ def phase_sddmm_kernel(cm, ks, kernel):
         torch.ones(full.e_pad, device="cuda"), (full.n_pad, full.c_pad)).coalesce()
     rows_p, cols_p = pattern.indices()
     pattern = pattern.to_sparse_csr()
+    pattern = torch.sparse_csr_tensor(pattern.crow_indices(), pattern.col_indices(),
+                                      pattern.values().to(dtype), pattern.shape)
     timings = {}
     for f in SDDMM_WIDTHS:
         a, b = rand(full.c_pad, f), rand(full.n_pad, f)
         t_kernel = cuda_ms(lambda: ks.sddmm(full.src, full.dst, a, b), reps=20)
         t_plain = cuda_ms(lambda: ks.sddmm_reference(full.src, full.dst, a, b), reps=5)
         at = a.t().contiguous()
-        lib = torch.sparse.sampled_addmm(pattern, b, at, beta=0.0)
         mine = ks.sddmm(cols_p.int(), rows_p.int(), a, b)
-        scale = ks.sddmm_reference(cols_p.int(), rows_p.int(), a.abs(), b.abs())
-        if ((lib.values() - mine).abs() > ATOL + RTOL * scale).any():
-            raise AssertionError(f"sampled_addmm differs from the kernel at F={f}")
-        t_lib = cuda_ms(lambda: torch.sparse.sampled_addmm(pattern, b, at, beta=0.0), reps=20)
-        ms, by = bound(nbytes(full.src, full.dst, a, b) + full.e_pad * 4, 2 * full.e_pad * f)
+        t_lib = library_call(tag, "torch.sparse.sampled_addmm",
+                             lambda: torch.sparse.sampled_addmm(pattern, b, at, beta=0.0), mine,
+                             ks.sddmm_reference(cols_p.int(), rows_p.int(), a.abs(), b.abs()), f)
+        ms, by = bound(nbytes(full.src, full.dst, a, b) + full.e_pad * a.element_size(),
+                       2 * full.e_pad * f)
         timings[("sddmm", f)] = (t_kernel, t_plain, t_lib, ms, by)
-        print(f"[sddmm-kernel] time sddmm arxiv full F={f}: kernel {t_kernel:.4f} ms, "
-              f"plain {t_plain:.4f} ms, torch.sparse.sampled_addmm {t_lib:.4f} ms "
-              f"({lib.values().numel()} stored values), bound {ms:.4f} ms ({by})")
+        print(f"[{tag}] time sddmm arxiv full F={f}: kernel {t_kernel:.4f} ms, "
+              f"plain {t_plain:.4f} ms, torch.sparse.sampled_addmm "
+              f"{t_lib if t_lib is None else f'{t_lib:.4f}'} ms ({pattern.values().numel()} "
+              f"stored values), bound {ms:.4f} ms ({by})")
         if f == 1:
             continue  # the SpMM with slot values runs at the path's widths, 32 and 40
         evals = torch.rand((full.e_pad,), generator=gen, device="cuda")
@@ -790,9 +916,9 @@ def phase_sddmm_kernel(cm, ks, kernel):
         t_plain = cuda_ms(lambda: kernel.bell_spmm_rows_reference(full.ell, x, full.n_pad, vals),
                           reps=5)
         timings[("bell_spmm ell", f)] = (t_kernel, t_plain)
-        print(f"[sddmm-kernel] time bell_spmm on the ELL layout with slot values, arxiv full "
+        print(f"[{tag}] time bell_spmm on the ELL layout with slot values, arxiv full "
               f"F={f}: kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms")
-        tail_ratio("sddmm-kernel", f"bell_spmm on the ELL layout with slot values F={f}",
+        tail_ratio(tag, f"bell_spmm on the ELL layout with slot values F={f}",
                    full.ell, lambda lay: kernel.bell_spmm(lay, x, full.n_pad, vals=vals))
     return max_err, spmm_err, timings
 
@@ -845,61 +971,71 @@ def phase_gin():
     return launches
 
 
-def phase_sage_minibatch(arxiv):
+def phase_sage_minibatch(arxiv, dtype=torch.float32, iters=10):
     """train_sage_minibatch with gala_tpu's defaults (fanouts 25/10, batch
-    512, hidden 32, 10 epochs) on the Arxiv stand-in."""
-    from gala_tpu_torch.ops.kernels._build import all_counts, reset_counts
+    512, hidden 32, 10 epochs) on the Arxiv stand-in; at bf16 (the feature
+    table bf16, so the gathers copy bf16 rows) for `iters` epochs."""
+    from gala_tpu_torch.ops.kernels._build import all_counts, dtype_counts, reset_counts
     from gala_tpu_torch.train_minibatch import train_sage_minibatch
 
+    tag = dtag("sage-minibatch", dtype)
     g_host, feats, labels, masks = arxiv
     n_train = int(np.asarray(masks["train"]).sum())
-    fanouts, batch, iters = (25, 10), 512, 10
+    fanouts, batch = (25, 10), 512
     n_batches = -(-n_train // batch)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    res = train_sage_minibatch(g_host, feats, labels, masks, device="cuda")
+    res = train_sage_minibatch(g_host, feats, labels, masks, device="cuda", dtype=dtype,
+                               iters=iters)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = {name: c.launches for name, c in all_counts().items()}
     on_cuda = {name: c.reference_calls_on_cuda for name, c in all_counts().items()}
     f1, f2 = fanouts
     sampled = n_train * (f1 + f1 * f2)  # per epoch, scripts/bench_minibatch.py's count
-    print(f"[sage-minibatch] {n_train} training nodes, {n_batches} batches of {batch}, "
+    print(f"[{tag}] {n_train} training nodes, {n_batches} batches of {batch}, "
           f"fanouts {fanouts}, {iters} epochs in {run_s:.1f} s (sampling and validation "
           f"included)")
-    print(f"[sage-minibatch] epoch seconds (device work, after 1 warm-up epoch) "
+    print(f"[{tag}] epoch seconds (device work, after 1 warm-up epoch) "
           f"{res.total_time:.6f}; sampled edges/s {sampled / max(res.total_time, 1e-9):.1f}")
-    print(f"[sage-minibatch] losses {json.dumps([round(v, 5) for v in res.losses])}")
-    print(f"[sage-minibatch] accuracies {json.dumps([round(v, 5) for v in res.accuracies])}")
-    print(f"[sage-minibatch] kernel launches {json.dumps(launches)}, plain-version calls on "
+    print(f"[{tag}] losses {json.dumps([round(v, 5) for v in res.losses])}")
+    print(f"[{tag}] accuracies {json.dumps([round(v, 5) for v in res.accuracies])}")
+    print(f"[{tag}] kernel launches {json.dumps(launches)}, plain-version calls on "
           f"cuda {json.dumps(on_cuda)}")
-    print(f"[sage-minibatch] peak memory allocated "
+    print(f"[{tag}] peak memory allocated "
           f"{torch.cuda.max_memory_allocated() / 1e6:.1f} MB")
     want = 3 * n_batches * iters
+    spmm = dtype_counts("bell_spmm", dtype).name
+    dtypes = sorted({str(p.dtype) for p in res.params.parameters()})
+    print(f"[{tag}] params {', '.join(dtypes)}")
+    if dtypes != ["torch.float32"]:
+        raise AssertionError(f"[{tag}] params not all f32 after training: {dtypes}")
     if launches.get("gather_rows", 0) != want:
-        raise AssertionError(f"[sage-minibatch] {launches.get('gather_rows', 0)} gather "
+        raise AssertionError(f"[{tag}] {launches.get('gather_rows', 0)} gather "
                              f"launches, expected 3 x {n_batches} x {iters} = {want}")
-    if launches.get("bell_spmm", 0) <= 0:
-        raise AssertionError("[sage-minibatch] validation never launched the bell SpMM kernel")
+    if launches.get(spmm, 0) <= 0:
+        raise AssertionError(f"[{tag}] validation never launched the {spmm} kernel")
     if any(on_cuda.values()):
-        raise AssertionError(f"[sage-minibatch] plain versions ran on the card: {on_cuda}")
+        raise AssertionError(f"[{tag}] plain versions ran on the card: {on_cuda}")
     if not all(math.isfinite(v) for v in res.losses) or not res.losses[-1] < res.losses[0]:
-        raise AssertionError(f"[sage-minibatch] losses not finite and falling: {res.losses}")
+        raise AssertionError(f"[{tag}] losses not finite and falling: {res.losses}")
     if res.max_accuracy < 0.6:
-        raise AssertionError(f"[sage-minibatch] max test accuracy {res.max_accuracy} < 0.6")
+        raise AssertionError(f"[{tag}] max test accuracy {res.max_accuracy} < 0.6")
     return launches
 
 
-def phase_gather_kernel(arxiv, kg):
+def phase_gather_kernel(arxiv, kg, dtype=torch.float32):
     """The gather kernel against index_select, bitwise, at the minibatch
-    path's shapes and at ragged, empty and odd ones; then times at the n2
+    path's shapes with the table in `dtype` and (in the f32 phase) at
+    ragged, empty and odd ones in f32 and bf16; then times at the n2
     shape.  Returns (max |kernel - plain|, times)."""
     from gala_tpu_torch.data.minibatch import NeighborSampler
 
+    tag = dtag("gather-kernel", dtype)
     g_host, feats, _, masks = arxiv
     eb = NeighborSampler(g_host, (25, 10), 512).epoch(np.flatnonzero(masks["train"]), 0)
-    table = torch.from_numpy(np.asarray(feats, np.float32)).cuda()
+    table = torch.from_numpy(np.asarray(feats, np.float32)).cuda().to(dtype)
     gen = torch.Generator(device="cuda").manual_seed(0)
     path = {name: torch.from_numpy(np.ascontiguousarray(a[0]).reshape(-1)).cuda()
             for name, a in (("t", eb.targets), ("n1", eb.n1), ("n2", eb.n2))}
@@ -907,17 +1043,17 @@ def phase_gather_kernel(arxiv, kg):
     for name, idx in path.items():
         for order, ids in (("sampled", idx), ("sorted", idx.sort().values)):
             max_err = max(max_err, kg.compare_with_plain(table, ids))
-            print(f"[gather-kernel] path shape {name}: {tuple(table.shape)} table, "
+            print(f"[{tag}] path shape {name}: {tuple(table.shape)} {table.dtype} table, "
                   f"{ids.numel()} {order} indices: bitwise equal")
-    for dtype in (torch.float32, torch.bfloat16):
+    for dt in (torch.float32, torch.bfloat16) if dtype == torch.float32 else ():
         for f in GATHER_WIDTHS:
-            x = torch.randn((table.shape[0], f), generator=gen, device="cuda").to(dtype)
+            x = torch.randn((table.shape[0], f), generator=gen, device="cuda").to(dt)
             for m in GATHER_ROWS + (12800,):
                 idx = torch.randint(0, x.shape[0], (m,), generator=gen, device="cuda",
                                     dtype=torch.int32)
                 for ids in (idx, idx.sort().values):
                     max_err = max(max_err, kg.compare_with_plain(x, ids))
-            print(f"[gather-kernel] {str(dtype)[6:]} F={f}: M = "
+            print(f"[{tag}] {str(dt)[6:]} F={f}: M = "
                   f"{', '.join(map(str, GATHER_ROWS + (12800,)))}, random and sorted: "
                   f"bitwise equal")
     torch.cuda.synchronize()
@@ -929,8 +1065,8 @@ def phase_gather_kernel(arxiv, kg):
     t_kernel = cuda_ms(lambda: kg.gather_rows(table, idx), reps=50)
     t_plain = cuda_ms(lambda: kg.gather_rows_reference(table, idx), reps=50)
     t_lib = cuda_ms(lambda: torch.index_select(table, 0, idx), reps=50)
-    print(f"[gather-kernel] time at the n2 shape ({idx.numel()} of {table.shape[0]} rows, "
-          f"{unique} distinct, F={table.shape[1]} f32): kernel {t_kernel:.4f} ms, plain "
+    print(f"[{tag}] time at the n2 shape ({idx.numel()} of {table.shape[0]} rows, "
+          f"{unique} distinct, F={table.shape[1]} {table.dtype}): kernel {t_kernel:.4f} ms, plain "
           f"{t_plain:.4f} ms, torch.index_select {t_lib:.4f} ms, bound {ms:.4f} ms ({by})")
     return max_err, (t_kernel, t_plain, t_lib, ms, by)
 
@@ -1013,6 +1149,84 @@ def phase_cli():
         raise AssertionError(f"[cli] expected three finite fields, got {line!r}")
 
 
+def kernel_rows(r, dtype, f32=None) -> list:
+    """The kernels' line entries of one dtype's phases (`r`: their results;
+    at bf16 `f32`, the f32 phases' results, gives each row its f32 time
+    beside its own)."""
+    sfx, bf = ("", "") if dtype == torch.float32 else ("_bf16", "-bf16")
+
+    def at_f32(row, key):
+        if f32 is not None:
+            row["f32_ms"] = key(f32)
+        return row
+
+    t_kernel, t_plain = r["timings"][("arxiv full bell", 32)]
+    ms, by = r["timings"][("bound", 32)]
+    widths = {"ms_by_width": {f: r["timings"][("arxiv full bell", f)][0] for f in WIDTHS},
+              "bound_ms_by_width": {f: r["timings"][("bound", f)][0] for f in WIDTHS},
+              "library_ms_by_width": {f: r["timings"][("library", f)] for f in WIDTHS},
+              "tail_by_width": {f: dict(zip(("full_ms", "short_rows_ms", "per_slot_ratio"),
+                                            r["timings"][("tail", f)])) for f in WIDTHS}}
+    spmm = f"bell_spmm{sfx}"
+    paths = {"gcn": r["launches"], "gat-edge": r["edge_launches"].get(spmm, 0),
+             "sage-minibatch": r["mb_launches"].get(spmm, 0)}
+    if f32 is None:
+        paths.update({"gcn-sparser": r["sparser_launches"].get(spmm, 0),
+                      "sage": r["sage_launches"].get(spmm, 0),
+                      "gin": r["gin_launches"].get(spmm, 0)})
+    rows = [at_f32({
+        "name": spmm, "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES,
+        "launches": r["launches"], "max_abs_err": max(r["max_err"], r["ev_err"]),
+        "ms": t_kernel, "plain_ms": t_plain, "bound_ms": ms, "bound_by": by,
+        "library_ms": r["timings"][("library", 32)], "at": "arxiv full bell, F=32", **widths,
+        "path": ", ".join(f"{p}{bf}" + (" (validation)" if p == "sage-minibatch" else "")
+                          for p in paths),
+        "path_launches": {f"{p}{bf}": n for p, n in paths.items()},
+    }, lambda f: f["timings"][("arxiv full bell", 32)][0])]
+    for name in ("attn_fwd", "attn_bwd1", "attn_bwd2"):
+        t_kernel, t_plain, ms, by = r["attn_timings"][(name, 32)]
+        tail = {"attn_fwd": "tail", "attn_bwd1": "tail bwd1", "attn_bwd2": "tail bwd2"}[name]
+        hfs = [hf for hf, _ in ATTN_SHAPES[:2]]
+        rows.append(at_f32({
+            "ms_by_width": {hf: r["attn_timings"][(name, hf)][0] for hf in hfs},
+            "bound_ms_by_width": {hf: r["attn_timings"][(name, hf)][2] for hf in hfs},
+            "tail_by_width": {hf: dict(zip(("full_ms", "short_rows_ms", "per_slot_ratio"),
+                                           r["attn_timings"][(tail, hf)])) for hf in hfs},
+            "name": f"{name}{sfx}", "route": "cuda", "source": ATTN_SOURCE,
+            "replaces": ATTN_REPLACES[name], "launches": r["gat_launches"].get(f"{name}{sfx}", 0),
+            "kernel_phase_launches": r["phase_launches"].get(f"{name}{sfx}", 0),
+            "max_abs_err": r["attn_err"][name], "ms": t_kernel, "plain_ms": t_plain,
+            "bound_ms": ms, "bound_by": by, "library_ms": None,
+            "at": "arxiv full attention layout, hf=32, H=1",
+            "path": f"gat{bf}" if name != "attn_bwd1" else "kernel phase only (the GAT path "
+                                                           "takes the flash identity)",
+        }, lambda f, name=name: f["attn_timings"][(name, 32)][0]))
+    t_kernel, t_plain, t_lib, ms, by = r["sddmm_timings"][("sddmm", 32)]
+    rows.append(at_f32({
+        "name": f"sddmm{sfx}", "route": "cuda", "source": SDDMM_SOURCE,
+        "replaces": SDDMM_REPLACES, "launches": r["edge_launches"].get(f"sddmm{sfx}", 0),
+        "max_abs_err": r["sddmm_err"], "ms": t_kernel, "plain_ms": t_plain, "bound_ms": ms,
+        "bound_by": by, "library_ms": t_lib, "at": "arxiv full edge list, F=32",
+        "path": f"gat-edge{bf}",
+        "ms_by_width": {f: r["sddmm_timings"][("sddmm", f)][0] for f in SDDMM_WIDTHS},
+        "bound_ms_by_width": {f: r["sddmm_timings"][("sddmm", f)][3] for f in SDDMM_WIDTHS},
+        "path_launches": {f"gat-edge{bf}": r["edge_launches"].get(f"sddmm{sfx}", 0),
+                          **({} if f32 is not None else {
+                              "gcn-sparser": r["sparser_launches"].get("sddmm", 0)})},
+    }, lambda f: f["sddmm_timings"][("sddmm", 32)][0]))
+    t_kernel, t_plain, t_lib, ms, by = r["gather_times"]
+    rows.append(at_f32({
+        "name": f"gather_rows{sfx}", "route": "cuda", "source": GATHER_SOURCE,
+        "replaces": GATHER_REPLACES, "launches": r["mb_launches"].get("gather_rows", 0),
+        "max_abs_err": r["gather_err"], "ms": t_kernel, "plain_ms": t_plain, "bound_ms": ms,
+        "bound_by": by, "library_ms": t_lib,
+        "at": f"arxiv feature table (169,343 x 128 {'f32' if f32 is None else 'bf16'}), one "
+              "batch's n2 (128,000 rows)",
+        "path": f"sage-minibatch{bf}",
+    }, lambda f: f["gather_times"][0]))
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: torch.cuda.is_available() is false: needs an NVIDIA GPU")
@@ -1044,9 +1258,12 @@ def main() -> int:
     reported = {name: sp for build in builds for name, sp in spills(build.log).items()
                 if any(k in name for k in NO_SPILL)}
     missing = [k for k in NO_SPILL if not any(k in name for name in reported)]
+    missing += [f"{k} (bf16)" for k in NO_SPILL_BF16
+                if not any(k in name and BF16_MANGLED in name for name in reported)]
     spilled = {name: sp for name, sp in reported.items() if any(sp)}
-    print(f"[build] ptxas reports {len(reported)} instantiations of {', '.join(NO_SPILL)}; "
-          f"spills: {spilled or 'none'}")
+    n_bf16 = sum(BF16_MANGLED in name for name in reported)
+    print(f"[build] ptxas reports {len(reported)} instantiations of {', '.join(NO_SPILL)} "
+          f"({n_bf16} of them bf16); spills: {spilled or 'none'}")
     if missing or spilled:
         raise AssertionError(f"ptxas spills in the redesigned kernels: {spilled}; no report "
                              f"for {missing}")
@@ -1081,80 +1298,50 @@ def main() -> int:
         print(f"[{name}] phase took {seconds[name]:.1f} s")
         return out
 
-    cm, launches = timed("train", phase_train, gala_tpu_torch)
-    max_err, timings = timed("kernel", phase_kernel, cm, kernel)
+    r = {}  # each dtype's results, for the kernels' line
+    cm, r["launches"] = timed("train", phase_train, gala_tpu_torch)
+    r["max_err"], r["timings"] = timed("kernel", phase_kernel, cm, kernel)
     del cm
-    gat, gat_launches = timed("gat", phase_gat, gala_tpu_torch)
+    gat, r["gat_launches"] = timed("gat", phase_gat, gala_tpu_torch)
     before = {name: c.launches for name, c in all_counts().items()}
-    attn_err, attn_timings = timed("attn-kernel", phase_attn_kernel, gat, ak)
-    phase_launches = {name: c.launches - before.get(name, 0) for name, c in all_counts().items()}
+    r["attn_err"], r["attn_timings"] = timed("attn-kernel", phase_attn_kernel, gat, ak)
+    r["phase_launches"] = {name: c.launches - before.get(name, 0)
+                           for name, c in all_counts().items()}
     del gat
-    gat_edge, edge_launches = timed("gat-edge", phase_gat_edge)
-    sddmm_err, ev_err, sddmm_timings = timed("sddmm-kernel", phase_sddmm_kernel, gat_edge, ks,
-                                             kernel)
+    gat_edge, r["edge_launches"] = timed("gat-edge", phase_gat_edge)
+    r["sddmm_err"], r["ev_err"], r["sddmm_timings"] = timed(
+        "sddmm-kernel", phase_sddmm_kernel, gat_edge, ks, kernel)
     del gat_edge
-    sparser_launches = timed("gcn-sparser", phase_gcn_sparser)
+    r["sparser_launches"] = timed("gcn-sparser", phase_gcn_sparser)
     arxiv = timed("data", load_dataset, "Arxiv", None, 1.0)
-    sage_launches = timed("sage", phase_sage, arxiv)
-    gin_launches = timed("gin", phase_gin)
-    mb_launches = timed("sage-minibatch", phase_sage_minibatch, arxiv)
-    gather_err, gather_times = timed("gather-kernel", phase_gather_kernel, arxiv, kg)
+    r["sage_launches"] = timed("sage", phase_sage, arxiv)
+    r["gin_launches"] = timed("gin", phase_gin)
+    r["mb_launches"] = timed("sage-minibatch", phase_sage_minibatch, arxiv)
+    r["gather_err"], r["gather_times"] = timed("gather-kernel", phase_gather_kernel, arxiv, kg)
     timed("cli", phase_cli)
 
-    t_kernel, t_plain = timings[("arxiv full bell", 32)]
-    ms, by = timings[("bound", 32)]
-    kernels = [{
-        "name": "bell_spmm", "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES,
-        "launches": launches, "max_abs_err": max(max_err, ev_err), "ms": t_kernel,
-        "plain_ms": t_plain, "bound_ms": ms, "bound_by": by,
-        "library_ms": timings[("library", 32)], "at": "arxiv full bell, F=32",
-        "ms_by_width": {f: timings[("arxiv full bell", f)][0] for f in WIDTHS},
-        "library_ms_by_width": {f: timings[("library", f)] for f in WIDTHS},
-        "tail_by_width": {f: dict(zip(("full_ms", "short_rows_ms", "per_slot_ratio"),
-                                      timings[("tail", f)])) for f in WIDTHS},
-        "path": "gcn, gat-edge, gcn-sparser, sage, gin, sage-minibatch (validation)",
-        "path_launches": {"gcn": launches, "gat-edge": edge_launches.get("bell_spmm", 0),
-                          "gcn-sparser": sparser_launches.get("bell_spmm", 0),
-                          "sage": sage_launches.get("bell_spmm", 0),
-                          "gin": gin_launches.get("bell_spmm", 0),
-                          "sage-minibatch": mb_launches.get("bell_spmm", 0)},
-    }]
-    for name in ak.NAMES:
-        t_kernel, t_plain, ms, by = attn_timings[(name, 32)]
-        tail = {"attn_fwd": "tail", "attn_bwd1": "tail bwd1", "attn_bwd2": "tail bwd2"}[name]
-        kernels.append({
-            "ms_by_width": {hf: attn_timings[(name, hf)][0] for hf, _ in ATTN_SHAPES[:2]},
-            "tail_by_width": {hf: dict(zip(("full_ms", "short_rows_ms", "per_slot_ratio"),
-                                           attn_timings[(tail, hf)]))
-                              for hf, _ in ATTN_SHAPES[:2]},
-            "name": name, "route": "cuda", "source": ATTN_SOURCE,
-            "replaces": ATTN_REPLACES[name], "launches": gat_launches.get(name, 0),
-            "kernel_phase_launches": phase_launches.get(name, 0),
-            "max_abs_err": attn_err[name], "ms": t_kernel, "plain_ms": t_plain,
-            "bound_ms": ms, "bound_by": by, "library_ms": None,
-            "at": "arxiv full attention layout, hf=32, H=1",
-            "path": "gat" if name != "attn_bwd1" else "kernel phase only (the GAT path "
-                                                      "takes the flash identity)",
-        })
-    t_kernel, t_plain, t_lib, ms, by = sddmm_timings[("sddmm", 32)]
-    kernels.append({
-        "name": "sddmm", "route": "cuda", "source": SDDMM_SOURCE, "replaces": SDDMM_REPLACES,
-        "launches": edge_launches.get("sddmm", 0), "max_abs_err": sddmm_err, "ms": t_kernel,
-        "plain_ms": t_plain, "bound_ms": ms, "bound_by": by, "library_ms": t_lib,
-        "at": "arxiv full edge list, F=32", "path": "gat-edge",
-        "ms_by_width": {f: sddmm_timings[("sddmm", f)][0] for f in SDDMM_WIDTHS},
-        "path_launches": {"gat-edge": edge_launches.get("sddmm", 0),
-                          "gcn-sparser": sparser_launches.get("sddmm", 0)},
-    })
-    t_kernel, t_plain, t_lib, ms, by = gather_times
-    kernels.append({
-        "name": "gather_rows", "route": "cuda", "source": GATHER_SOURCE,
-        "replaces": GATHER_REPLACES, "launches": mb_launches.get("gather_rows", 0),
-        "max_abs_err": gather_err, "ms": t_kernel, "plain_ms": t_plain, "bound_ms": ms,
-        "bound_by": by, "library_ms": t_lib,
-        "at": "arxiv feature table (169,343 x 128 f32), one batch's n2 (128,000 rows)",
-        "path": "sage-minibatch",
-    })
+    # bf16 activations with f32 params (dtype=torch.bfloat16) on the same
+    # stand-in, loaded once above: the bf16 forms of the kernels
+    b = {}
+    cm, b["launches"] = timed("train-bf16", phase_train, gala_tpu_torch, BF16, arxiv)
+    b["max_err"], b["timings"] = timed("kernel-bf16", phase_kernel, cm, kernel, BF16)
+    del cm
+    gat, b["gat_launches"] = timed("gat-bf16", phase_gat, gala_tpu_torch, BF16, arxiv)
+    before = {name: c.launches for name, c in all_counts().items()}
+    b["attn_err"], b["attn_timings"] = timed("attn-kernel-bf16", phase_attn_kernel, gat, ak,
+                                             BF16)
+    b["phase_launches"] = {name: c.launches - before.get(name, 0)
+                           for name, c in all_counts().items()}
+    del gat
+    gat_edge, b["edge_launches"] = timed("gat-edge-bf16", phase_gat_edge, BF16, arxiv, 5, 0.0)
+    b["sddmm_err"], b["ev_err"], b["sddmm_timings"] = timed(
+        "sddmm-kernel-bf16", phase_sddmm_kernel, gat_edge, ks, kernel, BF16)
+    del gat_edge
+    b["mb_launches"] = timed("sage-minibatch-bf16", phase_sage_minibatch, arxiv, BF16, 2)
+    b["gather_err"], b["gather_times"] = timed("gather-kernel-bf16", phase_gather_kernel, arxiv,
+                                               kg, BF16)
+
+    kernels = kernel_rows(r, torch.float32) + kernel_rows(b, BF16, f32=r)
     err, probe_times = probe
     tile = probe_times["128x128"]
     kernels.append({

@@ -75,7 +75,18 @@
 // SM (bwd2's 8-head form asks for 5 blocks per SM, and so does not
 // spill).
 //
-// Not done yet (later work, see ROADMAP): f32 only.
+// bf16 activations (gala_tpu's dtype=jnp.bfloat16): each kernel has a
+// second instantiation that reads x, vl and vr (and bwd1's dout) as bf16,
+// 8-byte loads of 4 columns a lane where float4 loads were, widened to
+// f32 in registers.  Everything else stays f32 as gala_tpu keeps it
+// (ops/attention.py:405-407, 763-768, 826-838): the scores, p, m, s, the
+// partials and both merges, the outputs (out, out+, s+; bwd1's [sds | A |
+// B]; bwd2's [dx | dvl]) and bwd2's [dout | vr | m | s | sds] table.  The
+// forward's x rows are half the bytes; bwd2's reads of x and vl (one row
+// per unit, one value per head) are what gala_tpu upcasts to f32.
+//
+// Not done yet (later work, see ROADMAP): 8 bf16 columns a lane (16-byte
+// loads) in place of 4.
 //
 // Masked slots (occupancy 0: padding and the phantom column) are skipped
 // without reading their rows.  Output rows that no unit or row writes
@@ -136,10 +147,10 @@ static_assert(fwd_warp_smem(kMaxHeads) * kWarpsPerBlock <= kDefaultSmem,
 // the unit, writes their columns to sm.col and keeps each slot's mask
 // (real: occupancy != 0) and its scores zpre = vl[c, h0 + j] + vr_n[j]
 // for the N heads from h0 (0 on a masked slot or a head >= nh).
-template <int N>
+template <int N, class T>
 __device__ __forceinline__ void unit_scores(UnitSmem& sm, const int32_t* __restrict__ cols,
                                             const float* __restrict__ occ,
-                                            const float* __restrict__ vl,
+                                            const T* __restrict__ vl,
                                             const float (&vr_n)[N], int start, int len, int nh,
                                             int h0, int lane, float (&zpre)[kPer][N],
                                             bool (&real)[kPer]) {
@@ -157,7 +168,7 @@ __device__ __forceinline__ void unit_scores(UnitSmem& sm, const int32_t* __restr
     for (int j = 0; j < N; ++j) {
       zpre[i][j] = 0.f;
       if (h0 + j < nh && real[i])
-        zpre[i][j] = __ldg(vl + static_cast<size_t>(c) * nh + h0 + j) + vr_n[j];
+        zpre[i][j] = ld(vl + static_cast<size_t>(c) * nh + h0 + j) + vr_n[j];
     }
   }
 }
@@ -185,9 +196,9 @@ __device__ __forceinline__ void unit_probs(const float (&zpre)[kPer][N], const b
 // the lane's slot group, then summed over the slot groups (lanes that
 // share lane % g hold one vector).  A slot of weight 0 (masked, or
 // underflowed) is not read.
-template <int VEC>
+template <int VEC, class T>
 __device__ __forceinline__ void unit_gather(const UnitSmem& sm, int len,
-                                            const float* __restrict__ x, int hf, const Lanes& ln,
+                                            const T* __restrict__ x, int hf, const Lanes& ln,
                                             const float* ph, bool pos, float (&acc)[VEC],
                                             float (&accp)[VEC]) {
 #pragma unroll
@@ -217,10 +228,10 @@ __device__ __forceinline__ void unit_gather(const UnitSmem& sm, int len,
 // too.  The partial tables of split rows (unnormalised, p = e^(z - m_u)):
 // pacc, paccp (n_partials, hf); pm, ps, psp (n_partials, H).  MAXH >= H
 // bounds the per-head register arrays (1 for the GAT path's one head).
-template <int VEC, int MAXH>
+template <int VEC, int MAXH, class T>
 __global__ void __launch_bounds__(kWarp * kWarpsPerBlock, kMinBlocks)
-attn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ vl,
-                const float* __restrict__ vr, const int32_t* __restrict__ cols,
+attn_fwd_kernel(const T* __restrict__ x, const T* __restrict__ vl,
+                const T* __restrict__ vr, const int32_t* __restrict__ cols,
                 const float* __restrict__ occ, const int32_t* __restrict__ unit_start,
                 const int32_t* __restrict__ unit_len, const int32_t* __restrict__ unit_node,
                 const int32_t* __restrict__ unit_part, float* __restrict__ out,
@@ -248,7 +259,7 @@ attn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ vl,
   float vr_n[MAXH], m_u[MAXH], s_u[MAXH], sp_u[MAXH];
 #pragma unroll
   for (int h = 0; h < MAXH; ++h) {
-    vr_n[h] = h < nh ? __ldg(vr + static_cast<size_t>(node) * nh + h) : 0.f;
+    vr_n[h] = h < nh ? ld(vr + static_cast<size_t>(node) * nh + h) : 0.f;
     m_u[h] = kFloor;
     s_u[h] = sp_u[h] = 0.f;
   }
@@ -405,10 +416,10 @@ static_assert(bwd1_warp_smem(kMaxHeads) * kWarpsPerBlock <= kDefaultSmem,
 // partial row of `part` (plain partial sums: p is already the row's, as
 // in gala_tpu's per-virtual-row partials).  One warp walks all n_slices
 // g-vector slices of the row, so each head's dot sees the whole head.
-template <int VEC, int MAXH>
+template <int VEC, int MAXH, class T>
 __global__ void __launch_bounds__(kWarp * kWarpsPerBlock, kMinBlocks)
-attn_bwd1_kernel(const float* __restrict__ x, const float* __restrict__ vl,
-                 const float* __restrict__ vr, const float* __restrict__ dout,
+attn_bwd1_kernel(const T* __restrict__ x, const T* __restrict__ vl,
+                 const T* __restrict__ vr, const T* __restrict__ dout,
                  const float* __restrict__ m, const float* __restrict__ s,
                  const int32_t* __restrict__ cols, const float* __restrict__ occ,
                  const int32_t* __restrict__ unit_start, const int32_t* __restrict__ unit_len,
@@ -436,7 +447,7 @@ attn_bwd1_kernel(const float* __restrict__ x, const float* __restrict__ vl,
   // not 4 H): the forward's, under the row's saved max
   for (int h = 0; h < heads; ++h) {
     const size_t o = static_cast<size_t>(unit_node[unit]) * heads + h;
-    const float vr_h[1] = {__ldg(vr + o)};
+    const float vr_h[1] = {ld(vr + o)};
     float zpre[kPer][1];
     bool real[kPer];
     unit_scores<1>(sm, cols, occ, vl, vr_h, start, len, heads, h, lane, zpre, real);
@@ -515,11 +526,11 @@ constexpr int kBwd2MinBlocksHeads = 5;
 // its whole row, else to the unit's partial row of `part` (plain partial
 // sums: the TPU kernel's per-virtual-row output).  One warp walks all
 // n_slices g-vector slices of the row, so dvl's dot sees its whole head.
-template <int VEC, int MAXH>
+template <int VEC, int MAXH, class T>
 __global__ void __launch_bounds__(kWarp * kWarpsPerBlock,
                                   MAXH == 1 ? kMinBlocks : kBwd2MinBlocksHeads)
-attn_bwd2_kernel(const float* __restrict__ wtab, const float* __restrict__ x,
-                 const float* __restrict__ vl, const int32_t* __restrict__ cols,
+attn_bwd2_kernel(const float* __restrict__ wtab, const T* __restrict__ x,
+                 const T* __restrict__ vl, const int32_t* __restrict__ cols,
                  const float* __restrict__ occ, const int32_t* __restrict__ unit_start,
                  const int32_t* __restrict__ unit_len, const int32_t* __restrict__ unit_node,
                  const int32_t* __restrict__ unit_part, float* __restrict__ out,
@@ -551,7 +562,7 @@ attn_bwd2_kernel(const float* __restrict__ wtab, const float* __restrict__ x,
   // column entries it wrote itself); p is stored with the sign of zpre
   // (+p where zpre > 0, -p elsewhere), as the forward stores it
   for (int h = 0; h < heads; ++h) {
-    const float vl_c = __ldg(vl + static_cast<size_t>(unit_node[unit]) * heads + h);
+    const float vl_c = ld(vl + static_cast<size_t>(unit_node[unit]) * heads + h);
     float sp = 0.f;
     // two slots at a time: all four held four 16-byte loads in registers
     // and spilled at the 32-register cap (PERF.md)
@@ -678,7 +689,7 @@ bool bad_shape(int hf, int nh, int vec) {
          (vec == 4 && (hf / nh) % 4 != 0);
 }
 
-template <int VEC, int MAXH>
+template <int VEC, int MAXH, class T>
 int launch_fwd(const void* x, const void* vl, const void* vr, const void* cols, const void* occ,
                const void* unit_start, const void* unit_len, const void* unit_node,
                const void* unit_part, const void* split_node, const void* split_first,
@@ -693,13 +704,14 @@ int launch_fwd(const void* x, const void* vl, const void* vr, const void* cols, 
   float* pm = paccp + ph;
   float* ps = pm + pn;
   float* psp = ps + pn;
+  const auto t = [](const void* p) { return static_cast<const T*>(p); };
   const auto f32 = [](const void* p) { return static_cast<const float*>(p); };
   const auto i32 = [](const void* p) { return static_cast<const int32_t*>(p); };
   int log2_g;
   dim3 grid;
   reduce_grid(n_units, hf, VEC, &log2_g, &grid);
-  attn_fwd_kernel<VEC, MAXH><<<grid, kWarp * kWarpsPerBlock, smem, st>>>(
-      f32(x), f32(vl), f32(vr), i32(cols), f32(occ), i32(unit_start), i32(unit_len),
+  attn_fwd_kernel<VEC, MAXH, T><<<grid, kWarp * kWarpsPerBlock, smem, st>>>(
+      t(x), t(vl), t(vr), i32(cols), f32(occ), i32(unit_start), i32(unit_len),
       i32(unit_node), i32(unit_part), static_cast<float*>(out), static_cast<float*>(m),
       static_cast<float*>(s), static_cast<float*>(outpos), static_cast<float*>(spos), pacc, paccp,
       pm, ps, psp, n_units, hf, nh, slope, log2_g);
@@ -725,7 +737,7 @@ int merge_sums(const void* part, const void* split_node, const void* split_first
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int VEC, int MAXH>
+template <int VEC, int MAXH, class T>
 int launch_bwd1(const void* x, const void* vl, const void* vr, const void* dout, const void* m,
                 const void* s, const void* cols, const void* occ, const void* unit_start,
                 const void* unit_len, const void* unit_node, const void* unit_part,
@@ -733,6 +745,7 @@ int launch_bwd1(const void* x, const void* vl, const void* vr, const void* dout,
                 void* out, void* part, int n_units, int n_split, int hf, int nh, float slope,
                 cudaStream_t st) {
   const size_t smem = bwd1_warp_smem(nh) * kWarpsPerBlock;
+  const auto t = [](const void* p) { return static_cast<const T*>(p); };
   const auto f32 = [](const void* p) { return static_cast<const float*>(p); };
   const auto i32 = [](const void* p) { return static_cast<const int32_t*>(p); };
   int log2_g;
@@ -740,20 +753,21 @@ int launch_bwd1(const void* x, const void* vl, const void* vr, const void* dout,
   reduce_grid(n_units, hf, VEC, &log2_g, &grid);
   const int n_slices = static_cast<int>(grid.y);  // walked inside the warp
   grid.y = 1;
-  attn_bwd1_kernel<VEC, MAXH><<<grid, kWarp * kWarpsPerBlock, smem, st>>>(
-      f32(x), f32(vl), f32(vr), f32(dout), f32(m), f32(s), i32(cols), f32(occ), i32(unit_start),
+  attn_bwd1_kernel<VEC, MAXH, T><<<grid, kWarp * kWarpsPerBlock, smem, st>>>(
+      t(x), t(vl), t(vr), t(dout), f32(m), f32(s), i32(cols), f32(occ), i32(unit_start),
       i32(unit_len), i32(unit_node), i32(unit_part), static_cast<float*>(out),
       static_cast<float*>(part), n_units, hf, nh, slope, log2_g, n_slices);
   return merge_sums(part, split_node, split_first, split_count, out, n_split, 3 * nh, st);
 }
 
-template <int VEC, int MAXH>
+template <int VEC, int MAXH, class T>
 int launch_bwd2(const void* wtab, const void* x, const void* vl, const void* cols,
                 const void* occ, const void* unit_start, const void* unit_len,
                 const void* unit_node, const void* unit_part, const void* split_node,
                 const void* split_first, const void* split_count, void* out, void* part,
                 int n_units, int n_split, int hf, int nh, float slope, cudaStream_t st) {
   const size_t smem = bwd2_warp_smem(nh) * kWarpsPerBlock;
+  const auto t = [](const void* p) { return static_cast<const T*>(p); };
   const auto f32 = [](const void* p) { return static_cast<const float*>(p); };
   const auto i32 = [](const void* p) { return static_cast<const int32_t*>(p); };
   int log2_g;
@@ -761,12 +775,116 @@ int launch_bwd2(const void* wtab, const void* x, const void* vl, const void* col
   reduce_grid(n_units, hf, VEC, &log2_g, &grid);
   const int n_slices = static_cast<int>(grid.y);  // walked inside the warp
   grid.y = 1;
-  attn_bwd2_kernel<VEC, MAXH><<<grid, kWarp * kWarpsPerBlock, smem, st>>>(
-      f32(wtab), f32(x), f32(vl), i32(cols), f32(occ), i32(unit_start), i32(unit_len),
+  attn_bwd2_kernel<VEC, MAXH, T><<<grid, kWarp * kWarpsPerBlock, smem, st>>>(
+      f32(wtab), t(x), t(vl), i32(cols), f32(occ), i32(unit_start), i32(unit_len),
       i32(unit_node), i32(unit_part), static_cast<float*>(out), static_cast<float*>(part),
       n_units, hf, nh, slope, log2_g, n_slices);
   return merge_sums(part, split_node, split_first, split_count, out, n_split, hf + nh, st);
 }
+
+// run(VEC, MAXH) for the instantiation that (vec, nh) selects: float4 or
+// scalar loads, one head or up to kMaxHeads
+template <class Run>
+int dispatch(int vec, int nh, Run run) {
+  using One = std::integral_constant<int, 1>;
+  using Four = std::integral_constant<int, 4>;
+  using Max = std::integral_constant<int, kMaxHeads>;
+  if (vec == 4) return nh == 1 ? run(Four{}, One{}) : run(Four{}, Max{});
+  return nh == 1 ? run(One{}, One{}) : run(One{}, Max{});
+}
+
+template <class T>
+int fwd(const void* x, const void* vl, const void* vr, const void* cols, const void* occ,
+        const void* unit_start, const void* unit_len, const void* unit_node,
+        const void* unit_part, const void* split_node, const void* split_first,
+        const void* split_count, void* out, void* m, void* s, void* outpos, void* spos,
+        void* part, int n_units, int n_split, int n_partials, int hf, int nh, float slope,
+        int vec, void* stream) {
+  if (n_units <= 0) return 0;
+  if (bad_shape(hf, nh, vec) || ((outpos == nullptr) != (spos == nullptr)) ||
+      (n_split > 0 && part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(vec, nh, [&](auto vec_tag, auto maxh_tag) {
+    return launch_fwd<decltype(vec_tag)::value, decltype(maxh_tag)::value, T>(
+        x, vl, vr, cols, occ, unit_start, unit_len, unit_node, unit_part, split_node,
+        split_first, split_count, out, m, s, outpos, spos, part, n_units, n_split, n_partials,
+        hf, nh, slope, static_cast<cudaStream_t>(stream));
+  });
+}
+
+template <class T>
+int bwd1(const void* x, const void* vl, const void* vr, const void* dout, const void* m,
+         const void* s, const void* cols, const void* occ, const void* unit_start,
+         const void* unit_len, const void* unit_node, const void* unit_part,
+         const void* split_node, const void* split_first, const void* split_count, void* out,
+         void* part, int n_units, int n_split, int hf, int nh, float slope, int vec,
+         void* stream) {
+  if (n_units <= 0) return 0;
+  if (bad_shape(hf, nh, vec) || (n_split > 0 && part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(vec, nh, [&](auto vec_tag, auto maxh_tag) {
+    return launch_bwd1<decltype(vec_tag)::value, decltype(maxh_tag)::value, T>(
+        x, vl, vr, dout, m, s, cols, occ, unit_start, unit_len, unit_node, unit_part, split_node,
+        split_first, split_count, out, part, n_units, n_split, hf, nh, slope,
+        static_cast<cudaStream_t>(stream));
+  });
+}
+
+template <class T>
+int bwd2(const void* wtab, const void* x, const void* vl, const void* cols, const void* occ,
+         const void* unit_start, const void* unit_len, const void* unit_node,
+         const void* unit_part, const void* split_node, const void* split_first,
+         const void* split_count, void* out, void* part, int n_units, int n_split, int hf,
+         int nh, float slope, int vec, void* stream) {
+  if (n_units <= 0) return 0;
+  if (bad_shape(hf, nh, vec) || (n_split > 0 && part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch(vec, nh, [&](auto vec_tag, auto maxh_tag) {
+    return launch_bwd2<decltype(vec_tag)::value, decltype(maxh_tag)::value, T>(
+        wtab, x, vl, cols, occ, unit_start, unit_len, unit_node, unit_part, split_node,
+        split_first, split_count, out, part, n_units, n_split, hf, nh, slope,
+        static_cast<cudaStream_t>(stream));
+  });
+}
+
+// The launch limits of pass-1 kernel `k` of a library function (fwd, bwd1
+// or bwd2) at H heads: 0 float4 and 1 scalar at f32, 3 float4 and 4
+// scalar at bf16 (2 is the pass-2 kernel, which the caller handles).
+template <template <int, int, class> class Kernel>
+int unit_limits(int k, int nh, size_t smem, int* out) {
+  const int block = kWarp * kWarpsPerBlock;
+  const bool one = nh == 1;
+  switch (k) {
+    case 0: return one ? Kernel<4, 1, float>::limits(block, smem, out)
+                       : Kernel<4, kMaxHeads, float>::limits(block, smem, out);
+    case 1: return one ? Kernel<1, 1, float>::limits(block, smem, out)
+                       : Kernel<1, kMaxHeads, float>::limits(block, smem, out);
+    case 3: return one ? Kernel<4, 1, bf16>::limits(block, smem, out)
+                       : Kernel<4, kMaxHeads, bf16>::limits(block, smem, out);
+    case 4: return one ? Kernel<1, 1, bf16>::limits(block, smem, out)
+                       : Kernel<1, kMaxHeads, bf16>::limits(block, smem, out);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <int VEC, int MAXH, class T>
+struct FwdKernel {
+  static int limits(int block, size_t smem, int* out) {
+    return launch_limits(attn_fwd_kernel<VEC, MAXH, T>, block, smem, out);
+  }
+};
+template <int VEC, int MAXH, class T>
+struct Bwd1Kernel {
+  static int limits(int block, size_t smem, int* out) {
+    return launch_limits(attn_bwd1_kernel<VEC, MAXH, T>, block, smem, out);
+  }
+};
+template <int VEC, int MAXH, class T>
+struct Bwd2Kernel {
+  static int limits(int block, size_t smem, int* out) {
+    return launch_limits(attn_bwd2_kernel<VEC, MAXH, T>, block, smem, out);
+  }
+};
 
 }  // namespace
 
@@ -777,143 +895,87 @@ int launch_bwd2(const void* wtab, const void* x, const void* vl, const void* col
 // 16-byte aligned feature tables) or 1.  Each launches on `stream`
 // without synchronising and returns cudaGetLastError() (0 on success).
 
+// Each kernel has two entry points: *_f32 (x, vl, vr and dout float) and
+// *_bf16 (the same tables bf16, bf16 activations).  Every other table,
+// the outputs and the scratch are f32 in both.
+
 // out (n_pad, hf), m, s (n_pad, H); outpos (n_pad, hf) and spos (n_pad, H)
 // may both be null (no flash statistics); part is f32 scratch of
 // n_partials * (2 hf + 3 H) floats, read only when n_split > 0.  Pass 2
 // is launched only when a row is split.
-extern "C" int gala_attn_fwd_f32(const void* x, const void* vl, const void* vr, const void* cols,
-                                 const void* occ, const void* unit_start, const void* unit_len,
-                                 const void* unit_node, const void* unit_part,
-                                 const void* split_node, const void* split_first,
-                                 const void* split_count, void* out, void* m, void* s,
-                                 void* outpos, void* spos, void* part, int n_units, int n_split,
-                                 int n_partials, int hf, int nh, float slope, int vec,
-                                 void* stream) {
-  if (n_units <= 0) return 0;
-  if (bad_shape(hf, nh, vec) || ((outpos == nullptr) != (spos == nullptr)) ||
-      (n_split > 0 && part == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const auto run = [&](auto vec_tag, auto maxh_tag) {
-    return launch_fwd<decltype(vec_tag)::value, decltype(maxh_tag)::value>(
-        x, vl, vr, cols, occ, unit_start, unit_len, unit_node, unit_part, split_node,
-        split_first, split_count, out, m, s, outpos, spos, part, n_units, n_split, n_partials,
-        hf, nh, slope, static_cast<cudaStream_t>(stream));
-  };
-  using One = std::integral_constant<int, 1>;
-  using Four = std::integral_constant<int, 4>;
-  using Max = std::integral_constant<int, kMaxHeads>;
-  if (vec == 4) return nh == 1 ? run(Four{}, One{}) : run(Four{}, Max{});
-  return nh == 1 ? run(One{}, One{}) : run(One{}, Max{});
-}
+#define GALA_ATTN_FWD(NAME, T)                                                                  \
+  extern "C" int NAME(const void* x, const void* vl, const void* vr, const void* cols,          \
+                      const void* occ, const void* unit_start, const void* unit_len,             \
+                      const void* unit_node, const void* unit_part, const void* split_node,      \
+                      const void* split_first, const void* split_count, void* out, void* m,      \
+                      void* s, void* outpos, void* spos, void* part, int n_units, int n_split,   \
+                      int n_partials, int hf, int nh, float slope, int vec, void* stream) {      \
+    return fwd<T>(x, vl, vr, cols, occ, unit_start, unit_len, unit_node, unit_part, split_node,  \
+                  split_first, split_count, out, m, s, outpos, spos, part, n_units, n_split,     \
+                  n_partials, hf, nh, slope, vec, stream);                                       \
+  }
+GALA_ATTN_FWD(gala_attn_fwd_f32, float)
+GALA_ATTN_FWD(gala_attn_fwd_bf16, bf16)
 
 // out (n_pad, 3H) = [sds | A | B]; m, s (n_pad, H) the forward's saved
-// statistics; the unit and split tables are the fwd layout's WorkUnits;
-// part is f32 scratch of n_partials * 3H floats, read only when
+// f32 statistics; the unit and split tables are the fwd layout's
+// WorkUnits; part is f32 scratch of n_partials * 3H floats, read only when
 // n_split > 0.  Pass 2 is launched only when a row is split.
-extern "C" int gala_attn_bwd1_f32(const void* x, const void* vl, const void* vr, const void* dout,
-                                  const void* m, const void* s, const void* cols, const void* occ,
-                                  const void* unit_start, const void* unit_len,
-                                  const void* unit_node, const void* unit_part,
-                                  const void* split_node, const void* split_first,
-                                  const void* split_count, void* out, void* part, int n_units,
-                                  int n_split, int hf, int nh, float slope, int vec,
-                                  void* stream) {
-  if (n_units <= 0) return 0;
-  if (bad_shape(hf, nh, vec) || (n_split > 0 && part == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const auto run = [&](auto vec_tag, auto maxh_tag) {
-    return launch_bwd1<decltype(vec_tag)::value, decltype(maxh_tag)::value>(
-        x, vl, vr, dout, m, s, cols, occ, unit_start, unit_len, unit_node, unit_part, split_node,
-        split_first, split_count, out, part, n_units, n_split, hf, nh, slope,
-        static_cast<cudaStream_t>(stream));
-  };
-  using One = std::integral_constant<int, 1>;
-  using Four = std::integral_constant<int, 4>;
-  using Max = std::integral_constant<int, kMaxHeads>;
-  if (vec == 4) return nh == 1 ? run(Four{}, One{}) : run(Four{}, Max{});
-  return nh == 1 ? run(One{}, One{}) : run(One{}, Max{});
-}
+#define GALA_ATTN_BWD1(NAME, T)                                                                 \
+  extern "C" int NAME(const void* x, const void* vl, const void* vr, const void* dout,          \
+                      const void* m, const void* s, const void* cols, const void* occ,           \
+                      const void* unit_start, const void* unit_len, const void* unit_node,       \
+                      const void* unit_part, const void* split_node, const void* split_first,    \
+                      const void* split_count, void* out, void* part, int n_units, int n_split,  \
+                      int hf, int nh, float slope, int vec, void* stream) {                      \
+    return bwd1<T>(x, vl, vr, dout, m, s, cols, occ, unit_start, unit_len, unit_node, unit_part, \
+                   split_node, split_first, split_count, out, part, n_units, n_split, hf, nh,    \
+                   slope, vec, stream);                                                          \
+  }
+GALA_ATTN_BWD1(gala_attn_bwd1_f32, float)
+GALA_ATTN_BWD1(gala_attn_bwd1_bf16, bf16)
 
-// wtab (n_pad, hf + 4H) = [dout | vr | m | s | sds]; out (c_pad, hf + H);
-// the unit and split tables are the transpose layout's WorkUnits; part is
-// f32 scratch of n_partials * (hf + H) floats, read only when n_split > 0.
-// Pass 2 is launched only when a row is split.
-extern "C" int gala_attn_bwd2_f32(const void* wtab, const void* x, const void* vl,
-                                  const void* cols, const void* occ, const void* unit_start,
-                                  const void* unit_len, const void* unit_node,
-                                  const void* unit_part, const void* split_node,
-                                  const void* split_first, const void* split_count, void* out,
-                                  void* part, int n_units, int n_split, int hf, int nh,
-                                  float slope, int vec, void* stream) {
-  if (n_units <= 0) return 0;
-  if (bad_shape(hf, nh, vec) || (n_split > 0 && part == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const auto run = [&](auto vec_tag, auto maxh_tag) {
-    return launch_bwd2<decltype(vec_tag)::value, decltype(maxh_tag)::value>(
-        wtab, x, vl, cols, occ, unit_start, unit_len, unit_node, unit_part, split_node,
-        split_first, split_count, out, part, n_units, n_split, hf, nh, slope,
-        static_cast<cudaStream_t>(stream));
-  };
-  using One = std::integral_constant<int, 1>;
-  using Four = std::integral_constant<int, 4>;
-  using Max = std::integral_constant<int, kMaxHeads>;
-  if (vec == 4) return nh == 1 ? run(Four{}, One{}) : run(Four{}, Max{});
-  return nh == 1 ? run(One{}, One{}) : run(One{}, Max{});
-}
+// wtab (n_pad, hf + 4H) = [dout | vr | m | s | sds], f32 at either type
+// (gala_tpu's w_tab); out (c_pad, hf + H); the unit and split tables are
+// the transpose layout's WorkUnits; part is f32 scratch of n_partials *
+// (hf + H) floats, read only when n_split > 0.  Pass 2 is launched only
+// when a row is split.
+#define GALA_ATTN_BWD2(NAME, T)                                                                 \
+  extern "C" int NAME(const void* wtab, const void* x, const void* vl, const void* cols,        \
+                      const void* occ, const void* unit_start, const void* unit_len,             \
+                      const void* unit_node, const void* unit_part, const void* split_node,      \
+                      const void* split_first, const void* split_count, void* out, void* part,   \
+                      int n_units, int n_split, int hf, int nh, float slope, int vec,            \
+                      void* stream) {                                                            \
+    return bwd2<T>(wtab, x, vl, cols, occ, unit_start, unit_len, unit_node, unit_part,          \
+                   split_node, split_first, split_count, out, part, n_units, n_split, hf, nh,    \
+                   slope, vec, stream);                                                          \
+  }
+GALA_ATTN_BWD2(gala_attn_bwd2_f32, float)
+GALA_ATTN_BWD2(gala_attn_bwd2_bf16, bf16)
 
 // Launch limits of the forward's kernels at H heads (the instantiation
 // that H runs), four ints in `out`: registers per thread, static and
 // dynamic shared memory per block, resident blocks per SM.  Kernel k: 0
-// pass 1 (float4), 1 pass 1 (scalar), 2 pass 2.  Returns the CUDA error,
-// 0 on success.
+// pass 1 (float4), 1 pass 1 (scalar), 2 pass 2, 3 pass 1 at bf16
+// (8-byte loads), 4 pass 1 at bf16 (scalar).  Returns the CUDA error, 0
+// on success.
 extern "C" int gala_attn_fwd_limits(int k, int nh, int* out) {
   if (nh < 1 || nh > kMaxHeads) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = fwd_warp_smem(nh) * kWarpsPerBlock;
-  const int block = kWarp * kWarpsPerBlock;
-  switch (k) {
-    case 0:
-      return nh == 1 ? launch_limits(attn_fwd_kernel<4, 1>, block, smem, out)
-                     : launch_limits(attn_fwd_kernel<4, kMaxHeads>, block, smem, out);
-    case 1:
-      return nh == 1 ? launch_limits(attn_fwd_kernel<1, 1>, block, smem, out)
-                     : launch_limits(attn_fwd_kernel<1, kMaxHeads>, block, smem, out);
-    case 2: return launch_limits(attn_fwd_merge_kernel, kMergeThreads, 0, out);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (k == 2) return launch_limits(attn_fwd_merge_kernel, kMergeThreads, 0, out);
+  return unit_limits<FwdKernel>(k, nh, fwd_warp_smem(nh) * kWarpsPerBlock, out);
 }
 
-// Launch limits of bwd2's kernels at H heads, as gala_attn_fwd_limits:
-// kernel k 0 pass 1 (float4), 1 pass 1 (scalar), 2 pass 2.
+// Launch limits of bwd2's kernels at H heads, as gala_attn_fwd_limits.
 extern "C" int gala_attn_bwd2_limits(int k, int nh, int* out) {
   if (nh < 1 || nh > kMaxHeads) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = bwd2_warp_smem(nh) * kWarpsPerBlock;
-  const int block = kWarp * kWarpsPerBlock;
-  switch (k) {
-    case 0:
-      return nh == 1 ? launch_limits(attn_bwd2_kernel<4, 1>, block, smem, out)
-                     : launch_limits(attn_bwd2_kernel<4, kMaxHeads>, block, smem, out);
-    case 1:
-      return nh == 1 ? launch_limits(attn_bwd2_kernel<1, 1>, block, smem, out)
-                     : launch_limits(attn_bwd2_kernel<1, kMaxHeads>, block, smem, out);
-    case 2: return launch_limits(attn_merge_sum_kernel, kMergeThreads, 0, out);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (k == 2) return launch_limits(attn_merge_sum_kernel, kMergeThreads, 0, out);
+  return unit_limits<Bwd2Kernel>(k, nh, bwd2_warp_smem(nh) * kWarpsPerBlock, out);
 }
 
-// Launch limits of bwd1's kernels at H heads, as gala_attn_fwd_limits:
-// kernel k 0 pass 1 (float4), 1 pass 1 (scalar), 2 pass 2.
+// Launch limits of bwd1's kernels at H heads, as gala_attn_fwd_limits.
 extern "C" int gala_attn_bwd1_limits(int k, int nh, int* out) {
   if (nh < 1 || nh > kMaxHeads) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = bwd1_warp_smem(nh) * kWarpsPerBlock;
-  const int block = kWarp * kWarpsPerBlock;
-  switch (k) {
-    case 0:
-      return nh == 1 ? launch_limits(attn_bwd1_kernel<4, 1>, block, smem, out)
-                     : launch_limits(attn_bwd1_kernel<4, kMaxHeads>, block, smem, out);
-    case 1:
-      return nh == 1 ? launch_limits(attn_bwd1_kernel<1, 1>, block, smem, out)
-                     : launch_limits(attn_bwd1_kernel<1, kMaxHeads>, block, smem, out);
-    case 2: return launch_limits(attn_merge_sum_kernel, kMergeThreads, 0, out);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (k == 2) return launch_limits(attn_merge_sum_kernel, kMergeThreads, 0, out);
+  return unit_limits<Bwd1Kernel>(k, nh, bwd1_warp_smem(nh) * kWarpsPerBlock, out);
 }

@@ -7,11 +7,15 @@
 // matmuls.  None of that carries over.  This kernel names its operands
 // in the order of the caller, gala_tpu.ops.spmm.sddmm_edges(src, dst, a, b):
 //     out[e] = sum_f a[src[e], f] * b[dst[e], f]          (f32)
-// over the edge list in forward (dst-sorted) order.
+// over the edge list in forward (dst-sorted) order.  At bf16 (bf16
+// activations) a, b and out are bf16: the products and their sum are f32
+// and each edge's dot is rounded once, where it is stored; gala_tpu's
+// sddmm_edges returns the operands' dtype too.
 //
 // What bounds it on the H100: bytes.  Each edge gathers one row of a at
-// a random source (4*F bytes), one row of b at its destination, 8 bytes
-// of indices, and writes 4 bytes; 2*F flops.  On the Arxiv stand-in
+// a random source (4*F bytes, 2*F at bf16), one row of b at its
+// destination, 8 bytes of indices, and writes 4 bytes (2 at bf16); 2*F
+// flops.  On the Arxiv stand-in
 // (2.1M edges, F = 32 and 40) the a-rows are ~2.1M x (128, 160) B per
 // call against 3.35 TB/s of HBM, and the (169k, F) tables fit in the
 // 50 MB L2.  Consecutive edges share their destination (the list is
@@ -24,10 +28,11 @@
 //     Lane l loads the (src, dst) of edges 4l .. 4l + 3 of the run with
 //     one 16-byte load each (coalesced across the warp), so no lane waits
 //     on an index load before its row loads.
-//   - A group of gs lanes takes one edge at a time, each lane one VEC-float
-//     vector of the row (float4 where F % 4 == 0 and both tables are
-//     16-byte aligned); gs = min(F / VEC, 32), not rounded to a power of
-//     two, and 32 / gs groups share the warp: at F = 40 (10 float4s)
+//   - A group of gs lanes takes one edge at a time, each lane one
+//     VEC-element vector of the row (4 elements where F % 4 == 0 and both
+//     tables are aligned to 4 elements: a 16-byte load, 8 bytes at
+//     bf16); gs = min(F / VEC, 32), not rounded to a power of two, and
+//     32 / gs groups share the warp: at F = 40 (10 float4s)
 //     three edges' groups use 30 lanes, where a power-of-two group of 16
 //     would idle 6 of every 16.  Wider rows (F / VEC > 32) take rounds of
 //     32 vectors.
@@ -38,12 +43,12 @@
 //   - The group's lanes are summed by a shuffle tree to the group's first
 //     lane, in a fixed order: deterministic, no atomics.
 //
-// Not done yet (later work, see ROADMAP): f32 only; no shared-memory
+// Not done yet (later work, see ROADMAP): no shared-memory
 // staging of a's rows (the (169k, F) tables sit in L2 at the path's
 // widths); a 128-edge run per warp and four edges in flight per lane are
 // not tuned.
 
-#include "unit_gather.cuh"  // kWarp, kWarpsPerBlock, kFullMask, load_vec
+#include "unit_gather.cuh"  // kWarp, kWarpsPerBlock, kFullMask, bf16, load_vec, store_vec
 
 namespace {
 
@@ -82,11 +87,11 @@ __device__ __forceinline__ void load_indices(const int32_t* __restrict__ src,
 // Group k of the warp takes the 4-edge batches of holder lanes k, k + ng,
 // k + 2 ng, ...; in a batch, lane `sub` of the group reads vectors sub,
 // sub + gs, ... of each edge's rows.
-template <int VEC>
+template <int VEC, class T>
 __global__ void __launch_bounds__(kThreads)
-sddmm_kernel(const float* __restrict__ a, const float* __restrict__ b,
+sddmm_kernel(const T* __restrict__ a, const T* __restrict__ b,
              const int32_t* __restrict__ src, const int32_t* __restrict__ dst,
-             float* __restrict__ out, long long n_edges, int f, int gs) {
+             T* __restrict__ out, long long n_edges, int f, int gs) {
   const long long warp =
       static_cast<long long>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / kWarp;
   const long long first = warp * kRun;
@@ -151,27 +156,25 @@ sddmm_kernel(const float* __restrict__ a, const float* __restrict__ b,
       }
     }
     if (live && sub == 0) {
-      if (e0 + kEdgesPerLane <= n_edges && reinterpret_cast<uintptr_t>(out + e0) % 16 == 0) {
-        *reinterpret_cast<float4*>(out + e0) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+      if (e0 + kEdgesPerLane <= n_edges &&
+          reinterpret_cast<uintptr_t>(out + e0) % (kEdgesPerLane * sizeof(T)) == 0) {
+        store_vec<kEdgesPerLane>(out + e0, acc);
       } else {
 #pragma unroll
-        for (int u = 0; u < kEdgesPerLane; ++u)
-          if (e0 + u < n_edges) out[e0 + u] = acc[u];
+        for (int u = 0; u < kEdgesPerLane; ++u) {
+          if (e0 + u < n_edges) {
+            const float v[1] = {acc[u]};
+            store_vec<1>(out + e0 + u, v);
+          }
+        }
       }
     }
   }
 }
 
-}  // namespace
-
-// C interface, loaded with ctypes.  Pointers are device pointers; a is
-// (rows_a, f), b (rows_b, f), both row-major; src and dst (n_edges,)
-// int32 with every src < rows_a and dst < rows_b; out (n_edges,).
-// `vec` is 4 (f % 4 == 0 and 16-byte aligned a and b) or 1.  Launches on
-// `stream` without synchronising and returns cudaGetLastError() (0 on
-// success).
-extern "C" int gala_sddmm_f32(const void* a, const void* b, const void* src, const void* dst,
-                              void* out, int n_edges, int f, int vec, void* stream) {
+template <class T>
+int run(const void* a, const void* b, const void* src, const void* dst, void* out, int n_edges,
+        int f, int vec, void* stream) {
   if (n_edges <= 0 || f <= 0) return 0;
   if (vec != 1 && vec != 4) return static_cast<int>(cudaErrorInvalidValue);
   const int fv = f / vec;
@@ -179,15 +182,34 @@ extern "C" int gala_sddmm_f32(const void* a, const void* b, const void* src, con
   const long long warps = (static_cast<long long>(n_edges) + kRun - 1) / kRun;
   const dim3 grid(static_cast<unsigned>((warps + kWarpsPerBlock - 1) / kWarpsPerBlock));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* af = static_cast<const float*>(a);
-  const float* bf = static_cast<const float*>(b);
+  const T* at = static_cast<const T*>(a);
+  const T* bt = static_cast<const T*>(b);
   const int32_t* s = static_cast<const int32_t*>(src);
   const int32_t* d = static_cast<const int32_t*>(dst);
-  float* o = static_cast<float*>(out);
+  T* o = static_cast<T*>(out);
   if (vec == 4) {
-    sddmm_kernel<4><<<grid, kThreads, 0, st>>>(af, bf, s, d, o, n_edges, f, gs);
+    sddmm_kernel<4, T><<<grid, kThreads, 0, st>>>(at, bt, s, d, o, n_edges, f, gs);
   } else {
-    sddmm_kernel<1><<<grid, kThreads, 0, st>>>(af, bf, s, d, o, n_edges, f, gs);
+    sddmm_kernel<1, T><<<grid, kThreads, 0, st>>>(at, bt, s, d, o, n_edges, f, gs);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// C interface, loaded with ctypes.  Pointers are device pointers; a is
+// (rows_a, f), b (rows_b, f), both row-major; src and dst (n_edges,)
+// int32 with every src < rows_a and dst < rows_b; out (n_edges,).
+// gala_sddmm_f32: a, b and out f32; gala_sddmm_bf16: all three bf16.
+// `vec` is 4 (f % 4 == 0 and a and b aligned to 4 elements) or 1.
+// Launches on `stream` without synchronising and returns
+// cudaGetLastError() (0 on success).
+extern "C" int gala_sddmm_f32(const void* a, const void* b, const void* src, const void* dst,
+                              void* out, int n_edges, int f, int vec, void* stream) {
+  return run<float>(a, b, src, dst, out, n_edges, f, vec, stream);
+}
+
+extern "C" int gala_sddmm_bf16(const void* a, const void* b, const void* src, const void* dst,
+                               void* out, int n_edges, int f, int vec, void* stream) {
+  return run<bf16>(a, b, src, dst, out, n_edges, f, vec, stream);
 }

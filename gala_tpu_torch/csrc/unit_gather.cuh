@@ -2,6 +2,12 @@
 // work-unit size, the asynchronous copies, the lane roles of a warp that
 // reduces rows of x, and the warp's gather of one unit's rows of x.
 //
+// Element types: the tables a kernel gathers are float or __nv_bfloat16
+// (bf16 activations, gala_tpu's dtype=jnp.bfloat16).  A lane keeps its
+// VEC = 4 columns either way: one 16-byte load at f32, one 8-byte load at
+// bf16, widened to f32 in registers (exact).  All arithmetic is f32; a
+// bf16 store rounds to nearest even (__float2bfloat16_rn, XLA's rounding).
+//
 // A work unit (ops/graph.py WorkUnits) is at most kUnitSlots contiguous
 // slots of one row; one warp computes one unit.  Its gather is plain
 // loads, float4 where the row allows, with 32 / g slots in flight per step
@@ -16,6 +22,7 @@
 // per SM) and L1 count for more than explicit staging.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
@@ -56,6 +63,24 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+using bf16 = __nv_bfloat16;
+
+// bf16 bits -> f32: the bf16 value is the high half of its f32 (exact)
+__device__ __forceinline__ float bf16_bits(uint32_t hi) { return __uint_as_float(hi << 16); }
+
+// one element of a table, as f32
+__device__ __forceinline__ float ld(const float* __restrict__ p) { return __ldg(p); }
+__device__ __forceinline__ float ld(const bf16* __restrict__ p) {
+  return bf16_bits(__ldg(reinterpret_cast<const unsigned short*>(p)));
+}
+
+// v as a T would hold it: the identity at f32, bf16's rounding at bf16
+template <class T>
+__device__ __forceinline__ float round_to(float v) {
+  if constexpr (std::is_same_v<T, bf16>) return __bfloat162float(__float2bfloat16_rn(v));
+  return v;
+}
+
 template <int VEC>
 __device__ __forceinline__ void load_vec(const float* __restrict__ p, float (&v)[VEC]) {
   if constexpr (VEC == 4) {
@@ -69,12 +94,41 @@ __device__ __forceinline__ void load_vec(const float* __restrict__ p, float (&v)
   }
 }
 
+// VEC = 4: one 8-byte load (p 8-byte aligned); element 0 is the low half
+template <int VEC>
+__device__ __forceinline__ void load_vec(const bf16* __restrict__ p, float (&v)[VEC]) {
+  if constexpr (VEC == 4) {
+    const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
+    v[0] = bf16_bits(t.x);
+    v[1] = __uint_as_float(t.x & 0xffff0000u);
+    v[2] = bf16_bits(t.y);
+    v[3] = __uint_as_float(t.y & 0xffff0000u);
+  } else {
+    v[0] = ld(p);
+  }
+}
+
 template <int VEC>
 __device__ __forceinline__ void store_vec(float* __restrict__ p, const float (&v)[VEC]) {
   if constexpr (VEC == 4) {
     *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
   } else {
     p[0] = v[0];
+  }
+}
+
+__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(hi))) << 16);
+}
+
+// rounds each value once; VEC = 4: one 8-byte store (p 8-byte aligned)
+template <int VEC>
+__device__ __forceinline__ void store_vec(bf16* __restrict__ p, const float (&v)[VEC]) {
+  if constexpr (VEC == 4) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(bf16_pair(v[0], v[1]), bf16_pair(v[2], v[3]));
+  } else {
+    p[0] = __float2bfloat16_rn(v[0]);
   }
 }
 
@@ -100,16 +154,15 @@ struct Lanes {
 };
 
 // The warp's gather of one unit: for each slot j < len of this lane's slot
-// group for which want(j) holds, use(j, v) with v the lane's VEC floats of
-// row col[j] of x (row stride f floats).  col is the unit's columns in
-// shared memory, filled before the call and visible to the whole warp.  A
-// slot that want() refuses is not read.
-template <int VEC, class Want, class Use>
-__device__ __forceinline__ void gather_unit(const UnitSmem& sm, int len,
-                                            const float* __restrict__ x, int f, const Lanes& ln,
-                                            Want want, Use use) {
+// group for which want(j) holds, use(j, v) with v the lane's VEC values
+// (as f32) of row col[j] of x (row stride f elements of T, float or bf16).
+// col is the unit's columns in shared memory, filled before the call and
+// visible to the whole warp.  A slot that want() refuses is not read.
+template <int VEC, class T, class Want, class Use>
+__device__ __forceinline__ void gather_unit(const UnitSmem& sm, int len, const T* __restrict__ x,
+                                            int f, const Lanes& ln, Want want, Use use) {
   if (!ln.active) return;
-  const float* xv = x + static_cast<size_t>(ln.vcol) * VEC;
+  const T* xv = x + static_cast<size_t>(ln.vcol) * VEC;
 #pragma unroll 4
   for (int j = ln.sub; j < len; j += ln.groups) {
     if (want(j)) {

@@ -24,7 +24,9 @@ import torch.nn.functional as F
 
 from gala_tpu_torch.ir.compute_ir import CompOpt, ComputeNode, ComputeOp, OpType, Program
 from gala_tpu_torch.ir.data_ir import DataFormat
-from gala_tpu_torch.models.common import ParamDict, epsilon_param, linear, linear_init
+from gala_tpu_torch.models.common import (
+    ParamDict, epsilon_param, linear, linear_init, scale_by_eps,
+)
 from gala_tpu_torch.ops.attention import attention_aggregate
 from gala_tpu_torch.ops.edge import edge_softmax, leaky_relu, sddvv_add, sddvv_mul
 from gala_tpu_torch.ops.graph import Graph, not_ported
@@ -149,7 +151,7 @@ def _eval_node(node: ComputeNode, env, params, graphs):
     if op in _FFN_OPS:
         return linear(params[node.inputs[1].name], ins[0])
     if op is ComputeOp.SCALAR_ADD_EPS_MULTIPLY:
-        return (1.0 + params[f"eps{node.layer + 1}"]) * ins[0]
+        return scale_by_eps(params[f"eps{node.layer + 1}"], ins[0])
     if op is ComputeOp.ADD:
         return ins[0] + ins[1]
     if op is ComputeOp.MUL:

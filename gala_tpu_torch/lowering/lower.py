@@ -20,6 +20,7 @@ from gala_tpu_torch.ir.compute_ir import Program, uses_edge_values, uses_fused_a
 from gala_tpu_torch.ir.data_ir import SYM_CLASSES, SYM_FEATS
 from gala_tpu_torch.lowering.autoschedule import autoschedule
 from gala_tpu_torch.lowering.interp import make_forward, make_init_params
+from gala_tpu_torch.models.common import activation_dtype
 from gala_tpu_torch.ops.graph import NODE_PAD, Graph, choose_strategy, not_ported
 from gala_tpu_torch.passes.pipeline import run_passes
 from gala_tpu_torch.train import TrainResult, train
@@ -122,9 +123,10 @@ def lower(
     data: optional (HostCSR, feats, labels, masks) tuple; otherwise the
     dataset named in the DSL is resolved via the registry.
     mode: 'train' or 'inference' (which passes run, as in the reference).
+    dtype: the activations' dtype, torch.bfloat16 for gala_tpu's mixed
+    precision (the padded features cast to it; params and the loss f32).
     """
-    if dtype is not None and dtype not in (torch.float32, np.float32, "float32"):
-        raise not_ported(f"dtype {dtype}", "ROADMAP Queue 1 item 5 (bf16 activations)")
+    dtype = activation_dtype(dtype)
     if use_long or spec.use_long:
         raise not_ported("int64 edge indices", "ROADMAP Queue 1 item 9")
     device = torch.device(device)
@@ -207,6 +209,9 @@ def lower(
         ]
 
     x = full_g.pad_nodes(np.asarray(feats, np.float32))
+    if dtype is not None:
+        # mixed precision: bf16 activations, f32 params and loss (gala_tpu's)
+        x = x.to(dtype)
     y = full_g.pad_nodes(np.asarray(labels, np.int64))
     tm = full_g.pad_nodes(np.asarray(masks["train"], bool))
     sm = full_g.pad_nodes(np.asarray(masks["test"], bool))

@@ -10,6 +10,11 @@ bias, drawn from an explicit `torch.Generator`.
 
 Matmuls run in full float32: TF32 is switched off wherever the port
 multiplies (gala_tpu uses Precision.HIGHEST for the same reason).
+
+Mixed precision, as gala_tpu's dtype=jnp.bfloat16: parameters, optimizer
+state and the loss stay f32; the features are cast to the activation
+dtype (`activation_dtype`) and each FFN casts its parameters to its
+input's dtype, so gradients reach the f32 parameters in f32.
 """
 from __future__ import annotations
 
@@ -19,6 +24,22 @@ import torch
 from torch import nn
 
 from gala_tpu_torch.ops.graph import Graph
+
+
+_ACTIVATION_DTYPES = {None: None, "float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def activation_dtype(dtype) -> torch.dtype | None:
+    """The torch dtype of an entry point's `dtype=` (None: the features'
+    own f32): torch.float32 or torch.bfloat16, their names, or numpy's
+    float32.  Raises TypeError on any other."""
+    if isinstance(dtype, torch.dtype):
+        key = str(dtype).removeprefix("torch.")
+    else:
+        key = getattr(dtype, "__name__", dtype)
+    if key not in _ACTIVATION_DTYPES:
+        raise TypeError(f"activations run in float32 or bfloat16, got dtype {dtype!r}")
+    return _ACTIVATION_DTYPES[key]
 
 
 def full_precision_matmuls() -> None:
@@ -67,6 +88,13 @@ class ParamDict(nn.ModuleDict):
 def epsilon_param() -> nn.Parameter:
     """GIN's learned epsilon: a 0-d f32 parameter, 0 at init as in gala_tpu."""
     return nn.Parameter(torch.zeros((), dtype=torch.float32))
+
+
+def scale_by_eps(eps: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """(1 + eps) * x with JAX's promotion: gala_tpu's learned epsilon is a
+    strongly typed 0-d f32 array, so bf16 x yields f32 there, where torch
+    would keep x's dtype for a 0-d operand."""
+    return (1.0 + eps) * x.to(torch.promote_types(eps.dtype, x.dtype))
 
 
 def linear_init(gen: torch.Generator, d_in: int, d_out: int) -> nn.ParameterDict:

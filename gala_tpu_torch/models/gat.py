@@ -42,7 +42,7 @@ def _attn_vec_init(gen: torch.Generator, n_heads: int, fh: int) -> nn.ParameterD
 def _head_scores(p, res: torch.Tensor, n_heads: int) -> torch.Tensor:
     """(N, H): score[n, h] = res[n, h*fh:(h+1)*fh] @ w[h] + b[h]."""
     r3 = res.view(res.shape[0], n_heads, -1)
-    return torch.einsum("nhf,hf->nh", r3, p["w"]) + p["b"]
+    return torch.einsum("nhf,hf->nh", r3, p["w"].to(res.dtype)) + p["b"].to(res.dtype)
 
 
 def init(gen: torch.Generator, n_feats: int, hidden: list[int], n_classes: int,

@@ -22,6 +22,13 @@ node-sized tensors, then runs one sweep over the transpose layout
 (gala_tpu's `_attn_bwd_pass2`).  The sweeps are the kernels of
 ops.kernels.attn_bell (fwd and bwd2; bwd1 is gala_tpu's pass 1, which
 this identity replaces).
+
+bf16 activations, as gala_tpu runs them: x, vl and vr enter the kernels
+in x's dtype (vl and vr cast to it, as gala_tpu stages vl.astype(x.dtype)
+beside x); the kernels return f32 and the op returns out in x's dtype,
+while the backward's residual is the f32 out (gala_tpu's out32_node), so
+sds = <dout, out> is taken before the rounding.  The backward tables,
+dvr and the gradients are f32 and are cast back to the inputs' dtypes.
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ import torch
 from gala_tpu_torch.data.csr import HostCSR
 from gala_tpu_torch.data.ell import build_binned_ell
 from gala_tpu_torch.ops.graph import BellDev
+from gala_tpu_torch.ops.kernels._build import wide
 from gala_tpu_torch.ops.kernels.attn_bell import attn_bwd2, attn_fwd, per_head_dot
 
 
@@ -95,29 +103,32 @@ class AttentionAggregate(torch.autograd.Function):
         if flash:
             ctx.save_for_backward(x, vl, vr, m, s, out, outpos, spos)
             ctx.ab, ctx.c_pad, ctx.slope = ab, c_pad, slope
-        return out
+        return out.to(x.dtype)
 
     @staticmethod
     def backward(ctx, dout):
         x, vl, vr, m, s, out, outpos, spos = ctx.saved_tensors
-        dout = dout.contiguous()
+        dout = wide(dout)
         nh = vl.shape[1]
         sds = per_head_dot(dout, out, nh)
         dvr = (1.0 - ctx.slope) * (per_head_dot(dout, outpos, nh) - sds * spos)
-        w_tab = torch.cat([dout, vr, m, s, sds], dim=1)
+        w_tab = torch.cat([dout, wide(vr), m, s, sds], dim=1)
         dxx = attn_bwd2(ctx.ab.t, x, vl, w_tab, ctx.slope, ctx.c_pad)
         hf = x.shape[1]
-        return dxx[:, :hf], dxx[:, hf:], dvr, None, None, None, None, None
+        return (dxx[:, :hf].to(x.dtype), dxx[:, hf:].to(vl.dtype), dvr.to(vr.dtype),
+                None, None, None, None, None)
 
 
 def attention_aggregate(n_pad: int, c_pad: int, slope: float, ab: AttnBell,
                         x: torch.Tensor, vl: torch.Tensor, vr: torch.Tensor) -> torch.Tensor:
     """Softmax-attention aggregation, H heads in one sweep (gala_tpu's
     signature).  x: (c_pad, H*fh), vl: (c_pad, H), vr: (n_pad, H); H is
-    inferred from vl (H = 1 is the DSL GAT).  Returns (n_pad, H*fh).
+    inferred from vl (H = 1 is the DSL GAT).  Returns (n_pad, H*fh) in
+    x's dtype (float32 or bfloat16; vl and vr are cast to it).
 
     The forward emits the flash statistics only when a gradient is wanted
     (they double the weighted reduce)."""
     flash = torch.is_grad_enabled() and any(t.requires_grad for t in (x, vl, vr))
-    return AttentionAggregate.apply(x.contiguous(), vl.contiguous(), vr.contiguous(), ab,
-                                    n_pad, c_pad, float(slope), flash)
+    vl, vr = (t.to(x.dtype).contiguous() for t in (vl, vr))
+    return AttentionAggregate.apply(x.contiguous(), vl, vr, ab, n_pad, c_pad, float(slope),
+                                    flash)

@@ -13,7 +13,9 @@ own temporary file, renamed into place when done).
 `counts_for(name)` is the launch record of one kernel: its wrapper adds
 one to `launches` where it launches the kernel, and one to
 `reference_calls_on_cuda` where the plain version runs on CUDA tensors,
-so a run can show that its work went through the kernels.
+so a run can show that its work went through the kernels.  A kernel with
+a bf16 form counts that form's launches under `name`_bf16
+(`dtype_counts`).
 
 `toolchain_available()` is the port of gala_tpu's `mosaic_available`: a
 child process builds and launches `csrc/probe.cu` (x * 2, through
@@ -65,6 +67,36 @@ def counts_for(name: str) -> Counts:
     if name not in _COUNTS:
         _COUNTS[name] = Counts(name)
     return _COUNTS[name]
+
+
+DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}  # the kernels' element types
+
+
+def wide(t: torch.Tensor) -> torch.Tensor:
+    """t in at least f32 (bf16 upcast exactly; f32 and f64 as they are):
+    the plain versions compute in it."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+def rounding_slack(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """What two results that each round an f32 sum once to their dtype may
+    differ by beyond the sums' own error: one bf16 unit in the last place
+    at the larger magnitude (0 where both are 0) for bf16 results, 0 for
+    f32 ones.  A kernel and its plain version sum in different orders, so
+    their f32 sums differ in the last bits and may round to neighbouring
+    bf16 values."""
+    if got.dtype != torch.bfloat16:
+        return torch.zeros((), device=got.device)
+    big = torch.maximum(got.float().abs(), want.float().abs())
+    _, exp = torch.frexp(big)  # big = mantissa * 2^exp, mantissa in [0.5, 1)
+    return torch.where(big > 0, torch.ldexp(torch.ones_like(big), exp - 8), 0.0)
+
+
+def dtype_counts(name: str, dtype: torch.dtype) -> Counts:
+    """The launch record of kernel `name`'s form for `dtype`: `name` at
+    float32, `name`_bf16 at bfloat16 (a run can show which form it
+    launched; plain-version calls count under `name` alone)."""
+    return counts_for(name if dtype == torch.float32 else f"{name}_{DTYPES[dtype]}")
 
 
 def all_counts() -> dict[str, Counts]:

@@ -21,10 +21,18 @@ fh = hf / H, 1 <= H <= 8.
 Layouts are ops.attention.AttnBell's: `flat_vals` holds slot occupancy
 (1.0 per real edge, 0.0 on padding slots), used only as a mask.
 
+Element types: x, vl and vr (and bwd1's dout) float32 or bfloat16 (bf16
+activations, gala_tpu's dtype=jnp.bfloat16), one instantiation and C
+entry point each (gala_attn_*_f32, gala_attn_*_bf16).  Everything else
+is f32 at both types, as gala_tpu keeps it: m, s, the outputs, the
+partials and merges, bwd2's [dout | vr | m | s | sds] table.  The plain
+versions compute in f32 from the same values.
+
 Dispatch: a CPU tensor runs the plain version; a CUDA tensor runs the
 kernel or raises (no fallback).  `counts_for(name)` records launches and
 plain-version calls on CUDA tensors for `attn_fwd`, `attn_bwd1` and
-`attn_bwd2`.
+`attn_bwd2` (bf16 launches under `attn_fwd_bf16` and so on,
+`_build.dtype_counts`).
 
 The plain versions work slot by slot (one entry per slot of the flat
 layout, a row's max by scatter_reduce and its sums by index_add_), so
@@ -42,7 +50,7 @@ import os
 import torch
 
 from gala_tpu_torch.ops.kernels._build import (
-    CSRC_DIR, Build, build_library, counts_for, read_limits,
+    CSRC_DIR, DTYPES, Build, build_library, counts_for, dtype_counts, read_limits, wide,
 )
 from gala_tpu_torch.ops.kernels.bell_spmm import unit_slots
 
@@ -54,18 +62,21 @@ NEG = -1e30  # masked score; a row's max is floored at NEG / 2 (gala_tpu's _NEG)
 NAMES = ("attn_fwd", "attn_bwd1", "attn_bwd2")
 counts = {name: counts_for(name) for name in NAMES}
 # the unit kernels, in the order of gala_attn_{fwd,bwd1,bwd2}_limits
-FWD_KERNELS = ("attn_fwd_kernel<4>", "attn_fwd_kernel<1>", "attn_fwd_merge_kernel")
-BWD1_KERNELS = ("attn_bwd1_kernel<4>", "attn_bwd1_kernel<1>", "attn_merge_sum_kernel (bwd1)")
-BWD2_KERNELS = ("attn_bwd2_kernel<4>", "attn_bwd2_kernel<1>", "attn_merge_sum_kernel (bwd2)")
+FWD_KERNELS = ("attn_fwd_kernel<4>", "attn_fwd_kernel<1>", "attn_fwd_merge_kernel",
+               "attn_fwd_kernel<4> bf16", "attn_fwd_kernel<1> bf16")
+BWD1_KERNELS = ("attn_bwd1_kernel<4>", "attn_bwd1_kernel<1>", "attn_merge_sum_kernel (bwd1)",
+                "attn_bwd1_kernel<4> bf16", "attn_bwd1_kernel<1> bf16")
+BWD2_KERNELS = ("attn_bwd2_kernel<4>", "attn_bwd2_kernel<1>", "attn_merge_sum_kernel (bwd2)",
+                "attn_bwd2_kernel<4> bf16", "attn_bwd2_kernel<1> bf16")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 # the library's C functions and their argument types
 FUNCTIONS = {
-    "gala_attn_fwd_f32": [_P] * 18 + [_I] * 5 + [_F, _I, _P],
-    "gala_attn_bwd1_f32": [_P] * 17 + [_I] * 4 + [_F, _I, _P],
-    "gala_attn_bwd2_f32": [_P] * 14 + [_I] * 4 + [_F, _I, _P],
+    **{f"gala_attn_fwd_{t}": [_P] * 18 + [_I] * 5 + [_F, _I, _P] for t in DTYPES.values()},
+    **{f"gala_attn_bwd1_{t}": [_P] * 17 + [_I] * 4 + [_F, _I, _P] for t in DTYPES.values()},
+    **{f"gala_attn_bwd2_{t}": [_P] * 14 + [_I] * 4 + [_F, _I, _P] for t in DTYPES.values()},
     "gala_attn_fwd_limits": [_I, _I, _P],
     "gala_attn_bwd1_limits": [_I, _I, _P],
     "gala_attn_bwd2_limits": [_I, _I, _P],
@@ -129,6 +140,7 @@ def attn_fwd_reference(lay, x, vl, vr, slope: float, n_pad: int, flash: bool):
     0; a hub's max and sum run over all its virtual rows (one descriptor
     row); padding rows are 0."""
     _note_cuda("attn_fwd", x)
+    x, vl, vr = wide(x), wide(vl), wide(vr)
     hf, nh = x.shape[1], vl.shape[1]
     fh = hf // nh
     n_rows = lay.row_node.shape[0]
@@ -164,6 +176,7 @@ def attn_fwd_units_reference(lay, x, vl, vr, slope: float, n_pad: int, flash: bo
     online-softmax rescaling: m = max m_u, s = sum s_u e^(m_u - m), the
     same for acc, s+ and acc+."""
     units = lay.units
+    x, vl, vr = wide(x), wide(vl), wide(vr)
     hf, nh = x.shape[1], vl.shape[1]
     fh = hf // nh
     n_u = units.n_units
@@ -217,6 +230,7 @@ def attn_bwd1_reference(lay, x, vl, vr, dout, m, s, slope: float):
     node-order (m, s); dp = <dout[r], x[c]> per head; returns
     sds = sum p dp, A = sum p dp lrelu', B = sum p lrelu', each (n_pad, H)."""
     _note_cuda("attn_bwd1", x)
+    x, vl, vr, dout = wide(x), wide(vl), wide(vr), wide(dout)
     hf, nh = x.shape[1], vl.shape[1]
     fh = hf // nh
     n_rows = lay.row_node.shape[0]
@@ -246,6 +260,7 @@ def attn_bwd1_units_reference(lay, x, vl, vr, dout, m, s, slope: float):
     others to their partial rows.  Pass 2 sums each split row's partials
     in unit order.  Returns sds, A, B (n_pad, H)."""
     units = lay.units
+    x, vl, vr, dout = wide(x), wide(vl), wide(vr), wide(dout)
     hf, nh = x.shape[1], vl.shape[1]
     fh = hf // nh
     n_u = units.n_units
@@ -271,6 +286,7 @@ def attn_bwd2_reference(lay, x, vl, w_tab, slope: float, c_pad: int):
     slots = destinations r): w_tab (n_pad, hf + 4H) = [dout | vr | m | s |
     sds] in node order.  Returns [dx | dvl] (c_pad, hf + H)."""
     _note_cuda("attn_bwd2", x)
+    x, vl = wide(x), wide(vl)
     hf, nh = x.shape[1], vl.shape[1]
     fh = hf // nh
     n_rows = lay.row_node.shape[0]
@@ -299,6 +315,7 @@ def attn_bwd2_units_reference(lay, x, vl, w_tab, slope: float, c_pad: int):
     writes [dx_u | dvl_u] to its node, the others to their partial rows.
     Pass 2 sums each split row's partials in unit order."""
     units = lay.units
+    x, vl = wide(x), wide(vl)
     hf, nh = x.shape[1], vl.shape[1]
     fh = hf // nh
     n_u = units.n_units
@@ -338,13 +355,18 @@ def _sum_units(units, acc, n_out):
 # --------------------------------------------------------------------------- #
 # wrappers
 # --------------------------------------------------------------------------- #
-def _check(lay, x, vl, tables: dict, n_out: int) -> None:
+def _check(lay, x, vl, tables: dict, n_out: int, f32: tuple = ()) -> None:
     """dtype, shape and device checks shared by the wrappers; `tables`
-    names the other tensor arguments."""
+    names the other tensor arguments.  x is float32 or bfloat16; vl and
+    the tables take x's dtype, except those named in `f32`."""
     nh = vl.shape[1] if vl.dim() == 2 else 0
+    if x.dtype not in DTYPES:
+        raise TypeError(f"attention kernels take float32 or bfloat16 x, got {x.dtype}")
     for name, t in {"x": x, "vl": vl, **tables}.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"attention kernels take float32 tensors, {name} is {t.dtype}")
+        want = torch.float32 if name in f32 else x.dtype
+        if t.dtype != want:
+            raise TypeError(f"attention kernels take {name} in {want} with x in {x.dtype}, "
+                            f"got {t.dtype}")
         if t.dim() != 2 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous 2-D tensor")
         if t.device != lay.flat_cols.device:
@@ -362,18 +384,22 @@ def _check(lay, x, vl, tables: dict, n_out: int) -> None:
 
 
 def _vec(x, nh, *tables) -> int:
-    """4 (float4 loads) when every head's width is a multiple of 4 and the
-    feature tables are 16-byte aligned, else 1."""
-    ok = (x.shape[1] // nh) % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (x, *tables))
+    """4 (vectors of 4 elements: float4 loads, 8-byte loads at bf16) when
+    every head's width is a multiple of 4 and the feature tables are
+    aligned to 4 of their elements, else 1."""
+    ok = (x.shape[1] // nh) % 4 == 0 and all(t.data_ptr() % (4 * t.element_size()) == 0
+                                             for t in (x, *tables))
     return 4 if ok else 1
 
 
-def _launch(name, fn, x, *args) -> None:
+def _launch(name, x, *args) -> None:
+    """Launch kernel `name` in x's dtype's form (gala_<name>_f32 or _bf16)."""
+    fn = getattr(build().lib, f"gala_{name}_{DTYPES[x.dtype]}")
     with torch.cuda.device(x.device):
         err = fn(*args, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
-    counts[name].launches += 1
+    dtype_counts(name, x.dtype).launches += 1
 
 
 def _cuda_only(x, name):
@@ -393,7 +419,8 @@ def _ptr(t):
 
 def attn_fwd(lay, x, vl, vr, slope: float, n_pad: int, flash: bool):
     """Attention forward on a fwd layout (see attn_fwd_reference): the
-    kernel on CUDA tensors, the plain version on CPU tensors."""
+    kernel on CUDA tensors, the plain version on CPU tensors.  x, vl and
+    vr share one dtype; every output is f32."""
     _check(lay, x, vl, {"vr": vr}, n_pad)
     if x.shape[0] < lay.n_src or vr.shape != (n_pad, vl.shape[1]):
         raise ValueError(f"x needs >= {lay.n_src} rows (has {x.shape[0]}) and vr "
@@ -401,7 +428,6 @@ def attn_fwd(lay, x, vl, vr, slope: float, n_pad: int, flash: bool):
     if x.device.type == "cpu":
         return attn_fwd_reference(lay, x, vl, vr, slope, n_pad, flash)
     _cuda_only(x, "attn_fwd")
-    lib = build().lib
     hf, nh = x.shape[1], vl.shape[1]
     out = torch.zeros((n_pad, hf), dtype=torch.float32, device=x.device)
     m = torch.zeros((n_pad, nh), dtype=torch.float32, device=x.device)
@@ -412,7 +438,7 @@ def attn_fwd(lay, x, vl, vr, slope: float, n_pad: int, flash: bool):
     # the split rows' partials: acc, acc+ (P, hf) then m, s, s+ (P, H)
     part = (torch.empty((u.n_partials * (2 * hf + 3 * nh),), dtype=torch.float32,
                         device=x.device) if u.n_partials else None)
-    _launch("attn_fwd", lib.gala_attn_fwd_f32, x,
+    _launch("attn_fwd", x,
             x.data_ptr(), vl.data_ptr(), vr.data_ptr(), lay.flat_cols.data_ptr(),
             lay.flat_vals.data_ptr(), *_unit_ptrs(u),
             out.data_ptr(), m.data_ptr(), s.data_ptr(), _ptr(outpos), _ptr(spos), _ptr(part),
@@ -423,10 +449,10 @@ def attn_fwd(lay, x, vl, vr, slope: float, n_pad: int, flash: bool):
 
 def attn_bwd1(lay, x, vl, vr, dout, m, s, slope: float):
     """Backward pass 1 on a fwd layout (see attn_bwd1_reference): sds, A,
-    B (n_pad, H); on CUDA tensors three column views of one (n_pad, 3H)
-    table."""
+    B (n_pad, H), f32; on CUDA tensors three column views of one (n_pad,
+    3H) table.  x, vl, vr and dout share one dtype; m and s are f32."""
     n_pad = dout.shape[0]
-    _check(lay, x, vl, {"vr": vr, "dout": dout, "m": m, "s": s}, n_pad)
+    _check(lay, x, vl, {"vr": vr, "dout": dout, "m": m, "s": s}, n_pad, f32=("m", "s"))
     nh = vl.shape[1]
     if (x.shape[0] < lay.n_src or dout.shape[1] != x.shape[1]
             or any(t.shape != (n_pad, nh) for t in (vr, m, s))):
@@ -435,13 +461,12 @@ def attn_bwd1(lay, x, vl, vr, dout, m, s, slope: float):
     if x.device.type == "cpu":
         return attn_bwd1_reference(lay, x, vl, vr, dout, m, s, slope)
     _cuda_only(x, "attn_bwd1")
-    lib = build().lib
     out = torch.zeros((n_pad, 3 * nh), dtype=torch.float32, device=x.device)
     u = lay.units
     # the split rows' partial [sds | A | B] rows
     part = (torch.empty((u.n_partials * 3 * nh,), dtype=torch.float32, device=x.device)
             if u.n_partials else None)
-    _launch("attn_bwd1", lib.gala_attn_bwd1_f32, x,
+    _launch("attn_bwd1", x,
             x.data_ptr(), vl.data_ptr(), vr.data_ptr(), dout.data_ptr(), m.data_ptr(),
             s.data_ptr(), lay.flat_cols.data_ptr(), lay.flat_vals.data_ptr(), *_unit_ptrs(u),
             out.data_ptr(), _ptr(part), u.n_units, u.split_node.shape[0], x.shape[1], nh,
@@ -451,8 +476,9 @@ def attn_bwd1(lay, x, vl, vr, dout, m, s, slope: float):
 
 def attn_bwd2(lay, x, vl, w_tab, slope: float, c_pad: int):
     """Backward pass 2 on a transpose layout (see attn_bwd2_reference):
-    returns [dx | dvl] (c_pad, hf + H)."""
-    _check(lay, x, vl, {"w_tab": w_tab}, c_pad)
+    returns [dx | dvl] (c_pad, hf + H), f32.  x and vl share one dtype;
+    w_tab is f32."""
+    _check(lay, x, vl, {"w_tab": w_tab}, c_pad, f32=("w_tab",))
     hf, nh = x.shape[1], vl.shape[1]
     if w_tab.shape[1] != hf + 4 * nh or w_tab.shape[0] < lay.n_src:
         raise ValueError(f"w_tab {tuple(w_tab.shape)} must be (>= {lay.n_src}, {hf + 4 * nh})")
@@ -461,13 +487,12 @@ def attn_bwd2(lay, x, vl, w_tab, slope: float, c_pad: int):
     if x.device.type == "cpu":
         return attn_bwd2_reference(lay, x, vl, w_tab, slope, c_pad)
     _cuda_only(x, "attn_bwd2")
-    lib = build().lib
     out = torch.zeros((c_pad, hf + nh), dtype=torch.float32, device=x.device)
     u = lay.units
     # the split rows' partial [dx | dvl] rows
     part = (torch.empty((u.n_partials * (hf + nh),), dtype=torch.float32, device=x.device)
             if u.n_partials else None)
-    _launch("attn_bwd2", lib.gala_attn_bwd2_f32, x,
+    _launch("attn_bwd2", x,
             w_tab.data_ptr(), x.data_ptr(), vl.data_ptr(), lay.flat_cols.data_ptr(),
             lay.flat_vals.data_ptr(), *_unit_ptrs(u), out.data_ptr(), _ptr(part),
             u.n_units, u.split_node.shape[0], hf, nh, float(slope), _vec(x, nh, w_tab))
@@ -523,10 +548,10 @@ def compare_with_plain(ab, x, vl, vr, dout, slope: float, n_pad: int, c_pad: int
     check("bwd1 A - sds B = flash identity", a - sds * b,
           (1.0 - slope) * (per_head_dot(dout, outpos, nh) - sds * spos), 2 * a_sds)
 
-    w_tab = torch.cat([dout, vr, r_m, r_s, r_sds], dim=1)
+    w_tab = torch.cat([dout.float(), vr.float(), r_m, r_s, r_sds], dim=1)
     dxx = attn_bwd2(ab.t, x, vl, w_tab, slope, c_pad)
     r_dxx = attn_bwd2_reference(ab.t, x, vl, w_tab, slope, c_pad)
-    a_tab = torch.cat([dout.abs(), vr, r_m, r_s, -r_sds.abs()], dim=1)
+    a_tab = torch.cat([dout.float().abs(), vr.float(), r_m, r_s, -r_sds.abs()], dim=1)
     a_dxx = attn_bwd2_reference(ab.t, x.abs(), vl, a_tab, slope, c_pad)
     hf = x.shape[1]
     check("bwd2 dx", dxx[:, :hf], r_dxx[:, :hf], a_dxx[:, :hf])
@@ -542,8 +567,8 @@ def aggregate_scales(ab, x, vl, vr, dout, slope: float, n_pad: int, c_pad: int):
     hf, nh = x.shape[1], vl.shape[1]
     _, m, s, _, spos = attn_fwd_reference(ab.fwd, x, vl, vr, slope, n_pad, True)
     a_out, _, _, a_outpos, _ = attn_fwd_reference(ab.fwd, x.abs(), vl, vr, slope, n_pad, True)
-    a_sds = per_head_dot(dout.abs(), a_out, nh)
-    a_tab = torch.cat([dout.abs(), vr, m, s, -a_sds], dim=1)
+    a_sds = per_head_dot(dout.abs().float(), a_out, nh)
+    a_tab = torch.cat([dout.abs().float(), vr.float(), m, s, -a_sds], dim=1)
     a_dxx = attn_bwd2_reference(ab.t, x.abs(), vl, a_tab, slope, c_pad)
     a_dvr = (1.0 - slope) * (per_head_dot(dout.abs(), a_outpos, nh) + a_sds * spos)
     return a_out, a_dxx[:, :hf], a_dxx[:, hf:], a_dvr

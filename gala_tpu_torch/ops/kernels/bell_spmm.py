@@ -19,13 +19,24 @@ the 'ell' and 'segment' layouts (ops.graph.SlotRows), with their
 structural values or with per-slot values passed as `vals` (the
 learned-edge-value SpMM of ops.spmm.spmm_ev).
 
+Element types: x (and out) float32 or bfloat16 (bf16 activations,
+gala_tpu's dtype=jnp.bfloat16), one kernel instantiation and C entry
+point each (gala_bell_spmm_f32, gala_bell_spmm_bf16).  The slot values
+and diag stay f32; at bf16 they are rounded to bf16 before the multiply
+(gala_tpu's vals.astype(x.dtype)), every sum is f32 and each output row
+is rounded once.  The plain versions do the same: they compute in f32
+from the bf16 values and round the result once, so the tests hold the
+kernel to an oracle that accumulates as gala_tpu's bf16 einsums do
+(preferred_element_type=f32), not to bf16 adds.
+
 Dispatch (`bell_spmm`): a CPU tensor runs a plain version, the
 bin-by-bin `bell_spmm_reference` for a binned layout with its own values
 and the slot-by-slot `bell_spmm_rows_reference` for every other call; a
 CUDA tensor runs the kernel or raises (no fallback).  `counts` records
 kernel calls (one per product, both passes) and plain-version calls on
 CUDA tensors, so a run can show that its aggregations went through the
-kernel.  `bell_spmm_units_reference` repeats the kernel's two passes in
+kernel (bf16 launches under "bell_spmm_bf16", `_build.dtype_counts`).
+`bell_spmm_units_reference` repeats the kernel's two passes in
 plain PyTorch, for the tests and the card's checks only.
 """
 from __future__ import annotations
@@ -37,21 +48,23 @@ import torch
 
 from gala_tpu_torch.ops.graph import BellDev
 from gala_tpu_torch.ops.kernels._build import (
-    CSRC_DIR, Build, build_library, counts_for, read_limits,
+    CSRC_DIR, DTYPES, Build, build_library, counts_for, dtype_counts, read_limits, wide,
 )
 
 _SRC = os.path.join(CSRC_DIR, "bell_spmm.cu")
 _MAX_SLOTS = 2**31 - 1  # int32 slot offsets
 # the library's kernels, in the order of gala_bell_spmm_limits
 KERNELS = ("spmm_unit_kernel<4>", "spmm_unit_kernel<1>", "spmm_merge_kernel<4>",
-           "spmm_merge_kernel<1>")
+           "spmm_merge_kernel<1>", "spmm_unit_kernel<4> bf16", "spmm_unit_kernel<1> bf16",
+           "spmm_merge_kernel<4> bf16", "spmm_merge_kernel<1> bf16")
 
 counts = counts_for("bell_spmm")
 
 
 # the library's C functions and their argument types
 FUNCTIONS = {
-    "gala_bell_spmm_f32": [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    **{f"gala_bell_spmm_{t}": [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+       for t in DTYPES.values()},
     "gala_bell_spmm_limits": [ctypes.c_int, ctypes.c_void_p],
 }
 
@@ -70,19 +83,27 @@ def launch_limits() -> dict:
     return {name: read_limits(lib.gala_bell_spmm_limits, k) for k, name in enumerate(KERNELS)}
 
 
+def _values(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Slot values or diag as the product takes them: rounded to the
+    activations' dtype, multiplied in at least f32."""
+    return wide(v.to(dtype))
+
+
 def bell_spmm_reference(bell, x: torch.Tensor, n_out_pad: int) -> torch.Tensor:
     """Plain PyTorch binned-ELL SpMM (gala_tpu.ops.spmm._bell_raw): per
     degree-class bin an index_select and a weighted sum, hub partials
     summed over big_vrow, rows reordered by out_index, diag*x added.
-    Output in global node order, padded to n_out_pad rows."""
+    Output in global node order, padded to n_out_pad rows, in x's dtype
+    (computed in f32, rounded once)."""
     if x.is_cuda:
         counts.reference_calls_on_cuda += 1
+    dtype, x = x.dtype, wide(x)
     f = x.shape[1]
 
     def reduce(off, nb, k, vals):
         cols = bell.flat_cols[off : off + nb * k]
         seg = x.index_select(0, cols).view(nb, k, f)
-        return (seg * vals.to(x.dtype).unsqueeze(-1)).sum(dim=1)
+        return (seg * _values(vals, dtype).unsqueeze(-1)).sum(dim=1)
 
     parts, off = [], 0
     for k, nb, vals in zip(bell.bin_ks, bell.bin_counts, bell.bin_vals):
@@ -101,8 +122,8 @@ def bell_spmm_reference(bell, x: torch.Tensor, n_out_pad: int) -> torch.Tensor:
     elif n_out_pad > out.shape[0]:
         out = torch.cat([out, out.new_zeros((n_out_pad - out.shape[0], f))], dim=0)
     if bell.diag is not None:
-        out = out + bell.diag.to(x.dtype) * x
-    return out
+        out = out + _values(bell.diag, dtype) * x
+    return out.to(dtype)
 
 
 def bell_spmm_rows_reference(layout, x: torch.Tensor, n_out_pad: int,
@@ -112,20 +133,22 @@ def bell_spmm_rows_reference(layout, x: torch.Tensor, n_out_pad: int,
     gathers its row of x, weighted by its value (`vals`, or the layout's
     flat_vals), and is summed into its row's node with index_add_; the
     diag*x term added.  Slots no descriptor names are not read.  Output
-    in global node order, padded to n_out_pad rows."""
+    in global node order, padded to n_out_pad rows, in x's dtype
+    (computed in f32, rounded once)."""
     if x.is_cuda:
         counts.reference_calls_on_cuda += 1
+    dtype, x = x.dtype, wide(x)
     vals = layout.flat_vals if vals is None else vals
     lens = layout.row_len.long()
     row = torch.repeat_interleave(torch.arange(lens.shape[0], device=x.device), lens)
     first = torch.cumsum(lens, 0) - lens
     slot = layout.row_start.long()[row] + torch.arange(row.shape[0], device=x.device) - first[row]
-    msg = vals[slot].to(x.dtype).unsqueeze(1) * x.index_select(0, layout.flat_cols[slot])
+    msg = _values(vals[slot], dtype).unsqueeze(1) * x.index_select(0, layout.flat_cols[slot])
     out = torch.zeros((n_out_pad, x.shape[1]), dtype=x.dtype, device=x.device)
     out.index_add_(0, layout.row_node[row], msg)
     if layout.diag is not None:
-        out = out + layout.diag.to(x.dtype) * x
-    return out
+        out = out + _values(layout.diag, dtype) * x
+    return out.to(dtype)
 
 
 def unit_slots(units, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -144,14 +167,16 @@ def bell_spmm_units_reference(layout, x: torch.Tensor, n_out_pad: int,
     checks): pass 1 sums each work unit's weighted rows of x; a unit that
     is its whole row writes its node with diag*x, the others fill their
     partial rows; pass 2 sums each split row's partials in unit order and
-    adds diag*x.  The same function as bell_spmm_rows_reference."""
+    adds diag*x.  The same function as bell_spmm_rows_reference, in f32
+    with one rounding to x's dtype at the end."""
     units = layout.units
     vals = layout.flat_vals if vals is None else vals
+    dtype, x = x.dtype, wide(x)
     f = x.shape[1]
     unit, slot = unit_slots(units, x.device)
-    msg = vals[slot].to(x.dtype).unsqueeze(1) * x.index_select(0, layout.flat_cols[slot])
+    msg = _values(vals[slot], dtype).unsqueeze(1) * x.index_select(0, layout.flat_cols[slot])
     acc = torch.zeros((units.n_units, f), dtype=x.dtype, device=x.device).index_add_(0, unit, msg)
-    diag = (layout.diag.to(x.dtype) * x) if layout.diag is not None else None
+    diag = (_values(layout.diag, dtype) * x) if layout.diag is not None else None
     out = torch.zeros((n_out_pad, f), dtype=x.dtype, device=x.device)
     whole = units.part < 0
     node = units.node[whole].long()
@@ -165,12 +190,12 @@ def bell_spmm_units_reference(layout, x: torch.Tensor, n_out_pad: int,
                              device=x.device).index_add_(0, owner, part)
         node = units.split_node.long()
         out[node] = merged + (diag[node] if diag is not None else 0)
-    return out
+    return out.to(dtype)
 
 
 def _check(bell, x: torch.Tensor, n_out_pad: int, vals: torch.Tensor | None) -> None:
-    if x.dtype != torch.float32:
-        raise TypeError(f"bell_spmm takes float32 features, got {x.dtype}")
+    if x.dtype not in DTYPES:
+        raise TypeError(f"bell_spmm takes float32 or bfloat16 features, got {x.dtype}")
     if x.dim() != 2 or not x.is_contiguous():
         raise ValueError("bell_spmm takes a contiguous 2-D (rows, F) tensor")
     if bell.flat_cols.device != x.device:
@@ -202,7 +227,7 @@ def bell_spmm(bell, x: torch.Tensor, n_out_pad: int,
     """out = A @ x on a row-descriptor layout (ops.graph.BellDev or
     SlotRows), A's values the layout's flat_vals or, when given, `vals`
     (one f32 per slot): the kernel on a CUDA tensor, a plain version on a
-    CPU tensor."""
+    CPU tensor.  The result has x's dtype (float32 or bfloat16)."""
     _check(bell, x, n_out_pad, vals)
     if x.device.type == "cpu":
         if vals is None and isinstance(bell, BellDev):
@@ -210,19 +235,19 @@ def bell_spmm(bell, x: torch.Tensor, n_out_pad: int,
         return bell_spmm_rows_reference(bell, x, n_out_pad, vals)
     if x.device.type != "cuda":
         raise ValueError(f"bell_spmm runs on cpu or cuda tensors, got {x.device}")
-    lib = build().lib
+    fn = getattr(build().lib, f"gala_bell_spmm_{DTYPES[x.dtype]}")
     f = x.shape[1]
-    out = torch.zeros((n_out_pad, f), dtype=torch.float32, device=x.device)
+    out = torch.zeros((n_out_pad, f), dtype=x.dtype, device=x.device)
     units = bell.units
     if units.n_units == 0 or f == 0:
         return out
     part = (torch.empty((units.n_partials, f), dtype=torch.float32, device=x.device)
             if units.n_partials else None)
-    vec = 4 if f % 4 == 0 and x.data_ptr() % 16 == 0 else 1
+    vec = 4 if f % 4 == 0 and x.data_ptr() % (4 * x.element_size()) == 0 else 1
     ptr = (lambda t: t.data_ptr() if t is not None else None)  # noqa: E731
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.gala_bell_spmm_f32(
+        err = fn(
             x.data_ptr(), bell.flat_cols.data_ptr(),
             (bell.flat_vals if vals is None else vals).data_ptr(),
             units.start.data_ptr(), units.length.data_ptr(), units.node.data_ptr(),
@@ -232,5 +257,5 @@ def bell_spmm(bell, x: torch.Tensor, n_out_pad: int,
         )
     if err != 0:
         raise RuntimeError(f"bell_spmm kernel launch failed with CUDA error {err}")
-    counts.launches += 1
+    dtype_counts("bell_spmm", x.dtype).launches += 1
     return out

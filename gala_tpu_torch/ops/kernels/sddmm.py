@@ -6,7 +6,13 @@ default JAX path, the XLA two-gather form of
 gala_tpu.ops.spmm.sddmm_edges).  Convention, sddmm_edges's (the Pallas
 kernel names its operands the other way round, `a` by destination):
 
-    out[e] = <a[src[e]], b[dst[e]]>     f32, one value per listed edge
+    out[e] = <a[src[e]], b[dst[e]]>     one value per listed edge
+
+in the operands' dtype, float32 or bfloat16 (bf16 activations, as
+gala_tpu's sddmm_edges returns them): one kernel instantiation and C entry
+point each (gala_sddmm_f32, gala_sddmm_bf16), the products summed in f32
+and each dot rounded once.  The plain version computes in f32 and rounds
+once too.
 
 The kernel (`gala_tpu_torch/csrc/sddmm.cu`) splits the work by edges: a
 warp takes a run of 128 edges whose indices it loads once, and groups of
@@ -18,7 +24,8 @@ first use, loaded with ctypes by `ops.kernels._build.build_library`.
 
 Dispatch (`sddmm`): a CPU tensor runs `sddmm_reference`; a CUDA tensor
 runs the kernel or raises (no fallback).  `counts` records kernel
-launches and plain-version calls on CUDA tensors.
+launches and plain-version calls on CUDA tensors (bf16 launches under
+"sddmm_bf16", `_build.dtype_counts`).
 """
 from __future__ import annotations
 
@@ -27,7 +34,9 @@ import os
 
 import torch
 
-from gala_tpu_torch.ops.kernels._build import CSRC_DIR, Build, build_library, counts_for
+from gala_tpu_torch.ops.kernels._build import (
+    CSRC_DIR, DTYPES, Build, build_library, counts_for, dtype_counts, wide,
+)
 
 _SRC = os.path.join(CSRC_DIR, "sddmm.cu")
 _MAX_EDGES = 2**31 - 1  # int32 edge ids
@@ -39,24 +48,25 @@ def build() -> Build:
     """Compile (once per source version) and load the kernel library.
     Raises when nvcc is missing or the build fails."""
     return build_library(_SRC, "sddmm", {
-        "gala_sddmm_f32": [ctypes.c_void_p] * 5 + [
+        f"gala_sddmm_{t}": [ctypes.c_void_p] * 5 + [
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ],
+        ] for t in DTYPES.values()
     })
 
 
 def sddmm_reference(src: torch.Tensor, dst: torch.Tensor, a: torch.Tensor,
                     b: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch SDDMM: (a[src] * b[dst]).sum(-1), with its two
-    (E, F) temporaries."""
+    (E, F) temporaries, in f32 and rounded once to the operands' dtype."""
     if a.is_cuda:
         counts.reference_calls_on_cuda += 1
-    return (a.index_select(0, src) * b.index_select(0, dst)).sum(-1)
+    return (wide(a).index_select(0, src) * wide(b).index_select(0, dst)).sum(-1).to(a.dtype)
 
 
 def _check(src, dst, a, b) -> None:
-    if a.dtype != torch.float32 or b.dtype != torch.float32:
-        raise TypeError(f"sddmm takes float32 operands, got {a.dtype} and {b.dtype}")
+    if a.dtype not in DTYPES or b.dtype != a.dtype:
+        raise TypeError(f"sddmm takes two float32 or two bfloat16 operands, got {a.dtype} and "
+                        f"{b.dtype}")
     if a.dim() != 2 or b.dim() != 2 or not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("sddmm takes contiguous 2-D (rows, F) operands")
     if a.shape[1] != b.shape[1]:
@@ -76,8 +86,8 @@ def _check(src, dst, a, b) -> None:
 
 def sddmm(src: torch.Tensor, dst: torch.Tensor, a: torch.Tensor,
           b: torch.Tensor) -> torch.Tensor:
-    """out[e] = <a[src[e]], b[dst[e]]>, (E,) f32: the kernel on CUDA
-    tensors, the plain version on CPU tensors.  Every src must be a row of
+    """out[e] = <a[src[e]], b[dst[e]]>, (E,) in the operands' dtype: the
+    kernel on CUDA tensors, the plain version on CPU tensors.  Every src must be a row of
     a and every dst a row of b (a Graph's padded edge lists are, for
     (c_pad, F) and (n_pad, F) operands); the kernel does not check."""
     _check(src, dst, a, b)
@@ -85,19 +95,20 @@ def sddmm(src: torch.Tensor, dst: torch.Tensor, a: torch.Tensor,
         return sddmm_reference(src, dst, a, b)
     if a.device.type != "cuda":
         raise ValueError(f"sddmm runs on cpu or cuda tensors, got {a.device}")
-    lib = build().lib
+    fn = getattr(build().lib, f"gala_sddmm_{DTYPES[a.dtype]}")
     n_edges, f = src.shape[0], a.shape[1]
     if f == 0:
-        return torch.zeros(n_edges, dtype=torch.float32, device=a.device)
-    out = torch.empty(n_edges, dtype=torch.float32, device=a.device)
+        return torch.zeros(n_edges, dtype=a.dtype, device=a.device)
+    out = torch.empty(n_edges, dtype=a.dtype, device=a.device)
     if n_edges == 0:
         return out
-    vec = 4 if f % 4 == 0 and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0 else 1
+    align = 4 * a.element_size()
+    vec = 4 if f % 4 == 0 and a.data_ptr() % align == 0 and b.data_ptr() % align == 0 else 1
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = lib.gala_sddmm_f32(a.data_ptr(), b.data_ptr(), src.data_ptr(), dst.data_ptr(),
-                                 out.data_ptr(), n_edges, f, vec, stream)
+        err = fn(a.data_ptr(), b.data_ptr(), src.data_ptr(), dst.data_ptr(), out.data_ptr(),
+                 n_edges, f, vec, stream)
     if err != 0:
         raise RuntimeError(f"sddmm kernel launch failed with CUDA error {err}")
-    counts.launches += 1
+    dtype_counts("sddmm", a.dtype).launches += 1
     return out

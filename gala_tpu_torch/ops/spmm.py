@@ -18,6 +18,13 @@ layout and dx on its transpose; their own gradient is the SDDMM
 `sddmm_edges(src, dst, x, dz)`, the kernel of ops.kernels.sddmm, skipped
 when the values need none (the sparse-rewrite GCN's precomputed
 values).
+
+bf16 activations (gala_tpu's dtype=jnp.bfloat16): x bf16, the output
+bf16.  The kernels read bf16 tables and accumulate in f32; structural and
+learned values are f32 (a learned bf16 value upcast exactly) and rounded
+to bf16 in the product, as gala_tpu's vals.astype(x.dtype).  'dense'
+follows gala_tpu's jnp.dot(f32 A, bf16 x, preferred_element_type=x.dtype):
+the product in f32, the result rounded to x's dtype.
 """
 from __future__ import annotations
 
@@ -35,8 +42,10 @@ __all__ = ["BellSpmm", "bell_spmm_reference", "degrees", "sddmm_edges", "spmm",
 def sddmm_edges(src: torch.Tensor, dst: torch.Tensor, a: torch.Tensor,
                 b: torch.Tensor) -> torch.Tensor:
     """Per-edge dot product <a[src[e]], b[dst[e]]> (gala_tpu's
-    sddmm_edges): the kernel on CUDA tensors, the plain version on CPU."""
-    return sddmm(src, dst, a.contiguous(), b.contiguous())
+    sddmm_edges), in the operands' promoted dtype: the kernel on CUDA
+    tensors, the plain version on CPU."""
+    dtype = torch.promote_types(a.dtype, b.dtype)
+    return sddmm(src, dst, a.to(dtype).contiguous(), b.to(dtype).contiguous())
 
 
 class BellSpmm(torch.autograd.Function):
@@ -66,7 +75,7 @@ class SlotSpmmEv(torch.autograd.Function):
     def forward(ctx, evals, x, lay, t_lay, src, dst, n_out: int, c_out: int):
         ctx.save_for_backward(evals, x)
         ctx.t_lay, ctx.src, ctx.dst, ctx.c_out = t_lay, src, dst, c_out
-        return bell_spmm(lay, x, n_out, vals=lay.slot_values(evals))
+        return bell_spmm(lay, x, n_out, vals=lay.slot_values(evals.float()))
 
     @staticmethod
     def backward(ctx, dz):
@@ -74,9 +83,9 @@ class SlotSpmmEv(torch.autograd.Function):
         dz = dz.contiguous()
         devals = dx = None
         if ctx.needs_input_grad[0]:
-            devals = sddmm_edges(ctx.src, ctx.dst, x, dz)
+            devals = sddmm_edges(ctx.src, ctx.dst, x, dz).to(evals.dtype)
         if ctx.needs_input_grad[1]:
-            dx = bell_spmm(ctx.t_lay, dz, ctx.c_out, vals=ctx.t_lay.slot_values(evals))
+            dx = bell_spmm(ctx.t_lay, dz, ctx.c_out, vals=ctx.t_lay.slot_values(evals.float()))
         return devals, dx, None, None, None, None, None, None
 
 
@@ -84,7 +93,8 @@ class DenseSpmmEv(torch.autograd.Function):
     """out = A @ x with A (n_pad, c_pad) scattered from the padded edge
     list, A[dst[e], src[e]] += evals[e] (gala_tpu's dense spmm_ev, whose
     padding edges add their values at (phantom row, 0)).  dx = A^T dz;
-    devals is the SDDMM, so no N x N gradient is formed."""
+    devals is the SDDMM, so no N x N gradient is formed.  A takes x's
+    dtype, as gala_tpu's."""
 
     @staticmethod
     def forward(ctx, evals, x, src, dst, n_pad: int, c_pad: int):
@@ -92,7 +102,7 @@ class DenseSpmmEv(torch.autograd.Function):
         a.index_add_(0, dst.long() * c_pad + src.long(), evals.to(x.dtype))
         a = a.view(n_pad, c_pad)
         ctx.save_for_backward(a, x)
-        ctx.src, ctx.dst = src, dst
+        ctx.src, ctx.dst, ctx.evals_dtype = src, dst, evals.dtype
         full_precision_matmuls()
         return torch.matmul(a, x)
 
@@ -101,7 +111,7 @@ class DenseSpmmEv(torch.autograd.Function):
         a, x = ctx.saved_tensors
         devals = dx = None
         if ctx.needs_input_grad[0]:
-            devals = sddmm_edges(ctx.src, ctx.dst, x, dz)
+            devals = sddmm_edges(ctx.src, ctx.dst, x, dz).to(ctx.evals_dtype)
         if ctx.needs_input_grad[1]:
             full_precision_matmuls()
             dx = torch.matmul(a.t(), dz)
@@ -115,7 +125,7 @@ def spmm(g: Graph, x: torch.Tensor) -> torch.Tensor:
     transpose layout.  `x` is (c_pad, F); returns (n_pad, F)."""
     if g.strategy == "dense":
         full_precision_matmuls()
-        return torch.matmul(g.a_dense, x)
+        return torch.matmul(g.a_dense, x.to(g.a_dense.dtype)).to(x.dtype)
     if g.strategy == "bell":
         return BellSpmm.apply(x, g.bell, g.t_bell, g.n_pad, g.c_pad)
     if g.strategy == "ell":

@@ -34,10 +34,12 @@ from gala_tpu_torch.utils.timing import EpochTimer
 
 def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                          mask: torch.Tensor) -> torch.Tensor:
-    """Mean CE over mask rows (mask includes padding=False rows)."""
+    """Mean CE over mask rows (mask includes padding=False rows), in f32;
+    the mask takes the logits' dtype, as in gala_tpu (at bf16 logits its
+    count rounds to bf16)."""
     logp = F.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, labels[:, None])[:, 0]
-    m = mask.to(logp.dtype)
+    m = mask.to(logits.dtype)
     return (nll * m).sum() / m.sum().clamp_min(1.0)
 
 

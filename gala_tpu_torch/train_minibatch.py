@@ -30,8 +30,8 @@ import torch
 from gala_tpu_torch.data.csr import HostCSR
 from gala_tpu_torch.data.minibatch import NeighborSampler
 from gala_tpu_torch.models import sage
-from gala_tpu_torch.models.common import linear
-from gala_tpu_torch.ops.graph import Graph, not_ported
+from gala_tpu_torch.models.common import activation_dtype, linear
+from gala_tpu_torch.ops.graph import Graph
 from gala_tpu_torch.ops.kernels.gather import gather_rows
 from gala_tpu_torch.train import (
     TrainResult, make_optimizer, masked_accuracy, masked_cross_entropy,
@@ -77,13 +77,16 @@ def train_sage_minibatch(
     device="cuda",
 ) -> TrainResult:
     """Train minibatch SAGE on `device`; validate full-graph with the same
-    params.  Epoch times are the mean over the epochs after `warmup`."""
-    if dtype is not None and dtype not in (torch.float32, np.float32, "float32"):
-        raise not_ported(f"dtype {dtype}", "ROADMAP Queue 1 item 5 (bf16 activations)")
+    params.  Epoch times are the mean over the epochs after `warmup`.
+    dtype=torch.bfloat16 casts the feature table (gala_tpu's mixed
+    precision: params and the batch loss stay f32)."""
+    dtype = activation_dtype(dtype)
     device = torch.device(device)
     n_classes = int(labels.max()) + 1
     g = Graph.from_host(g_host, device=device)  # full graph for validation only
     xt = g.pad_nodes(np.asarray(feats, np.float32))
+    if dtype is not None:
+        xt = xt.to(dtype)
     y_pad = g.pad_nodes(np.asarray(labels, np.int64))
     test_mask = g.pad_nodes(np.asarray(masks["test"], bool))
 
@@ -109,8 +112,9 @@ def train_sage_minibatch(
         total = torch.zeros((), dtype=torch.float32, device=device)
         for b in range(t.shape[0]):
             opt.zero_grad(set_to_none=True)
-            loss = masked_cross_entropy(forward_minibatch(params, xt, t[b], n1[b], n2[b]),
-                                        yb[b], mb[b])
+            # f32 logits: the batch loss's mask stays f32, as gala_tpu's
+            loss = masked_cross_entropy(
+                forward_minibatch(params, xt, t[b], n1[b], n2[b]).float(), yb[b], mb[b])
             loss.backward()
             opt.step()
             total += loss.detach()

@@ -2,9 +2,11 @@
 """Where the time of the port's GCN training goes, on one NVIDIA GPU.
 
     python3 scripts/profile_torch_gcn.py [--epochs 10] [--trace gcn_trace.json]
+                                         [--dtype f32|bf16]
 
 Compiles __graft_entry__.GCN_DSL on the Arxiv stand-in (scale 1.0) with
-gala_tpu_torch, warms up with one short training run, then profiles one
+gala_tpu_torch (at bf16: dtype=torch.bfloat16, bf16 activations with f32
+params), warms up with one short training run, then profiles one
 `train()` call (training phase, inference phase and the accuracy
 evaluations) with torch.profiler.  Prints the device time by kernel, the
 device's busy share of the profiled wall time, the card's name and power
@@ -44,6 +46,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--epochs", type=int, default=10)
     ap.add_argument("--trace", default="", help="write a Chrome trace here")
+    ap.add_argument("--dtype", default="f32", choices=["f32", "bf16"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU")
@@ -51,9 +54,11 @@ def main() -> int:
     import gala_tpu_torch
     from __graft_entry__ import GCN_DSL
 
-    cm = gala_tpu_torch.compile_source(GCN_DSL, mode="train", scale=1.0, device="cuda")
+    dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[args.dtype]
+    cm = gala_tpu_torch.compile_source(GCN_DSL, mode="train", scale=1.0, device="cuda",
+                                       dtype=dtype)
     profile_train(cm, args.epochs, args.trace)
-    split_kernel_time(cm.full_graphs[0])
+    split_kernel_time(cm.full_graphs[0], dtype)
     return 0
 
 
@@ -103,9 +108,9 @@ def _cuda_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def split_kernel_time(g) -> None:
+def split_kernel_time(g, dtype=torch.float32) -> None:
     """Kernel time on all rows, bin rows only and hub rows only (the hub
-    rows are the last n_big row descriptors)."""
+    rows are the last n_big row descriptors), on features in `dtype`."""
     from gala_tpu_torch.ops.graph import select_rows
     from gala_tpu_torch.ops.kernels.bell_spmm import bell_spmm
 
@@ -121,7 +126,7 @@ def split_kernel_time(g) -> None:
     print(f"bell layout: {b.n_big} hub rows with {int(hub_len.sum())} slots (longest "
           f"{int(hub_len.max()) if b.n_big else 0}), {int(b.row_len[:nb].sum())} bin-row slots")
     for f in (1, 32, 128):
-        x = torch.randn((g.c_pad, f), device="cuda")
+        x = torch.randn((g.c_pad, f), device="cuda").to(dtype)
         times = ", ".join(f"{name} {_cuda_ms(lambda lay=lay: bell_spmm(lay, x, g.n_pad)):.4f} ms"
                           for name, lay in parts.items())
         print(f"bell_spmm F={f}: {times}")

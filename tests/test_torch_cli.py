@@ -41,9 +41,14 @@ def test_cli_unported_commands_raise(command, item):
         main([command, GIN, "--device", "cpu", *SMALL])
 
 
-def test_cli_bf16_raises_as_lower_does():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        main(["inference", GIN, "--device", "cpu", *SMALL, "--dtype", "bf16"])
+def test_cli_bf16_raises_as_lower_does(capsys):
+    """`--dtype bf16` reaches lower as dtype=torch.bfloat16, which now runs
+    (bf16 activations, f32 params): the CSV line of inference_sample, three
+    finite fields, as in the command the README gives."""
+    main(["inference_sample", GIN, "--device", "cpu", "--dtype", "bf16", "--scale", "0.01",
+          "--iters", "3"])
+    fields = capsys.readouterr().out.strip().splitlines()[-1].split(",")
+    assert len(fields) == 3 and all(math.isfinite(float(v)) for v in fields)
 
 
 @pytest.mark.parametrize("fn", [lower, api.compile_source, api.compile_file, api.compile_model,

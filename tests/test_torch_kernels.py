@@ -10,6 +10,12 @@ the GPU, where JAX is not installed (tests/conftest.py imports jax, hence
 Elsewhere the card tests skip.  The graph cases are also the ones
 tests/test_torch_graph.py and tests/test_torch_spmm.py hold against
 gala_tpu, built there with each package's own host modules.
+
+Each kernel test runs at float32 and at bfloat16 (the kernels' bf16
+forms: bf16 tables, f32 sums).  The plain versions take the same bf16
+inputs and compute in f32, so the tolerances are the f32 ones, plus one
+bf16 unit in the last place (`_build.rounding_slack`) where the result
+itself is bf16 (the SpMM and the SDDMM), which each side rounds once.
 """
 import dataclasses
 import os
@@ -32,6 +38,17 @@ from gala_tpu_torch.ops.kernels import sddmm
 
 CASES = ["symmetric_relabelled", "directed", "train_subgraph", "hub_selfloops"]
 WIDTHS = [1, 32, 40, 128]
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+def _close(got, want, scale):
+    """|got - want| <= 1e-4 + 1e-4 * scale, plus bf16's rounding of each."""
+    slack = _build.rounding_slack(got, want)
+    return ((got.float() - want.float()).abs() <= 1e-4 + 1e-4 * scale.float() + slack).all()
+
+
+def _randn(shape, gen, device, dtype):
+    return torch.randn(shape, generator=gen, device=device).to(dtype)
 
 
 def _synthetic(syn, undirected):
@@ -115,26 +132,31 @@ def cuda():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("f", WIDTHS)
 @pytest.mark.parametrize("case", CASES)
-def test_kernel_matches_plain_version_on_the_card(cuda, case, f):
+def test_kernel_matches_plain_version_on_the_card(cuda, case, f, dtype):
     """|kernel - plain| <= 1e-4 + 1e-4 * (|A| @ |x|) per element, in f32:
     the two sum a row's slots in different orders, and a sum's rounding
     error grows with the magnitudes of its terms, not with the result
-    (the case graphs' values are positive, so |A| = A)."""
+    (the case graphs' values are positive, so |A| = A); at bf16 plus one
+    unit in the last place of the rounded result.  Two calls bitwise
+    equal."""
     host, undirected = torch_case(case)
     g = Graph.from_host(host, strategy="bell", undirected=undirected, device=cuda)
     gen = torch.Generator(device=cuda).manual_seed(f)
-    x = torch.randn((g.c_pad, f), generator=gen, device=cuda)
-    dz = torch.randn((g.n_pad, f), generator=gen, device=cuda)
+    x = _randn((g.c_pad, f), gen, cuda, dtype)
+    dz = _randn((g.n_pad, f), gen, cuda, dtype)
+    counts = _build.dtype_counts("bell_spmm", dtype)
     for lay, inp, n_out in ((g.bell, x, g.n_pad), (g.t_bell, dz, g.c_pad)):
-        launches = kernel.counts.launches
+        launches = counts.launches
         out = kernel.bell_spmm(lay, inp, n_out)
         torch.cuda.synchronize()
-        assert kernel.counts.launches == launches + 1
+        assert counts.launches == launches + 1 and out.dtype == dtype
         ref = kernel.bell_spmm_reference(lay, inp, n_out)
         scale = kernel.bell_spmm_reference(lay, inp.abs(), n_out)
-        assert ((out - ref).abs() <= 1e-4 + 1e-4 * scale).all()
+        assert _close(out, ref, scale)
+        assert torch.equal(out, kernel.bell_spmm(lay, inp, n_out))
 
 
 L = UNIT_SLOTS
@@ -157,9 +179,10 @@ def long_row_host(length: int, seed=3):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("f", [1, 32, 33, 128, 132])
 @pytest.mark.parametrize("length", LONG_ROWS)
-def test_kernel_on_long_rows_matches_plain_version(cuda, length, f):
+def test_kernel_on_long_rows_matches_plain_version(cuda, length, f, dtype):
     """Rows of L-1 .. 52L slots on the edge-list layout (a row is exactly
     its degree) and the binned one, each way: split into units, merged in
     order; F = 132 takes two blockIdx.y slices, F = 33 scalar loads."""
@@ -171,21 +194,24 @@ def test_kernel_on_long_rows_matches_plain_version(cuda, length, f):
         if strategy == "segment":
             assert int(fwd.row_len[0]) == int(bwd.row_len[1]) == length
         for lay, rows, n_out in ((fwd, g.c_pad, g.n_pad), (bwd, g.n_pad, g.c_pad)):
-            x = torch.randn((rows, f), generator=gen, device=cuda)
-            launches = kernel.counts.launches
+            x = _randn((rows, f), gen, cuda, dtype)
+            counts = _build.dtype_counts("bell_spmm", dtype)
+            launches = counts.launches
             out = kernel.bell_spmm(lay, x, n_out)
             torch.cuda.synchronize()
-            assert kernel.counts.launches == launches + 1
+            assert counts.launches == launches + 1
             ref = kernel.bell_spmm_rows_reference(lay, x, n_out)
             scale = kernel.bell_spmm_rows_reference(lay, x.abs(), n_out)
-            assert ((out - ref).abs() <= 1e-4 + 1e-4 * scale).all()
+            assert _close(out, ref, scale)
+            assert _close(kernel.bell_spmm_units_reference(lay, x, n_out), ref, scale)
             assert torch.equal(out, kernel.bell_spmm(lay, x, n_out))
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("hf,nh", [(32, 1), (40, 1), (32, 4)])
 @pytest.mark.parametrize("length", LONG_ROWS)
-def test_attention_forward_on_long_rows_and_masked_units(cuda, length, hf, nh):
+def test_attention_forward_on_long_rows_and_masked_units(cuda, length, hf, nh, dtype):
     """The forward and bwd1 kernels against their plain versions and
     their units emulations on rows of L-1 .. 52L slots, as built and with
     all-masked units and a wholly masked split row (bwd1 under the
@@ -194,7 +220,7 @@ def test_attention_forward_on_long_rows_and_masked_units(cuda, length, hf, nh):
     host = long_row_host(length)
     g = Graph.from_host(host, strategy="bell", device=cuda, attention=True)
     gen = torch.Generator(device=cuda).manual_seed(length * 10 + hf + nh)
-    rand = lambda *shape: torch.randn(shape, generator=gen, device=cuda)  # noqa: E731
+    rand = lambda *shape: _randn(shape, gen, cuda, dtype)  # noqa: E731
     x, vl, vr, dout = rand(g.c_pad, hf), rand(g.c_pad, nh), rand(g.n_pad, nh), rand(g.n_pad, hf)
     res = attn_bell.compare_with_plain(g.attn, x, vl, vr, dout, 0.2, g.n_pad, g.c_pad)
     assert {k: v for k, v in res.items() if v[1]} == {}
@@ -210,11 +236,12 @@ def test_attention_forward_on_long_rows_and_masked_units(cuda, length, hf, nh):
             for a, b, sc in zip(got, want, (scale[0], 0.0, want[2], scale[3], want[4])):
                 assert ((a - b).abs() <= 1e-4 + 1e-4 * sc).all()
         args = (lay, x, vl, vr, dout, got[1], got[2], 0.2)
-        launches = attn_bell.counts["attn_bwd1"].launches
+        counts = _build.dtype_counts("attn_bwd1", dtype)
+        launches = counts.launches
         b1 = torch.cat(attn_bell.attn_bwd1(*args), dim=1)
         again = torch.cat(attn_bell.attn_bwd1(*args), dim=1)
         torch.cuda.synchronize()
-        assert attn_bell.counts["attn_bwd1"].launches == launches + 2
+        assert counts.launches == launches + 2
         assert torch.equal(b1, again) and torch.isfinite(b1).all()
         a_sds, _, a_b = attn_bell.attn_bwd1_reference(lay, x.abs(), vl, vr, dout.abs(),
                                                       *args[5:])
@@ -228,20 +255,21 @@ BWD2_ROWS = [L + 1, 1000, 52 * L]  # transpose rows of 2, 8 and 52 units
 BWD2_SHAPES = [(32, 1), (40, 1), (33, 1), (32, 4), (32, 8), (40, 8)]  # (hf, H)
 
 
-def bwd2_inputs(g, hf, nh, gen):
-    """x, vl and a destination table [dout | vr | m | s | sds] drawn on the
-    card (pass 2 is a function of the table alone)."""
+def bwd2_inputs(g, hf, nh, gen, dtype=torch.float32):
+    """x, vl (in `dtype`) and an f32 destination table [dout | vr | m | s |
+    sds] drawn on the card (pass 2 is a function of the table alone)."""
     rand = lambda *shape: torch.randn(shape, generator=gen, device=g.device)  # noqa: E731
     s = torch.rand((g.n_pad, nh), generator=gen, device=g.device) * 1.5 + 0.5
     w_tab = torch.cat([rand(g.n_pad, hf), rand(g.n_pad, nh), rand(g.n_pad, nh), s,
                        rand(g.n_pad, nh)], dim=1)
-    return rand(g.c_pad, hf), rand(g.c_pad, nh), w_tab
+    return rand(g.c_pad, hf).to(dtype), rand(g.c_pad, nh).to(dtype), w_tab
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("hf,nh", BWD2_SHAPES)
 @pytest.mark.parametrize("length", BWD2_ROWS)
-def test_bwd2_over_units_matches_plain_versions(cuda, length, hf, nh):
+def test_bwd2_over_units_matches_plain_versions(cuda, length, hf, nh, dtype):
     """bwd2 over the transpose layout's work units against attn_bwd2_reference
     and attn_bwd2_units_reference, on a source row of `length` slots as
     built and with masked units; one head, 4 and 8 (fh 40 / 33 / 5 take
@@ -251,15 +279,16 @@ def test_bwd2_over_units_matches_plain_versions(cuda, length, hf, nh):
     g = Graph.from_host(long_row_host(length), strategy="bell", device=cuda, attention=True)
     assert int(g.attn.t.row_len.max()) >= length and g.attn.t.units.n_partials
     gen = torch.Generator(device=cuda).manual_seed(length + hf * 10 + nh)
-    x, vl, w_tab = bwd2_inputs(g, hf, nh, gen)
+    x, vl, w_tab = bwd2_inputs(g, hf, nh, gen, dtype)
     a_tab = torch.cat([w_tab[:, :hf].abs(), w_tab[:, hf : hf + 3 * nh],
                        -w_tab[:, hf + 3 * nh :].abs()], dim=1)
+    counts = _build.dtype_counts("attn_bwd2", dtype)
     for lay in (g.attn.t, masked_units(g.attn.t)):
-        launches = attn_bell.counts["attn_bwd2"].launches
+        launches = counts.launches
         got = attn_bell.attn_bwd2(lay, x, vl, w_tab, 0.2, g.c_pad)
         again = attn_bell.attn_bwd2(lay, x, vl, w_tab, 0.2, g.c_pad)
         torch.cuda.synchronize()
-        assert attn_bell.counts["attn_bwd2"].launches == launches + 2
+        assert counts.launches == launches + 2
         assert torch.equal(got, again) and torch.isfinite(got).all()
         scale = attn_bell.attn_bwd2_reference(lay, x.abs(), vl, a_tab, 0.2, g.c_pad)
         for want in (attn_bell.attn_bwd2_reference(lay, x, vl, w_tab, 0.2, g.c_pad),
@@ -292,60 +321,72 @@ ATTN_SHAPES = [(32, 1), (40, 1), (32, 4), (40, 4)]  # (hf, H); fh 10 takes scala
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("hf,nh", ATTN_SHAPES)
 @pytest.mark.parametrize("case", CASES)
-def test_attention_kernels_match_plain_versions_on_the_card(cuda, case, hf, nh):
+def test_attention_kernels_match_plain_versions_on_the_card(cuda, case, hf, nh, dtype):
     """fwd, bwd1 and bwd2 against their plain versions and bwd1 against the
     flash identity, with attn_bell.compare_with_plain's per-element
-    tolerance (1e-4 + 1e-4 * the magnitudes of the summed terms)."""
+    tolerance (1e-4 + 1e-4 * the magnitudes of the summed terms), and two
+    calls of each bitwise equal."""
     host, undirected = torch_case(case)
     g = Graph.from_host(host, strategy="bell", undirected=undirected, device=cuda,
                         attention=True)
     gen = torch.Generator(device=cuda).manual_seed(hf * 10 + nh)
-    rand = lambda *shape: torch.randn(shape, generator=gen, device=cuda)  # noqa: E731
-    before = {n: attn_bell.counts[n].launches for n in attn_bell.NAMES}
-    res = attn_bell.compare_with_plain(g.attn, rand(g.c_pad, hf), rand(g.c_pad, nh),
-                                       rand(g.n_pad, nh), rand(g.n_pad, hf), 0.2,
-                                       g.n_pad, g.c_pad)
+    rand = lambda *shape: _randn(shape, gen, cuda, dtype)  # noqa: E731
+    x, vl, vr, dout = rand(g.c_pad, hf), rand(g.c_pad, nh), rand(g.n_pad, nh), rand(g.n_pad, hf)
+    counts = {n: _build.dtype_counts(n, dtype) for n in attn_bell.NAMES}
+    before = {n: c.launches for n, c in counts.items()}
+    res = attn_bell.compare_with_plain(g.attn, x, vl, vr, dout, 0.2, g.n_pad, g.c_pad)
     torch.cuda.synchronize()
-    assert all(attn_bell.counts[n].launches == before[n] + 1 for n in attn_bell.NAMES)
+    assert all(c.launches == before[n] + 1 for n, c in counts.items())
     assert {k: v for k, v in res.items() if v[1]} == {}
+    out, m, s, _, _ = attn_bell.attn_fwd(g.attn.fwd, x, vl, vr, 0.2, g.n_pad, True)
+    w_tab = torch.cat([dout.float(), vr.float(), m, s, attn_bell.per_head_dot(dout, out, nh)],
+                      dim=1)
+    for call in (lambda: attn_bell.attn_fwd(g.attn.fwd, x, vl, vr, 0.2, g.n_pad, True),
+                 lambda: attn_bell.attn_bwd1(g.attn.fwd, x, vl, vr, dout, m, s, 0.2),
+                 lambda: (attn_bell.attn_bwd2(g.attn.t, x, vl, w_tab, 0.2, g.c_pad),)):
+        assert all(torch.equal(a, b) for a, b in zip(call(), call()))
 
 
 SDDMM_WIDTHS = [1, 3, 32, 33, 40, 128]  # ragged widths take scalar loads
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("f", SDDMM_WIDTHS)
 @pytest.mark.parametrize("case", CASES)
-def test_sddmm_matches_plain_version_on_the_card(cuda, case, f):
+def test_sddmm_matches_plain_version_on_the_card(cuda, case, f, dtype):
     """Over the padded edge list, |kernel - plain| <= 1e-4 + 1e-4 *
-    sum_f |a||b| per edge (the two sum a row in different orders)."""
+    sum_f |a||b| per edge (the two sum a row in different orders), at
+    bf16 plus one unit in the last place of the rounded dot."""
     host, undirected = torch_case(case)
     g = Graph.from_host(host, strategy="ell", undirected=undirected, device=cuda,
                         edge_vals=True)
     gen = torch.Generator(device=cuda).manual_seed(f)
-    a = torch.randn((g.c_pad, f), generator=gen, device=cuda)
-    b = torch.randn((g.n_pad, f), generator=gen, device=cuda)
-    launches = sddmm.counts.launches
+    a = _randn((g.c_pad, f), gen, cuda, dtype)
+    b = _randn((g.n_pad, f), gen, cuda, dtype)
+    counts = _build.dtype_counts("sddmm", dtype)
+    launches = counts.launches
     out = sddmm.sddmm(g.src, g.dst, a, b)
     torch.cuda.synchronize()
-    assert sddmm.counts.launches == launches + 1 and out.shape == (g.e_pad,)
+    assert counts.launches == launches + 1 and out.shape == (g.e_pad,) and out.dtype == dtype
     ref = sddmm.sddmm_reference(g.src, g.dst, a, b)
-    scale = sddmm.sddmm_reference(g.src, g.dst, a.abs(), b.abs())
-    assert ((out - ref).abs() <= 1e-4 + 1e-4 * scale).all()
+    assert _close(out, ref, sddmm.sddmm_reference(g.src, g.dst, a.abs(), b.abs()))
+    assert torch.equal(out, sddmm.sddmm(g.src, g.dst, a, b))
     # an unaligned view of a takes the scalar path
-    a2 = torch.randn((g.c_pad * f + 1,), generator=gen, device=cuda)[1:].view(g.c_pad, f)
+    a2 = _randn((g.c_pad * f + 1,), gen, cuda, dtype)[1:].view(g.c_pad, f)
     out2 = sddmm.sddmm(g.src, g.dst, a2, b)
     ref2 = sddmm.sddmm_reference(g.src, g.dst, a2, b)
-    assert ((out2 - ref2).abs() <= 1e-4 + 1e-4 * sddmm.sddmm_reference(
-        g.src, g.dst, a2.abs(), b.abs())).all()
+    assert _close(out2, ref2, sddmm.sddmm_reference(g.src, g.dst, a2.abs(), b.abs()))
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("f", [1, 32, 40])
 @pytest.mark.parametrize("case", CASES)
-def test_kernel_with_slot_values_on_ell_matches_plain_version(cuda, case, f):
+def test_kernel_with_slot_values_on_ell_matches_plain_version(cuda, case, f, dtype):
     """bell_spmm with learned per-slot values on the ELL layout and its
     transpose against the descriptor plain version (values >= 0, so the
     tolerance scale is the plain version on |x|)."""
@@ -354,21 +395,23 @@ def test_kernel_with_slot_values_on_ell_matches_plain_version(cuda, case, f):
                         edge_vals=True)
     gen = torch.Generator(device=cuda).manual_seed(100 + f)
     evals = torch.rand((g.e_pad,), generator=gen, device=cuda)
-    x = torch.randn((g.c_pad, f), generator=gen, device=cuda)
-    dz = torch.randn((g.n_pad, f), generator=gen, device=cuda)
+    x = _randn((g.c_pad, f), gen, cuda, dtype)
+    dz = _randn((g.n_pad, f), gen, cuda, dtype)
     for lay, inp, n_out in ((g.ell, x, g.n_pad), (g.t_ell, dz, g.c_pad)):
         vals = lay.slot_values(evals)
         out = kernel.bell_spmm(lay, inp, n_out, vals=vals)
         torch.cuda.synchronize()
         ref = kernel.bell_spmm_rows_reference(lay, inp, n_out, vals)
         scale = kernel.bell_spmm_rows_reference(lay, inp.abs(), n_out, vals)
-        assert ((out - ref).abs() <= 1e-4 + 1e-4 * scale).all()
+        assert _close(out, ref, scale)
+        assert torch.equal(out, kernel.bell_spmm(lay, inp, n_out, vals=vals))
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("f", [1, 32, 33, 40])
 @pytest.mark.parametrize("length", [L + 1, 52 * L])
-def test_sddmm_on_hub_edge_lists_is_repeatable(cuda, length, f):
+def test_sddmm_on_hub_edge_lists_is_repeatable(cuda, length, f, dtype):
     """The SDDMM over an edge list with a destination of `length` edges and
     a source of `length` edges: within 1e-4 + 1e-4 * sum_f |a||b| of the
     plain version, and two calls bitwise equal; then with an unaligned
@@ -376,9 +419,9 @@ def test_sddmm_on_hub_edge_lists_is_repeatable(cuda, length, f):
     indices' scalar path and a ragged last run)."""
     g = Graph.from_host(long_row_host(length), strategy="segment", device=cuda)
     gen = torch.Generator(device=cuda).manual_seed(length + f)
-    a = torch.randn((g.c_pad, f), generator=gen, device=cuda)
-    b = torch.randn((g.n_pad, f), generator=gen, device=cuda)
-    a2 = torch.randn((g.c_pad * f + 1,), generator=gen, device=cuda)[1:].view(g.c_pad, f)
+    a = _randn((g.c_pad, f), gen, cuda, dtype)
+    b = _randn((g.n_pad, f), gen, cuda, dtype)
+    a2 = _randn((g.c_pad * f + 1,), gen, cuda, dtype)[1:].view(g.c_pad, f)
     for src, dst, av in ((g.src, g.dst, a), (g.src, g.dst, a2), (g.src[1:], g.dst[1:], a),
                          (g.src[3:-2], g.dst[3:-2], a2)):
         out = sddmm.sddmm(src, dst, av, b)
@@ -386,8 +429,7 @@ def test_sddmm_on_hub_edge_lists_is_repeatable(cuda, length, f):
         torch.cuda.synchronize()
         assert torch.equal(out, again) and out.shape == src.shape
         ref = sddmm.sddmm_reference(src, dst, av, b)
-        scale = sddmm.sddmm_reference(src, dst, av.abs(), b.abs())
-        assert ((out - ref).abs() <= 1e-4 + 1e-4 * scale).all()
+        assert _close(out, ref, sddmm.sddmm_reference(src, dst, av.abs(), b.abs()))
 
 
 PROBE_SIZES = [1, 3, 16384, 2**20 + 3]

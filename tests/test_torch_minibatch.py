@@ -135,5 +135,12 @@ def test_minibatch_estimator_exact_on_regular_graph():
 
 
 def test_unported_dtype_raises():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        TM.train_sage_minibatch(*_data(torch_dataset), dtype=torch.bfloat16, device="cpu")
+    """bf16 is ported (one epoch runs from a bf16 feature table, params f32;
+    its parity with gala_tpu is in tests/test_torch_bf16.py); a dtype that
+    neither package's kernels take, float16, is refused."""
+    res = TM.train_sage_minibatch(*_data(torch_dataset), dtype=torch.bfloat16, device="cpu",
+                                  fanouts=FANOUTS, batch_size=BATCH, hidden=HIDDEN, iters=1)
+    assert len(res.losses) == 1 and np.isfinite(res.losses[0])
+    assert all(p.dtype == torch.float32 for p in res.params.parameters())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        TM.train_sage_minibatch(*_data(torch_dataset), dtype=torch.float16, device="cpu")

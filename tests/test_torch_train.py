@@ -246,7 +246,10 @@ def test_unported_options_raise(what):
     """Each option not yet ported raises naming its ROADMAP item.  Attention
     on 'dense' is ported: it builds no attention layout and runs the
     unfused chain, as gala_tpu does, and its forward matches gala_tpu's
-    (the 6-epoch parity is in tests/test_torch_edge.py)."""
+    (the 6-epoch parity is in tests/test_torch_edge.py).  bf16 is ported:
+    the features are bf16, the params f32, and the bf16 logits match
+    gala_tpu's dtype=jnp.bfloat16 within 4e-2 of the largest (the rest of
+    the bf16 parity is in tests/test_torch_bf16.py)."""
     spec = parse_source(GAT_DSL if what.startswith("attention") else GCN_DSL)
     kw = {"bf16": {"dtype": torch.bfloat16}, "int64": {"use_long": True},
           "pallas_bell": {"strategy": "pallas_bell"},
@@ -255,6 +258,23 @@ def test_unported_options_raise(what):
         spec.compute.sample_dynamic = 4
     if what == "col_tile":
         spec.col_tile = 64
+    if what == "bf16":
+        jcm = gala_tpu.compile_source(GCN_DSL, mode="train", data=_data(jax_dataset),
+                                      strategy="bell", dtype=jax.numpy.bfloat16)
+        tcm = gala_tpu_torch.compile_model(spec, data=_data(torch_dataset), strategy="bell",
+                                           device="cpu", **kw)
+        assert tcm.x.dtype == torch.bfloat16
+        jparams = jax.device_get(jcm.make_params(0))
+        params = params_from_jax(jparams)
+        assert all(p.dtype == torch.float32 for p in params.parameters())
+        with torch.no_grad():
+            got = tcm.forward(params, tcm.full_graphs, tcm.invariant(tcm.full_graphs, tcm.x))
+        want = np.asarray(jax.jit(jcm.forward)(jparams, jcm.full_graphs, jcm.invariant(
+            jcm.full_graphs, jcm.x)).astype(np.float32))
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
+                                   atol=4e-2 * np.abs(want).max())
+        return
     if what == "attention on dense":
         jcm = gala_tpu.compile_source(GAT_DSL, mode="train", data=_data(jax_dataset), **kw)
         tcm = gala_tpu_torch.compile_model(spec, data=_data(torch_dataset), device="cpu", **kw)
