@@ -8,9 +8,10 @@ Phases, each printing its own lines; any failure raises, exits non-zero
 and prints no "ok" line:
 
 1. device   needs torch.cuda; prints the card's name and power limit.
-2. build    builds the four kernel libraries from gala_tpu_torch/csrc/
+2. build    builds the five kernel libraries from gala_tpu_torch/csrc/
             (the bell SpMM, the three attention kernels, the SDDMM, the
-            row gather), one nvcc each, started together with the
+            row gather, the dynamic-sampling weights), one nvcc each,
+            started together with the
             toolchain probe (ops.kernels._build.toolchain_available: a
             child process builds and launches csrc/probe.cu, x * 2), for
             sm_90a into gala_tpu_torch/_build/; prints ptxas's registers
@@ -126,40 +127,77 @@ and prints no "ok" line:
             --iters 8`, in-process on the default device (the card):
             three finite CSV fields.
 
+Then table7's sampling schedules (scripts/evaluate.py job_table7, k =
+20), each GCN_DSL plus one line, on the Arxiv stand-in loaded in phase
+10's data step, strategy auto -> bell, for the DSL's own 100 epochs
+(m1.train(iters=100), what table7 runs; warmup 2): at 20 epochs the
+sampled programs have not learned yet (0.35-0.60 test accuracy in the
+port's CPU run at scale 0.1), and 80 more epochs cost well under a
+second on the card:
+15. sample-none     GCN_DSL alone, table7's baseline row at the same
+            epoch count: the SpMM kernel launched, no weights kernel.
+16. sample-data     `G=G.sample(20);`: the graph resampled on the host
+            (at most 20 in-edges a node); the SpMM kernel launched, no
+            plain version on the card, no weights kernel; finite falling
+            loss, max test accuracy >= 0.6; train and inference ms/epoch,
+            accuracy and peak memory printed.
+17. sample-kernel   `aggrFn=aggrFn.sample(20);`: the same resample, the
+            degrees the constant 20; the same checks.
+18. sample-dynamic  `aggrFn=aggrFn.sample(20).dynamic();`: every
+            aggregation sampled, every graph built with its sampling
+            inputs; each SpMM launch (forward and transpose) has its one
+            dyn_weights launch (fresh (ra, rb) each epoch); the same checks.
+19. sample-dynamic-segment  the dynamic program at strategy segment (the
+            edge-list layouts, value 1 a pick), 5 epochs: the same launch
+            checks (no validation epoch after the first: no accuracy asked).
+20. dyn-weights-kernel  the weights kernel against its plain version,
+            bitwise, on phase 18's full-graph, training-subgraph and
+            transpose layouts and on the generated hub graph, at k = 1, 20
+            and 300, with and without the structural values; the SpMM
+            kernel with those weights against its row-descriptor plain
+            version at F = 1, 32, 128 (phase 4's tolerance form on the
+            weights' magnitudes); the kernel's time at k = 20 (its C entry
+            launched straight, so the wrapper's host work does not set the
+            time), its wrapper's and its plain version's (medians of 5
+            runs, min-max) beside the bound.
+
 Then bf16 activations with f32 params (dtype=torch.bfloat16, gala_tpu's
-mixed precision), on the Arxiv stand-in loaded once in phase 10's data
-step; each phase is its f32 counterpart's with bf16 inputs and the bf16
-forms of the kernels, whose launches count as "<kernel>_bf16":
-15. train-bf16  GCN_DSL at bf16, 20 epochs: bell_spmm_bf16 launched, no
+mixed precision), on the same stand-in; each phase is its f32
+counterpart's with bf16 inputs and the bf16 forms of the kernels, whose
+launches count as "<kernel>_bf16":
+21. train-bf16  GCN_DSL at bf16, 20 epochs: bell_spmm_bf16 launched, no
             plain version on the card, accuracy >= 0.7, bf16 features and
             f32 params after training.
-16. kernel-bf16  phase 4 on bf16 inputs: the plain version computes in
+22. kernel-bf16  phase 4 on bf16 inputs: the plain version computes in
             f32 from the same bf16 values and rounds once, so the
             tolerance is phase 4's plus one bf16 unit in the last place of
             the larger of the two results; times beside the bound with
             bf16 bytes, and torch.sparse.mm on a bf16 CSR matrix.
-17. gat-bf16    GAT_DSL at bf16, 20 epochs: attn_fwd_bf16 and attn_bwd2_bf16
+23. gat-bf16    GAT_DSL at bf16, 20 epochs: attn_fwd_bf16 and attn_bwd2_bf16
             launched, accuracy >= 0.6.
-18. attn-kernel-bf16  phase 6 with x, vl, vr and dout in bf16 (the
+24. attn-kernel-bf16  phase 6 with x, vl, vr and dout in bf16 (the
             kernels' outputs are f32 at both types: phase 6's tolerance;
             attention_aggregate's bf16 out and gradients one unit more).
-19. gat-edge-bf16  the unfused GAT at bf16, 5 epochs: sddmm_bf16 and
+25. gat-edge-bf16  the unfused GAT at bf16, 5 epochs: sddmm_bf16 and
             bell_spmm_bf16 launched (no validation epoch after the first,
             so no accuracy is asked).
-20. sddmm-kernel-bf16  phase 8 on bf16 operands (bf16 dots: one unit of
+26. sddmm-kernel-bf16  phase 8 on bf16 operands (bf16 dots: one unit of
             slack), sampled_addmm on a bf16 pattern where the library
             takes one.
-21. sage-minibatch-bf16  2 epochs from a bf16 feature table: 3 gather
+27. sage-minibatch-bf16  2 epochs from a bf16 feature table: 3 gather
             launches a batch (the byte-copy kernel takes both types),
             bell_spmm_bf16 in validation, accuracy >= 0.6.
-22. gather-kernel-bf16  phase 13's path shapes and time with the bf16
+28. gather-kernel-bf16  phase 13's path shapes and time with the bf16
             table.
+29. sample-dynamic-bf16  phase 18 at bf16, 5 epochs: bell_spmm_bf16 and
+            dyn_weights (f32 weights at both types) launched one for one.
 NO_SPILL holds the bf16 forms of bwd1, bwd2 and the SDDMM too.
 
 Every kernel's bound is the larger of its bytes (each input read once,
 each output written once, in its own dtype) over 3.35 TB/s and its
 operations over 67 TFLOP/s (f32 outside the tensor cores: the bf16
-forms compute in f32), from this run's inputs.  It ends with each
+forms compute in f32; the weights kernel's k integer steps a slot at the
+same scalar rate), from this run's inputs.  It ends with each
 phase's seconds, a JSON line of the kernels (launches on the main path
 of each kernel's phase, times, bound, library call; each bf16 form
 beside its f32 time), the nvidia-smi line, and the last line
@@ -170,6 +208,7 @@ from __future__ import annotations
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -216,6 +255,15 @@ PROBE_TIMED = {"128x128": (128, 128), "2^26": (2**26,)}  # its tile; 512 MB move
 # SXM data sheet, at a 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# table7's sampling schedules (scripts/evaluate.py job_table7), k = 20, run
+# for the DSL's own 100 epochs (m1.train(iters=100)), as table7 runs them
+SAMPLE_K = 20
+SAMPLE_LINES = {"none": "", "data": f"G=G.sample({SAMPLE_K});",
+                "kernel": f"aggrFn=aggrFn.sample({SAMPLE_K});",
+                "dynamic": f"aggrFn=aggrFn.sample({SAMPLE_K}).dynamic();"}
+SAMPLE_ITERS = 100
+DYN_SOURCE = "gala_tpu_torch/csrc/dyn_weights.cu"
+DYN_REPLACES = "gala_tpu/ops/spmm.py:894"  # XLA _dyn_counts / _dyn_reweight: no Pallas kernel
 
 
 def nvidia_smi() -> str:
@@ -239,6 +287,12 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def median_runs(fn, runs=5, reps=20):
+    """Median and (min, max) of `runs` cuda_ms readings of `reps` calls."""
+    t = sorted(cuda_ms(fn, reps=reps) for _ in range(runs))
+    return statistics.median(t), (t[0], t[-1])
 
 
 def nbytes(*tensors) -> int:
@@ -310,7 +364,7 @@ def tail_ratio(tag, what, lay, call):
     return t_full, t_short, ratio
 
 
-def hub_graph(device, attention=False, strategy="bell"):
+def hub_graph(device, attention=False, strategy="bell", dynamic_sample=False):
     """Weighted directed graph on 5,000 nodes: node 0 has in-degree 3,000
     (24 virtual rows of the binned layout), node 1 out-degree 2,000 (a hub
     of the transpose), every second node a self-loop, the last 500 nodes
@@ -327,7 +381,7 @@ def hub_graph(device, attention=False, strategy="bell"):
     vals = rng.uniform(0.5, 1.5, src.shape[0]).astype(np.float32)
     host = coo_to_csr(src, dst, vals, n_rows=n)
     return host, Graph.from_host(host, strategy=strategy, device=device, attention=attention,
-                                 edge_vals=strategy != "bell")
+                                 edge_vals=strategy != "bell", dynamic_sample=dynamic_sample)
 
 
 def check_units(ak, kind, what, lay, *args, tag="attn-kernel"):
@@ -1079,8 +1133,6 @@ def phase_probe():
     128 x 128 tile and at 2^26 floats, each the median of 5 runs of 50
     calls with its min-max, and the host's time per call at the tile.
     Returns (max |kernel - plain|, {size: times})."""
-    import statistics
-
     from gala_tpu_torch.ops.kernels._build import probe_x2
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1096,10 +1148,6 @@ def phase_probe():
     print(f"[build] probe kernel x * 2: bitwise equal to the plain product at n = "
           f"{', '.join(map(str, PROBE_SIZES))}, aligned and one float in")
 
-    def runs(fn):
-        t = sorted(cuda_ms(fn, reps=50) for _ in range(5))
-        return statistics.median(t), (t[0], t[-1])
-
     def host_ms(fn, calls=200):
         """The host's time per call, enqueue only (the card may lag)."""
         torch.cuda.synchronize()
@@ -1113,8 +1161,9 @@ def phase_probe():
     times = {}
     for label, shape in PROBE_TIMED.items():
         x = torch.randn(shape, generator=gen, device="cuda")
-        t = {"ms": runs(lambda: probe_x2(x)), "plain_ms": runs(lambda: x * 2.0),
-             "library_ms": runs(lambda: torch.mul(x, 2.0)),
+        t = {"ms": median_runs(lambda: probe_x2(x), reps=50),
+             "plain_ms": median_runs(lambda: x * 2.0, reps=50),
+             "library_ms": median_runs(lambda: torch.mul(x, 2.0), reps=50),
              "bound": bound(2 * nbytes(x), x.numel())}
         if label == "128x128":
             t["host_ms"] = {"probe_x2": host_ms(lambda: probe_x2(x)),
@@ -1149,6 +1198,145 @@ def phase_cli():
         raise AssertionError(f"[cli] expected three finite fields, got {line!r}")
 
 
+def phase_sample(mode, data, strategy="auto", dtype=torch.float32, iters=SAMPLE_ITERS,
+                 min_accuracy=0.6):
+    """GCN_DSL with table7's line for `mode` (k = 20) on the Arxiv
+    stand-in `data`; `iters` epochs (warmup 2).  Checks the program
+    (none: the whole graph; data and static kernel sampling: a resampled
+    graph of degree <= 20; neither sampled aggregations; dynamic: every
+    aggregation sampled, every graph with its sampling inputs) and the
+    launches: the SpMM kernel in the run's dtype,
+    no plain version on the card, and for dynamic sampling one weights
+    launch for each SpMM launch (every SpMM of the program is sampled),
+    none otherwise.  Returns (compiled model, launches, result)."""
+    import gala_tpu_torch
+    from __graft_entry__ import GCN_DSL
+    from gala_tpu_torch.ir.compute_ir import CompOpt
+    from gala_tpu_torch.ops.kernels._build import dtype_counts
+
+    tag = dtag(f"sample-{mode}" + ("" if strategy == "auto" else f"-{strategy}"), dtype)
+    source = GCN_DSL + SAMPLE_LINES[mode] + "\n"
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cm = gala_tpu_torch.compile_source(source, mode="train", data=data, strategy=strategy,
+                                       device="cuda", dtype=dtype)
+    g = cm.full_graphs[0]
+    aggs = [n for n in cm.program.all_nodes() if n.op.name.startswith("AGGREGATE")]
+    sampled = [n.get_opt(CompOpt.SAMPLE_DYNAMIC) for n in aggs]
+    print(f"[{tag}] {SAMPLE_LINES[mode]} compiled in {time.perf_counter() - t0:.1f} s: strategy "
+          f"{g.strategy}, {g.n_nodes} nodes, {g.n_edges} edges (of {data[0].n_edges}), max "
+          f"in-degree {int(g.deg.max())}; aggregations {[n.op.name for n in aggs]}, sampled "
+          f"k {sampled}")
+    want = "bell" if strategy == "auto" else strategy
+    if g.strategy != want:
+        raise AssertionError(f"[{tag}] strategy {g.strategy}, expected {want}")
+    graphs = cm.full_graphs[:1] + cm.train_graphs
+    if mode == "dynamic":
+        if not aggs or any(k != SAMPLE_K for k in sampled) or any(
+                n.op.name != "AGGREGATE_MUL_SUM" for n in aggs):
+            raise AssertionError(f"[{tag}] not every aggregation is sampled: {aggs}")
+        if any(gr.dyn_f is None or gr.dyn_t is None for gr in graphs):
+            raise AssertionError(f"[{tag}] a graph lacks its sampling inputs")
+    elif mode == "none":
+        if any(sampled) or g.n_edges != data[0].n_edges:
+            raise AssertionError(f"[{tag}] a sampled program or graph")
+    elif any(sampled) or g.n_edges >= data[0].n_edges or int(g.deg.max()) > SAMPLE_K:
+        raise AssertionError(f"[{tag}] not a resampled graph of degree <= {SAMPLE_K}")
+    res, launches = _train_checked(tag, cm, min_accuracy, iters=iters)
+    spmm = dtype_counts("bell_spmm", dtype).name
+    dyn = launches.get("dyn_weights", 0)
+    print(f"[{tag}] train {res.total_time * 1e3:.4f} ms/epoch, inference "
+          f"{res.inference_time * 1e3:.4f} ms/epoch, max accuracy {res.max_accuracy:.5f}; "
+          f"{spmm} {launches.get(spmm, 0)} launches, dyn_weights {dyn}")
+    if launches.get(spmm, 0) <= 0:
+        raise AssertionError(f"[{tag}] the path never launched the {spmm} kernel")
+    if dyn != (launches[spmm] if mode == "dynamic" else 0):
+        raise AssertionError(f"[{tag}] {dyn} dyn_weights launches for {launches[spmm]} SpMM "
+                             "launches")
+    return cm, launches, res
+
+
+def phase_dyn_weights_kernel(cm, kernel, kd):
+    """The weights kernel against its plain version, bitwise, on the
+    dynamic run's full-graph, training-subgraph and transpose layouts and
+    on the generated hub graph, at k = 1, 20 and 300; the SpMM kernel with
+    those weights against its row-descriptor plain version (phase 4's
+    tolerance form, |A_s| @ |x| on the weights' magnitudes); then the
+    weights kernel's and plain version's times at the path's k on the full
+    layout (medians of 5 runs of 20 calls, min-max) beside the bound.
+    Returns (max |kernel - plain| of the weights, of the SpMM with them,
+    times)."""
+    full, sub = cm.full_graphs[0], cm.train_graphs[0]
+    hub = hub_graph("cuda", dynamic_sample=True)[1]
+    layouts = [("arxiv full bell", full.bell, full.dyn_f, full.c_pad, full.n_pad),
+               ("arxiv subgraph bell", sub.bell, sub.dyn_f, sub.c_pad, sub.n_pad),
+               ("arxiv subgraph t_bell", sub.t_bell, sub.dyn_t, sub.n_pad, sub.c_pad),
+               ("hub graph bell", hub.bell, hub.dyn_f, hub.c_pad, hub.n_pad),
+               ("hub graph t_bell", hub.t_bell, hub.dyn_t, hub.n_pad, hub.c_pad)]
+    if full.t_bell is not full.bell:
+        layouts.insert(1, ("arxiv full t_bell", full.t_bell, full.dyn_t, full.n_pad, full.c_pad))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    max_err = spmm_err = 0.0
+    for name, lay, meta, rows, n_out in layouts:
+        for k, ra, rb in ((1, 5, 7), (SAMPLE_K, 96, 96), (300, 17, 5)):
+            w = kd.dyn_weights(meta.deg, meta.pos, k, ra, rb, lay.flat_vals)
+            want = kd.dyn_weights_reference(meta.deg, meta.pos, k, ra, rb, lay.flat_vals)
+            bare = kd.dyn_weights(meta.deg, meta.pos, k, ra, rb)
+            torch.cuda.synchronize()
+            same = torch.equal(w, want) and torch.equal(
+                bare, kd.dyn_weights_reference(meta.deg, meta.pos, k, ra, rb))
+            max_err = max(max_err, (w - want).abs().max().item())
+            bad = []
+            for f in WIDTHS:
+                x = torch.randn((rows, f), generator=gen, device="cuda")
+                out = kernel.bell_spmm(lay, x, n_out, vals=w)
+                ref = kernel.bell_spmm_rows_reference(lay, x, n_out, w)
+                scale = kernel.bell_spmm_rows_reference(lay, x.abs(), n_out, w.abs())
+                spmm_err = max(spmm_err, (out - ref).abs().max().item())
+                n_bad = int(((out - ref).abs() > ATOL + RTOL * scale).sum())
+                if n_bad:
+                    bad.append((f, n_bad))
+            print(f"[dyn-weights-kernel] {name} ({meta.deg.numel()} slots) k={k} ra={ra} "
+                  f"rb={rb}: weights bitwise equal to the plain version: {same} (sum "
+                  f"{w.sum().item():.6g}); bell_spmm with them F={'/'.join(map(str, WIDTHS))}: "
+                  f"{sum(n for _, n in bad)} elements out of tolerance")
+            if not same or bad:
+                raise AssertionError(f"[dyn-weights-kernel] {name} k={k}: weights equal {same}, "
+                                     f"SpMM out of tolerance at {bad}")
+    lay, meta = full.bell, full.dyn_f
+    ra, rb = 96, 96
+    out = torch.empty_like(lay.flat_vals)
+    # the kernel alone: its C entry called straight, the pointers and the
+    # stream taken once, so the card, not the wrapper's host work (~0.04
+    # ms a call, more than the kernel), sets the time between launches
+    fn = kd.build().lib.gala_dyn_weights
+    args = (meta.deg.data_ptr(), meta.pos.data_ptr(), lay.flat_vals.data_ptr(), out.data_ptr(),
+            meta.deg.numel(), SAMPLE_K, ra, rb, torch.cuda.current_stream().cuda_stream)
+
+    def raw():
+        if fn(*args) != 0:
+            raise RuntimeError("dyn_weights kernel launch failed")
+
+    call = (meta.deg, meta.pos, SAMPLE_K, ra, rb, lay.flat_vals)
+    raw()
+    torch.cuda.synchronize()
+    if not torch.equal(out, kd.dyn_weights_reference(*call)):
+        raise AssertionError("[dyn-weights-kernel] the timed launch differs from the plain version")
+    t = {"ms": median_runs(raw, reps=50),
+         "wrapper_ms": median_runs(lambda: kd.dyn_weights(*call)),
+         "plain_ms": median_runs(lambda: kd.dyn_weights_reference(*call), reps=5)}
+    # bytes: deg, pos and vals read once, the weights written once;
+    # operations: k steps a slot
+    t["bound"] = bound(nbytes(meta.deg, meta.pos, lay.flat_vals, out),
+                       SAMPLE_K * meta.deg.numel())
+    span = lambda v: f"{v[0]:.4f} ms ({v[1][0]:.4f}-{v[1][1]:.4f})"  # noqa: E731
+    print(f"[dyn-weights-kernel] time arxiv full bell ({meta.deg.numel()} slots) k={SAMPLE_K}: "
+          f"kernel {span(t['ms'])}, through the wrapper {span(t['wrapper_ms'])}, plain "
+          f"{span(t['plain_ms'])}, bound {t['bound'][0]:.4f} ms ({t['bound'][1]}); no single "
+          "library call computes it")
+    return max_err, spmm_err, t
+
+
 def kernel_rows(r, dtype, f32=None) -> list:
     """The kernels' line entries of one dtype's phases (`r`: their results;
     at bf16 `f32`, the f32 phases' results, gives each row its f32 time
@@ -1174,9 +1362,11 @@ def kernel_rows(r, dtype, f32=None) -> list:
         paths.update({"gcn-sparser": r["sparser_launches"].get(spmm, 0),
                       "sage": r["sage_launches"].get(spmm, 0),
                       "gin": r["gin_launches"].get(spmm, 0)})
+    paths.update({f"sample-{mode}": n.get(spmm, 0) for mode, n in r["sample"].items()})
     rows = [at_f32({
         "name": spmm, "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES,
-        "launches": r["launches"], "max_abs_err": max(r["max_err"], r["ev_err"]),
+        "launches": r["launches"],
+        "max_abs_err": max(r["max_err"], r["ev_err"], r.get("dyn_spmm_err", 0.0)),
         "ms": t_kernel, "plain_ms": t_plain, "bound_ms": ms, "bound_by": by,
         "library_ms": r["timings"][("library", 32)], "at": "arxiv full bell, F=32", **widths,
         "path": ", ".join(f"{p}{bf}" + (" (validation)" if p == "sage-minibatch" else "")
@@ -1238,6 +1428,7 @@ def main() -> int:
     from gala_tpu_torch.data.datasets import load_dataset
     from gala_tpu_torch.ops.kernels import attn_bell as ak
     from gala_tpu_torch.ops.kernels import bell_spmm as kernel
+    from gala_tpu_torch.ops.kernels import dyn_weights as kd
     from gala_tpu_torch.ops.kernels import gather as kg
     from gala_tpu_torch.ops.kernels import sddmm as ks
     from gala_tpu_torch.ops.kernels._build import all_counts, counts_for, toolchain_available
@@ -1245,9 +1436,9 @@ def main() -> int:
     t_start = time.perf_counter()
     probe_counts = counts_for("toolchain_probe")
     probe_counts.reset()  # the build phase is the probe's path
-    with ThreadPoolExecutor(max_workers=5) as pool:
+    with ThreadPoolExecutor(max_workers=6) as pool:
         probe = pool.submit(toolchain_available)
-        builds = [pool.submit(mod.build) for mod in (kernel, ak, ks, kg)]
+        builds = [pool.submit(mod.build) for mod in (kernel, ak, ks, kg, kd)]
         builds = [b.result() for b in builds]
         probe_ok = probe.result()
     for build in builds:
@@ -1320,6 +1511,19 @@ def main() -> int:
     r["gather_err"], r["gather_times"] = timed("gather-kernel", phase_gather_kernel, arxiv, kg)
     timed("cli", phase_cli)
 
+    # table7's sampling schedules (k = 20) on the same stand-in
+    r["sample"] = {}
+    for mode in SAMPLE_LINES:
+        cm, r["sample"][mode], _ = timed(f"sample-{mode}", phase_sample, mode, arxiv)
+        if mode != "dynamic":
+            del cm
+    _, r["sample"]["dynamic-segment"], _ = timed(
+        "sample-dynamic-segment", phase_sample, "dynamic", arxiv, "segment", torch.float32, 5,
+        0.0)
+    r["dyn_err"], r["dyn_spmm_err"], r["dyn_times"] = timed(
+        "dyn-weights-kernel", phase_dyn_weights_kernel, cm, kernel, kd)
+    del cm
+
     # bf16 activations with f32 params (dtype=torch.bfloat16) on the same
     # stand-in, loaded once above: the bf16 forms of the kernels
     b = {}
@@ -1340,8 +1544,28 @@ def main() -> int:
     b["mb_launches"] = timed("sage-minibatch-bf16", phase_sage_minibatch, arxiv, BF16, 2)
     b["gather_err"], b["gather_times"] = timed("gather-kernel-bf16", phase_gather_kernel, arxiv,
                                                kg, BF16)
+    _, launches, _ = timed("sample-dynamic-bf16", phase_sample, "dynamic", arxiv, "auto", BF16,
+                           5, 0.0)
+    b["sample"] = {"dynamic": launches}
 
     kernels = kernel_rows(r, torch.float32) + kernel_rows(b, BF16, f32=r)
+    t = r["dyn_times"]
+    dyn_paths = {f"sample-{mode}": n.get("dyn_weights", 0) for mode, n in r["sample"].items()
+                 if mode.startswith("dynamic")}
+    dyn_paths["sample-dynamic-bf16"] = b["sample"]["dynamic"].get("dyn_weights", 0)
+    kernels.append({
+        "name": "dyn_weights", "route": "cuda", "source": DYN_SOURCE, "replaces": DYN_REPLACES,
+        "launches": dyn_paths["sample-dynamic"], "max_abs_err": r["dyn_err"], "ms": t["ms"][0],
+        "ms_min_max": t["ms"][1], "wrapper_ms": t["wrapper_ms"][0],
+        "wrapper_ms_min_max": t["wrapper_ms"][1], "plain_ms": t["plain_ms"][0],
+        "plain_ms_min_max": t["plain_ms"][1], "bound_ms": t["bound"][0],
+        "bound_by": t["bound"][1], "library_ms": None,
+        "at": f"the dynamic run's full-graph bell, k={SAMPLE_K}, times its structural values "
+              "(medians of 5 runs; ms: the C entry launched straight, 50 calls a run; "
+              "wrapper_ms: through dyn_weights(), 20 calls a run)",
+        "path": ", ".join(dyn_paths), "path_launches": dyn_paths,
+        "note": "replaces gala_tpu's XLA weights (_dyn_counts, _dyn_reweight), no Pallas kernel",
+    })
     err, probe_times = probe
     tile = probe_times["128x128"]
     kernels.append({

@@ -8,7 +8,9 @@ subcommands (the port of gala_tpu.__main__):
 
 Each prints the reference's stdout CSV contract
 (`inference_time,total_time[,max_acc]` / `memMB,...`).  The program runs
-on the card unless `--device cpu` is given.  `inference_long` (int64
+on the card unless `--device cpu` is given.  Sampling needs no flag: a
+program's `G=G.sample(k);`, `aggrFn=aggrFn.sample(k);` or
+`aggrFn=aggrFn.sample(k).dynamic();` line selects it.  `inference_long` (int64
 edge indices) and `export` / `run_exported` are not ported yet and
 raise, naming their ROADMAP items.
 """

@@ -3,7 +3,8 @@
 One Python entry point covers the reference's command-line programs;
 their differences are keyword options of `lower` (mode, strategy,
 device...).  Every entry point runs on the card unless the caller passes
-device="cpu".
+device="cpu".  Graph sampling (data, static and dynamic kernel level)
+comes from the program's own DSL lines, as in gala_tpu; no option here.
 """
 from __future__ import annotations
 

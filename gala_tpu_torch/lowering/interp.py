@@ -15,7 +15,10 @@ Contract (shared with gala_tpu_torch.train.train):
     forward_rows(params, graphs, carry, rows) -> logits of `rows`
 
 The hoisted pre-loop section (training-invariant code motion product) is
-evaluated once per graph set; its outputs ride in `carry`.
+evaluated once per graph set; its outputs ride in `carry`.  The carry
+also brings the epoch's dynamic-sampling pair as "_ra"/"_rb" (Python
+ints); an aggregation with no pair in its env (the hoisted prefix)
+samples with gala_tpu's fixed (5, 7).
 """
 from __future__ import annotations
 
@@ -29,8 +32,8 @@ from gala_tpu_torch.models.common import (
 )
 from gala_tpu_torch.ops.attention import attention_aggregate
 from gala_tpu_torch.ops.edge import edge_softmax, leaky_relu, sddvv_add, sddvv_mul
-from gala_tpu_torch.ops.graph import Graph, not_ported
-from gala_tpu_torch.ops.spmm import spmm, spmm_direct, spmm_ev
+from gala_tpu_torch.ops.graph import Graph
+from gala_tpu_torch.ops.spmm import spmm, spmm_direct, spmm_ev, spmm_sampled
 
 _FFN_OPS = (ComputeOp.FFN, ComputeOp.FFN_EDGE, ComputeOp.FFN_SELF, ComputeOp.FFN_REPEAT)
 
@@ -116,8 +119,12 @@ def _eval_node(node: ComputeNode, env, params, graphs):
         g = _graph_for(node, graphs)
         if len(node.inputs) >= 3:  # [feats, graph, edge_vals]
             return spmm_ev(g, env[node.inputs[2].uid], ins[0])
-        if node.get_opt(CompOpt.SAMPLE_DYNAMIC):
-            raise not_ported("dynamic sampling", "ROADMAP Queue 1 item 8")
+        k_dyn = node.get_opt(CompOpt.SAMPLE_DYNAMIC)
+        if k_dyn:
+            # per-epoch (ra, rb) arrive through the carry (train's
+            # epoch_inputs); static kernel sampling was lowered to a
+            # data-level resample in lower()
+            return spmm_sampled(g, ins[0], int(k_dyn), env.get("_ra", 5), env.get("_rb", 7))
         return spmm(g, ins[0])
     if op is ComputeOp.FUSED_ATTENTION:
         g = _graph_for(node, graphs)

@@ -2,8 +2,11 @@
 port of gala_tpu.lowering.lower).
 
 The same stages as gala_tpu (dataset, input-aware schedule, IR, the
-middle-end passes, the bell_order relabel, training subgraphs); the
-"emitted program" is an eager PyTorch training loop on one device.
+middle-end passes, data-level and static kernel sampling, the bell_order
+relabel, training subgraphs); the "emitted program" is an eager PyTorch
+training loop on one device.  Dynamic kernel sampling builds every graph
+with its sampling inputs (Graph.from_host(dynamic_sample=True)), and
+CompiledModel.train feeds each epoch its (ra, rb).
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ import numpy as np
 import torch
 
 from gala_tpu_torch.data.datasets import load_dataset
+from gala_tpu_torch.data.sampling import dynamic_sample_params, sample_graph_ab
 from gala_tpu_torch.data.subgraph import mask_subgraphs
 from gala_tpu_torch.dsl.spec import ModelSpec
 from gala_tpu_torch.ir.build import generate_ir
@@ -57,10 +61,18 @@ class CompiledModel:
     def train(self, iters: int | None = None, seed: int = 0, params=None,
               **kw) -> TrainResult:
         """Train from `params` (updated in place) or from fresh
-        make_params(seed) weights."""
+        make_params(seed) weights.  A dynamically sampled program draws
+        epoch e's (ra, rb) from dynamic_sample_params(e, seed) unless
+        `epoch_inputs` is given."""
         if params is None:
             params = self.make_params(seed)
         loop = self.program.loop
+        if self.spec.compute.sample_dynamic and "epoch_inputs" not in kw:
+            def epoch_inputs(epoch):
+                ra, rb = dynamic_sample_params(epoch, seed)
+                return {"_ra": ra, "_rb": rb}
+
+            kw["epoch_inputs"] = epoch_inputs
         if self.forward_rows is not None:
             # training loss on train-mask rows only: the classifier FFN
             # and (N, C) logits shrink to the mask fraction
@@ -152,8 +164,14 @@ def lower(
     prog = generate_ir(spec)
     prog = run_passes(prog, spec, mode=mode)
 
-    if spec.graph.sample or spec.compute.sample or spec.compute.sample_dynamic:
-        raise not_ported("graph sampling", "ROADMAP Queue 1 item 8")
+    # ---- data-level transformations --------------------------------- #
+    # data sampling, and static kernel sampling lowered to the same
+    # fixed-degree resample (data.sampling: the picks of (5, 7))
+    if spec.graph.sample:
+        g_host = sample_graph_ab(g_host, int(spec.graph.sample))
+    elif spec.compute.sample:
+        g_host = sample_graph_ab(g_host, int(spec.compute.sample))
+    dynamic = bool(spec.compute.sample_dynamic)
     # graphs with learned per-edge values (the unfused GAT chain, the
     # sparse rewrite's precomputed values) need the edge lists and, above
     # the dense gate, the row-split ELL's slot -> edge-id permutation;
@@ -185,17 +203,19 @@ def lower(
         # relabel nodes in degree-class order so the binned layout's
         # output order is the identity (no reorder at run time); fused
         # attention keeps self loops as slots, so its class order is
-        # computed without the diagonal split
+        # computed without the diagonal split; so do dynamic-sampling
+        # bells (slot position must equal CSR position)
         from gala_tpu_torch.data.ell import bell_order
         from gala_tpu_torch.data.reordering import apply_reorder
 
-        order = bell_order(g_host, split_diag=not attention)
+        order = bell_order(g_host, split_diag=not attention and not dynamic)
         g_host, feats, labels, masks, _ = apply_reorder(
             g_host, order, feats, labels, masks
         )
 
     full_g = Graph.from_host(g_host, strategy=strategy, undirected=spec.graph.undirected,
-                             device=device, edge_vals=edge_vals, attention=attention)
+                             device=device, edge_vals=edge_vals, attention=attention,
+                             dynamic_sample=dynamic)
     n_layers = spec.num_layers
     full_graphs = [full_g] * n_layers
 
@@ -204,7 +224,7 @@ def lower(
         subs = mask_subgraphs(g_host, masks["train"], n_layers)
         train_graphs = [
             Graph.from_host(s, strategy=strategy, undirected=False, device=device,
-                            edge_vals=edge_vals, attention=attention)
+                            edge_vals=edge_vals, attention=attention, dynamic_sample=dynamic)
             for s in subs
         ]
 

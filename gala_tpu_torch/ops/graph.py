@@ -32,6 +32,13 @@ slots).  'pallas_bell' raises NotImplementedError naming its ROADMAP
 item.  With attention=True a 'bell' graph also carries the
 fused-attention layout (`attn`, ops.attention.AttnBell); other
 strategies build none and run the unfused chain, as gala_tpu does.
+
+With dynamic_sample=True (gala_tpu's DynMeta) a graph also carries the
+per-slot sampling inputs of the layout that ops.spmm.spmm_sampled runs
+(`dyn_f`, `dyn_t`: DynSlots): on 'bell' of `bell`/`t_bell`, built with
+the self loops as slots (split_diag=False, so a slot's position in its
+row is its CSR position); on every other strategy of the edge-list
+layouts `seg`/`t_seg`.
 """
 from __future__ import annotations
 
@@ -343,6 +350,44 @@ class SlotRows:
 
 
 @dataclasses.dataclass
+class DynSlots:
+    """Per-slot inputs of dynamic sampling on one row-descriptor layout
+    (gala_tpu's DynMeta, expanded from rows to slots on the host): slot s
+    lies at in-row position pos[s] of a row of deg[s] neighbors, the
+    row's real in-degree (0 on padding rows).  Epoch weights w(deg, pos)
+    come from ops.kernels.dyn_weights, in the layout's flat_vals order."""
+
+    deg: torch.Tensor    # (S,) int32
+    pos: torch.Tensor    # (S,) int32
+
+    @classmethod
+    def from_bell(cls, hb, deg_full: np.ndarray, device) -> "DynSlots":
+        """From a binned ELL built with split_diag=False and the per-node
+        degrees of the graph it holds: data.ell.build_dyn_row_meta's
+        per-row (d, p), segment by segment (bins, then hub virtual rows),
+        slot j of a row at position p + j."""
+        from gala_tpu_torch.data.ell import _segments, build_dyn_row_meta
+
+        meta = build_dyn_row_meta(hb, deg_full)
+        deg, pos = [], []
+        for (k, _, _), d, p in zip(_segments(hb), meta.d, meta.p):
+            deg.append(np.repeat(d[:, 0], k))
+            pos.append((p + np.arange(k, dtype=np.int32)[None, :]).reshape(-1))
+        cat = (lambda a: np.concatenate(a).astype(np.int32) if a  # noqa: E731
+               else np.zeros(0, np.int32))
+        return cls(deg=_put(cat(deg), device), pos=_put(cat(pos), device))
+
+    @classmethod
+    def from_ptr(cls, ptr: np.ndarray, row_deg: np.ndarray, device) -> "DynSlots":
+        """From an edge-list layout's row offsets (rows + 1,), covering
+        every slot, and each row's real degree (rows,)."""
+        lens = np.diff(ptr)
+        deg = np.repeat(row_deg, lens)
+        pos = np.arange(int(ptr[-1]), dtype=np.int64) - np.repeat(ptr[:-1], lens)
+        return cls(deg=_put(deg.astype(np.int32), device), pos=_put(pos.astype(np.int32), device))
+
+
+@dataclasses.dataclass
 class Graph:
     """A graph's aggregation layout on one device (+ transpose)."""
 
@@ -367,6 +412,8 @@ class Graph:
     bell: BellDev | None            # binned ELL, strategy 'bell'
     t_bell: BellDev | None          # its transpose (may alias bell)
     attn: AttnBell | None           # fused-attention layout (attention=True, 'bell')
+    dyn_f: DynSlots | None          # dynamic sampling inputs of bell or seg
+    dyn_t: DynSlots | None          #   and of its transpose (dynamic_sample=True)
 
     n_nodes: int            # real node count
     n_cols: int             # real source-side node count
@@ -387,11 +434,15 @@ class Graph:
         device="cuda",
         edge_vals: bool = False,
         attention: bool = False,
+        dynamic_sample: bool = False,
     ) -> "Graph":
         """The padded edge lists, their transpose permutation and their
         layouts (`seg`, `t_seg`) are built where gala_tpu keeps them by
         default: with edge values, or on any strategy but 'bell' (which
-        never reads them)."""
+        never reads them, dynamic_sample or not: its sampling runs on the
+        bells).  dynamic_sample=True builds the bells with the self loops
+        as slots and the sampling inputs `dyn_f`/`dyn_t` (see the module
+        docstring), as gala_tpu's Graph.from_host(dynamic_sample=True)."""
         device = torch.device(device)
         # is_symmetric costs two full edge argsorts: only pay it when
         # the answer is consulted
@@ -433,6 +484,7 @@ class Graph:
 
         t_counts = np.bincount(g.src, minlength=c)
         dst = src = vals = t_dst = t_src = t_vals = t_perm = seg = t_seg = None
+        dyn_f = dyn_t = None
         if keep_edges:
             dst, src, vals = pad_edges(g.dst, g.src, g.vals, n)
             # transpose edge list (backward pass); t_perm maps transpose
@@ -441,10 +493,17 @@ class Graph:
             t_dst, t_src, t_vals = pad_edges(g.src[order], g.dst[order], g.vals[order], c)
             t_perm = _put(np.concatenate(
                 [order, np.full(e_pad - e_real, e_pad - 1, np.int64)]).astype(np.int32), device)
-            seg = SlotRows.from_edge_list(src, vals, None,
-                                          padded_ptr(np.diff(g.row_ptr), n_pad), c, device)
-            t_seg = SlotRows.from_edge_list(t_src, t_vals, t_perm,
-                                            padded_ptr(t_counts, c_pad), n, device)
+            ptr, t_ptr = padded_ptr(np.diff(g.row_ptr), n_pad), padded_ptr(t_counts, c_pad)
+            seg = SlotRows.from_edge_list(src, vals, None, ptr, c, device)
+            t_seg = SlotRows.from_edge_list(t_src, t_vals, t_perm, t_ptr, n, device)
+            if dynamic_sample and strategy != "bell":
+                # each row's real degree, 0 on the phantom row that holds
+                # the padding edges (gala_tpu's deg and diff(t_row_ptr))
+                def row_deg(counts, rows_pad):
+                    return np.concatenate([counts, np.zeros(rows_pad - counts.shape[0], np.int64)])
+
+                dyn_f = DynSlots.from_ptr(ptr, row_deg(np.diff(g.row_ptr), n_pad), device)
+                dyn_t = DynSlots.from_ptr(t_ptr, row_deg(t_counts, c_pad), device)
 
         deg_np = np.zeros((n_pad, 1), np.float32)
         deg_np[:n, 0] = np.bincount(g.dst, minlength=n).astype(np.float32)
@@ -466,16 +525,23 @@ class Graph:
         if strategy == "bell":
             from gala_tpu_torch.data.ell import build_binned_ell
 
-            hb = build_binned_ell(g, phantom_col=c)
+            hb = build_binned_ell(g, phantom_col=c, split_diag=not dynamic_sample)
             bell = BellDev.from_host(hb, n_pad, n, device)
+            if dynamic_sample:
+                dyn_f = DynSlots.from_bell(hb, np.diff(g.row_ptr), device)
             # alias the backward layout ONLY when A == A^T by VALUE: a
             # structurally symmetric graph with asymmetric weights must
             # still get the true transpose
             if undirected and symmetric:
-                t_bell = bell
+                t_bell, dyn_t = bell, dyn_f
             else:
-                hbt = build_binned_ell(host_transpose(g), phantom_col=n)
+                hbt = build_binned_ell(host_transpose(g), phantom_col=n,
+                                       split_diag=not dynamic_sample)
                 t_bell = BellDev.from_host(hbt, c_pad, c, device)
+                if dynamic_sample:
+                    # the backward re-samples the transpose rows with the
+                    # same (ra, rb), as gala_tpu: meta of their own degrees
+                    dyn_t = DynSlots.from_bell(hbt, t_counts, device)
 
         ell = t_ell = None
         if strategy == "ell":
@@ -521,6 +587,7 @@ class Graph:
             ell=ell, t_ell=t_ell,
             bell=bell, t_bell=t_bell,
             attn=attn,
+            dyn_f=dyn_f, dyn_t=dyn_t,
             n_nodes=n,
             n_cols=c,
             n_pad=n_pad,

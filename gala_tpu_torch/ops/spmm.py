@@ -12,6 +12,15 @@ Semantics:  out[d] = sum over edges e with dst[e]==d of vals[e] * x[src[e]]
   descriptors by `ops.kernels.bell_spmm.bell_spmm`: the CUDA kernel on the
   GPU, a plain version on the CPU.
 
+Dynamic neighbor sampling (`spmm_sampled`, gala_tpu's spmm_sampled): k
+picks (ra*i + rb) mod deg per row, summed with repetition, are the row's
+aggregation with per-slot weights w(deg, pos) (ops.kernels.dyn_weights,
+one kernel launch a product), so `SampledSpmm` runs the same SpMM kernel
+with those weights as slot values: on 'bell' times the structural values
+(gala_tpu's _spmm_dyn_bell), on every other strategy over the edge-list
+layouts with value 1 (its _spmm_dyn); the backward re-samples the
+transpose rows with the same (ra, rb).  No per-epoch index gather.
+
 Learned edge values (`spmm_ev`, forward edge order) ride the same
 executor as per-slot values (`SlotRows.slot_values`), forward on the
 layout and dx on its transpose; their own gradient is the SDDMM
@@ -33,10 +42,11 @@ import torch
 from gala_tpu_torch.models.common import full_precision_matmuls
 from gala_tpu_torch.ops.graph import Graph
 from gala_tpu_torch.ops.kernels.bell_spmm import bell_spmm, bell_spmm_reference
+from gala_tpu_torch.ops.kernels.dyn_weights import dyn_weights
 from gala_tpu_torch.ops.kernels.sddmm import sddmm
 
-__all__ = ["BellSpmm", "bell_spmm_reference", "degrees", "sddmm_edges", "spmm",
-           "spmm_direct", "spmm_ev"]
+__all__ = ["BellSpmm", "SampledSpmm", "bell_spmm_reference", "degrees", "sddmm_edges", "spmm",
+           "spmm_direct", "spmm_ev", "spmm_sampled"]
 
 
 def sddmm_edges(src: torch.Tensor, dst: torch.Tensor, a: torch.Tensor,
@@ -62,6 +72,29 @@ class BellSpmm(torch.autograd.Function):
     def backward(ctx, dz):
         dx = bell_spmm(ctx.t_bell, dz.contiguous(), ctx.c_out)
         return dx, None, None, None, None
+
+
+def _sampled_weights(lay, meta, structural: bool, k: int, ra: int, rb: int) -> torch.Tensor:
+    return dyn_weights(meta.deg, meta.pos, k, ra, rb, lay.flat_vals if structural else None)
+
+
+class SampledSpmm(torch.autograd.Function):
+    """out = A_s @ x, A_s the layout with this epoch's sampling weights as
+    its slot values (times its structural values where `structural`);
+    the gradient is the transpose layout under its own weights, the same
+    (k, ra, rb)."""
+
+    @staticmethod
+    def forward(ctx, x, lay, t_lay, meta, t_meta, structural: bool, k: int, ra: int, rb: int,
+                n_out: int, c_out: int):
+        ctx.t_lay, ctx.t_meta, ctx.c_out = t_lay, t_meta, c_out
+        ctx.sample = (structural, k, ra, rb)
+        return bell_spmm(lay, x, n_out, vals=_sampled_weights(lay, meta, structural, k, ra, rb))
+
+    @staticmethod
+    def backward(ctx, dz):
+        w = _sampled_weights(ctx.t_lay, ctx.t_meta, *ctx.sample)
+        return (bell_spmm(ctx.t_lay, dz.contiguous(), ctx.c_out, vals=w),) + (None,) * 10
 
 
 class SlotSpmmEv(torch.autograd.Function):
@@ -148,6 +181,23 @@ def spmm_ev(g: Graph, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         return DenseSpmmEv.apply(vals, x, g.src, g.dst, g.n_pad, g.c_pad)
     lay, t_lay = (g.ell, g.t_ell) if g.strategy == "ell" else (g.seg, g.t_seg)
     return SlotSpmmEv.apply(vals.contiguous(), x, lay, t_lay, g.src, g.dst, g.n_pad, g.c_pad)
+
+
+def spmm_sampled(g: Graph, x: torch.Tensor, k: int, ra: int, rb: int) -> torch.Tensor:
+    """Aggregation over k dynamically sampled neighbors per node: row r
+    sums x at its in-row positions (ra*i + rb) mod deg[r], i < k, with
+    repetition ((ra, rb) fresh per epoch in the dynamic mode, 5/7 where
+    none is given).  On 'bell' each pick carries its edge's structural
+    value; on 'dense', 'ell' and 'segment' the value 1, as gala_tpu's.
+    The graph must be built with dynamic_sample=True; `x` is (c_pad, F),
+    the result (n_pad, F) in x's dtype."""
+    if g.dyn_f is None:
+        raise ValueError(f"spmm_sampled on a {g.strategy!r} graph built without its sampling "
+                         "inputs; build it with Graph.from_host(dynamic_sample=True)")
+    bell = g.strategy == "bell"
+    lay, t_lay = (g.bell, g.t_bell) if bell else (g.seg, g.t_seg)
+    return SampledSpmm.apply(x.contiguous(), lay, t_lay, g.dyn_f, g.dyn_t, bell, int(k),
+                             int(ra), int(rb), g.n_pad, g.c_pad)
 
 
 def spmm_direct(g: Graph, x: torch.Tensor) -> torch.Tensor:

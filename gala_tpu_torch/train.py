@@ -13,6 +13,10 @@ port of gala_tpu.train).
   the other epochs run on the per-layer training subgraphs when given.
   Test accuracy is evaluated after the timed regions, from snapshots of
   the parameters taken at the validation epochs.
+- per-epoch inputs (`epoch_inputs`, dynamic sampling's {"_ra", "_rb"}):
+  every epoch's are made before the timed regions; epoch e's join the
+  carry of its training step and of its inference epoch, and each
+  snapshot keeps its epoch's for its test accuracy, as in gala_tpu.
 
 gala_tpu's XLA devices (lax.scan epoch chunks, the anti-hoisting bump,
 the compile warm-up pool, host-fetch fences) have no counterpart here:
@@ -114,6 +118,7 @@ def train(
     forward_rows: Callable | None = None,
     train_rows: torch.Tensor | None = None,
     test_rows: torch.Tensor | None = None,
+    epoch_inputs: Callable | None = None,
 ) -> TrainResult:
     """Run the full training protocol and return timing/accuracy stats.
 
@@ -122,6 +127,8 @@ def train(
         outside the loop (training-invariant code motion product).
     train_graphs: per-layer training subgraphs; when given, non-validation
         epochs aggregate over them instead of the full graph.
+    epoch_inputs: optional fn(epoch) -> dict merged into that epoch's
+        carry (a dict carry only, as gala_tpu's _with_extra).
     `params` is updated in place and returned in the result."""
     device = full_graphs[0].device
     opt = make_optimizer(params, lr, weight_decay)
@@ -134,12 +141,17 @@ def train(
             x_train = x_full = x
     use_sub = train_graphs is not None
     gs_train = train_graphs if use_sub else full_graphs
+    # every epoch's extra inputs, made before the timed regions
+    extras = [epoch_inputs(e) for e in range(iters)] if epoch_inputs else [{}] * iters
+
+    def with_extra(xc, extra):
+        return {**xc, **extra} if extra and isinstance(xc, dict) else xc
 
     def inputs(epoch):
         is_valid = valid_step > 0 and epoch % valid_step == 0
         if is_valid or not use_sub:
-            return is_valid, full_graphs, x_full
-        return is_valid, gs_train, x_train
+            return is_valid, full_graphs, with_extra(x_full, extras[epoch])
+        return is_valid, gs_train, with_extra(x_train, extras[epoch])
 
     if forward_rows is not None and train_rows is not None:
         # training loss on the train-row subset only (classifier +
@@ -156,12 +168,13 @@ def train(
     if forward_rows is not None and test_rows is not None:
         y_test, sm_test = labels[test_rows], test_mask[test_rows]
 
-        def test_acc(p):
-            return masked_accuracy(forward_rows(p, full_graphs, x_full, test_rows),
-                                   y_test, sm_test)
+        def test_acc(p, extra):
+            return masked_accuracy(forward_rows(p, full_graphs, with_extra(x_full, extra),
+                                                test_rows), y_test, sm_test)
     else:
-        def test_acc(p):
-            return masked_accuracy(forward(p, full_graphs, x_full), labels, test_mask)
+        def test_acc(p, extra):
+            return masked_accuracy(forward(p, full_graphs, with_extra(x_full, extra)), labels,
+                                   test_mask)
 
     losses, snapshots = [], []
     mem_mb = 0.0
@@ -180,7 +193,7 @@ def train(
         opt.step()
         losses.append(loss.detach())
         if is_valid:
-            snapshots.append(_snapshot(params))
+            snapshots.append((_snapshot(params), extras[epoch]))
     total_time = timer.stop(n=max(iters - warmup, 1))
 
     # ---- inference phase: forward-only epochs, same graph schedule ----- #
@@ -194,7 +207,8 @@ def train(
 
         # ---- deferred metrics (outside both timed regions) ------------- #
         losses_host = torch.stack(losses).cpu().tolist() if losses else []
-        accs = torch.stack([test_acc(p) for p in snapshots]).cpu().tolist() if snapshots else []
+        accs = (torch.stack([test_acc(p, e) for p, e in snapshots]).cpu().tolist()
+                if snapshots else [])
 
     return TrainResult(
         inference_time=inference_time,

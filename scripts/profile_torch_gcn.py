@@ -3,10 +3,12 @@
 
     python3 scripts/profile_torch_gcn.py [--epochs 10] [--trace gcn_trace.json]
                                          [--dtype f32|bf16]
+                                         [--sample none|data|kernel|dynamic]
 
 Compiles __graft_entry__.GCN_DSL on the Arxiv stand-in (scale 1.0) with
 gala_tpu_torch (at bf16: dtype=torch.bfloat16, bf16 activations with f32
-params), warms up with one short training run, then profiles one
+params; with --sample, plus table7's sampling line at k = 20), warms up
+with one short training run, then profiles one
 `train()` call (training phase, inference phase and the accuracy
 evaluations) with torch.profiler.  Prints the device time by kernel, the
 device's busy share of the profiled wall time, the card's name and power
@@ -29,6 +31,11 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
+# table7's sampling lines (scripts/evaluate.py job_table7)
+SAMPLE_LINES = {"none": "", "data": "G=G.sample(20);", "kernel": "aggrFn=aggrFn.sample(20);",
+                "dynamic": "aggrFn=aggrFn.sample(20).dynamic();"}
+
+
 def _device_us(evt) -> float:
     return float(getattr(evt, "self_device_time_total", None)
                  or getattr(evt, "self_cuda_time_total", 0.0))
@@ -47,6 +54,7 @@ def main() -> int:
     ap.add_argument("--epochs", type=int, default=10)
     ap.add_argument("--trace", default="", help="write a Chrome trace here")
     ap.add_argument("--dtype", default="f32", choices=["f32", "bf16"])
+    ap.add_argument("--sample", default="none", choices=list(SAMPLE_LINES))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU")
@@ -55,8 +63,8 @@ def main() -> int:
     from __graft_entry__ import GCN_DSL
 
     dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[args.dtype]
-    cm = gala_tpu_torch.compile_source(GCN_DSL, mode="train", scale=1.0, device="cuda",
-                                       dtype=dtype)
+    cm = gala_tpu_torch.compile_source(GCN_DSL + SAMPLE_LINES[args.sample], mode="train",
+                                       scale=1.0, device="cuda", dtype=dtype)
     profile_train(cm, args.epochs, args.trace)
     split_kernel_time(cm.full_graphs[0], dtype)
     return 0

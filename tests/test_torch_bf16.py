@@ -281,6 +281,7 @@ PROGRAMS = {
     "gcn_sparser": (GCN_SPARSER, "ell"),
     "sage": ("sage.txt", "bell"),
     "gin": ("gin.txt", "bell"),
+    "gcn_dynamic": (GCN_DSL + "aggrFn=aggrFn.sample(20).dynamic();\n", "bell"),
 }
 
 

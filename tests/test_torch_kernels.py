@@ -1,5 +1,6 @@
 """The CUDA kernels (bell SpMM, the three attention kernels, SDDMM, row
-gather) against their plain PyTorch versions, on the card.
+gather, the dynamic-sampling weights) against their plain PyTorch
+versions, on the card.
 
 This file imports neither jax nor gala_tpu, so it runs on a machine with
 the GPU, where JAX is not installed (tests/conftest.py imports jax, hence
@@ -33,7 +34,7 @@ from gala_tpu_torch.ops.graph import UNIT_SLOTS, Graph, masked_units
 from gala_tpu_torch.ops.kernels import _build
 from gala_tpu_torch.ops.kernels import attn_bell
 from gala_tpu_torch.ops.kernels import bell_spmm as kernel
-from gala_tpu_torch.ops.kernels import gather
+from gala_tpu_torch.ops.kernels import dyn_weights, gather
 from gala_tpu_torch.ops.kernels import sddmm
 
 CASES = ["symmetric_relabelled", "directed", "train_subgraph", "hub_selfloops"]
@@ -558,3 +559,68 @@ def test_gather_refuses_what_it_does_not_take_on_the_card(cuda):
         gather.gather_rows(x, idx.cpu())
     with pytest.raises(TypeError):
         gather.gather_rows(x.half(), idx)
+
+
+def test_dyn_weights_source_names_what_it_replaces():
+    with open(dyn_weights._SRC) as f:
+        src = f.read()
+    assert "gala_tpu/ops/spmm.py::_dyn_counts" in src and "3.35 TB/s" in src
+    assert os.path.dirname(dyn_weights._SRC) == os.path.dirname(kernel._SRC)
+
+
+def _sampled_graphs(device):
+    """The hub case with dynamic sampling's inputs, on 'bell' (bins and
+    hub virtual rows) and on 'segment' (the edge lists)."""
+    host, _ = torch_case("hub_selfloops")
+    return {s: Graph.from_host(host, strategy=s, device=device, dynamic_sample=True)
+            for s in ("bell", "segment")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,ra,rb", [(1, 5, 7), (20, 96, 96), (300, 17, 5)])
+def test_dyn_weights_matches_plain_version_bitwise_on_the_card(cuda, k, ra, rb):
+    """Each weight is a count times one value: kernel and plain version
+    agree bit for bit, with and without the structural values, on both
+    sides of both layouts; one launch a call."""
+    for strategy, g in _sampled_graphs(cuda).items():
+        sides = ((g.bell, g.dyn_f), (g.t_bell, g.dyn_t)) if strategy == "bell" else (
+            (g.seg, g.dyn_f), (g.t_seg, g.dyn_t))
+        for lay, meta in sides:
+            for vals in (None, lay.flat_vals):
+                launches = dyn_weights.counts.launches
+                got = dyn_weights.dyn_weights(meta.deg, meta.pos, k, ra, rb, vals)
+                torch.cuda.synchronize()
+                assert dyn_weights.counts.launches == launches + 1
+                want = dyn_weights.dyn_weights_reference(meta.deg, meta.pos, k, ra, rb, vals)
+                assert got.dtype == torch.float32 and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("strategy", ["bell", "segment"])
+def test_spmm_sampled_on_the_card_matches_cpu(cuda, strategy, dtype):
+    """spmm_sampled forward and x-gradient on the card (the weights kernel
+    and the SpMM kernel, forward and transpose) against the same call on
+    CPU tensors: _close's tolerance over the sampled product on
+    magnitudes."""
+    from gala_tpu_torch.ops.spmm import spmm_sampled
+
+    k, ra, rb = 20, 13, 2
+    g_card, g_cpu = _sampled_graphs(cuda)[strategy], _sampled_graphs("cpu")[strategy]
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn((g_cpu.c_pad, 33), generator=gen).to(dtype)
+    dz = torch.randn((g_cpu.n_pad, 33), generator=gen).to(dtype)
+    results = {}
+    for name, g in (("card", g_card), ("cpu", g_cpu)):
+        xt = x.to(g.device).requires_grad_(True)
+        out = spmm_sampled(g, xt, k, ra, rb)
+        out.backward(dz.to(g.device))
+        results[name] = (out.detach().cpu(), xt.grad.cpu())
+    lay, t_lay = (g_cpu.bell, g_cpu.t_bell) if strategy == "bell" else (g_cpu.seg, g_cpu.t_seg)
+    for i, (lay_, meta, inp, n_out) in enumerate(((lay, g_cpu.dyn_f, x, g_cpu.n_pad),
+                                                  (t_lay, g_cpu.dyn_t, dz, g_cpu.c_pad))):
+        w = dyn_weights.dyn_weights_reference(meta.deg, meta.pos, k, ra, rb,
+                                              lay_.flat_vals if strategy == "bell" else None)
+        scale = kernel.bell_spmm_rows_reference(lay_, inp.float().abs(), n_out, w)
+        assert results["card"][i].dtype == dtype
+        assert _close(results["card"][i], results["cpu"][i], scale)

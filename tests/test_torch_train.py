@@ -249,7 +249,10 @@ def test_unported_options_raise(what):
     (the 6-epoch parity is in tests/test_torch_edge.py).  bf16 is ported:
     the features are bf16, the params f32, and the bf16 logits match
     gala_tpu's dtype=jnp.bfloat16 within 4e-2 of the largest (the rest of
-    the bf16 parity is in tests/test_torch_bf16.py)."""
+    the bf16 parity is in tests/test_torch_bf16.py).  Sampling is ported:
+    dynamic sampling (k = 4) compiles on 'bell' with its sampling inputs
+    and its logits match gala_tpu's (the rest of the sampling parity is in
+    tests/test_torch_sampling.py)."""
     spec = parse_source(GAT_DSL if what.startswith("attention") else GCN_DSL)
     kw = {"bf16": {"dtype": torch.bfloat16}, "int64": {"use_long": True},
           "pallas_bell": {"strategy": "pallas_bell"},
@@ -274,6 +277,19 @@ def test_unported_options_raise(what):
         assert got.dtype == torch.bfloat16
         np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
                                    atol=4e-2 * np.abs(want).max())
+        return
+    if what == "sampling":
+        from gala_tpu.dsl.parser import parse_source as jparse_source
+
+        jspec = jparse_source(GCN_DSL)
+        jspec.compute.sample_dynamic = 4
+        jcm = gala_tpu.compile_model(jspec, mode="train", data=_data(jax_dataset),
+                                     strategy="bell")
+        tcm = gala_tpu_torch.compile_model(spec, data=_data(torch_dataset), strategy="bell",
+                                           device="cpu")
+        assert all(g.dyn_f is not None and g.bell.diag is None
+                   for g in tcm.full_graphs + tcm.train_graphs)
+        _forwards_match(jcm, tcm, jax.device_get(jcm.make_params(0)))
         return
     if what == "attention on dense":
         jcm = gala_tpu.compile_source(GAT_DSL, mode="train", data=_data(jax_dataset), **kw)
