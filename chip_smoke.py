@@ -220,6 +220,41 @@ launches count as "<kernel>_bf16":
             dyn_weights (f32 weights at both types) launched one for one.
 NO_SPILL holds the bf16 forms of bwd1, bwd2 and the SDDMM too.
 
+Then checkpoint/resume, failure recovery, profiling and the evaluation
+twin, in f32 on the same stand-in; each phase zeroes every launch count
+just before its run and reads them just after:
+30. csr-stable  GCN_DSL compiled twice (lower's bell_order relabel and
+            training subgraphs rebuild CSRs of 2.1M edges through the
+            native counting sort, now stable): every tensor of the
+            layouts bitwise equal; compile seconds with the stable sort
+            and with the atomic-cursor sort of the copied csr_ops.cpp it
+            replaced (native.coo_to_csr_cursors), and the native builds'
+            seconds inside each.
+31. pallas-bell GCN_DSL at strategy pallas_bell: the bell layout, every
+            tensor equal to the stable compile's; 20 epochs (the SpMM
+            kernel launched, no plain version, accuracy >= 0.7); logits
+            from the same weights bitwise those of strategy bell.
+32. checkpoint  GCN_DSL (f32, bell) and examples/gin.txt (learned
+            epsilons) at full width: an unbroken 20-epoch run, twice (the
+            atomics' spread: the row gathers' backward adds with
+            atomics), against 10 epochs with checkpoint_path and 10 more
+            with resume_from (valid_step 5 keeps the schedule aligned):
+            losses within rtol 1e-4, final params within rtol 1e-3 / atol
+            1e-5; the SpMM kernel launched in both segments.
+33. recovery    resilience.train_with_recovery, 24 epochs of GCN_DSL in
+            segments of 8, one injected failure: the progress file reads
+            24, accuracy >= 0.7, a second call raises "already completed".
+34. profile     utils.profiling.profile_trace around 3 training epochs in
+            a marker region: the Chrome trace names the SpMM kernel (its
+            symbol read from the trace, matched to the build's ptxas
+            entries) and the region; no warning of a trace without device
+            activity.
+35. evaluate    scripts/evaluate_torch.py in-process: fig16 on Cora, 10
+            epochs, at strategy auto and at pallas_bell (tag pallas): the
+            bell rows launch the SpMM and the fused GAT's forward and
+            bwd2; the rows well-formed and finite, every job's CSV header
+            equal to scripts/evaluate.py's (read from its text).
+
 Every kernel's bound is the larger of its bytes (each input read once,
 each output written once, in its own dtype) over 3.35 TB/s and its
 operations over 67 TFLOP/s (f32 outside the tensor cores: the bf16
@@ -232,8 +267,10 @@ beside its f32 time), the nvidia-smi line, and the last line
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -1639,6 +1676,380 @@ def phase_dyn_weights_kernel(cm, kernel, kd):
     return max_err, spmm_err, t
 
 
+# ---- checkpoint/resume, failure recovery, profiling, the evaluation twin ---- #
+def _new_counts():
+    """Zero every launch count; returns a reader of the counts since."""
+    from gala_tpu_torch.ops.kernels._build import all_counts, reset_counts
+
+    reset_counts()
+
+    def read():
+        torch.cuda.synchronize()
+        counts = all_counts().values()
+        return ({c.name: c.launches for c in counts if c.launches},
+                {c.name: c.reference_calls_on_cuda for c in counts if c.reference_calls_on_cuda})
+    return read
+
+
+def _no_plain(tag, on_cuda):
+    if on_cuda:
+        raise AssertionError(f"[{tag}] plain versions ran on the card: {on_cuda}")
+
+
+def _tensors(obj, prefix="", seen=None):
+    """{path: tensor} of every tensor reachable through a graph's
+    dataclasses (layouts, work units, sampling inputs), each object once."""
+    import dataclasses
+
+    seen = set() if seen is None else seen
+    if isinstance(obj, torch.Tensor):
+        return {prefix: obj}
+    if not dataclasses.is_dataclass(obj) or id(obj) in seen:
+        return {}
+    seen.add(id(obj))
+    out = {}
+    for f in dataclasses.fields(obj):
+        value = getattr(obj, f.name)
+        items = enumerate(value) if isinstance(value, (list, tuple)) else [(None, value)]
+        for i, v in items:
+            name = f"{prefix}.{f.name}" if i is None else f"{prefix}.{f.name}[{i}]"
+            out.update(_tensors(v, name, seen))
+    return out
+
+
+def _layout_tensors(cm):
+    """Every tensor of a compiled model's graphs and its node inputs."""
+    out = {"x": cm.x, "labels": cm.labels, "train_mask": cm.train_mask}
+    for i, g in enumerate(cm.full_graphs[:1] + (cm.train_graphs or [])):
+        out.update(_tensors(g, f"graph{i}"))
+    return out
+
+
+def phase_csr_stable(arxiv):
+    """Two compiles of GCN_DSL on the Arxiv stand-in (lower's bell_order
+    relabel and its training subgraphs rebuild CSRs of 2.1M edges through
+    the native counting sort) give bitwise-equal layouts; compile seconds
+    with the stable sort (both compiles) and with the copied source's
+    atomic-cursor sort it replaced (native.coo_to_csr_cursors), and the
+    seconds of the native sort calls inside each.  Returns the stable
+    compile (phase pallas-bell compares against it)."""
+    import gala_tpu_torch
+    from __graft_entry__ import GCN_DSL
+    from gala_tpu_torch import native
+
+    if not native.available():
+        raise AssertionError("[csr-stable] the native library did not build")
+    real = native.coo_to_csr_native
+
+    def compile_with(sort):
+        spent = []
+
+        def timed_sort(*args):
+            t0 = time.perf_counter()
+            out = sort(*args)
+            spent.append((int(np.asarray(args[0]).shape[0]), time.perf_counter() - t0))
+            return out
+
+        native.coo_to_csr_native = timed_sort
+        try:
+            t0 = time.perf_counter()
+            cm = gala_tpu_torch.compile_source(GCN_DSL, mode="train", data=arxiv, device="cuda",
+                                               strategy="bell")
+            torch.cuda.synchronize()
+            return cm, time.perf_counter() - t0, spent
+        finally:
+            native.coo_to_csr_native = real
+
+    runs = {}
+    for name, sort in (("stable", real), ("stable again", real),
+                       ("cursors", native.coo_to_csr_cursors)):
+        cm, seconds, spent = compile_with(sort)
+        runs[name] = (cm, seconds, spent)
+        print(f"[csr-stable] compile with the {name.split()[0]} native sort: {seconds:.3f} s, "
+              f"of which {len(spent)} native CSR builds {sum(s for _, s in spent):.3f} s "
+              f"({', '.join(f'{e} edges {s:.4f} s' for e, s in spent)})")
+    if not runs["stable"][2]:
+        raise AssertionError("[csr-stable] the compile built no CSR through the native sort")
+    a, b = (_layout_tensors(runs[k][0]) for k in ("stable", "stable again"))
+    differ = [k for k in a if k not in b or not torch.equal(a[k], b[k])]
+    c = _layout_tensors(runs["cursors"][0])
+    cursor_differ = [k for k in a if k not in c or not torch.equal(a[k], c[k])]
+    print(f"[csr-stable] two stable compiles: {len(a)} tensors, {len(differ)} differ; the "
+          f"atomic-cursor compile differs from them in {len(cursor_differ)} "
+          f"({', '.join(cursor_differ[:4])}{' ...' if len(cursor_differ) > 4 else ''})")
+    if differ or a.keys() != b.keys():
+        raise AssertionError(f"[csr-stable] two compiles differ: {differ[:8]}")
+    del runs["stable again"], runs["cursors"]
+    return runs["stable"][0], {k: round(v[1], 4) for k, v in runs.items()}
+
+
+def phase_pallas_bell(arxiv, bell_cm):
+    """GCN_DSL at strategy='pallas_bell' on the Arxiv stand-in: the bell
+    layout (the same tensors as strategy='bell''s compile), 20 epochs
+    that launch the SpMM kernel and no plain version, and logits from the
+    same weights bitwise those of strategy='bell'."""
+    import gala_tpu_torch
+    from __graft_entry__ import GCN_DSL
+
+    cm = gala_tpu_torch.compile_source(GCN_DSL, mode="train", data=arxiv, device="cuda",
+                                       strategy="pallas_bell")
+    g = cm.full_graphs[0]
+    a, b = _layout_tensors(cm), _layout_tensors(bell_cm)
+    same_layout = a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+    print(f"[pallas-bell] strategy pallas_bell -> {g.strategy}: {g.bell.flat_cols.shape[0]} "
+          f"slots; every layout tensor equal to strategy bell's: {same_layout}")
+    if g.strategy != "bell" or not same_layout:
+        raise AssertionError("[pallas-bell] not the bell layout of strategy='bell'")
+    _, launches = _train_checked("pallas-bell", cm, 0.7)
+    if launches.get("bell_spmm", 0) <= 0:
+        raise AssertionError("[pallas-bell] the path never launched the bell SpMM kernel")
+    params = cm.make_params(0)
+    with torch.no_grad():
+        logits = [m.forward(params, m.full_graphs, m.invariant(m.full_graphs, m.x))
+                  for m in (cm, bell_cm)]
+    same = torch.equal(*logits)
+    print(f"[pallas-bell] logits {tuple(logits[0].shape)} bitwise those of strategy bell: {same}")
+    if not same:
+        raise AssertionError("[pallas-bell] logits differ from strategy='bell''s")
+    return launches
+
+
+# [checkpoint]'s tolerances: the row gathers' backward adds with atomics,
+# so two unbroken runs differ in the last bits; the CPU parity tests'
+# tolerances (tests/test_torch_checkpoint.py)
+CKPT_LOSS_RTOL, CKPT_PARAM_RTOL, CKPT_PARAM_ATOL = 1e-4, 1e-3, 1e-5
+
+
+def _diffs(a, b):
+    """(max relative loss difference, max |param difference|, params out
+    of the tolerance) between two results."""
+    la, lb = np.asarray(a.losses), np.asarray(b.losses)
+    loss = float(np.max(np.abs(la - lb) / np.abs(lb)))
+    pb = dict(b.params.named_parameters())
+    worst, bad = 0.0, []
+    for name, p in a.params.named_parameters():
+        d = (p.detach() - pb[name].detach()).abs()
+        worst = max(worst, d.max().item())
+        if (d > CKPT_PARAM_ATOL + CKPT_PARAM_RTOL * pb[name].detach().abs()).any():
+            bad.append(name)
+    return loss, worst, bad
+
+
+def phase_checkpoint(arxiv, gcn_cm):
+    """At full width on the Arxiv stand-in, GCN_DSL (f32, bell) and
+    examples/gin.txt (learned epsilons): an unbroken 20-epoch run (twice:
+    the atomics' run-to-run spread) against 10 epochs with checkpoint_path
+    and 10 more with resume_from (valid_step 5 keeps the graph schedule
+    aligned); losses within rtol CKPT_LOSS_RTOL, final params within
+    CKPT_PARAM_RTOL / CKPT_PARAM_ATOL; the SpMM kernel launched in both
+    segments, no plain version.  Returns launches by segment."""
+    import tempfile
+
+    import gala_tpu_torch
+
+    gin = gala_tpu_torch.compile_file(_example("gin"), mode="train", data=arxiv, device="cuda")
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, cm in (("gcn", gcn_cm), ("gin", gin)):
+            tag = f"checkpoint-{name}"
+            runs = [cm.train(iters=20, warmup=2) for _ in range(2)]
+            ck = os.path.join(tmp, f"{name}.pt")
+            segments = []
+            for seg, kw in (("first", {"checkpoint_path": ck}), ("resumed", {"resume_from": ck})):
+                read = _new_counts()
+                segments.append(cm.train(iters=10, warmup=2, **kw))
+                launches[f"{tag}-{seg}"], on_cuda = read()
+                _no_plain(tag, on_cuda)
+                if launches[f"{tag}-{seg}"].get("bell_spmm", 0) <= 0:
+                    raise AssertionError(f"[{tag}] the {seg} segment never launched the SpMM")
+            first, second = segments
+            resumed = dataclasses.replace(second, losses=first.losses + second.losses)
+            spread = _diffs(runs[1], runs[0])
+            got = _diffs(resumed, runs[0])
+            print(f"[{tag}] unbroken 20 epochs twice: max relative loss difference "
+                  f"{spread[0]:.3e}, max |param difference| {spread[1]:.3e}; 10 + 10 resumed "
+                  f"against unbroken: {got[0]:.3e}, {got[1]:.3e} (tolerance: losses rtol "
+                  f"{CKPT_LOSS_RTOL}, params rtol {CKPT_PARAM_RTOL} atol {CKPT_PARAM_ATOL}); "
+                  f"launches first {json.dumps(launches[f'{tag}-first'])}, resumed "
+                  f"{json.dumps(launches[f'{tag}-resumed'])}; accuracy unbroken "
+                  f"{runs[0].max_accuracy:.4f}, resumed "
+                  f"{max(first.max_accuracy, second.max_accuracy):.4f}; "
+                  f"losses resumed {json.dumps([round(v, 5) for v in second.losses[:3]])} ...")
+            if name == "gin":
+                eps = {k: float(second.params[k].detach()) for k in ("eps1", "eps2")}
+                print(f"[{tag}] epsilons after the resumed segment {json.dumps(eps)}, unbroken "
+                      f"{json.dumps({k: float(runs[0].params[k].detach()) for k in eps})}")
+            if got[0] > CKPT_LOSS_RTOL or got[2]:
+                raise AssertionError(f"[{tag}] resumed run differs from the unbroken one: "
+                                     f"losses {got[0]:.3e}, params out of tolerance {got[2]}")
+    return launches
+
+
+def phase_recovery(gcn_cm):
+    """train_with_recovery over 24 epochs of GCN_DSL in segments of 8 with
+    one injected failure (the second segment's first try): the progress
+    file reads 24, test accuracy >= 0.7, the SpMM kernel launched in
+    every segment and no plain version; a second call raises "already
+    completed"."""
+    import tempfile
+
+    from gala_tpu_torch.resilience import load_progress, train_with_recovery
+
+    calls = []
+
+    def flaky_train(**kw):
+        calls.append(kw["resume_from"])
+        if len(calls) == 2:
+            raise RuntimeError("injected device loss")
+        return gcn_cm.train(warmup=2, **kw)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "ck.pt")
+        read = _new_counts()
+        res = train_with_recovery(flaky_train, iters=24, checkpoint_path=ck, segment=8,
+                                  max_restarts=2,
+                                  on_failure=lambda exc, n: print(f"[recovery] restart {n} "
+                                                                  f"after: {exc}"))
+        launches, on_cuda = read()
+        done = load_progress(ck)
+        print(f"[recovery] 24 epochs in segments of 8: {len(calls)} train calls (resume_from "
+              f"{['yes' if c else 'no' for c in calls]}), progress file {done} epochs, "
+              f"{len(res.losses)} losses, max test accuracy {res.max_accuracy:.4f}, launches "
+              f"{json.dumps(launches)}")
+        _no_plain("recovery", on_cuda)
+        if done != 24 or len(calls) != 4 or res.max_accuracy < 0.7:
+            raise AssertionError(f"[recovery] progress {done}, {len(calls)} calls, accuracy "
+                                 f"{res.max_accuracy}")
+        if launches.get("bell_spmm", 0) <= 0:
+            raise AssertionError("[recovery] the segments never launched the SpMM kernel")
+        try:
+            train_with_recovery(flaky_train, iters=24, checkpoint_path=ck, segment=8)
+        except RuntimeError as exc:
+            if "already completed" not in str(exc):
+                raise
+            print(f"[recovery] a second call raises: {exc}")
+        else:
+            raise AssertionError("[recovery] a second call retrained a completed run")
+    return launches
+
+
+def _kernel_identifiers(build_log: str) -> set:
+    """The source names of a library's kernels, from the mangled entry
+    names ptxas reports: _Z<length><name>..., or _ZN<length><name>...
+    (a name in a namespace, the anonymous one among them), whose last
+    component is the kernel's."""
+    names = set()
+    for entry in re.findall(r"Compiling entry function '([^']+)'", build_log):
+        nested = entry.startswith("_ZN")
+        name, pos = entry, 3 if nested else 2
+        while entry.startswith("_Z") and (m := re.match(r"\d+", entry[pos:])):
+            pos += len(m.group())
+            name, pos = entry[pos : pos + int(m.group())], pos + int(m.group())
+            if not nested:
+                break
+        names.add(name)
+    return names
+
+
+def phase_profile(gcn_cm, spmm_build_log):
+    """profile_trace around 3 training epochs of GCN_DSL, inside a marker
+    region: the Chrome trace exists, holds device kernels, names the SpMM
+    kernel (its symbol read from the trace, matched against the names in
+    the build's ptxas report) and the marker region; no warning that the
+    profiler recorded no device activity."""
+    import tempfile
+    import warnings
+
+    from gala_tpu_torch.utils.profiling import marker, profile_trace
+
+    spmm_names = _kernel_identifiers(spmm_build_log)
+    with tempfile.TemporaryDirectory() as tmp:
+        read = _new_counts()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            with profile_trace(tmp) as log_dir:
+                with marker("gala_smoke_train"):
+                    gcn_cm.train(iters=3, warmup=1)
+        launches, on_cuda = read()
+        _no_plain("profile", on_cuda)
+        traces = [os.path.join(log_dir, f) for f in os.listdir(log_dir) if f.endswith(".json")]
+        if len(traces) != 1:
+            raise AssertionError(f"[profile] expected one trace in {log_dir}, found {traces}")
+        size = os.path.getsize(traces[0])
+        with open(traces[0]) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    spmm = sorted(k for k in kernels if any(n in k for n in spmm_names))
+    regions = [e for e in events if e.get("name") == "gala_smoke_train"]
+    profiler_warnings = [str(w.message) for w in caught if "profile_trace" in str(w.message)]
+    print(f"[profile] trace {size} bytes, {len(events)} events, {len(kernels)} distinct device "
+          f"kernels; SpMM kernels named in it (ptxas entries {sorted(spmm_names)}): {spmm}; "
+          f"marker regions {len(regions)}; launches {json.dumps(launches)}; profiler "
+          f"warnings {profiler_warnings}")
+    if not spmm or not regions or profiler_warnings or launches.get("bell_spmm", 0) <= 0:
+        raise AssertionError("[profile] the trace does not name the SpMM kernel or the marker "
+                             "region, or the profiler recorded no device activity; kernels "
+                             f"in it: {sorted(kernels)[:8]}")
+    return launches
+
+
+def _evaluate_headers(path):
+    """{job: the CSV header its job function appends to} of an evaluation
+    script, read from its text."""
+    with open(path) as f:
+        src = f.read()
+    blocks = re.split(r"^def job_", src, flags=re.M)[1:]
+    return {b.split("(", 1)[0]: re.search(r'append_csv\(\s*out,\s*"([^"]+)"', b).group(1)
+            for b in blocks}
+
+
+def phase_evaluate():
+    """scripts/evaluate_torch.py in-process: fig16 on Cora, 10 epochs, at
+    strategy auto ('dense' at Cora's size) and at pallas_bell with the tag
+    'pallas' (the bell layout: the SpMM kernel for gcn, gin and sage, the
+    fused attention's forward and bwd2 kernels for gat); every row
+    well-formed and finite, and each job's CSV header equal to
+    scripts/evaluate.py's.  Returns the launches of each run."""
+    import importlib.util
+    import tempfile
+
+    spec = importlib.util.spec_from_file_location("evaluate_torch",
+                                                  os.path.join("scripts", "evaluate_torch.py"))
+    twin = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(twin)
+    want, got = (_evaluate_headers(os.path.join("scripts", f"{name}.py"))
+                 for name in ("evaluate", "evaluate_torch"))
+    print(f"[evaluate] CSV headers of {len(got)} jobs equal to scripts/evaluate.py's: "
+          f"{got == want}")
+    if got != want:
+        raise AssertionError(f"[evaluate] headers differ: {got} vs {want}")
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for strategy, tag in (("auto", ""), ("pallas_bell", "pallas")):
+            read = _new_counts()
+            twin.main(["--job", "fig16", "--datasets", "Cora", "--iters", "10", "--strategy",
+                       strategy, "--tag", tag, "--outdir", tmp])
+            launches[strategy], on_cuda = read()
+            _no_plain("evaluate", on_cuda)
+            print(f"[evaluate] fig16 Cora at {strategy}: launches {json.dumps(launches[strategy])}")
+        with open(os.path.join(tmp, "stat_fig16.csv")) as f:
+            lines = f.read().strip().splitlines()
+        with open(os.path.join(tmp, "devices.csv")) as f:
+            print(f"[evaluate] devices.csv: {f.read().strip().splitlines()[-1]}")
+    rows = [ln.split(",") for ln in lines[1:]]
+    labels = [r[1] for r in rows]
+    print(f"[evaluate] stat_fig16.csv: {lines[0]}; rows {json.dumps(lines[1:])}")
+    if lines[0] != want["fig16"] or labels != twin.MODELS + [f"{m}-pallas" for m in twin.MODELS]:
+        raise AssertionError(f"[evaluate] header {lines[0]}, labels {labels}")
+    if not all(len(r) == 6 and all(math.isfinite(float(v)) for v in r[2:5]) for r in rows):
+        raise AssertionError(f"[evaluate] malformed rows {rows}")
+    bell = launches["pallas_bell"]
+    if min(bell.get(k, 0) for k in ("bell_spmm", "attn_fwd", "attn_bwd2")) <= 0:
+        raise AssertionError(f"[evaluate] the pallas_bell rows did not launch the SpMM and the "
+                             f"fused attention's forward and bwd2: {bell}")
+    return launches
+
+
 def kernel_rows(r, dtype, f32=None) -> list:
     """The kernels' line entries of one dtype's phases (`r`: their results;
     at bf16 `f32`, the f32 phases' results, gives each row its f32 time
@@ -1665,6 +2076,7 @@ def kernel_rows(r, dtype, f32=None) -> list:
                       "sage": r["sage_launches"].get(spmm, 0),
                       "gin": r["gin_launches"].get(spmm, 0)})
     paths.update({f"sample-{mode}": n.get(spmm, 0) for mode, n in r["sample"].items()})
+    paths.update({p: n.get(spmm, 0) for p, n in r.get("paths", {}).items()})
     rows = [at_f32({
         "name": spmm, "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES,
         "launches": r["launches"],
@@ -1692,7 +2104,13 @@ def kernel_rows(r, dtype, f32=None) -> list:
             "at": "arxiv full attention layout, hf=32, H=1",
             "path": f"gat{bf}" if name != "attn_bwd1" else "kernel phase only (the GAT path "
                                                            "takes the flash identity)",
+            "path_launches": {f"gat{bf}": r["gat_launches"].get(f"{name}{sfx}", 0),
+                              **{p: n.get(f"{name}{sfx}", 0)
+                                 for p, n in r.get("paths", {}).items()
+                                 if p.startswith("evaluate")}},
         }, lambda f, name=name: f["attn_timings"][(name, 32)][0]))
+    if "csr_compile_s" in r:
+        rows[0]["compile_s_by_native_sort"] = r["csr_compile_s"]
     if f32 is None:  # the f32 phases' int64 and col_tile checks
         long_err = r["long_err"]
         rows[0]["long_starts_max_abs_err"] = {
@@ -1869,6 +2287,17 @@ def main() -> int:
     _, launches, _ = timed("sample-dynamic-bf16", phase_sample, "dynamic", arxiv, "auto", BF16,
                            5, 0.0)
     b["sample"] = {"dynamic": launches}
+
+    # checkpoint/resume, failure recovery, profiling and the evaluation
+    # twin, on the same stand-in (f32)
+    gcn, r["csr_compile_s"] = timed("csr-stable", phase_csr_stable, arxiv)
+    r["paths"] = {"pallas-bell": timed("pallas-bell", phase_pallas_bell, arxiv, gcn)}
+    r["paths"].update(timed("checkpoint", phase_checkpoint, arxiv, gcn))
+    r["paths"]["recovery"] = timed("recovery", phase_recovery, gcn)
+    r["paths"]["profile"] = timed("profile", phase_profile, gcn, builds[0].log)
+    del gcn
+    evaluate = timed("evaluate", phase_evaluate)
+    r["paths"].update({f"evaluate-{k}": v for k, v in evaluate.items()})
 
     kernels = kernel_rows(r, torch.float32) + kernel_rows(b, BF16, f32=r)
     t = r["dyn_times"]

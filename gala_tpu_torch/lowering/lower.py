@@ -201,7 +201,7 @@ def lower(
     if strategy == "auto":
         strategy = choose_strategy(g_host.n_rows + NODE_PAD, g_host.n_cols + NODE_PAD,
                                    g_host.n_edges, edge_vals=edge_vals)
-    if strategy == "bell":
+    if strategy in ("bell", "pallas_bell"):
         # relabel nodes in degree-class order so the binned layout's
         # output order is the identity (no reorder at run time); fused
         # attention keeps self loops as slots, so its class order is

@@ -3,9 +3,13 @@
 The C++ source is this package's own `csr_ops.cpp`, a verbatim copy of
 the JAX package's (tests/test_torch_host.py keeps the two equal), so both
 packages run the same host code and the port reads nothing of the JAX
-package.  It is compiled lazily on first use with g++ into the port's
-build directory (`gala_tpu_torch/_build/`, git-ignored); nothing is
-written next to the source.  Every entry point has a NumPy
+package, and `csr_stable.cpp`, the port's own stable counting sort, which
+`coo_to_csr_native` runs in place of the copy's `coo_to_csr_i32`: that
+one places edges through atomic per-row cursors, so a row's edge order,
+and with it the layouts' slot order and float sums, changed from run to
+run.  Both are compiled lazily on first use with g++ into one library in
+the port's build directory (`gala_tpu_torch/_build/`, git-ignored);
+nothing is written next to the sources.  Every entry point has a NumPy
 fallback in gala_tpu_torch.data, so environments without a toolchain
 (or without the source) lose speed, not functionality.
 Set GALA_TPU_NO_NATIVE=1 to force the NumPy paths.
@@ -21,6 +25,7 @@ import numpy as np
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csr_ops.cpp")
+_STABLE_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csr_stable.cpp")
 _SO = os.path.join(_PKG, "_build", "_csr_ops.so")
 
 _lib = None
@@ -33,7 +38,7 @@ def _build() -> bool:
     tmp = f"{_SO}.{os.getpid()}.tmp"
     cmd = [
         "g++", "-O3", "-march=native", "-fopenmp", "-shared", "-fPIC",
-        "-std=c++17", _SRC, "-o", tmp,
+        "-std=c++17", _SRC, _STABLE_SRC, "-o", tmp,
     ]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
@@ -49,20 +54,22 @@ def _load():
         return _lib
     if os.environ.get("GALA_TPU_NO_NATIVE") or not os.path.exists(_SRC):
         return None
-    if not os.path.exists(_SO) or os.path.getmtime(_SO) < os.path.getmtime(_SRC):
+    if not os.path.exists(_SO) or os.path.getmtime(_SO) < max(
+            os.path.getmtime(_SRC), os.path.getmtime(_STABLE_SRC)):
         if not _build():
             return None
     try:
         lib = ctypes.CDLL(_SO)
     except OSError:
         return None
-    lib.coo_to_csr_i32.argtypes = [
-        ctypes.c_int64, ctypes.c_int64,
-        ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
-        ctypes.POINTER(ctypes.c_float),
-        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32),
-        ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_float),
-    ]
+    for fn in (lib.coo_to_csr_i32, lib.coo_to_csr_stable_i32):
+        fn.argtypes = [
+            ctypes.c_int64, ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.c_float),
+            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_float),
+        ]
     lib.fill_ell_i32.argtypes = [
         ctypes.c_int64, ctypes.c_int64,
         ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int32),
@@ -134,10 +141,26 @@ def _ptr(a, ctype):
 
 def coo_to_csr_native(src, dst, vals, n_rows: int):
     """Returns (row_ptr i64, out_src i32, out_dst i32, out_vals f32) or
-    None when native is unavailable."""
+    None when native is unavailable.  Each row's edges keep their input
+    order: bitwise the NumPy path's argsort(dst, kind="stable")."""
     lib = _load()
     if lib is None:
         return None
+    return _coo_to_csr(lib.coo_to_csr_stable_i32, src, dst, vals, n_rows)
+
+
+def coo_to_csr_cursors(src, dst, vals, n_rows: int):
+    """The copied source's own coo_to_csr_i32 (atomic per-row cursors: a
+    row's edge order follows thread timing), which coo_to_csr_native
+    replaced; kept for measuring the stable sort against it
+    (scripts/csr_sort_torch.py, chip_smoke.py's [csr-stable])."""
+    lib = _load()
+    if lib is None:
+        return None
+    return _coo_to_csr(lib.coo_to_csr_i32, src, dst, vals, n_rows)
+
+
+def _coo_to_csr(fn, src, dst, vals, n_rows: int):
     src = np.ascontiguousarray(src, dtype=np.int32)
     dst = np.ascontiguousarray(dst, dtype=np.int32)
     e = src.shape[0]
@@ -148,7 +171,7 @@ def coo_to_csr_native(src, dst, vals, n_rows: int):
     out_src = np.empty(e, np.int32)
     out_dst = np.empty(e, np.int32)
     out_vals = np.empty(e, np.float32)
-    lib.coo_to_csr_i32(
+    fn(
         n_rows, e,
         _ptr(src, ctypes.c_int32), _ptr(dst, ctypes.c_int32),
         _ptr(vals_arr, ctypes.c_float) if vals_arr is not None else None,

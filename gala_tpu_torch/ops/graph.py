@@ -43,10 +43,11 @@ keeps them by default (with edge values, or off 'bell'), padded
 to e_pad = round_up(E+1, 128) edges with dst = the phantom row, src 0
 and value 0.  Node dimensions are padded as in gala_tpu (n_pad =
 round_up(n+1, 8): at least one phantom row, which absorbs padding
-slots).  'pallas_bell' raises NotImplementedError naming its ROADMAP
-item.  With attention=True a 'bell' graph also carries the
-fused-attention layout (`attn`, ops.attention.AttnBell); other
-strategies build none and run the unfused chain, as gala_tpu does.
+slots).  'pallas_bell' is 'bell', as in gala_tpu, where it names the
+bell layout run by its Pallas kernels: here the hand kernels are the
+bell layout's only executor.  With attention=True a 'bell' graph also
+carries the fused-attention layout (`attn`, ops.attention.AttnBell);
+other strategies build none and run the unfused chain, as gala_tpu does.
 
 With dynamic_sample=True (gala_tpu's DynMeta) a graph also carries the
 per-slot sampling inputs of the layout that ops.spmm.spmm_sampled runs
@@ -77,11 +78,6 @@ _INT32_MAX = 2**31 - 1
 # L, the most slots of one work unit: kUnitSlots in csrc/unit_gather.cuh.
 # Equal to data.ell.K_BIG, so a hub's units are its virtual rows.
 UNIT_SLOTS = 128
-
-_NOT_PORTED = {
-    "pallas_bell": "ROADMAP Queue 2 (the bell kernel is the only bell "
-                   "executor on CUDA; use strategy='bell')",
-}
 
 
 def not_ported(what: str, item: str):
@@ -602,8 +598,8 @@ class Graph:
         tile = max(int(col_tile), 1) if col_tile else 0
         if strategy == "auto":
             strategy = choose_strategy(n_pad, c_pad, e_real, edge_vals=edge_vals)
-        if strategy in _NOT_PORTED:
-            raise not_ported(f"strategy {strategy!r}", _NOT_PORTED[strategy])
+        if strategy == "pallas_bell":
+            strategy = "bell"
         if strategy not in _STRATEGIES:
             raise ValueError(f"unknown strategy {strategy!r}")
         keep_edges = edge_vals or strategy != "bell"

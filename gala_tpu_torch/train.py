@@ -17,6 +17,11 @@ port of gala_tpu.train).
   every epoch's are made before the timed regions; epoch e's join the
   carry of its training step and of its inference epoch, and each
   snapshot keeps its epoch's for its test accuracy, as in gala_tpu.
+  Epochs count from 0 in every call, a resumed one too (gala_tpu's rule).
+- checkpoints (gala_tpu_torch.checkpoint): `resume_from` restores the
+  params in place and the optimizer's state before the invariant prefix;
+  `checkpoint_path` saves both, with step=iters, after the deferred
+  metrics.
 
 gala_tpu's XLA devices (lax.scan epoch chunks, the anti-hoisting bump,
 the compile warm-up pool, host-fetch fences) have no counterpart here:
@@ -32,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from gala_tpu_torch.checkpoint import restore, save_checkpoint
 from gala_tpu_torch.ops.graph import Graph
 from gala_tpu_torch.utils.timing import EpochTimer
 
@@ -119,6 +125,8 @@ def train(
     train_rows: torch.Tensor | None = None,
     test_rows: torch.Tensor | None = None,
     epoch_inputs: Callable | None = None,
+    checkpoint_path: str | None = None,
+    resume_from: str | None = None,
 ) -> TrainResult:
     """Run the full training protocol and return timing/accuracy stats.
 
@@ -129,9 +137,14 @@ def train(
         epochs aggregate over them instead of the full graph.
     epoch_inputs: optional fn(epoch) -> dict merged into that epoch's
         carry (a dict carry only, as gala_tpu's _with_extra).
+    checkpoint_path: save the final params and optimizer state there.
+    resume_from: restore params and optimizer state before training; it
+        raises if the file is missing or holds other parameters.
     `params` is updated in place and returned in the result."""
     device = full_graphs[0].device
     opt = make_optimizer(params, lr, weight_decay)
+    if resume_from:
+        restore(resume_from, params, opt)
 
     with torch.no_grad():
         if invariant is not None:
@@ -209,6 +222,9 @@ def train(
         losses_host = torch.stack(losses).cpu().tolist() if losses else []
         accs = (torch.stack([test_acc(p, e) for p, e in snapshots]).cpu().tolist()
                 if snapshots else [])
+
+    if checkpoint_path:
+        save_checkpoint(checkpoint_path, params, opt.state_dict(), step=iters)
 
     return TrainResult(
         inference_time=inference_time,

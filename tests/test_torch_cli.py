@@ -3,6 +3,7 @@ in-process through gala_tpu_torch.__main__.main) and the device default of
 its entry points: each runs on the card unless the caller asks for the
 CPU, and without a card a call that leaves the device out fails with
 torch's own CUDA error."""
+import importlib.util
 import inspect
 import math
 import os
@@ -20,6 +21,10 @@ from gala_tpu_torch.train_minibatch import train_sage_minibatch
 torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SPEC = importlib.util.spec_from_file_location(
+    "evaluate_torch", os.path.join(REPO, "scripts", "evaluate_torch.py"))
+evaluate_torch = importlib.util.module_from_spec(_SPEC)
+_SPEC.loader.exec_module(evaluate_torch)
 GIN = os.path.join(REPO, "examples", "gin.txt")
 SMALL = ["--scale", "0.005"]  # the Arxiv stand-in at 846 nodes
 
@@ -51,7 +56,7 @@ def test_cli_bf16_raises_as_lower_does(capsys):
 
 
 @pytest.mark.parametrize("fn", [lower, api.compile_source, api.compile_file, api.compile_model,
-                                Graph.from_host, train_sage_minibatch],
+                                Graph.from_host, train_sage_minibatch, evaluate_torch.run_one],
                          ids=lambda fn: fn.__qualname__)
 def test_entry_points_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"

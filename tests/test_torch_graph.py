@@ -230,15 +230,23 @@ def test_choose_strategy_gate():
 
 @pytest.mark.parametrize("strategy", ["ell", "segment", "segment_scan", "pallas_bell"])
 def test_unported_strategies_raise(strategy):
-    """'pallas_bell' still raises; 'ell' and the 'segment' strategies are
-    ported and build gala_tpu's edge lists (and, on 'ell', its ELL
-    arrays), held in full by tests/test_torch_edge.py."""
+    """Every strategy is ported.  'pallas_bell' is 'bell', as in gala_tpu
+    (its bell layout run by the Pallas kernels; here the hand kernels are
+    the bell layout's only executor): the same bells and transpose bells
+    as gala_tpu's Graph.from_host(strategy='pallas_bell'), and no edge
+    lists.  'ell' and the 'segment' strategies build gala_tpu's edge
+    lists (and, on 'ell', its ELL arrays), held in full by
+    tests/test_torch_edge.py."""
     g, _ = host_graph("directed", "torch")
-    if strategy == "pallas_bell":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TGraph.from_host(g, strategy=strategy, device="cpu")
-        return
     gj, und = host_graph("directed", "jax")
+    if strategy == "pallas_bell":
+        jg = JGraph.from_host(gj, strategy=strategy, undirected=und)
+        tg = TGraph.from_host(g, strategy=strategy, undirected=und, device="cpu")
+        assert tg.strategy == jg.strategy == "bell"
+        _bell_eq(tg.bell, jg.bell)
+        _bell_eq(tg.t_bell, jg.t_bell)
+        assert tg.src is None and jg.src is None
+        return
     jg = JGraph.from_host(gj, strategy=strategy, undirected=und)
     tg = TGraph.from_host(g, strategy=strategy, undirected=und, device="cpu")
     assert tg.strategy == jg.strategy == strategy and tg.e_pad == jg.e_pad

@@ -25,7 +25,8 @@ passes/__init__.py passes/attention_fusion.py passes/code_motion.py passes/pipel
 passes/reorder.py passes/sparsify.py passes/subgraph.py
 lowering/__init__.py lowering/autoschedule.py
 data/__init__.py data/csr.py data/ell.py data/datasets.py data/io.py data/synthetic.py
-data/subgraph.py data/reordering.py data/sampling.py data/minibatch.py
+data/subgraph.py data/reordering.py data/sampling.py data/minibatch.py data/mtx.py
+utils/stats.py
 native/csr_ops.cpp
 """.split()
 
@@ -49,8 +50,12 @@ def test_copied_packages_hold_only_copies(sub):
 
 
 def test_port_imports_no_jax():
-    code = ("import sys, gala_tpu_torch, gala_tpu_torch.api, gala_tpu_torch.lowering.lower, "
-            "gala_tpu_torch.train_minibatch, gala_tpu_torch.__main__; "
+    code = ("import runpy, sys, gala_tpu_torch, gala_tpu_torch.api, "
+            "gala_tpu_torch.lowering.lower, gala_tpu_torch.train_minibatch, "
+            "gala_tpu_torch.__main__, gala_tpu_torch.checkpoint, gala_tpu_torch.resilience, "
+            "gala_tpu_torch.data.mtx, gala_tpu_torch.utils.stats, "
+            "gala_tpu_torch.utils.profiling; "
+            "runpy.run_path('scripts/evaluate_torch.py', run_name='evaluate_torch'); "
             "bad = [m for m in ('jax', 'optax', 'gala_tpu') if m in sys.modules]; "
             "assert not bad, bad")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -68,7 +73,7 @@ def test_no_port_file_imports_jax_or_gala_tpu():
                         bad.append(os.path.join(dirpath, f))
     scripts = [os.path.join("scripts", f) for f in os.listdir(os.path.join(ROOT, "scripts"))
                if "_torch" in f and f.endswith(".py")]
-    assert "scripts/bench_minibatch_torch.py" in scripts
+    assert {"scripts/bench_minibatch_torch.py", "scripts/evaluate_torch.py"} <= set(scripts)
     for path in ["chip_smoke.py", *scripts]:
         with open(os.path.join(ROOT, path)) as fh:
             if pat.search(fh.read()):

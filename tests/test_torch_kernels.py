@@ -686,3 +686,55 @@ def test_spmm_sampled_on_the_card_matches_cpu(cuda, strategy, dtype):
         scale = kernel.bell_spmm_rows_reference(lay_, inp.float().abs(), n_out, w)
         assert results["card"][i].dtype == dtype
         assert _close(results["card"][i], results["cpu"][i], scale)
+
+
+def _compiled_gcn(device, strategy="bell"):
+    """GCN_DSL on the 600-node synthetic graph at `strategy` on `device`."""
+    import gala_tpu_torch
+    from __graft_entry__ import GCN_DSL
+
+    return gala_tpu_torch.compile_source(GCN_DSL, mode="train", strategy=strategy,
+                                         data=_synthetic(tsyn, True), device=device)
+
+
+@pytest.mark.cuda
+def test_pallas_bell_runs_the_bell_kernel_on_the_card(cuda):
+    """strategy='pallas_bell' is 'bell': the same layout, training
+    launches the SpMM kernel and no plain version, and from the same
+    weights its logits are bitwise those of strategy='bell'."""
+    pallas, bell = _compiled_gcn(cuda, "pallas_bell"), _compiled_gcn(cuda, "bell")
+    assert pallas.full_graphs[0].strategy == "bell"
+    assert torch.equal(pallas.full_graphs[0].bell.flat_cols, bell.full_graphs[0].bell.flat_cols)
+    _build.reset_counts()
+    pallas.train(iters=3, warmup=1)
+    torch.cuda.synchronize()
+    assert kernel.counts.launches > 0 and kernel.counts.reference_calls_on_cuda == 0
+    params = pallas.make_params(0)
+    with torch.no_grad():
+        logits = [cm.forward(params, cm.full_graphs, cm.invariant(cm.full_graphs, cm.x))
+                  for cm in (pallas, bell)]
+    assert torch.equal(*logits)
+
+
+@pytest.mark.cuda
+def test_resumed_run_equals_an_unbroken_one_on_the_card(cuda, tmp_path):
+    """10 epochs against 5 with checkpoint_path and 5 with resume_from
+    (valid_step 5 keeps the graph schedule aligned): the losses and the
+    final params agree at rtol 1e-4 (losses) and 1e-3 / atol 1e-5
+    (params), since the row gathers' backward adds with atomics; the
+    SpMM kernel launches in both segments and no plain version runs."""
+    cm = _compiled_gcn(cuda)
+    unbroken = cm.train(iters=10, warmup=1)
+    ck = str(tmp_path / "ck.pt")
+    segments = []
+    for kw in ({"checkpoint_path": ck}, {"resume_from": ck}):
+        _build.reset_counts()
+        segments.append(cm.train(iters=5, warmup=1, **kw))
+        torch.cuda.synchronize()
+        assert kernel.counts.launches > 0 and kernel.counts.reference_calls_on_cuda == 0
+    first, second = segments
+    np.testing.assert_allclose(first.losses + second.losses, unbroken.losses, rtol=1e-4)
+    want = dict(unbroken.params.named_parameters())
+    for name, p in second.params.named_parameters():
+        np.testing.assert_allclose(p.detach().cpu().numpy(), want[name].detach().cpu().numpy(),
+                                   rtol=1e-3, atol=1e-5)

@@ -243,9 +243,10 @@ def test_make_params_draws_the_nn_linear_law(models):
 @pytest.mark.parametrize("what", ["bf16", "int64", "pallas_bell", "attention on dense",
                                   "sampling", "col_tile"])
 def test_unported_options_raise(what, monkeypatch):
-    """Each option not yet ported raises naming its ROADMAP item.  Attention
-    on 'dense' is ported: it builds no attention layout and runs the
-    unfused chain, as gala_tpu does, and its forward matches gala_tpu's
+    """Each of these options once raised, naming its ROADMAP item; each is
+    ported now and held against gala_tpu here.  Attention on 'dense': it
+    builds no attention layout and runs the unfused chain, as gala_tpu
+    does, and its forward matches gala_tpu's
     (the 6-epoch parity is in tests/test_torch_edge.py).  bf16 is ported:
     the features are bf16, the params f32, and the bf16 logits match
     gala_tpu's dtype=jnp.bfloat16 within 4e-2 of the largest (the rest of
@@ -258,7 +259,10 @@ def test_unported_options_raise(what, monkeypatch):
     tests/test_torch_long.py).  col_tile is ported: every layout's units
     lie in one column tile, and the forwards match gala_tpu's with the
     directive forced past its TPU memory gate (tests/test_torch_col_tile.py
-    has the rest)."""
+    has the rest).  pallas_bell is ported as gala_tpu runs it: the bell
+    layout (gala_tpu's Pallas kernels on it are gated off at this size,
+    so its XLA route runs, as its own tests run it on the CPU), and the
+    forwards match gala_tpu's at strategy='pallas_bell'."""
     spec = parse_source(GAT_DSL if what.startswith("attention") else GCN_DSL)
     kw = {"bf16": {"dtype": torch.bfloat16}, "int64": {"use_long": True},
           "pallas_bell": {"strategy": "pallas_bell"},
@@ -319,6 +323,13 @@ def test_unported_options_raise(what, monkeypatch):
                    for g in tcm.full_graphs + tcm.train_graphs)
         _forwards_match(jcm, tcm, jax.device_get(jcm.make_params(0)))
         return
+    if what == "pallas_bell":
+        jcm = gala_tpu.compile_source(GCN_DSL, mode="train", data=_data(jax_dataset), **kw)
+        tcm = gala_tpu_torch.compile_model(spec, data=_data(torch_dataset), device="cpu", **kw)
+        _same_program(jcm, tcm)
+        assert all(g.strategy == "bell" for g in tcm.full_graphs + tcm.train_graphs)
+        _forwards_match(jcm, tcm, jax.device_get(jcm.make_params(0)))
+        return
     if what == "attention on dense":
         jcm = gala_tpu.compile_source(GAT_DSL, mode="train", data=_data(jax_dataset), **kw)
         tcm = gala_tpu_torch.compile_model(spec, data=_data(torch_dataset), device="cpu", **kw)
@@ -331,8 +342,7 @@ def test_unported_options_raise(what, monkeypatch):
                                     jcm.invariant(jcm.full_graphs, jcm.x))
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gala_tpu_torch.compile_model(spec, data=_data(torch_dataset), device="cpu", **kw)
+    raise AssertionError(f"no case for {what!r}")
 
 
 def test_compiled_model_run_prints_the_csv_line(models):
