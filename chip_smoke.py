@@ -254,6 +254,16 @@ just before its run and reads them just after:
             bell rows launch the SpMM and the fused GAT's forward and
             bwd2; the rows well-formed and finite, every job's CSV header
             equal to scripts/evaluate.py's (read from its text).
+36. export      GCN_DSL and the fused GAT_DSL (one head) on bell on the
+            same stand-in: gala_tpu_torch.export.export_compiled on cuda
+            (the kernels as the custom ops of ops.kernels.library), then a
+            fresh python3 loads the artifact (importing no parser, IR,
+            passes or lowering module), its forward bitwise the live
+            cm.forward under the same weights, and replays 20 epochs: the
+            SpMM (GCN), attention forward and bwd2 (GAT) launched there,
+            no plain version on the card, accuracy >= 0.7 / 0.6; export
+            and load seconds, artifact MB, and the replay's train and
+            inference ms/epoch beside the live [train] and [gat] runs'.
 
 Every kernel's bound is the larger of its bytes (each input read once,
 each output written once, in its own dtype) over 3.35 TB/s and its
@@ -568,11 +578,11 @@ def phase_train(gala_tpu_torch, dtype=torch.float32, data=None):
     if g.strategy != "bell" or cm.x.dtype != dtype:
         raise AssertionError(f"strategy {g.strategy}, features {cm.x.dtype}: expected bell, "
                              f"{dtype}")
-    _, launches = _train_checked(tag, cm, 0.7)
+    res, launches = _train_checked(tag, cm, 0.7)
     name = dtype_counts("bell_spmm", dtype).name
     if launches.get(name, 0) <= 0:
         raise AssertionError(f"the main path never launched the {name} kernel")
-    return cm, launches[name]
+    return cm, launches[name], res
 
 
 def phase_kernel(cm, kernel, dtype=torch.float32):
@@ -722,7 +732,7 @@ def phase_gat(gala_tpu_torch, dtype=torch.float32, data=None):
                              "expected bell with the fused attention layout")
     if ops.count("FUSED_ATTENTION") != 2:
         raise AssertionError(f"expected two fused attention ops, program {ops}")
-    _, launches = _train_checked(tag, cm, 0.6)
+    res, launches = _train_checked(tag, cm, 0.6)
     for name in ("attn_fwd", "attn_bwd2"):
         name = dtype_counts(name, dtype).name
         if launches.get(name, 0) <= 0:
@@ -730,7 +740,7 @@ def phase_gat(gala_tpu_torch, dtype=torch.float32, data=None):
     spmm = {k: v for k, v in launches.items() if k.startswith("bell_spmm") and v}
     if spmm:
         raise AssertionError(f"the GAT path launched the bell SpMM: {spmm}")
-    return cm, launches
+    return cm, launches, res
 
 
 def _aggregate_on(device, ab, g, inputs):
@@ -2049,6 +2059,123 @@ def phase_evaluate():
                              f"fused attention's forward and bwd2: {bell}")
     return launches
 
+# The [export] phase's child: a fresh python3 that loads the artifact (no
+# compiler: it checks sys.modules), saves its forward's logits under the
+# artifact's own weights, and replays `iters` epochs with every launch
+# count zeroed just before and read just after.
+_EXPORT_CHILD = """
+import json, sys, time
+import torch
+from gala_tpu_torch.export import load_exported
+from gala_tpu_torch.ops.kernels._build import all_counts, reset_counts
+
+path, logits_path, iters = sys.argv[1], sys.argv[2], int(sys.argv[3])
+t0 = time.perf_counter()
+em = load_exported(path)
+torch.cuda.synchronize()
+load_s = time.perf_counter() - t0
+torch.save(em.forward().detach().cpu(), logits_path)
+reset_counts()
+res = em.train(iters=iters)
+torch.cuda.synchronize()
+counts = all_counts().values()
+print(json.dumps({
+    "load_s": load_s, "device": str(em.device), "train_s": res.total_time,
+    "inference_s": res.inference_time, "max_accuracy": res.max_accuracy, "losses": res.losses,
+    "launches": {c.name: c.launches for c in counts if c.launches},
+    "on_cuda": {c.name: c.reference_calls_on_cuda for c in counts if c.reference_calls_on_cuda},
+    "compiler_modules": sorted(m for m in sys.modules if m.split(".")[:2] in [
+        ["gala_tpu_torch", p] for p in ("dsl", "ir", "passes", "lowering")]),
+    "jax_imported": sorted(m for m in sys.modules
+                           if (m + ".").startswith(("jax.", "gala_tpu."))),
+}))
+"""
+EXPORT_ITERS = 20
+# program, its live phase, that phase's accuracy guard, the kernels its replay must launch
+EXPORT_PROGRAMS = {"gcn": ("GCN_DSL", "train", 0.7, ("bell_spmm",)),
+                   "gat": ("GAT_DSL", "gat", 0.6, ("attn_fwd", "attn_bwd2"))}
+
+
+def phase_export(arxiv, live):
+    """GCN_DSL and the fused GAT_DSL (one head), both on bell, on the Arxiv
+    stand-in: export on cuda, load the artifact in a fresh python3 (which
+    imports no compiler module), its forward under the artifact's weights
+    bitwise the live cm.forward under the same weights (gradients on, as
+    the artifact was traced), then EXPORT_ITERS replayed epochs: the
+    program's kernels launched, no plain version on the card, the [train]
+    and [gat] accuracy guards.  Prints the export and load seconds, the
+    artifact's MB, and the replay's train and inference ms/epoch beside
+    the live `live` runs' ([train], [gat]: warmup 2, training subgraphs
+    between validation epochs; the replay: warmup 5, every epoch on the
+    full graph).  Returns the replays' launches."""
+    import tempfile
+
+    import __graft_entry__
+    import gala_tpu_torch
+    from gala_tpu_torch.export import export_compiled
+
+    launches = {}
+    for name, (dsl, live_tag, min_accuracy, kernels) in EXPORT_PROGRAMS.items():
+        tag = f"export-{name}"
+        cm = gala_tpu_torch.compile_source(getattr(__graft_entry__, dsl), mode="train",
+                                           data=arxiv, device="cuda")
+        g = cm.full_graphs[0]
+        if g.strategy != "bell" or (name == "gat") != (g.attn is not None):
+            raise AssertionError(f"[{tag}] strategy {g.strategy}, attention layout "
+                                 f"{g.attn is not None}")
+        with tempfile.TemporaryDirectory() as tmp:
+            art = os.path.join(tmp, "artifact")
+            t0 = time.perf_counter()
+            export_compiled(cm, art)
+            export_s = time.perf_counter() - t0
+            files = {f: os.path.getsize(os.path.join(art, f)) for f in sorted(os.listdir(art))}
+            logits_path = os.path.join(tmp, "logits.pt")
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-c", _EXPORT_CHILD, art, logits_path,
+                                   str(EXPORT_ITERS)], capture_output=True, text=True,
+                                  timeout=600)
+            child_s = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"[{tag}] the loading process failed:\n{proc.stderr}")
+            out = json.loads(proc.stdout.strip().splitlines()[-1])
+            got = torch.load(logits_path, weights_only=True)
+        with torch.enable_grad():
+            want = cm.forward(cm.make_params(0), cm.full_graphs,
+                              cm.invariant(cm.full_graphs, cm.x)).detach().cpu()
+        same = torch.equal(got, want)
+        res = live[name]
+        print(f"[{tag}] export {export_s:.2f} s, artifact {sum(files.values()) / 1e6:.1f} MB "
+              f"({', '.join(f'{f} {n / 1e6:.1f} MB' for f, n in files.items())}); a fresh "
+              f"python3 on {out['device']}: load {out['load_s']:.2f} s, whole process "
+              f"{child_s:.1f} s; compiler modules imported {out['compiler_modules']}, modules of "
+              f"JAX or its package imported {out['jax_imported']}")
+        print(f"[{tag}] loaded forward {tuple(got.shape)} bitwise the live cm.forward under "
+              f"the same weights: {same}")
+        print(f"[{tag}] replay {EXPORT_ITERS} epochs (warmup 5): train "
+              f"{out['train_s'] * 1e3:.4f} ms/epoch, inference {out['inference_s'] * 1e3:.4f} "
+              f"ms/epoch, max accuracy {out['max_accuracy']:.4f}; live [{live_tag}] (warmup 2): "
+              f"train {res.total_time * 1e3:.4f}, inference "
+              f"{res.inference_time * 1e3:.4f} ms/epoch, max accuracy {res.max_accuracy:.4f}")
+        print(f"[{tag}] replay losses {json.dumps([round(v, 5) for v in out['losses']])}")
+        print(f"[{tag}] kernel launches {json.dumps(out['launches'])}, plain-version calls on "
+              f"cuda {json.dumps(out['on_cuda'])}")
+        _no_plain(tag, out["on_cuda"])
+        if out["compiler_modules"] or out["jax_imported"] or out["device"] != "cuda":
+            raise AssertionError(f"[{tag}] the loader imported {out['compiler_modules']} "
+                                 f"(jax: {out['jax_imported']}) on {out['device']}")
+        if not same:
+            raise AssertionError(f"[{tag}] the loaded forward differs from the live one: max "
+                                 f"{(got - want).abs().max().item():.3e}")
+        missing = [k for k in kernels if out["launches"].get(k, 0) <= 0]
+        if missing:
+            raise AssertionError(f"[{tag}] the replay never launched {missing}")
+        if not all(math.isfinite(v) for v in out["losses"]) or out["max_accuracy"] < min_accuracy:
+            raise AssertionError(f"[{tag}] losses {out['losses']}, max accuracy "
+                                 f"{out['max_accuracy']} < {min_accuracy}")
+        launches[name] = out["launches"]
+        del cm
+    return launches
+
 
 def kernel_rows(r, dtype, f32=None) -> list:
     """The kernels' line entries of one dtype's phases (`r`: their results;
@@ -2107,7 +2234,7 @@ def kernel_rows(r, dtype, f32=None) -> list:
             "path_launches": {f"gat{bf}": r["gat_launches"].get(f"{name}{sfx}", 0),
                               **{p: n.get(f"{name}{sfx}", 0)
                                  for p, n in r.get("paths", {}).items()
-                                 if p.startswith("evaluate")}},
+                                 if p.startswith(("evaluate", "export"))}},
         }, lambda f, name=name: f["attn_timings"][(name, 32)][0]))
     if "csr_compile_s" in r:
         rows[0]["compile_s_by_native_sort"] = r["csr_compile_s"]
@@ -2226,10 +2353,10 @@ def main() -> int:
         return out
 
     r = {}  # each dtype's results, for the kernels' line
-    cm, r["launches"] = timed("train", phase_train, gala_tpu_torch)
+    cm, r["launches"], live_gcn = timed("train", phase_train, gala_tpu_torch)
     r["max_err"], r["timings"] = timed("kernel", phase_kernel, cm, kernel)
     del cm
-    gat, r["gat_launches"] = timed("gat", phase_gat, gala_tpu_torch)
+    gat, r["gat_launches"], live_gat = timed("gat", phase_gat, gala_tpu_torch)
     before = {name: c.launches for name, c in all_counts().items()}
     r["attn_err"], r["attn_timings"] = timed("attn-kernel", phase_attn_kernel, gat, ak)
     r["phase_launches"] = {name: c.launches - before.get(name, 0)
@@ -2267,10 +2394,10 @@ def main() -> int:
     # bf16 activations with f32 params (dtype=torch.bfloat16) on the same
     # stand-in, loaded once above: the bf16 forms of the kernels
     b = {}
-    cm, b["launches"] = timed("train-bf16", phase_train, gala_tpu_torch, BF16, arxiv)
+    cm, b["launches"], _ = timed("train-bf16", phase_train, gala_tpu_torch, BF16, arxiv)
     b["max_err"], b["timings"] = timed("kernel-bf16", phase_kernel, cm, kernel, BF16)
     del cm
-    gat, b["gat_launches"] = timed("gat-bf16", phase_gat, gala_tpu_torch, BF16, arxiv)
+    gat, b["gat_launches"], _ = timed("gat-bf16", phase_gat, gala_tpu_torch, BF16, arxiv)
     before = {name: c.launches for name, c in all_counts().items()}
     b["attn_err"], b["attn_timings"] = timed("attn-kernel-bf16", phase_attn_kernel, gat, ak,
                                              BF16)
@@ -2298,6 +2425,9 @@ def main() -> int:
     del gcn
     evaluate = timed("evaluate", phase_evaluate)
     r["paths"].update({f"evaluate-{k}": v for k, v in evaluate.items()})
+    # export: the artifact written here, loaded and replayed in a fresh process
+    exported = timed("export", phase_export, arxiv, {"gcn": live_gcn, "gat": live_gat})
+    r["paths"].update({f"export-{k}": v for k, v in exported.items()})
 
     kernels = kernel_rows(r, torch.float32) + kernel_rows(b, BF16, f32=r)
     t = r["dyn_times"]

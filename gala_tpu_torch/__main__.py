@@ -13,12 +13,21 @@ on the card unless `--device cpu` is given.  Sampling needs no flag: a
 program's `G=G.sample(k);`, `aggrFn=aggrFn.sample(k);` or
 `aggrFn=aggrFn.sample(k).dynamic();` line selects it, and column tiling
 a `G=G.col_tile(T);` line.  `inference_long` is `inference` with int64
-edge ids (lower(use_long=True)); torch needs no x64 switch.  `export` /
-`run_exported` are not ported yet and raise, naming their ROADMAP item.
+edge ids (lower(use_long=True)); torch needs no x64 switch.
+
+    python -m gala_tpu_torch export model.txt [-o DIR] [--platforms cuda cpu]
+    python -m gala_tpu_torch run_exported DIR [--iters N]
+
+`export` compiles with the training passes and writes the artifact
+(gala_tpu_torch.export; DIR defaults to <model>_exported) for the
+`--device`'s type unless `--platforms` names others, and prints DIR;
+`run_exported` loads it on `--device`, with no parser, IR or passes,
+and prints the CSV line of its replayed training.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -29,7 +38,10 @@ COMMANDS = ("inference", "inference_long", "inference_sample", "train", "train_m
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="gala_tpu_torch")
     ap.add_argument("command", choices=COMMANDS)
-    ap.add_argument("model", help="GALA DSL program (.txt)")
+    ap.add_argument("model", help="GALA DSL program (.txt); artifact directory for run_exported")
+    ap.add_argument("-o", "--out", default=None, help="export: artifact output directory")
+    ap.add_argument("--platforms", nargs="+", default=None,
+                    help="export: devices the artifact is exported for (default: --device's)")
     ap.add_argument("--iters", type=int, default=None)
     ap.add_argument("--data-root", default=None, help="GALA npy dataset root")
     ap.add_argument("--scale", type=float, default=1.0,
@@ -42,14 +54,19 @@ def main(argv=None) -> None:
 
     import torch
 
-    from gala_tpu_torch.api import compile_file
-    from gala_tpu_torch.ops.graph import not_ported
+    if args.command == "run_exported":
+        # replay an artifact: no parser, IR or passes (the analog of
+        # re-running the reference's built ./gala_model)
+        from gala_tpu_torch.export import load_exported
 
-    if args.command in ("export", "run_exported"):
-        raise not_ported(f"the {args.command} subcommand", "ROADMAP Queue 1 item 11")
+        print(load_exported(args.model, device=args.device).run(iters=args.iters))
+        return
+
+    from gala_tpu_torch.api import compile_file
 
     t0 = time.perf_counter()
-    mode = "train" if args.command.startswith("train") else "inference"
+    # export writes the forward the training step runs: the train passes
+    mode = "train" if args.command.startswith("train") or args.command == "export" else "inference"
     dtype = {None: None, "bf16": torch.bfloat16, "f32": torch.float32}[args.dtype]
     cm = compile_file(
         args.model,
@@ -69,6 +86,13 @@ def main(argv=None) -> None:
         cm.spec.print_memory = True
     print(f"# GALA compile: {time.perf_counter() - t0:.2f}s "
           f"(reference prints 'Time taken for GALA compilation')", file=sys.stderr)
+    if args.command == "export":
+        from gala_tpu_torch.export import export_compiled
+
+        out = args.out or os.path.splitext(args.model)[0] + "_exported"
+        platforms = args.platforms or [torch.device(args.device).type]
+        print(export_compiled(cm, out, platforms=tuple(platforms)))
+        return
     print(cm.run(iters=args.iters))
 
 

@@ -21,7 +21,9 @@ sds = <dout, out> and dvr = (1 - slope)(<dout, out+> - sds s+) from
 node-sized tensors, then runs one sweep over the transpose layout
 (gala_tpu's `_attn_bwd_pass2`).  The sweeps are the kernels of
 ops.kernels.attn_bell (fwd and bwd2; bwd1 is gala_tpu's pass 1, which
-this identity replaces).
+this identity replaces), reached through the custom op
+`gala_tpu_torch::attn_fwd`, whose registered gradient calls
+`gala_tpu_torch::attn_bwd2` (ops.kernels.library).
 
 bf16 activations, as gala_tpu runs them: x, vl and vr enter the kernels
 in x's dtype (vl and vr cast to it, as gala_tpu stages vl.astype(x.dtype)
@@ -39,9 +41,8 @@ import torch
 
 from gala_tpu_torch.data.csr import HostCSR
 from gala_tpu_torch.data.ell import build_binned_ell
-from gala_tpu_torch.ops.graph import BellDev
-from gala_tpu_torch.ops.kernels._build import wide
-from gala_tpu_torch.ops.kernels.attn_bell import attn_bwd2, attn_fwd, per_head_dot
+from gala_tpu_torch.ops.graph import BellDev, moved
+from gala_tpu_torch.ops.kernels import library
 
 
 # --------------------------------------------------------------------------- #
@@ -90,37 +91,14 @@ class AttnBell:
             t=BellDev.from_host(hbt, c_pad, g.n_cols, device, col_tile),
         )
 
+    def to(self, device, memo: dict | None = None) -> "AttnBell":
+        memo = {} if memo is None else memo
+        return AttnBell(fwd=moved(self.fwd, device, memo), t=moved(self.t, device, memo))
+
 
 # --------------------------------------------------------------------------- #
 # device op
 # --------------------------------------------------------------------------- #
-class AttentionAggregate(torch.autograd.Function):
-    """out = attention aggregation; the gradient of (x, vl, vr) by the
-    flash identity and the bwd2 sweep on the transpose layout."""
-
-    @staticmethod
-    def forward(ctx, x, vl, vr, ab: AttnBell, n_pad: int, c_pad: int, slope: float,
-                flash: bool):
-        out, m, s, outpos, spos = attn_fwd(ab.fwd, x, vl, vr, slope, n_pad, flash)
-        if flash:
-            ctx.save_for_backward(x, vl, vr, m, s, out, outpos, spos)
-            ctx.ab, ctx.c_pad, ctx.slope = ab, c_pad, slope
-        return out.to(x.dtype)
-
-    @staticmethod
-    def backward(ctx, dout):
-        x, vl, vr, m, s, out, outpos, spos = ctx.saved_tensors
-        dout = wide(dout)
-        nh = vl.shape[1]
-        sds = per_head_dot(dout, out, nh)
-        dvr = (1.0 - ctx.slope) * (per_head_dot(dout, outpos, nh) - sds * spos)
-        w_tab = torch.cat([dout, wide(vr), m, s, sds], dim=1)
-        dxx = attn_bwd2(ctx.ab.t, x, vl, w_tab, ctx.slope, ctx.c_pad)
-        hf = x.shape[1]
-        return (dxx[:, :hf].to(x.dtype), dxx[:, hf:].to(vl.dtype), dvr.to(vr.dtype),
-                None, None, None, None, None)
-
-
 def attention_aggregate(n_pad: int, c_pad: int, slope: float, ab: AttnBell,
                         x: torch.Tensor, vl: torch.Tensor, vr: torch.Tensor) -> torch.Tensor:
     """Softmax-attention aggregation, H heads in one sweep (gala_tpu's
@@ -132,5 +110,5 @@ def attention_aggregate(n_pad: int, c_pad: int, slope: float, ab: AttnBell,
     (they double the weighted reduce)."""
     flash = torch.is_grad_enabled() and any(t.requires_grad for t in (x, vl, vr))
     vl, vr = (t.to(x.dtype).contiguous() for t in (vl, vr))
-    return AttentionAggregate.apply(x.contiguous(), vl, vr, ab, n_pad, c_pad, float(slope),
-                                    flash)
+    out = library.attention(x.contiguous(), vl, vr, ab, n_pad, c_pad, float(slope), flash)
+    return out.to(x.dtype)

@@ -80,16 +80,49 @@ _INT32_MAX = 2**31 - 1
 UNIT_SLOTS = 128
 
 
-def not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported to gala_tpu_torch yet: {item}")
-
-
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
 def _put(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def moved(obj, device, memo: dict | None = None):
+    """`obj` (a tensor, a layout dataclass of this module, or a tuple or
+    list of them) with every tensor on `device`.  Each object is moved
+    once (`memo`, by identity), so what two fields share stays shared:
+    t_bell aliasing bell, the one Graph of every layer."""
+    memo = {} if memo is None else memo
+    if id(obj) in memo:
+        return memo[id(obj)]
+    if isinstance(obj, torch.Tensor):
+        out = obj.to(device)
+    elif isinstance(obj, (tuple, list)):
+        out = type(obj)(moved(v, device, memo) for v in obj)
+    elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        out = obj.to(device, memo)
+    else:
+        return obj
+    memo[id(obj)] = out
+    return out
+
+
+def _moved_fields(obj, to, memo, **fixed):
+    """dataclasses.replace of `obj` with every field moved to `to`, but `fixed`."""
+    return dataclasses.replace(obj, **{f.name: moved(getattr(obj, f.name), to, memo)
+                                       for f in dataclasses.fields(obj) if f.name not in fixed},
+                               **fixed)
+
+
+def bin_views(flat_vals: torch.Tensor, bin_ks, bin_counts, n_big: int, big_k: int):
+    """(bin_vals, big_vals) of a binned layout: each bin's (n_b, k_b) view
+    of flat_vals, then the hubs' (Vb, big_k) view (None without hubs)."""
+    views, off = [], 0
+    for k, nb in zip(bin_ks, bin_counts):
+        views.append(flat_vals[off : off + nb * k].view(nb, k))
+        off += nb * k
+    return tuple(views), flat_vals[off:].view(-1, big_k) if n_big else None
 
 
 @dataclasses.dataclass
@@ -126,6 +159,9 @@ class WorkUnits:
         t = work_unit_tables(row_start, row_len, row_node, cols, col_tile)
         return cls(**{k: _put(v, device) for k, v in t.items()},
                    n_units=t["start"].shape[0], n_partials=int(t["split_count"].sum()))
+
+    def to(self, device, memo: dict | None = None) -> "WorkUnits":
+        return _moved_fields(self, device, {} if memo is None else memo)
 
 
 def _row_slots(row_start, row_len):
@@ -323,16 +359,13 @@ class BellDev:
         if order is not None:
             cols, vals = cols[order], vals[order]
         flat_vals = put(vals)
-        bin_vals, off = [], 0
-        for k, nb in zip(hb.bin_ks, hb.bin_counts):
-            bin_vals.append(flat_vals[off : off + nb * k].view(nb, k))
-            off += nb * k
-        big_vals = flat_vals[off:].view(-1, hb.big_vals.shape[1]) if hb.n_big else None
+        bin_vals, big_vals = bin_views(flat_vals, hb.bin_ks, hb.bin_counts, hb.n_big,
+                                       hb.big_vals.shape[1] if hb.n_big else 0)
 
         return cls(
             flat_cols=put(cols),
             flat_vals=flat_vals,
-            bin_vals=tuple(bin_vals),
+            bin_vals=bin_vals,
             big_vals=big_vals,
             big_vrow=put(hb.big_vrow) if hb.big_vrow is not None else None,
             diag=diag,
@@ -348,6 +381,16 @@ class BellDev:
             n_src=int(hb.flat_cols.max()) + 1 if hb.flat_cols.size else 0,
             slot_order=order,
         )
+
+    def to(self, device, memo: dict | None = None) -> "BellDev":
+        """The layout on `device`; bin_vals and big_vals stay views of the
+        moved flat_vals."""
+        memo = {} if memo is None else memo
+        vals = moved(self.flat_vals, device, memo)
+        big_k = self.big_vals.shape[1] if self.n_big else 0
+        bin_vals, big_vals = bin_views(vals, self.bin_ks, self.bin_counts, self.n_big, big_k)
+        return _moved_fields(self, device, memo, flat_vals=vals, bin_vals=bin_vals,
+                             big_vals=big_vals)
 
 
 def _row_descriptors(hb):
@@ -396,6 +439,9 @@ class SlotRows:
 
     diag = None                      # the kernels' BellDev fields with no counterpart
     out_index = None
+
+    def to(self, device, memo: dict | None = None) -> "SlotRows":
+        return _moved_fields(self, device, {} if memo is None else memo)
 
     def slot_values(self, evals: torch.Tensor) -> torch.Tensor:
         """Per-edge values (E_pad,) -> per-slot values (S,)."""
@@ -481,6 +527,9 @@ class DynSlots:
 
     deg: torch.Tensor    # (S,) int32
     pos: torch.Tensor    # (S,) int32
+
+    def to(self, device, memo: dict | None = None) -> "DynSlots":
+        return _moved_fields(self, device, {} if memo is None else memo)
 
     @classmethod
     def from_bell(cls, hb, deg_full: np.ndarray, device,
@@ -738,6 +787,11 @@ class Graph:
             strategy=strategy,
             device=device,
         )
+
+    def to(self, device, memo: dict | None = None) -> "Graph":
+        """The graph with every layout on `device` (ops.graph.moved)."""
+        device = torch.device(device)
+        return _moved_fields(self, device, {} if memo is None else memo, device=device)
 
     def pad_nodes(self, x: np.ndarray) -> torch.Tensor:
         """Pad a host (N, ...) node array to (n_pad, ...) on the device."""

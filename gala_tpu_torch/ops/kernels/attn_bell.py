@@ -28,11 +28,13 @@ is f32 at both types, as gala_tpu keeps it: m, s, the outputs, the
 partials and merges, bwd2's [dout | vr | m | s | sds] table.  The plain
 versions compute in f32 from the same values.
 
-Dispatch: a CPU tensor runs the plain version; a CUDA tensor runs the
-kernel or raises (no fallback).  `counts_for(name)` records launches and
-plain-version calls on CUDA tensors for `attn_fwd`, `attn_bwd1` and
-`attn_bwd2` (bf16 launches under `attn_fwd_bf16` and so on,
-`_build.dtype_counts`).
+Dispatch (the wrappers, and for the forward and bwd2 the custom ops
+`gala_tpu_torch::attn_fwd` and `::attn_bwd2` of ops.kernels.library
+through torch's dispatcher): a CPU tensor runs the plain version; a
+CUDA tensor runs the kernel or raises (no fallback).
+`counts_for(name)` records launches and plain-version calls on CUDA
+tensors for `attn_fwd`, `attn_bwd1` and `attn_bwd2` (bf16 launches under
+`attn_fwd_bf16` and so on, `_build.dtype_counts`).
 
 The plain versions work slot by slot (one entry per slot of the flat
 layout, a row's max by scatter_reduce and its sums by index_add_), so
@@ -415,17 +417,28 @@ def _ptr(t):
     return t.data_ptr() if t is not None else None
 
 
-def attn_fwd(lay, x, vl, vr, slope: float, n_pad: int, flash: bool):
-    """Attention forward on a fwd layout (see attn_fwd_reference): the
-    kernel on CUDA tensors, the plain version on CPU tensors.  x, vl and
-    vr share one dtype; every output is f32."""
+def _check_fwd(lay, x, vl, vr, n_pad: int) -> None:
     _check(lay, x, vl, {"vr": vr}, n_pad)
     if x.shape[0] < lay.n_src or vr.shape != (n_pad, vl.shape[1]):
         raise ValueError(f"x needs >= {lay.n_src} rows (has {x.shape[0]}) and vr "
                          f"({n_pad}, {vl.shape[1]}) (is {tuple(vr.shape)})")
+
+
+def attn_fwd(lay, x, vl, vr, slope: float, n_pad: int, flash: bool):
+    """Attention forward on a fwd layout (see attn_fwd_reference): the
+    kernel on CUDA tensors, the plain version on CPU tensors.  x, vl and
+    vr share one dtype; every output is f32.  The direct binding; the
+    custom op `gala_tpu_torch::attn_fwd` (ops.kernels.library) runs the
+    same two functions."""
+    _check_fwd(lay, x, vl, vr, n_pad)
     if x.device.type == "cpu":
         return attn_fwd_reference(lay, x, vl, vr, slope, n_pad, flash)
     _cuda_only(x, "attn_fwd")
+    return attn_fwd_cuda(lay, x, vl, vr, slope, n_pad, flash)
+
+
+def attn_fwd_cuda(lay, x, vl, vr, slope: float, n_pad: int, flash: bool):
+    """The forward kernel on CUDA tensors (arguments as checked by attn_fwd)."""
     hf, nh = x.shape[1], vl.shape[1]
     out = torch.zeros((n_pad, hf), dtype=torch.float32, device=x.device)
     m = torch.zeros((n_pad, nh), dtype=torch.float32, device=x.device)
@@ -472,19 +485,31 @@ def attn_bwd1(lay, x, vl, vr, dout, m, s, slope: float):
     return out[:, :nh], out[:, nh : 2 * nh], out[:, 2 * nh :]
 
 
-def attn_bwd2(lay, x, vl, w_tab, slope: float, c_pad: int):
-    """Backward pass 2 on a transpose layout (see attn_bwd2_reference):
-    returns [dx | dvl] (c_pad, hf + H), f32.  x and vl share one dtype;
-    w_tab is f32."""
+def _check_bwd2(lay, x, vl, w_tab, c_pad: int) -> None:
     _check(lay, x, vl, {"w_tab": w_tab}, c_pad, f32=("w_tab",))
     hf, nh = x.shape[1], vl.shape[1]
     if w_tab.shape[1] != hf + 4 * nh or w_tab.shape[0] < lay.n_src:
         raise ValueError(f"w_tab {tuple(w_tab.shape)} must be (>= {lay.n_src}, {hf + 4 * nh})")
     if x.shape[0] < lay.n_real:
         raise ValueError(f"x has {x.shape[0]} rows, the layout has {lay.n_real} source rows")
+
+
+def attn_bwd2(lay, x, vl, w_tab, slope: float, c_pad: int):
+    """Backward pass 2 on a transpose layout (see attn_bwd2_reference):
+    returns [dx | dvl] (c_pad, hf + H), f32.  x and vl share one dtype;
+    w_tab is f32.  The direct binding; the custom op
+    `gala_tpu_torch::attn_bwd2` (ops.kernels.library) runs the same two
+    functions."""
+    _check_bwd2(lay, x, vl, w_tab, c_pad)
     if x.device.type == "cpu":
         return attn_bwd2_reference(lay, x, vl, w_tab, slope, c_pad)
     _cuda_only(x, "attn_bwd2")
+    return attn_bwd2_cuda(lay, x, vl, w_tab, slope, c_pad)
+
+
+def attn_bwd2_cuda(lay, x, vl, w_tab, slope: float, c_pad: int):
+    """The bwd2 kernel on CUDA tensors (arguments as checked by attn_bwd2)."""
+    hf, nh = x.shape[1], vl.shape[1]
     out = torch.zeros((c_pad, hf + nh), dtype=torch.float32, device=x.device)
     u = lay.units
     # the split rows' partial [dx | dvl] rows

@@ -29,10 +29,12 @@ from the bf16 values and round the result once, so the tests hold the
 kernel to an oracle that accumulates as gala_tpu's bf16 einsums do
 (preferred_element_type=f32), not to bf16 adds.
 
-Dispatch (`bell_spmm`): a CPU tensor runs a plain version, the
-bin-by-bin `bell_spmm_reference` for a binned layout with its own values
-and the slot-by-slot `bell_spmm_rows_reference` for every other call; a
-CUDA tensor runs the kernel or raises (no fallback).  `counts` records
+Dispatch (`bell_spmm`, and the custom op `gala_tpu_torch::bell_spmm`
+of ops.kernels.library through torch's dispatcher): a CPU tensor runs
+`bell_spmm_plain`, the bin-by-bin `bell_spmm_reference` for a binned
+layout with its own values and the slot-by-slot
+`bell_spmm_rows_reference` for every other call; a CUDA tensor runs
+`bell_spmm_cuda`, the kernel, or raises (no fallback).  `counts` records
 kernel calls (one per product, both passes) and plain-version calls on
 CUDA tensors, so a run can show that its aggregations went through the
 kernel (bf16 launches under "bell_spmm_bf16", `_build.dtype_counts`).
@@ -219,19 +221,19 @@ def _check(bell, x: torch.Tensor, n_out_pad: int, vals: torch.Tensor | None) -> 
             raise ValueError(f"slot values on {vals.device}, features on {x.device}")
 
 
-def bell_spmm(bell, x: torch.Tensor, n_out_pad: int,
-              vals: torch.Tensor | None = None) -> torch.Tensor:
-    """out = A @ x on a row-descriptor layout (ops.graph.BellDev or
-    SlotRows), A's values the layout's flat_vals or, when given, `vals`
-    (one f32 per slot): the kernel on a CUDA tensor, a plain version on a
-    CPU tensor.  The result has x's dtype (float32 or bfloat16)."""
-    _check(bell, x, n_out_pad, vals)
-    if x.device.type == "cpu":
-        if vals is None and isinstance(bell, BellDev):
-            return bell_spmm_reference(bell, x, n_out_pad)
-        return bell_spmm_rows_reference(bell, x, n_out_pad, vals)
-    if x.device.type != "cuda":
-        raise ValueError(f"bell_spmm runs on cpu or cuda tensors, got {x.device}")
+def bell_spmm_plain(bell, x: torch.Tensor, n_out_pad: int,
+                    vals: torch.Tensor | None = None) -> torch.Tensor:
+    """The plain version a CPU tensor runs: bin by bin for a binned layout
+    with its own values, slot by slot for every other call."""
+    if vals is None and isinstance(bell, BellDev):
+        return bell_spmm_reference(bell, x, n_out_pad)
+    return bell_spmm_rows_reference(bell, x, n_out_pad, vals)
+
+
+def bell_spmm_cuda(bell, x: torch.Tensor, n_out_pad: int,
+                   vals: torch.Tensor | None = None) -> torch.Tensor:
+    """The kernel on a CUDA tensor (arguments as checked by bell_spmm);
+    raises when the library cannot be built or the launch fails."""
     fn = getattr(build().lib, f"gala_bell_spmm_{DTYPES[x.dtype]}")
     f = x.shape[1]
     out = torch.zeros((n_out_pad, f), dtype=x.dtype, device=x.device)
@@ -256,3 +258,19 @@ def bell_spmm(bell, x: torch.Tensor, n_out_pad: int,
         raise RuntimeError(f"bell_spmm kernel launch failed with CUDA error {err}")
     dtype_counts("bell_spmm", x.dtype).launches += 1
     return out
+
+
+def bell_spmm(bell, x: torch.Tensor, n_out_pad: int,
+              vals: torch.Tensor | None = None) -> torch.Tensor:
+    """out = A @ x on a row-descriptor layout (ops.graph.BellDev or
+    SlotRows), A's values the layout's flat_vals or, when given, `vals`
+    (one f32 per slot): the kernel on a CUDA tensor, a plain version on a
+    CPU tensor.  The result has x's dtype (float32 or bfloat16).  The
+    direct binding; the custom op `gala_tpu_torch::bell_spmm`
+    (ops.kernels.library) runs the same two functions."""
+    _check(bell, x, n_out_pad, vals)
+    if x.device.type == "cpu":
+        return bell_spmm_plain(bell, x, n_out_pad, vals)
+    if x.device.type != "cuda":
+        raise ValueError(f"bell_spmm runs on cpu or cuda tensors, got {x.device}")
+    return bell_spmm_cuda(bell, x, n_out_pad, vals)

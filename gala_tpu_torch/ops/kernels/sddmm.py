@@ -22,8 +22,10 @@ on the H100.  Built like the other kernels: nvcc for sm_90a into a
 plain-C shared library in `gala_tpu_torch/_build/` (git-ignored) at
 first use, loaded with ctypes by `ops.kernels._build.build_library`.
 
-Dispatch (`sddmm`): a CPU tensor runs `sddmm_reference`; a CUDA tensor
-runs the kernel or raises (no fallback).  `counts` records kernel
+Dispatch (`sddmm`, and the custom op `gala_tpu_torch::sddmm` of
+ops.kernels.library through torch's dispatcher): a CPU tensor runs
+`sddmm_reference`; a CUDA tensor runs `sddmm_cuda`, the kernel, or
+raises (no fallback).  `counts` records kernel
 launches and plain-version calls on CUDA tensors (bf16 launches under
 "sddmm_bf16", `_build.dtype_counts`).
 """
@@ -80,17 +82,10 @@ def _check(src, dst, a, b) -> None:
         raise ValueError(f"sddmm operands on several devices: {sorted(map(str, devices))}")
 
 
-def sddmm(src: torch.Tensor, dst: torch.Tensor, a: torch.Tensor,
-          b: torch.Tensor) -> torch.Tensor:
-    """out[e] = <a[src[e]], b[dst[e]]>, (E,) in the operands' dtype: the
-    kernel on CUDA tensors, the plain version on CPU tensors.  Every src must be a row of
-    a and every dst a row of b (a Graph's padded edge lists are, for
-    (c_pad, F) and (n_pad, F) operands); the kernel does not check."""
-    _check(src, dst, a, b)
-    if a.device.type == "cpu":
-        return sddmm_reference(src, dst, a, b)
-    if a.device.type != "cuda":
-        raise ValueError(f"sddmm runs on cpu or cuda tensors, got {a.device}")
+def sddmm_cuda(src: torch.Tensor, dst: torch.Tensor, a: torch.Tensor,
+               b: torch.Tensor) -> torch.Tensor:
+    """The kernel on CUDA tensors (arguments as checked by sddmm); raises
+    when the library cannot be built or the launch fails."""
     fn = getattr(build().lib, f"gala_sddmm_{DTYPES[a.dtype]}")
     n_edges, f = src.shape[0], a.shape[1]
     if f == 0:
@@ -108,3 +103,19 @@ def sddmm(src: torch.Tensor, dst: torch.Tensor, a: torch.Tensor,
         raise RuntimeError(f"sddmm kernel launch failed with CUDA error {err}")
     dtype_counts("sddmm", a.dtype).launches += 1
     return out
+
+
+def sddmm(src: torch.Tensor, dst: torch.Tensor, a: torch.Tensor,
+          b: torch.Tensor) -> torch.Tensor:
+    """out[e] = <a[src[e]], b[dst[e]]>, (E,) in the operands' dtype: the
+    kernel on CUDA tensors, the plain version on CPU tensors.  Every src must be a row of
+    a and every dst a row of b (a Graph's padded edge lists are, for
+    (c_pad, F) and (n_pad, F) operands); the kernel does not check.  The
+    direct binding; the custom op `gala_tpu_torch::sddmm`
+    (ops.kernels.library) runs the same two functions."""
+    _check(src, dst, a, b)
+    if a.device.type == "cpu":
+        return sddmm_reference(src, dst, a, b)
+    if a.device.type != "cuda":
+        raise ValueError(f"sddmm runs on cpu or cuda tensors, got {a.device}")
+    return sddmm_cuda(src, dst, a, b)

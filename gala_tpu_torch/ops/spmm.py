@@ -5,12 +5,12 @@ Semantics:  out[d] = sum over edges e with dst[e]==d of vals[e] * x[src[e]]
 
 - dense: `a_dense @ x` (a plain matrix product, left to torch.matmul as
   gala_tpu left it to XLA).
-- bell, ell, segment(_scan): `BellSpmm`, an autograd Function whose
-  forward runs the SpMM on the layout and whose backward runs the same op
-  on the transpose layout (dx = A^T dz), as gala_tpu's `_spmm_bell`,
-  `_spmm_ell` and `_spmm_seg`.  Every layout is read through its row
-  descriptors by `ops.kernels.bell_spmm.bell_spmm`: the CUDA kernel on the
-  GPU, a plain version on the CPU.
+- bell, ell, segment(_scan): the custom op `gala_tpu_torch::bell_spmm`
+  (ops.kernels.library), whose forward runs the SpMM on the layout and
+  whose registered gradient runs the same op on the transpose layout
+  (dx = A^T dz), as gala_tpu's `_spmm_bell`, `_spmm_ell` and `_spmm_seg`.
+  Every layout is read through its row descriptors by the kernel of
+  ops.kernels.bell_spmm on the GPU, its plain version on the CPU.
 
 Dynamic neighbor sampling (`spmm_sampled`, gala_tpu's spmm_sampled): k
 picks (ra*i + rb) mod deg per row, summed with repetition, are the row's
@@ -21,12 +21,12 @@ with those weights as slot values: on 'bell' times the structural values
 layouts with value 1 (its _spmm_dyn); the backward re-samples the
 transpose rows with the same (ra, rb).  No per-epoch index gather.
 
-Learned edge values (`spmm_ev`, forward edge order) ride the same
-executor as per-slot values (`SlotRows.slot_values`), forward on the
-layout and dx on its transpose; their own gradient is the SDDMM
-`sddmm_edges(src, dst, x, dz)`, the kernel of ops.kernels.sddmm, skipped
-when the values need none (the sparse-rewrite GCN's precomputed
-values).
+Learned edge values (`spmm_ev`, forward edge order; the custom op
+`gala_tpu_torch::spmm_ev`) ride the same executor as per-slot values
+(`SlotRows.slot_values`), forward on the layout and dx on its transpose;
+their own gradient is the SDDMM `sddmm_edges(src, dst, x, dz)`, the op
+`gala_tpu_torch::sddmm` (the kernel of ops.kernels.sddmm), skipped when
+the values need none (the sparse-rewrite GCN's precomputed values).
 
 bf16 activations (gala_tpu's dtype=jnp.bfloat16): x bf16, the output
 bf16.  The kernels read bf16 tables and accumulate in f32; structural and
@@ -41,37 +41,13 @@ import torch
 
 from gala_tpu_torch.models.common import full_precision_matmuls
 from gala_tpu_torch.ops.graph import Graph
+from gala_tpu_torch.ops.kernels import library
 from gala_tpu_torch.ops.kernels.bell_spmm import bell_spmm, bell_spmm_reference
 from gala_tpu_torch.ops.kernels.dyn_weights import dyn_weights
-from gala_tpu_torch.ops.kernels.sddmm import sddmm
+from gala_tpu_torch.ops.kernels.library import sddmm_edges
 
-__all__ = ["BellSpmm", "SampledSpmm", "bell_spmm_reference", "degrees", "sddmm_edges", "spmm",
+__all__ = ["SampledSpmm", "bell_spmm_reference", "degrees", "sddmm_edges", "spmm",
            "spmm_direct", "spmm_ev", "spmm_sampled"]
-
-
-def sddmm_edges(src: torch.Tensor, dst: torch.Tensor, a: torch.Tensor,
-                b: torch.Tensor) -> torch.Tensor:
-    """Per-edge dot product <a[src[e]], b[dst[e]]> (gala_tpu's
-    sddmm_edges), in the operands' promoted dtype: the kernel on CUDA
-    tensors, the plain version on CPU."""
-    dtype = torch.promote_types(a.dtype, b.dtype)
-    return sddmm(src, dst, a.to(dtype).contiguous(), b.to(dtype).contiguous())
-
-
-class BellSpmm(torch.autograd.Function):
-    """out = A @ x on a row-descriptor layout (`bell`, or an 'ell' or
-    'segment' SlotRows); the gradient is A^T @ dz on its transpose."""
-
-    @staticmethod
-    def forward(ctx, x, bell, t_bell, n_out: int, c_out: int):
-        ctx.t_bell = t_bell
-        ctx.c_out = c_out
-        return bell_spmm(bell, x, n_out)
-
-    @staticmethod
-    def backward(ctx, dz):
-        dx = bell_spmm(ctx.t_bell, dz.contiguous(), ctx.c_out)
-        return dx, None, None, None, None
 
 
 def _sampled_weights(lay, meta, structural: bool, k: int, ra: int, rb: int) -> torch.Tensor:
@@ -95,31 +71,6 @@ class SampledSpmm(torch.autograd.Function):
     def backward(ctx, dz):
         w = _sampled_weights(ctx.t_lay, ctx.t_meta, *ctx.sample)
         return (bell_spmm(ctx.t_lay, dz.contiguous(), ctx.c_out, vals=w),) + (None,) * 10
-
-
-class SlotSpmmEv(torch.autograd.Function):
-    """out = A(evals) @ x on a SlotRows layout, the values placed in its
-    slots by `slot_values` (gala_tpu's `_spmm_ev_ell` / `_spmm_ev_seg`).
-    dx runs the same op on the transpose layout, with the values permuted
-    into its slots; devals is the SDDMM <x[src], dz[dst]> in forward edge
-    order, over the padded edge list."""
-
-    @staticmethod
-    def forward(ctx, evals, x, lay, t_lay, src, dst, n_out: int, c_out: int):
-        ctx.save_for_backward(evals, x)
-        ctx.t_lay, ctx.src, ctx.dst, ctx.c_out = t_lay, src, dst, c_out
-        return bell_spmm(lay, x, n_out, vals=lay.slot_values(evals.float()))
-
-    @staticmethod
-    def backward(ctx, dz):
-        evals, x = ctx.saved_tensors
-        dz = dz.contiguous()
-        devals = dx = None
-        if ctx.needs_input_grad[0]:
-            devals = sddmm_edges(ctx.src, ctx.dst, x, dz).to(evals.dtype)
-        if ctx.needs_input_grad[1]:
-            dx = bell_spmm(ctx.t_lay, dz, ctx.c_out, vals=ctx.t_lay.slot_values(evals.float()))
-        return devals, dx, None, None, None, None, None, None
 
 
 class DenseSpmmEv(torch.autograd.Function):
@@ -160,10 +111,10 @@ def spmm(g: Graph, x: torch.Tensor) -> torch.Tensor:
         full_precision_matmuls()
         return torch.matmul(g.a_dense, x.to(g.a_dense.dtype)).to(x.dtype)
     if g.strategy == "bell":
-        return BellSpmm.apply(x, g.bell, g.t_bell, g.n_pad, g.c_pad)
+        return library.spmm(x, g.bell, g.t_bell, g.n_pad, g.c_pad)
     if g.strategy == "ell":
-        return BellSpmm.apply(x, g.ell, g.t_ell, g.n_pad, g.c_pad)
-    return BellSpmm.apply(x, g.seg, g.t_seg, g.n_pad, g.c_pad)
+        return library.spmm(x, g.ell, g.t_ell, g.n_pad, g.c_pad)
+    return library.spmm(x, g.seg, g.t_seg, g.n_pad, g.c_pad)
 
 
 def spmm_ev(g: Graph, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -180,7 +131,7 @@ def spmm_ev(g: Graph, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     if g.strategy == "dense":
         return DenseSpmmEv.apply(vals, x, g.src, g.dst, g.n_pad, g.c_pad)
     lay, t_lay = (g.ell, g.t_ell) if g.strategy == "ell" else (g.seg, g.t_seg)
-    return SlotSpmmEv.apply(vals.contiguous(), x, lay, t_lay, g.src, g.dst, g.n_pad, g.c_pad)
+    return library.spmm_ev(vals.contiguous(), x, lay, t_lay, g.src, g.dst, g.n_pad, g.c_pad)
 
 
 def spmm_sampled(g: Graph, x: torch.Tensor, k: int, ra: int, rb: int) -> torch.Tensor:

@@ -97,7 +97,7 @@ def device_memory_mb(device) -> float:
     return 0.0
 
 
-def _snapshot(params: nn.Module) -> dict:
+def snapshot_params(params: nn.Module) -> dict:
     """Detached copies of a compiled model's params: the FFNs' {w, b}
     dicts and the bare learned epsilons."""
     return {name: layer.detach().clone() if isinstance(layer, torch.Tensor)
@@ -206,7 +206,7 @@ def train(
         opt.step()
         losses.append(loss.detach())
         if is_valid:
-            snapshots.append((_snapshot(params), extras[epoch]))
+            snapshots.append((snapshot_params(params), extras[epoch]))
     total_time = timer.stop(n=max(iters - warmup, 1))
 
     # ---- inference phase: forward-only epochs, same graph schedule ----- #

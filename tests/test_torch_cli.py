@@ -26,6 +26,7 @@ _SPEC = importlib.util.spec_from_file_location(
 evaluate_torch = importlib.util.module_from_spec(_SPEC)
 _SPEC.loader.exec_module(evaluate_torch)
 GIN = os.path.join(REPO, "examples", "gin.txt")
+GCN = os.path.join(REPO, "examples", "gcn.txt")
 SMALL = ["--scale", "0.005"]  # the Arxiv stand-in at 846 nodes
 
 
@@ -38,11 +39,17 @@ def test_cli_prints_the_csv_line(command, n_fields, capsys):
     assert all(math.isfinite(float(v)) for v in fields)
 
 
-@pytest.mark.parametrize("command,item", [("export", "Queue 1 item 11"),
-                                         ("run_exported", "Queue 1 item 11")])
-def test_cli_unported_commands_raise(command, item):
-    with pytest.raises(NotImplementedError, match=item):
-        main([command, GIN, "--device", "cpu", *SMALL])
+@pytest.mark.parametrize("program", [GIN, GCN])
+def test_cli_export_then_run_exported(program, tmp_path, capsys):
+    """gala_tpu's test_cli_export_and_run: `export` prints the artifact's
+    directory, `run_exported` replays it and prints the CSV line of
+    gala_tpu's shape (two fields for a program without print flags)."""
+    out = str(tmp_path / "artifact")
+    main(["export", program, "-o", out, "--device", "cpu", *SMALL])
+    assert capsys.readouterr().out.strip().splitlines()[-1] == out
+    main(["run_exported", out, "--device", "cpu", "--iters", "7"])
+    fields = capsys.readouterr().out.strip().splitlines()[-1].split(",")
+    assert len(fields) == 2 and all(math.isfinite(float(v)) for v in fields)
 
 
 def test_cli_bf16_raises_as_lower_does(capsys):

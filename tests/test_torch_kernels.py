@@ -160,6 +160,60 @@ def test_kernel_matches_plain_version_on_the_card(cuda, case, f, dtype):
         assert torch.equal(out, kernel.bell_spmm(lay, inp, n_out))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", CASES)
+def test_custom_ops_are_the_direct_launches_on_the_card(cuda, case, dtype):
+    """The custom ops of ops.kernels.library on CUDA tensors, bitwise the
+    direct ctypes launches, one launch a call and no plain version: the
+    SpMM forward and its registered gradient on the transpose, with
+    per-slot values on the ELL layout, the SDDMM, the attention forward
+    (with and without the flash statistics) and bwd2."""
+    from gala_tpu_torch.ops.kernels import library
+
+    host, undirected = torch_case(case)
+    bell = Graph.from_host(host, strategy="bell", undirected=undirected, device=cuda,
+                           attention=True)
+    ell = Graph.from_host(host, strategy="ell", undirected=undirected, device=cuda,
+                          edge_vals=True)
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    _build.reset_counts()
+    x = _randn((bell.c_pad, 32), gen, cuda, dtype).requires_grad_(True)
+    dz = _randn((bell.n_pad, 32), gen, cuda, dtype)
+    out = library.spmm(x, bell.bell, bell.t_bell, bell.n_pad, bell.c_pad)
+    out.backward(dz)
+    assert torch.equal(out, kernel.bell_spmm(bell.bell, x.detach(), bell.n_pad))
+    assert torch.equal(x.grad, kernel.bell_spmm(bell.t_bell, dz, bell.c_pad))
+
+    xe = _randn((ell.c_pad, 40), gen, cuda, dtype)
+    vals = torch.rand(ell.ell.flat_vals.shape, generator=gen, device=cuda)
+    assert torch.equal(library.bell_spmm_op(xe, *library.layout_args(ell.ell), vals, ell.n_pad,
+                                            [], [], 0),
+                       kernel.bell_spmm(ell.ell, xe, ell.n_pad, vals))
+    a, b = _randn((ell.c_pad, 40), gen, cuda, dtype), _randn((ell.n_pad, 40), gen, cuda, dtype)
+    assert torch.equal(library.sddmm_op(ell.src, ell.dst, a, b),
+                       sddmm.sddmm(ell.src, ell.dst, a, b))
+
+    vl, vr = _randn((bell.c_pad, 1), gen, cuda, dtype), _randn((bell.n_pad, 1), gen, cuda, dtype)
+    lay, t_lay = library.layout_args(bell.attn.fwd), library.layout_args(bell.attn.t)
+    for flash in (True, False):
+        got = library.attn_fwd_op(x.detach(), vl, vr, *lay, *t_lay, 0.2, bell.n_pad,
+                                  bell.c_pad, flash)
+        want = attn_bell.attn_fwd(bell.attn.fwd, x.detach(), vl, vr, 0.2, bell.n_pad, flash)
+        assert all(torch.equal(g, w) for g, w in zip(got, want) if w is not None)
+    w_tab = torch.cat([dz.float(), vr.float(), got[1], got[2], dz[:, :1].float()], dim=1)
+    assert torch.equal(library.attn_bwd2_op(x.detach(), vl, w_tab, *t_lay, 0.2, bell.c_pad),
+                       attn_bell.attn_bwd2(bell.attn.t, x.detach(), vl, w_tab, 0.2, bell.c_pad))
+    torch.cuda.synchronize()
+    launches = {n: c.launches for n, c in _build.all_counts().items() if c.launches}
+    on_cuda = {n: c.reference_calls_on_cuda for n, c in _build.all_counts().items()
+               if c.reference_calls_on_cuda}
+    suffix = "" if dtype == torch.float32 else "_bf16"
+    assert launches == {f"bell_spmm{suffix}": 6, f"sddmm{suffix}": 2, f"attn_fwd{suffix}": 4,
+                        f"attn_bwd2{suffix}": 2}
+    assert on_cuda == {}
+
+
 L = UNIT_SLOTS
 LONG_ROWS = [L - 1, L, L + 1, 2 * L, 52 * L]
 
@@ -738,3 +792,24 @@ def test_resumed_run_equals_an_unbroken_one_on_the_card(cuda, tmp_path):
     for name, p in second.params.named_parameters():
         np.testing.assert_allclose(p.detach().cpu().numpy(), want[name].detach().cpu().numpy(),
                                    rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_export_for_the_card_and_the_cpu_from_a_model_on_the_card(cuda, tmp_path):
+    """export_compiled(platforms=("cuda", "cpu")) of a model on the card:
+    the cpu program is exported from the layouts moved to the CPU
+    (ops.graph.moved).  Loaded on each device, the card's forward is
+    bitwise the live one and launches the SpMM; the CPU's runs the plain
+    versions and agrees with it to 1e-4 + 1e-4 |live|."""
+    from gala_tpu_torch.export import export_compiled, load_exported
+
+    cm = _compiled_gcn(cuda)
+    d = export_compiled(cm, str(tmp_path / "artifact"), platforms=("cuda", "cpu"))
+    live = cm.forward(cm.make_params(0), cm.full_graphs, cm.invariant(cm.full_graphs, cm.x))
+    _build.reset_counts()
+    on_card = load_exported(d).forward()
+    torch.cuda.synchronize()
+    assert torch.equal(on_card, live) and kernel.counts.launches > 0
+    on_cpu = load_exported(d, device="cpu").forward()
+    assert on_cpu.device.type == "cpu" and kernel.counts.reference_calls_on_cuda == 0
+    assert (on_cpu - live.cpu()).abs().le(1e-4 + 1e-4 * live.cpu().abs()).all()

@@ -13,7 +13,7 @@ import torch
 from gala_tpu.data.csr import densify
 from gala_tpu.ops.spmm import spmm as jspmm
 from gala_tpu_torch.ops.kernels import bell_spmm as kernel
-from gala_tpu_torch.ops.spmm import BellSpmm, bell_spmm_reference, spmm
+from gala_tpu_torch.ops.spmm import bell_spmm_reference, spmm
 from tests.test_torch_graph import CASES, graph_pair
 
 torch.set_num_threads(2)
@@ -77,7 +77,7 @@ def test_grad_matches_jax_vjp(graphs, jax_results, f):
     _, tg, _, _ = graphs
     x, dz, want = (_cols(jax_results[i], f) for i in (0, 1, 3))
     xt = torch.from_numpy(x).requires_grad_(True)
-    BellSpmm.apply(xt, tg.bell, tg.t_bell, tg.n_pad, tg.c_pad).backward(torch.from_numpy(dz))
+    spmm(tg, xt).backward(torch.from_numpy(dz))
     np.testing.assert_allclose(xt.grad.numpy(), want, **TOL)
 
 
