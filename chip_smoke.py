@@ -265,6 +265,31 @@ just before its run and reads them just after:
             and load seconds, artifact MB, and the replay's train and
             inference ms/epoch beside the live [train] and [gat] runs'.
 
+Then the sharded path (gala_tpu_torch.parallel), on the same stand-in:
+37. spmd        the single-device port's logits, invariant prefix and
+            gradients of sum(logits^2) under make_params(0) for GCN_DSL,
+            GAT_DSL, GCN_DSL + `G = G.is_sparser(true);` and the unfused
+            GAT; [spmd-kernel]: the SpMM (forward, transpose, per-slot
+            values), attention (fwd, bwd1, bwd2) and SDDMM kernels against
+            their plain versions on each of 2 ranks' own layouts (the
+            [local | halo | zero] gather table) of those programs' host
+            graphs (phases 4, 6 and 8's tolerances); then 4 gloo ranks
+            spawned on cuda:0 (NCCL refuses two ranks on one device; gloo
+            takes the CUDA tensors and exchanges through host memory) run
+            shard_compiled(use_bell=True) at 2 shards: [spmd-gcn] 20 epochs
+            (accuracy >= 0.8, bell_spmm on each rank), [spmd-gat] 20
+            epochs (>= 0.7, attn_fwd and attn_bwd2 on each rank), [spmd-ev]
+            the sparse GCN 5 epochs (the learned-value bell SpMM; its
+            precomputed values take no gradient, so no SDDMM), [spmd-ev-gat]
+            the unfused GAT 5 epochs (one SDDMM per learned-value SpMM
+            backward), [spmd-tp] GCN on a 2 x 2 mesh (col/row FFN splits):
+            every run's logits, prefix and gradients within 1e-4 of the
+            largest of the single device's, no plain version on the card,
+            the halo's H and bytes per exchange and each rank's ms/epoch
+            printed (2 ranks on one card: not a scale-out time); then
+            [spmd-nccl], one NCCL rank, GCN 5 epochs, the same checks, and
+            GCN on NCCL over every card where the host has two or more.
+
 Every kernel's bound is the larger of its bytes (each input read once,
 each output written once, in its own dtype) over 3.35 TB/s and its
 operations over 67 TFLOP/s (f32 outside the tensor cores: the bf16
@@ -2177,6 +2202,302 @@ def phase_export(arxiv, live):
     return launches
 
 
+SPMD_WORLD = 4       # gloo ranks spawned for [spmd-gcn/gat/ev/tp], all on cuda:0
+SPMD_SHARDS = 2      # the data axis of every [spmd-*] mesh but [spmd-tp]'s 2 x 2
+SPMD_TOL = 1e-4      # of the largest |value|: logits, invariant prefix, gradients
+SPARSER = "G = G.is_sparser(true);"
+# tag: (DSL of __graft_entry__ + extra line, passes, mesh, epochs, accuracy guard, kernels
+# the run must launch on every rank)
+SPMD_PROGRAMS = {
+    "spmd-gcn": ("GCN_DSL", "", {}, (SPMD_SHARDS, 1), 20, 0.8, ("bell_spmm",)),
+    "spmd-gat": ("GAT_DSL", "", {}, (SPMD_SHARDS, 1), 20, 0.7, ("attn_fwd", "attn_bwd2")),
+    "spmd-ev": ("GCN_DSL", SPARSER, {}, (SPMD_SHARDS, 1), 5, None, ("bell_spmm",)),
+    "spmd-ev-gat": ("GAT_DSL", "", {"attention_fusion": False}, (SPMD_SHARDS, 1), 5, None,
+                    ("bell_spmm", "sddmm")),
+    "spmd-tp": ("GCN_DSL", "", {}, (4, 2), 0, None, ()),
+}
+
+
+def _spmd_source(dsl, extra):
+    import __graft_entry__
+
+    return getattr(__graft_entry__, dsl) + extra
+
+
+def _spmd_reference(tag, source, passes, arxiv):
+    """The single-device port on the card: make_params(0), the invariant
+    prefix, the logits and the gradients of sum(logits[:n]^2), on host."""
+    import gala_tpu_torch
+    from gala_tpu_torch.dsl.parser import parse_source
+    from gala_tpu_torch.weights import params_to_numpy
+
+    spec = parse_source(source)
+    for k, v in passes.items():
+        setattr(spec.passes, k, v)
+    cm = gala_tpu_torch.compile_model(spec, mode="train", data=arxiv, device="cuda")
+    params = cm.make_params(0)
+    with torch.no_grad():
+        carry = cm.invariant(cm.full_graphs, cm.x)
+    logits = cm.forward(params, cm.full_graphs, carry)
+    n = cm.full_graphs[0].n_nodes
+    (logits[:n].float() ** 2).sum().backward()
+    grads = {k: v.grad.cpu().numpy() if isinstance(v, torch.Tensor) else
+             {kk: vv.grad.cpu().numpy() for kk, vv in v.items()} for k, v in params.items()}
+    ref = {"params": params_to_numpy(params), "n": n, "host_graph": cm.host_graph,
+           "carry": [v.cpu().numpy() for _, v in sorted(carry.items())],
+           "logits": logits.detach().cpu().numpy()[:n], "grads": grads}
+    print(f"[{tag}] single-device reference: strategy {cm.full_graphs[0].strategy}, {n} nodes, "
+          f"logits {tuple(logits.shape)}")
+    del cm
+    return ref
+
+
+def _close(tag, what, got, want):
+    """max |got - want| <= SPMD_TOL * max |want|; returns the ratio."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    if got.shape != want.shape:
+        raise AssertionError(f"[{tag}] {what}: shape {got.shape} != {want.shape}")
+    scale = max(float(np.abs(want).max(initial=0.0)), 1e-30)
+    err = float(np.abs(got - want).max(initial=0.0)) / scale
+    if not err <= SPMD_TOL:
+        raise AssertionError(f"[{tag}] {what}: max |sharded - single| = {err:.3e} of the "
+                             f"largest > {SPMD_TOL}")
+    return err
+
+
+def _check_spmd(tag, ranks, ref, n_ranks, min_accuracy, kernels, iters):
+    """The ranks' results against the single-device reference; returns
+    {rank: launches}."""
+    from gala_tpu_torch.parallel import worker
+
+    if sorted(ranks) != list(range(n_ranks)):
+        raise AssertionError(f"[{tag}] results from ranks {sorted(ranks)}, expected {n_ranks}")
+    first = ranks[0]
+    n, r = ref["n"], first["rows_per_shard"]
+    print(f"[{tag}] {n_ranks} rank(s), mesh {first['shape']}, backend {first['backend']}, "
+          f"device {first['device']}, layouts {first['layouts']}, TP plan {first['plan']}; "
+          f"compile + shard {max(x['compile_s'] for x in ranks.values()):.1f} s")
+    by_d = {}
+    for x in ranks.values():
+        by_d.setdefault(x["coords"][0], x)
+    errs = {"logits": _close(tag, "logits", np.concatenate(
+        [by_d[d]["logits"] for d in sorted(by_d)])[:n], ref["logits"])}
+    if len(first["carry"]) != len(ref["carry"]):
+        raise AssertionError(f"[{tag}] invariant prefix of {len(first['carry'])} tensors, "
+                             f"single device {len(ref['carry'])}")
+    for i, want in enumerate(ref["carry"]):
+        if want.ndim == 2:  # node tensors; edge vectors are in another order
+            got = np.concatenate([by_d[d]["carry"][i] for d in sorted(by_d)])
+            errs[f"carry[{i}]"] = _close(tag, f"invariant prefix [{i}]", got[:n], want[:n])
+    if "grads" in first:
+        got = worker.assemble(ranks, "grads")
+        for name, want in ref["grads"].items():
+            for k, w in (want.items() if isinstance(want, dict) else [(None, want)]):
+                g = got[name][k] if k is not None else got[name]
+                errs[f"grad {name}{'.' + k if k else ''}"] = _close(tag, f"gradient {name} {k}",
+                                                                    g, w)
+    print(f"[{tag}] max |sharded - single device| / max |single device|: "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})}")
+    launches = {}
+    label = (f"{n_ranks} ranks on one card, gloo exchange through host memory; not a scale-out "
+             "time" if first["backend"] == "gloo" else f"{n_ranks} NCCL rank(s), a card each")
+    if iters:
+        for rank, x in ranks.items():
+            print(f"[{tag}] rank {rank}: {iters} epochs, train {x['total_time'] * 1e3:.3f} "
+                  f"ms/epoch, inference {x['inference_time'] * 1e3:.3f} ms/epoch ({label}); "
+                  f"max accuracy {x['max_accuracy']:.4f}; losses "
+                  f"{json.dumps([round(v, 5) for v in x['losses']])}; kernel launches "
+                  f"{json.dumps(x['launches'])}, plain-version calls on cuda "
+                  f"{json.dumps(x['on_cuda'])}")
+            _no_plain(f"{tag} rank {rank}", x["on_cuda"])
+            missing = [k for k in kernels if x["launches"].get(k, 0) <= 0]
+            if missing:
+                raise AssertionError(f"[{tag}] rank {rank} never launched {missing}")
+            if not all(math.isfinite(v) for v in x["losses"]):
+                raise AssertionError(f"[{tag}] rank {rank}: non-finite loss {x['losses']}")
+            if min_accuracy is not None and x["max_accuracy"] < min_accuracy:
+                raise AssertionError(f"[{tag}] rank {rank}: max accuracy {x['max_accuracy']} "
+                                     f"< {min_accuracy}")
+            launches[rank] = x["launches"]
+        if len({tuple(x["losses"]) for x in ranks.values()}) != 1:
+            raise AssertionError(f"[{tag}] the ranks' losses differ")
+    return launches
+
+
+def phase_spmd_kernels(hosts, kernel, ak, ks):
+    """The SpMM (forward and transpose, own and per-slot values), attention
+    (fwd, bwd1, bwd2) and SDDMM kernels against their plain versions on
+    each rank's own layouts at SPMD_SHARDS shards (over the rank's [local |
+    halo | zero] gather table) of the host graphs the [spmd-*] programs
+    shard (`hosts`: GCN's for the SpMM, the fused GAT's for attention, the
+    unfused GAT's for per-slot values and the SDDMM), at the path's
+    widths; phase 4's, 6's and 8's tolerances.  Returns {kernel: max
+    |kernel - plain|}."""
+    from gala_tpu_torch.parallel.graph import ShardedGraph
+
+    tag = "spmd-kernel"
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rand = lambda *shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
+    errs = {"bell_spmm": 0.0, "attn_fwd": 0.0, "attn_bwd1": 0.0, "attn_bwd2": 0.0, "sddmm": 0.0}
+    sharded = {"gcn": ShardedGraph.from_host(hosts["gcn"], SPMD_SHARDS, use_bell=True),
+               "gat": ShardedGraph.from_host(hosts["gat"], SPMD_SHARDS, use_bell=True,
+                                             attention=True),
+               "gat-edge": ShardedGraph.from_host(hosts["gat-edge"], SPMD_SHARDS,
+                                                  use_bell=True, edge_vals=True)}
+
+    def check_spmm(rank, what, lay, rows, n_out, perm=None):
+        for f in WIDTHS:
+            x = rand(rows, f)
+            x[-1] = 0  # the zero row
+            vals = None
+            if perm is not None:
+                evals = torch.rand((int(perm.max()) + 1,), generator=gen, device="cuda")
+                evals[-1] = 0  # [evals | 0]
+                vals = evals.index_select(0, perm).contiguous()
+            out = kernel.bell_spmm(lay, x, n_out, vals=vals)
+            ref = kernel.bell_spmm_plain(lay, x, n_out, vals)
+            scale = kernel.bell_spmm_plain(lay, x.abs(), n_out, vals).float()
+            err = (out - ref).abs()
+            bad = int((err > ATOL + RTOL * scale).sum())
+            errs["bell_spmm"] = max(errs["bell_spmm"], err.max().item())
+            print(f"[{tag}] rank {rank} {what} F={f}: max |kernel - plain| "
+                  f"{err.max().item():.3e}, {bad} out of tolerance")
+            if bad:
+                raise AssertionError(f"[{tag}] rank {rank} {what} F={f}: {bad} out of tolerance")
+
+    for rank in range(SPMD_SHARDS):
+        lg = sharded["gcn"].local(rank, "cuda")
+        r, n_tab = lg.rows_per_shard, lg.n_tab
+        print(f"[{tag}] rank {rank} (GCN): r {r}, H {lg.halo}, table {n_tab + 1} rows; bell "
+              f"{lg.bell.flat_cols.numel()} slots {lg.bell.units.n_units} units, t_bell "
+              f"{lg.t_bell.flat_cols.numel()} slots {lg.t_bell.units.n_units} units")
+        check_spmm(rank, "GCN bell", lg.bell, n_tab + 1, r + 1)
+        check_spmm(rank, "GCN t_bell", lg.t_bell, r + 1, n_tab + 1)
+        lg = sharded["gat-edge"].local(rank, "cuda")
+        r, n_tab = lg.rows_per_shard, lg.n_tab
+        check_spmm(rank, "unfused-GAT bell, slot values", lg.bell, n_tab + 1, r + 1,
+                   lg.ev.edge_perm)
+        check_spmm(rank, "unfused-GAT t_bell, slot values", lg.t_bell, r + 1, n_tab + 1,
+                   lg.ev.t_edge_perm)
+        for f in (32, 40):
+            a, b = rand(n_tab + 1, f), rand(r + 1, f)
+            out = ks.sddmm(lg.ev.slot_src, lg.ev.slot_dst, a, b)
+            ref = ks.sddmm_reference(lg.ev.slot_src, lg.ev.slot_dst, a, b)
+            scale = ks.sddmm_reference(lg.ev.slot_src, lg.ev.slot_dst, a.abs(), b.abs())
+            err = (out - ref).abs()
+            bad = int((err > ATOL + RTOL * scale).sum())
+            errs["sddmm"] = max(errs["sddmm"], err.max().item())
+            print(f"[{tag}] rank {rank} sddmm over the unfused GAT's forward slots F={f}: max "
+                  f"|kernel - plain| {err.max().item():.3e}, {bad} out of tolerance")
+            if bad:
+                raise AssertionError(f"[{tag}] rank {rank} sddmm F={f}: {bad} out of tolerance")
+        lg = sharded["gat"].local(rank, "cuda")
+        r, n_tab = lg.rows_per_shard, lg.n_tab
+        for hf, nh in ATTN_SHAPES[:2]:
+            x, vl, vr, dout = rand(n_tab + 1, hf), rand(n_tab + 1, nh), rand(r + 1, nh), rand(
+                r + 1, hf)
+            for t in (x, vl, vr, dout):
+                t[-1] = 0
+            res = ak.compare_with_plain(lg.attn, x, vl, vr, dout, SLOPE, r + 1, n_tab + 1)
+            for check, (err, bad) in res.items():
+                name = "attn_" + check.split()[0]
+                errs[name] = max(errs[name], err)
+                if bad:
+                    raise AssertionError(f"[{tag}] rank {rank} hf={hf} {check}: {bad} out of "
+                                         "tolerance")
+            print(f"[{tag}] rank {rank} attention (GAT layouts) hf={hf} H={nh}: "
+                  f"{json.dumps({k: float(f'{e:.3e}') for k, (e, _) in res.items()})}")
+        del lg
+    print(f"[{tag}] layouts and checks in {time.perf_counter() - t0:.1f} s")
+    return errs
+
+
+def phase_spmd(arxiv, kernel, ak, ks):
+    """The sharded path (gala_tpu_torch.parallel) on the card: the
+    SPMD_PROGRAMS in SPMD_WORLD gloo ranks sharing cuda:0 (one spawn, the
+    [spmd-tp] mesh 2 x 2, the others on ranks 0-1), then [spmd-nccl] (one
+    NCCL rank, GCN, 5 epochs) and, where the host has two cards or more,
+    GCN on NCCL over every card.  Each run's logits, invariant prefix and
+    gradients against the single-device port's under the same weights
+    (SPMD_TOL of the largest), its accuracy and launches.  Returns
+    ({kernel: max |kernel - plain| of phase_spmd_kernels}, {tag: {rank:
+    launches}})."""
+    import tempfile
+
+    from gala_tpu_torch.parallel import multihost, worker
+
+    refs, jobs = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, (dsl, extra, passes, mesh, iters, _, _) in SPMD_PROGRAMS.items():
+            source = _spmd_source(dsl, extra)
+            key = (source, tuple(passes.items()))
+            if key not in refs:
+                refs[key] = _spmd_reference(tag, source, passes, arxiv)
+            weights = os.path.join(tmp, f"{tag}.weights.pkl")
+            worker.dump(refs[key]["params"], weights)
+            jobs.append(dict(kind="compiled", name=tag, mesh=mesh, device="cuda", source=source,
+                             passes=passes, data=("dataset", "Arxiv", 1.0), weights=weights,
+                             shard={"use_bell": True}, iters=iters, warmup=2))
+        def ref_of(tag):
+            dsl, extra, passes = SPMD_PROGRAMS[tag][:3]
+            return refs[(_spmd_source(dsl, extra), tuple(passes.items()))]
+
+        errs = phase_spmd_kernels({"gcn": ref_of("spmd-gcn")["host_graph"],
+                                   "gat": ref_of("spmd-gat")["host_graph"],
+                                   "gat-edge": ref_of("spmd-ev-gat")["host_graph"]},
+                                  kernel, ak, ks)
+        t0 = time.perf_counter()
+        multihost.spawn(worker.run_jobs, SPMD_WORLD, "gloo", jobs, tmp, 2)
+        print(f"[spmd] {SPMD_WORLD} gloo ranks on cuda:0 (gloo takes the CUDA tensors; its "
+              f"exchange crosses host memory) ran {len(jobs)} jobs in "
+              f"{time.perf_counter() - t0:.1f} s")
+        launches = {}
+        for tag, (_, _, _, mesh, iters, min_acc, kernels) in SPMD_PROGRAMS.items():
+            ranks = worker.read_results(tmp, tag)
+            launches[tag] = _check_spmd(tag, ranks, ref_of(tag), mesh[0], min_acc, kernels,
+                                        iters)
+            if tag == "spmd-gcn":
+                x = ranks[0]
+                h = x["halo"]
+                print(f"[{tag}] halo: H = {h} rows per shard pair; each exchange sends "
+                      f"{x['n_shards'] * h} rows of a rank's [local | halo] table: "
+                      + ", ".join(f"{x['n_shards'] * h * f * 4 / 1e6:.1f} MB at F={f}"
+                                  for f in (1, 32, 128)))
+            if tag == "spmd-ev-gat":
+                for rank, n in launches[tag].items():
+                    want = 2 * iters  # one SDDMM per learned-value SpMM backward, 2 layers
+                    if n.get("sddmm", 0) != want:
+                        raise AssertionError(f"[{tag}] rank {rank}: {n.get('sddmm', 0)} SDDMM "
+                                             f"launches, expected {want} (one per backward)")
+            if tag == "spmd-ev":
+                if not ranks[0]["layouts"]["ev"]:
+                    raise AssertionError(f"[{tag}] no learned-value layouts")
+                print(f"[{tag}] the sparse rewrite's edge values are precomputed (no "
+                      f"gradient): SDDMM launches {[n.get('sddmm', 0) for n in launches[tag].values()]}")
+
+        # one NCCL rank; then NCCL over every card where the host has several
+        nccl = [dict(jobs[0], name="spmd-nccl", mesh=(1, 1), device=None, iters=5)]
+        t0 = time.perf_counter()
+        multihost.spawn(worker.run_jobs, 1, "nccl", nccl, tmp, 2)
+        print(f"[spmd-nccl] 1 NCCL rank ran in {time.perf_counter() - t0:.1f} s")
+        launches["spmd-nccl"] = _check_spmd("spmd-nccl", worker.read_results(tmp, "spmd-nccl"),
+                                            ref_of("spmd-gcn"), 1, None, ("bell_spmm",), 5)
+        n_cards = torch.cuda.device_count()
+        if n_cards >= 2:
+            multi = [dict(jobs[0], name="spmd-nccl-cards", mesh=(n_cards, 1), device=None,
+                          iters=5)]
+            multihost.spawn(worker.run_jobs, n_cards, "nccl", multi, tmp, 2)
+            launches["spmd-nccl-cards"] = _check_spmd(
+                "spmd-nccl-cards", worker.read_results(tmp, "spmd-nccl-cards"), ref_of("spmd-gcn"),
+                n_cards,
+                None, ("bell_spmm",), 5)
+        else:
+            print(f"[spmd-nccl-cards] not run: this host has {n_cards} CUDA device (NCCL takes "
+                  "one rank per device)")
+    return errs, launches
+
+
 def kernel_rows(r, dtype, f32=None) -> list:
     """The kernels' line entries of one dtype's phases (`r`: their results;
     at bf16 `f32`, the f32 phases' results, gives each row its f32 time
@@ -2277,6 +2598,16 @@ def kernel_rows(r, dtype, f32=None) -> list:
               "batch's n2 (128,000 rows)",
         "path": f"sage-minibatch{bf}",
     }, lambda f: f["gather_times"][0]))
+    if "spmd" in r:  # the sharded path: each rank's launches, the per-rank layout checks
+        for row in rows:
+            if row["name"] in r["spmd_err"]:
+                row["spmd_max_abs_err"] = r["spmd_err"][row["name"]]
+            spmd = {f"{tag} rank {rank}": n[row["name"]] for tag, ranks in r["spmd"].items()
+                    for rank, n in ranks.items() if n.get(row["name"])}
+            if spmd:
+                row["path_launches"].update(spmd)
+                row["path"] += ", " + ", ".join(dict.fromkeys(k.rsplit(" rank", 1)[0]
+                                                              for k in spmd))
     return rows
 
 
@@ -2428,6 +2759,8 @@ def main() -> int:
     # export: the artifact written here, loaded and replayed in a fresh process
     exported = timed("export", phase_export, arxiv, {"gcn": live_gcn, "gat": live_gat})
     r["paths"].update({f"export-{k}": v for k, v in exported.items()})
+    # the sharded path: ranks spawned after every library was built above
+    r["spmd_err"], r["spmd"] = timed("spmd", phase_spmd, arxiv, kernel, ak, ks)
 
     kernels = kernel_rows(r, torch.float32) + kernel_rows(b, BF16, f32=r)
     t = r["dyn_times"]

@@ -6,7 +6,10 @@ aggregation goes through gala_tpu_torch.ops.spmm (the SpMM kernel on the
 GPU, with the SDDMM kernel for the gradient of learned edge values), the
 fused attention through gala_tpu_torch.ops.attention (the attention
 kernels on the GPU) and the edge ops of the unfused chain through
-gala_tpu_torch.ops.edge.
+gala_tpu_torch.ops.edge.  On a rank's ShardGraph (parallel.compiled) the
+same program runs sharded: node-sized constants take the rank's rows,
+the ops dispatch to parallel.ops, and a TP plan on the graph splits the
+FFNs (parallel.tp).
 
 Contract (shared with gala_tpu_torch.train.train):
     init_params(gen, dim_env)            -> params (models.common.ParamDict)
@@ -99,11 +102,14 @@ def _eval_node(node: ComputeNode, env, params, graphs):
             )
     op = node.op
 
+    # node-sized constants: a rank's own rows on a ShardGraph (local_rows),
+    # the padded node count otherwise
     g0 = graphs[0]
+    n_rows = getattr(g0, "local_rows", None) or g0.n_pad
     if op is ComputeOp.ONES:
-        return torch.ones((g0.n_pad, 1), dtype=torch.float32, device=g0.device)
+        return torch.ones((n_rows, 1), dtype=torch.float32, device=g0.device)
     if op is ComputeOp.FULL:
-        return torch.full((g0.n_pad, 1), float(node.params[0]), dtype=torch.float32,
+        return torch.full((n_rows, 1), float(node.params[0]), dtype=torch.float32,
                           device=g0.device)
     if op is ComputeOp.AGGREGATE_MUL_SUM_DIRECT:
         return spmm_direct(_graph_for(node, graphs), ins[0])
@@ -130,6 +136,11 @@ def _eval_node(node: ComputeNode, env, params, graphs):
         g = _graph_for(node, graphs)
         x, vl, vr = ins[0], ins[1], ins[2]
         slope = float(node.params[0]) if node.params else 0.2
+        if g.strategy == "spmd":
+            # sharded: one [x | vl] exchange serves scores and aggregation
+            from gala_tpu_torch.parallel.ops import spmd_attention
+
+            return spmd_attention(g, x, vl, vr, slope)
         if g.attn is not None:
             return attention_aggregate(g.n_pad, g.c_pad, slope, g.attn, x, vl, vr)
         # unfused fallback (graph built without the attention layout),
@@ -156,7 +167,15 @@ def _eval_node(node: ComputeNode, env, params, graphs):
     if op is ComputeOp.RELU:
         return torch.relu(ins[0])
     if op in _FFN_OPS:
-        return linear(params[node.inputs[1].name], ins[0])
+        w = node.inputs[1]
+        split = (getattr(g0, "tp_plan", None) or {}).get(w.name)
+        if split:
+            # tensor parallelism: this rank's weight slice, with the
+            # model-axis collectives of parallel.tp
+            from gala_tpu_torch.parallel.tp import tp_linear
+
+            return tp_linear(params[w.name], ins[0], split, g0.model_group)
+        return linear(params[w.name], ins[0])
     if op is ComputeOp.SCALAR_ADD_EPS_MULTIPLY:
         return scale_by_eps(params[f"eps{node.layer + 1}"], ins[0])
     if op is ComputeOp.ADD:

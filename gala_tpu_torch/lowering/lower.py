@@ -54,6 +54,13 @@ class CompiledModel:
     n_classes: int
     device: torch.device
     forward_rows: object = None  # row-subset loss variant (see interp)
+    # the host data the graphs were built from, after sampling and the
+    # bell relabel: what parallel.compiled.shard_compiled partitions
+    host_graph: object = None
+    host_train_graphs: object = None
+    host_feats: object = None
+    host_labels: object = None
+    host_masks: object = None
 
     def make_params(self, seed: int = 0):
         dim_env = {
@@ -223,7 +230,7 @@ def lower(
     n_layers = spec.num_layers
     full_graphs = [full_g] * n_layers
 
-    train_graphs = None
+    train_graphs = subs = None
     if prog.uses_training_subgraphs:
         subs = mask_subgraphs(g_host, masks["train"], n_layers)
         train_graphs = [
@@ -258,4 +265,9 @@ def lower(
         forward_rows=forward_rows,
         n_classes=spec.graph.label_size if spec.graph.label_size > 0 else n_classes,
         device=device,
+        host_graph=g_host,
+        host_train_graphs=subs,
+        host_feats=feats,
+        host_labels=labels,
+        host_masks=masks,
     )

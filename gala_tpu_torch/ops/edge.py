@@ -24,13 +24,22 @@ from gala_tpu_torch.ops.spmm import sddmm_edges
 def sddvv_add(g: Graph, vl: torch.Tensor, vr: torch.Tensor) -> torch.Tensor:
     """Per-edge sum of node scalars: e -> vl[src[e]] + vr[dst[e]] (the GAT
     attention logits).  vl is (c_pad, 1), vr (n_pad, 1); returns (e_pad,).
-    Differentiable through the gathers (their backward scatter-adds)."""
+    Differentiable through the gathers (their backward scatter-adds).  On
+    a rank's ShardGraph the sharded form (parallel.ops)."""
+    if g.strategy == "spmd":
+        from gala_tpu_torch.parallel.ops import spmd_sddvv_add
+
+        return spmd_sddvv_add(g.src, g.dst_local, vl, vr, g.rows_per_shard, g.group)
     return vl[:, 0].index_select(0, g.src) + vr[:, 0].index_select(0, g.dst)
 
 
 def sddvv_mul(g: Graph, vl: torch.Tensor, vr: torch.Tensor) -> torch.Tensor:
     """Per-edge product of node scalars: e -> vl[src[e]] * vr[dst[e]] (the
     sparsity-aware rewrite's norm_src * norm_dst edge values)."""
+    if g.strategy == "spmd":
+        from gala_tpu_torch.parallel.ops import spmd_sddvv_mul
+
+        return spmd_sddvv_mul(g.src, g.dst_local, vl, vr, g.rows_per_shard, g.group)
     return vl[:, 0].index_select(0, g.src) * vr[:, 0].index_select(0, g.dst)
 
 
@@ -108,7 +117,12 @@ def edge_softmax(g: Graph, logits: torch.Tensor) -> torch.Tensor:
     """Softmax of edge logits (e_pad,) over each destination's incoming
     edges.  The padding edges form the phantom row's segment and do not
     affect real nodes.  Segment sums run in another order than
-    gala_tpu's."""
+    gala_tpu's.  On a rank's ShardGraph the sharded form, masked by
+    occupancy."""
+    if g.strategy == "spmd":
+        from gala_tpu_torch.parallel.ops import spmd_edge_softmax
+
+        return spmd_edge_softmax(g.dst_local, logits, g.occ, g.rows_per_shard)
     return _EdgeSoftmax.apply(logits.contiguous(), g.dst, g.seg.row_len)
 
 

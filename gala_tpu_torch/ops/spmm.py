@@ -28,6 +28,14 @@ their own gradient is the SDDMM `sddmm_edges(src, dst, x, dz)`, the op
 `gala_tpu_torch::sddmm` (the kernel of ops.kernels.sddmm), skipped when
 the values need none (the sparse-rewrite GCN's precomputed values).
 
+On a rank's ShardGraph (strategy 'spmd', gala_tpu_torch.parallel) the
+aggregations dispatch to the sharded forms of parallel.ops; its
+learned-value form on the rank's binned layouts is `BellSpmmEv`
+(gala_tpu's _spmm_ev_bell, which only the sharded path calls): the
+values placed into the bell layout's slots through its slot -> edge
+map, the SpMM kernel forward and on the transpose, the SDDMM kernel over
+the slots for the values' gradient.  Dynamic sampling is single-device.
+
 bf16 activations (gala_tpu's dtype=jnp.bfloat16): x bf16, the output
 bf16.  The kernels read bf16 tables and accumulate in f32; structural and
 learned values are f32 (a learned bf16 value upcast exactly) and rounded
@@ -46,8 +54,8 @@ from gala_tpu_torch.ops.kernels.bell_spmm import bell_spmm, bell_spmm_reference
 from gala_tpu_torch.ops.kernels.dyn_weights import dyn_weights
 from gala_tpu_torch.ops.kernels.library import sddmm_edges
 
-__all__ = ["SampledSpmm", "bell_spmm_reference", "degrees", "sddmm_edges", "spmm",
-           "spmm_direct", "spmm_ev", "spmm_sampled"]
+__all__ = ["BellSpmmEv", "SampledSpmm", "bell_spmm_reference", "degrees", "sddmm_edges",
+           "spmm", "spmm_direct", "spmm_ev", "spmm_ev_bell", "spmm_sampled"]
 
 
 def _sampled_weights(lay, meta, structural: bool, k: int, ra: int, rb: int) -> torch.Tensor:
@@ -102,11 +110,69 @@ class DenseSpmmEv(torch.autograd.Function):
         return devals, dx, None, None, None, None
 
 
+class BellSpmmEv(torch.autograd.Function):
+    """out = A(evals) @ x on a binned layout (gala_tpu's _spmm_ev_bell, the
+    sharded path's learned-value SpMM): slot values [evals | 0][edge_perm]
+    into the SpMM kernel's per-slot input; dx the kernel on the transpose
+    layout with [evals | 0][t_edge_perm]; devals the per-slot products
+    <x[slot_src], dz[slot_dst]> by the SDDMM kernel over the forward
+    slots, back to edges as [dslot | 0][slot_of_edge].  Pad slots read
+    the appended zero value, edges outside the layout the appended zero
+    slot.  `ev`: parallel.graph.SlotEdges."""
+
+    @staticmethod
+    def forward(ctx, evals, x, bell, t_bell, ev, n_out: int, c_out: int):
+        ev_pad = torch.cat([evals.float(), evals.new_zeros(1, dtype=torch.float32)])
+        ctx.save_for_backward(evals, x, ev_pad)
+        ctx.args = (t_bell, ev, c_out)
+        return library.bell_spmm_op(x, *library.layout_args(bell),
+                                    ev_pad.index_select(0, ev.edge_perm), n_out, [], [], 0)
+
+    @staticmethod
+    def backward(ctx, dz):
+        evals, x, ev_pad = ctx.saved_tensors
+        t_bell, ev, c_out = ctx.args
+        dz = dz.contiguous()
+        devals = dx = None
+        if ctx.needs_input_grad[0]:
+            dslot = sddmm_edges(ev.slot_src, ev.slot_dst, x, dz)
+            devals = torch.cat([dslot, dslot.new_zeros(1)]).index_select(
+                0, ev.slot_of_edge).to(evals.dtype)
+        if ctx.needs_input_grad[1]:
+            dx = library.bell_spmm_op(dz, *library.layout_args(t_bell),
+                                      ev_pad.index_select(0, ev.t_edge_perm), c_out, [], [], 0)
+        return devals, dx, None, None, None, None, None
+
+
+def spmm_ev_bell(evals: torch.Tensor, x: torch.Tensor, bell, t_bell, ev, n_out: int,
+                 c_out: int) -> torch.Tensor:
+    """Learned-value SpMM on a binned layout and its transpose (BellSpmmEv);
+    differentiable in evals and x."""
+    return BellSpmmEv.apply(evals, x.contiguous(), bell, t_bell, ev, n_out, c_out)
+
+
+def _spmd(op: str, *args):
+    """The sharded form of an aggregation (parallel.ops), for a rank's
+    ShardGraph."""
+    from gala_tpu_torch.parallel import ops
+
+    return getattr(ops, op)(*args)
+
+
 def spmm(g: Graph, x: torch.Tensor) -> torch.Tensor:
     """Aggregate node features over the graph: out = A @ x.
 
     Structural edge values; the gradient flows to `x` only, via the
-    transpose layout.  `x` is (c_pad, F); returns (n_pad, F)."""
+    transpose layout.  `x` is (c_pad, F); returns (n_pad, F).  On a rank's
+    ShardGraph (strategy 'spmd') the sharded form: the bell layouts, else
+    the halo exchange, else the all_gather."""
+    if g.strategy == "spmd":
+        if g.bell is not None:
+            return _spmd("spmd_spmm_bell", g, x)
+        if g.use_halo:
+            return _spmd("spmd_spmm_halo", g.src_halo, g.dst_local, g.vals, x, g.send_idx,
+                         g.rows_per_shard, g.n_shards, g.halo, g.edges_local, g.group)
+        return _spmd("spmd_spmm", g.src, g.dst_local, g.vals, x, g.rows_per_shard, g.group)
     if g.strategy == "dense":
         full_precision_matmuls()
         return torch.matmul(g.a_dense, x.to(g.a_dense.dtype)).to(x.dtype)
@@ -123,7 +189,16 @@ def spmm_ev(g: Graph, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     The gradient flows to both `vals` (SDDMM) and `x` (transpose SpMM):
     the autograd contract of gala_tpu's spmm_ev.  On 'bell', whose binned
     layout keeps no slot -> edge permutation, it runs the segment executor
-    over the edge lists, as gala_tpu falls back to its segment path."""
+    over the edge lists, as gala_tpu falls back to its segment path.  On
+    a rank's ShardGraph the sharded form: the bell layouts with their
+    slot <-> edge maps, else the halo exchange, else the all_gather."""
+    if g.strategy == "spmd":
+        if g.ev is not None:
+            return _spmd("spmd_spmm_ev_bell", g, vals, x)
+        if g.use_halo:
+            return _spmd("spmd_spmm_halo", g.src_halo, g.dst_local, vals, x, g.send_idx,
+                         g.rows_per_shard, g.n_shards, g.halo, g.edges_local, g.group)
+        return _spmd("spmd_spmm_ev", g.src, g.dst_local, vals, x, g.rows_per_shard, g.group)
     if g.src is None:
         raise ValueError(f"spmm_ev on a {g.strategy!r} graph built without edge lists; "
                          "rebuild with edge_vals=True")
@@ -141,7 +216,10 @@ def spmm_sampled(g: Graph, x: torch.Tensor, k: int, ra: int, rb: int) -> torch.T
     none is given).  On 'bell' each pick carries its edge's structural
     value; on 'dense', 'ell' and 'segment' the value 1, as gala_tpu's.
     The graph must be built with dynamic_sample=True; `x` is (c_pad, F),
-    the result (n_pad, F) in x's dtype."""
+    the result (n_pad, F) in x's dtype.  Single device only."""
+    if g.strategy == "spmd":
+        raise NotImplementedError("dynamic neighbor sampling is single-chip only; compile "
+                                  "without aggrFn.sample(...).dynamic() for SPMD execution")
     if g.dyn_f is None:
         raise ValueError(f"spmm_sampled on a {g.strategy!r} graph built without its sampling "
                          "inputs; build it with Graph.from_host(dynamic_sample=True)")

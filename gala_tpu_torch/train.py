@@ -34,6 +34,7 @@ from typing import Callable, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -43,21 +44,49 @@ from gala_tpu_torch.utils.timing import EpochTimer
 
 
 def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                         mask: torch.Tensor) -> torch.Tensor:
+                         mask: torch.Tensor, group=None) -> torch.Tensor:
     """Mean CE over mask rows (mask includes padding=False rows), in f32;
     the mask takes the logits' dtype, as in gala_tpu (at bf16 logits its
-    count rounds to bf16)."""
+    count rounds to bf16).  With `group` (a sharded run's data group) the
+    rows are this rank's and both sums are all-reduced over the group
+    (gala_tpu.parallel.train's psums): the loss of every shard's rows,
+    whose gradient reaches this rank's rows unscaled."""
     logp = F.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, labels[:, None])[:, 0]
     m = mask.to(logits.dtype)
-    return (nll * m).sum() / m.sum().clamp_min(1.0)
+    num, den = (nll * m).sum(), m.sum()
+    if group is not None:
+        from gala_tpu_torch.parallel.tp import reduce_from
+
+        num, den = reduce_from(torch.stack([num, den.detach().to(num.dtype)]), group)
+    return num / den.clamp_min(1.0)
 
 
 def masked_accuracy(logits: torch.Tensor, labels: torch.Tensor,
-                    mask: torch.Tensor) -> torch.Tensor:
+                    mask: torch.Tensor, group=None) -> torch.Tensor:
+    """Accuracy over mask rows; with `group`, of every shard's rows (the
+    counts all-reduced)."""
     pred = logits.argmax(dim=-1)
     m = mask.to(torch.float32)
-    return ((pred == labels).to(torch.float32) * m).sum() / m.sum().clamp_min(1.0)
+    counts = torch.stack([((pred == labels).to(torch.float32) * m).sum(), m.sum()])
+    if group is not None:
+        dist.all_reduce(counts, group=group)
+    return counts[0] / counts[1].clamp_min(1.0)
+
+
+def all_reduce_grads(params: nn.Module, group) -> None:
+    """Sum every parameter's gradient over `group` in one all_reduce: a
+    replicated parameter of a sharded run takes the gradient of every
+    shard's loss."""
+    grads = [p.grad for p in params.parameters() if p.grad is not None]
+    if not grads:
+        return
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=group)
+    off = 0
+    for g in grads:
+        g.copy_(flat[off : off + g.numel()].view_as(g))
+        off += g.numel()
 
 
 def make_optimizer(params: nn.Module, lr: float = 0.01, weight_decay: float = 5e-4):
@@ -127,6 +156,7 @@ def train(
     epoch_inputs: Callable | None = None,
     checkpoint_path: str | None = None,
     resume_from: str | None = None,
+    group=None,
 ) -> TrainResult:
     """Run the full training protocol and return timing/accuracy stats.
 
@@ -140,6 +170,12 @@ def train(
     checkpoint_path: save the final params and optimizer state there.
     resume_from: restore params and optimizer state before training; it
         raises if the file is missing or holds other parameters.
+    group: a sharded run's data process group (parallel.compiled): the
+        graphs and tensors are this rank's; the loss and the accuracy
+        counts are summed over the group, every gradient all-reduced
+        after the backward, and each timed region opens and closes with
+        a barrier after the device sync.  Every rank of the group calls
+        train with the same arguments.
     `params` is updated in place and returned in the result."""
     device = full_graphs[0].device
     opt = make_optimizer(params, lr, weight_decay)
@@ -176,7 +212,7 @@ def train(
             return masked_cross_entropy(lg, y_rows, tm_rows)
     else:
         def loss_fn(graphs, xc):
-            return masked_cross_entropy(forward(params, graphs, xc), labels, train_mask)
+            return masked_cross_entropy(forward(params, graphs, xc), labels, train_mask, group)
 
     if forward_rows is not None and test_rows is not None:
         y_test, sm_test = labels[test_rows], test_mask[test_rows]
@@ -187,11 +223,11 @@ def train(
     else:
         def test_acc(p, extra):
             return masked_accuracy(forward(p, full_graphs, with_extra(x_full, extra)), labels,
-                                   test_mask)
+                                   test_mask, group)
 
     losses, snapshots = [], []
     mem_mb = 0.0
-    timer = EpochTimer(device)
+    timer = EpochTimer(device, group)
 
     # ---- training phase ------------------------------------------------ #
     for epoch in range(iters):
@@ -203,6 +239,8 @@ def train(
         opt.zero_grad(set_to_none=True)
         loss = loss_fn(graphs, xc)
         loss.backward()
+        if group is not None:
+            all_reduce_grads(params, group)
         opt.step()
         losses.append(loss.detach())
         if is_valid:

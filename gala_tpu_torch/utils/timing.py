@@ -11,6 +11,7 @@ from __future__ import annotations
 import time
 
 import torch
+import torch.distributed as dist
 
 
 def fence(device) -> None:
@@ -21,22 +22,30 @@ def fence(device) -> None:
 
 
 class EpochTimer:
-    """Synchronized timing for a region containing many enqueued epochs."""
+    """Synchronized timing for a region containing many enqueued epochs;
+    with `group` (a sharded run's process group) every boundary also
+    waits for the group's other ranks (a barrier after the sync)."""
 
-    def __init__(self, device):
+    def __init__(self, device, group=None):
         self.device = torch.device(device)
+        self.group = group
         self.t0 = None
         self.seconds = 0.0
 
-    def start(self) -> None:
+    def _fence(self) -> None:
         fence(self.device)
+        if self.group is not None:
+            dist.barrier(group=self.group)
+
+    def start(self) -> None:
+        self._fence()
         self.t0 = time.perf_counter()
 
     def stop(self, n: int = 1) -> float:
         """Seconds per epoch over the region (0.0 if it never started)."""
         if self.t0 is None:
             return 0.0
-        fence(self.device)
+        self._fence()
         self.seconds = time.perf_counter() - self.t0
         self.t0 = None
         return self.seconds / max(n, 1)

@@ -47,3 +47,19 @@ def params_to_numpy(params):
     if isinstance(params, (nn.ModuleList, nn.ParameterList)):
         return [params_to_numpy(v) for v in params]
     return {k: params_to_numpy(v) for k, v in params.items()}
+
+
+def shard_params(params_np: dict, plan: dict | None, mesh) -> ParamDict:
+    """gala_tpu params (numpy, full size) -> the port's params of one rank
+    of `mesh` (parallel.mesh), on its device: under a TP plan
+    (parallel.tp.plan_tp) each planned linear layer's slice for the rank's
+    model coordinate (parallel.tp.rank_slice), every other parameter
+    whole; without one, params_from_jax."""
+    from gala_tpu_torch.parallel.tp import rank_slice
+
+    m, n_model = mesh.coords[1], mesh.shape["model"]
+    plan = plan or {}
+    sliced = {k: {key: rank_slice(plan[k], key, np.asarray(a), m, n_model)
+                  for key, a in v.items()} if k in plan else v
+              for k, v in params_np.items()}
+    return params_from_jax(sliced, mesh.device)
