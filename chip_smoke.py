@@ -289,6 +289,25 @@ Then the sharded path (gala_tpu_torch.parallel), on the same stand-in:
             printed (2 ranks on one card: not a scale-out time); then
             [spmd-nccl], one NCCL rank, GCN 5 epochs, the same checks, and
             GCN on NCCL over every card where the host has two or more.
+38. pp          the pipeline (gala_tpu_torch.parallel.pp), its jobs in the
+            same spawns: [pp-gpipe] gpipe over 4 gloo ranks on cuda:0,
+            linear + relu stages at B = 512, W = 832 (the SAGE activation's
+            width), 8 microbatches, output and each stage's gradient of
+            sum(out^2) within 1e-5 of the largest of the sequential
+            product on the card; [pp-sage] make_sage_pipeline over 2 gloo
+            ranks (ranks 0-1), train_sage_minibatch's defaults (fanouts
+            25/10, batch 512, hidden 32) on one epoch's microbatches a
+            step, 20 steps: step 1's loss (rtol 1e-5), gradients (1e-5 of
+            the largest) and merged params (rtol 1e-4, atol 1e-5) against
+            a sequential step on the card
+            from the same init, falling losses, the merged params'
+            full-graph accuracy within 0.005 of the sequential run's, the
+            gather kernel 3 x n_micro x steps on stage 0 and never on stage
+            1, the SpMM in validation, no plain version on the card; each
+            stage's ms a step, the bubble, bytes a shift, peak memory;
+            [pp-nccl] gpipe over one NCCL rank against its one-stage
+            product, and the SAGE pipeline over NCCL ranks 0-1 where the
+            host has two cards or more.
 
 Every kernel's bound is the larger of its bytes (each input read once,
 each output written once, in its own dtype) over 3.35 TB/s and its
@@ -302,6 +321,7 @@ beside its f32 time), the nvidia-smi line, and the last line
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import math
@@ -2252,16 +2272,16 @@ def _spmd_reference(tag, source, passes, arxiv):
     return ref
 
 
-def _close(tag, what, got, want):
-    """max |got - want| <= SPMD_TOL * max |want|; returns the ratio."""
+def _close(tag, what, got, want, tol=SPMD_TOL):
+    """max |got - want| <= tol * max |want|; returns the ratio."""
     got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
     if got.shape != want.shape:
         raise AssertionError(f"[{tag}] {what}: shape {got.shape} != {want.shape}")
     scale = max(float(np.abs(want).max(initial=0.0)), 1e-30)
     err = float(np.abs(got - want).max(initial=0.0)) / scale
-    if not err <= SPMD_TOL:
-        raise AssertionError(f"[{tag}] {what}: max |sharded - single| = {err:.3e} of the "
-                             f"largest > {SPMD_TOL}")
+    if not err <= tol:
+        raise AssertionError(f"[{tag}] {what}: max |got - reference| = {err:.3e} of the "
+                             f"largest > {tol}")
     return err
 
 
@@ -2447,11 +2467,13 @@ def phase_spmd(arxiv, kernel, ak, ks):
                                    "gat": ref_of("spmd-gat")["host_graph"],
                                    "gat-edge": ref_of("spmd-ev-gat")["host_graph"]},
                                   kernel, ak, ks)
+        pp, pp_nccl, pp_cards, pp_refs = pp_jobs(arxiv, tmp)
         t0 = time.perf_counter()
-        multihost.spawn(worker.run_jobs, SPMD_WORLD, "gloo", jobs, tmp, 2)
+        multihost.spawn(worker.run_jobs, SPMD_WORLD, "gloo", jobs + pp, tmp, 2,
+                        timeout=SPAWN_TIMEOUT)
         print(f"[spmd] {SPMD_WORLD} gloo ranks on cuda:0 (gloo takes the CUDA tensors; its "
-              f"exchange crosses host memory) ran {len(jobs)} jobs in "
-              f"{time.perf_counter() - t0:.1f} s")
+              f"exchange crosses host memory) ran {len(jobs)} jobs and {len(pp)} pipeline jobs "
+              f"in {time.perf_counter() - t0:.1f} s")
         launches = {}
         for tag, (_, _, _, mesh, iters, min_acc, kernels) in SPMD_PROGRAMS.items():
             ranks = worker.read_results(tmp, tag)
@@ -2476,26 +2498,241 @@ def phase_spmd(arxiv, kernel, ak, ks):
                 print(f"[{tag}] the sparse rewrite's edge values are precomputed (no "
                       f"gradient): SDDMM launches {[n.get('sddmm', 0) for n in launches[tag].values()]}")
 
-        # one NCCL rank; then NCCL over every card where the host has several
-        nccl = [dict(jobs[0], name="spmd-nccl", mesh=(1, 1), device=None, iters=5)]
+        # the pipeline's gloo runs: 4 stages of linear + relu, then the SAGE
+        # pipeline on ranks 0-1
+        _check_gpipe("pp-gpipe", worker.read_results(tmp, "pp-gpipe"), pp_refs["gpipe"],
+                     PP_GPIPE["stages"])
+        launches["pp-sage"] = _check_sage("pp-sage", worker.read_results(tmp, "pp-sage"),
+                                          pp_refs["sage"])
+
+        # one NCCL rank (GCN; gpipe over one stage); then NCCL over every card
+        # where the host has several (GCN; the SAGE pipeline over two)
+        nccl = [dict(jobs[0], name="spmd-nccl", mesh=(1, 1), device=None, iters=5)] + pp_nccl
         t0 = time.perf_counter()
-        multihost.spawn(worker.run_jobs, 1, "nccl", nccl, tmp, 2)
+        multihost.spawn(worker.run_jobs, 1, "nccl", nccl, tmp, 2, timeout=SPAWN_TIMEOUT)
         print(f"[spmd-nccl] 1 NCCL rank ran in {time.perf_counter() - t0:.1f} s")
         launches["spmd-nccl"] = _check_spmd("spmd-nccl", worker.read_results(tmp, "spmd-nccl"),
                                             ref_of("spmd-gcn"), 1, None, ("bell_spmm",), 5)
+        _check_gpipe("pp-nccl", worker.read_results(tmp, "pp-nccl"), pp_refs["gpipe-1"], 1)
         n_cards = torch.cuda.device_count()
         if n_cards >= 2:
             multi = [dict(jobs[0], name="spmd-nccl-cards", mesh=(n_cards, 1), device=None,
-                          iters=5)]
-            multihost.spawn(worker.run_jobs, n_cards, "nccl", multi, tmp, 2)
+                          iters=5)] + pp_cards
+            multihost.spawn(worker.run_jobs, n_cards, "nccl", multi, tmp, 2,
+                            timeout=SPAWN_TIMEOUT)
             launches["spmd-nccl-cards"] = _check_spmd(
                 "spmd-nccl-cards", worker.read_results(tmp, "spmd-nccl-cards"), ref_of("spmd-gcn"),
                 n_cards,
                 None, ("bell_spmm",), 5)
+            launches["pp-nccl-cards"] = _check_sage(
+                "pp-nccl-cards", worker.read_results(tmp, "pp-nccl-cards"), pp_refs["sage"])
         else:
-            print(f"[spmd-nccl-cards] not run: this host has {n_cards} CUDA device (NCCL takes "
-                  "one rank per device)")
+            print(f"[spmd-nccl-cards] [pp-nccl-cards] not run: this host has {n_cards} CUDA "
+                  "device (NCCL takes one rank per device)")
     return errs, launches
+
+
+# the pipeline (gala_tpu_torch.parallel.pp): [pp-sage] train_sage_minibatch's
+# defaults (fanouts 25/10, batch 512, hidden 32) over one epoch's
+# microbatches a step; [pp-gpipe] linear + relu stages at the SAGE
+# activation's width, (1 + 25) x 32 = 832
+PP_SAGE = dict(f1=25, f2=10, b=512, hidden=32, seed=0, steps=20)
+PP_GPIPE = dict(stages=4, b=512, w=832, seed=0, n_micro=8)
+PP_TOL = 1e-5           # [pp-gpipe]: of the largest |value|, output and gradients
+PP_ACCURACY_TOL = 0.005  # [pp-sage]: merged params' accuracy against the sequential run's
+SPAWN_TIMEOUT = 600     # seconds a rank of [spmd]/[pp] waits on a peer before it fails
+
+
+def _gpipe_reference(n_stages):
+    """The sequential product of [pp-gpipe]'s stages on the card: the
+    outputs and the gradient of sum(out^2) to each stage's matrix."""
+    from gala_tpu_torch.models.common import full_precision_matmuls
+    from gala_tpu_torch.parallel import worker
+
+    full_precision_matmuls()
+    g = PP_GPIPE
+    mats, xs = worker.gpipe_inputs(n_stages, g["b"], g["w"], g["n_micro"], g["seed"])
+    ws = [torch.from_numpy(m).cuda().requires_grad_() for m in mats]
+    outs = []
+    for x in torch.from_numpy(xs).cuda():
+        for w in ws:
+            x = torch.relu(x @ w)
+        outs.append(x)
+    out = torch.stack(outs)
+    (out ** 2).sum().backward()
+    return {"out": out.detach().cpu().numpy(), "grads": [w.grad.cpu().numpy() for w in ws]}
+
+
+def _sequential_sage(arxiv, micro):
+    """[pp-sage]'s sequential single-device reference on the card: the same
+    init (models.sage.init from PP_SAGE's seed), the same microbatches, one
+    Adam step a step on the mean of the microbatches' masked losses
+    (forward_minibatch, the gather kernel).  Step 1's loss and params,
+    every loss, ms a step and the full-graph test accuracy after
+    PP_SAGE["steps"] steps."""
+    from gala_tpu_torch.models import sage
+    from gala_tpu_torch.ops.graph import Graph
+    from gala_tpu_torch.train import make_optimizer, masked_accuracy, masked_cross_entropy
+    from gala_tpu_torch.train_minibatch import forward_minibatch
+    from gala_tpu_torch.weights import params_to_numpy
+
+    g_host, feats, labels, masks = arxiv
+    g = Graph.from_host(g_host, device="cuda")
+    xt = g.pad_nodes(np.asarray(feats, np.float32))
+    params = sage.init(torch.Generator().manual_seed(PP_SAGE["seed"]), feats.shape[1],
+                       [PP_SAGE["hidden"]], int(labels.max()) + 1).to("cuda")
+    opt = make_optimizer(params)
+    m = {k: torch.from_numpy(v).cuda() for k, v in micro.items()}
+    n = m["t"].shape[0]
+    out = {"losses": [], "step_ms": []}
+    for i in range(PP_SAGE["steps"]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        loss = sum(masked_cross_entropy(forward_minibatch(params, xt, m["t"][j], m["n1"][j],
+                                                          m["n2"][j]).float(),
+                                        m["y"][j], m["m"][j]) for j in range(n)) / n
+        loss.backward()
+        if i == 0:
+            out["grads1"] = {k: p.grad.cpu().numpy() for k, p in params.named_parameters()}
+        opt.step()
+        torch.cuda.synchronize()
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["losses"].append(float(loss.detach()))
+        if i == 0:  # a copy: on the CPU the arrays would share the params' memory
+            out["params1"] = copy.deepcopy(params_to_numpy(params))
+    with torch.no_grad():
+        out["accuracy"] = float(masked_accuracy(
+            sage.forward(params, [g, g], xt), g.pad_nodes(np.asarray(labels, np.int64)),
+            g.pad_nodes(np.asarray(masks["test"], bool))))
+    return out
+
+
+def pp_jobs(arxiv, tmp):
+    """The [pp] jobs of the gloo spawn (parallel.worker's pp_gpipe on 4
+    ranks, pp_sage on 2), the NCCL spawn's ([pp-nccl]: gpipe over one rank)
+    and, for a host of 2 cards or more, the SAGE pipeline over NCCL; and
+    their sequential references on the card.  Returns (gloo jobs, nccl
+    jobs, cards jobs, refs)."""
+    from gala_tpu_torch.data.minibatch import NeighborSampler
+    from gala_tpu_torch.parallel import worker
+
+    t0 = time.perf_counter()
+    g_host, _, labels, masks = arxiv
+    p = PP_SAGE
+    # one epoch of train_sage_minibatch's sampler (epoch 0, seed 0, dynamic)
+    eb = NeighborSampler(g_host, (p["f1"], p["f2"]), p["b"]).epoch(
+        np.flatnonzero(np.asarray(masks["train"])), 0, seed=p["seed"])
+    micro = {"t": eb.targets, "n1": eb.n1, "n2": eb.n2,
+             "y": np.asarray(labels, np.int64)[eb.targets], "m": eb.mask}
+    micro_path = os.path.join(tmp, "pp-micro.pkl")
+    worker.dump(micro, micro_path)
+    refs = {"sage": _sequential_sage(arxiv, micro), "gpipe": _gpipe_reference(PP_GPIPE["stages"]),
+            "gpipe-1": _gpipe_reference(1)}
+    seq = refs["sage"]
+    print(f"[pp] sequential references on the card in {time.perf_counter() - t0:.1f} s: SAGE "
+          f"{eb.targets.shape[0]} microbatches a step, step 1 loss {seq['losses'][0]:.6f}, "
+          f"{p['steps']} steps {statistics.median(seq['step_ms'][1:]):.2f} ms a step "
+          f"(median after step 1), accuracy {seq['accuracy']:.4f}")
+    gp = PP_GPIPE
+    gpipe = dict(kind="pp_gpipe", name="pp-gpipe", mesh=(gp["stages"],), device="cuda",
+                 b=gp["b"], w=gp["w"], seed=gp["seed"],
+                 cases={"warm-up": (1, gp["w"]), "card": (gp["n_micro"], gp["w"]),
+                        "again": (gp["n_micro"], gp["w"])})
+    sage = dict(kind="pp_sage", name="pp-sage", mesh=(2,), device="cuda",
+                data=("dataset", "Arxiv", 1.0), micro=micro_path, f1=p["f1"],
+                hidden=p["hidden"], seed=p["seed"], steps=p["steps"])
+    nccl = [dict(gpipe, name="pp-nccl", mesh=(1,), device=None)]
+    cards = [dict(sage, name="pp-nccl-cards", device=None)]
+    return [gpipe, sage], nccl, cards, refs
+
+
+def _check_gpipe(tag, ranks, ref, n_stages):
+    """Every rank's output, and each stage's gradient, within PP_TOL of the
+    largest of the sequential product's."""
+    if sorted(ranks) != list(range(n_stages)):
+        raise AssertionError(f"[{tag}] results from ranks {sorted(ranks)}, expected {n_stages}")
+    gp = PP_GPIPE
+    errs = {}
+    for rank, x in ranks.items():
+        case = x["cases"]["card"]
+        errs[f"out rank {rank}"] = _close(tag, f"rank {rank} output", case["out"], ref["out"],
+                                          PP_TOL)
+        errs[f"grad stage {rank}"] = _close(tag, f"stage {rank} gradient", case["grad"],
+                                            ref["grads"][rank], PP_TOL)
+        again = x["cases"]["again"]
+        print(f"[{tag}] rank {rank} ({x['backend']}, {x['device']}): forward "
+              f"{case['forward_ms']:.2f} ms, backward {case['backward_ms']:.2f} ms for "
+              f"{gp['n_micro']} microbatches of ({gp['b']}, {gp['w']}) f32 (a second call "
+              f"{again['forward_ms']:.2f} / {again['backward_ms']:.2f} ms)")
+    shift = gp["b"] * gp["w"] * 4
+    errs = json.dumps({k: float(f"{v:.3e}") for k, v in errs.items()})
+    print(f"[{tag}] {n_stages} stages, {gp['n_micro']} microbatches: bubble "
+          f"{(n_stages - 1) / (gp['n_micro'] + n_stages - 1):.4f}; {shift} bytes a shift, "
+          f"{2 * gp['n_micro'] * (n_stages - 1)} shifts a forward and backward; max |pipelined "
+          f"- sequential| / max |sequential|: {errs}")
+
+
+def _check_sage(tag, ranks, ref):
+    """Both stages against the sequential run: step 1's loss (rtol 1e-5),
+    gradients (PP_TOL of the largest) and merged params (rtol 1e-4, atol
+    1e-5), finite falling losses, the
+    merged params' accuracy within PP_ACCURACY_TOL, the gather kernel
+    3 x n_micro x steps on stage 0 and never on stage 1, the SpMM in
+    validation, no plain version on the card.  Returns {rank: launches}."""
+    if sorted(ranks) != [0, 1]:
+        raise AssertionError(f"[{tag}] results from ranks {sorted(ranks)}, expected [0, 1]")
+    steps = PP_SAGE["steps"]
+    launches = {}
+    for rank, x in ranks.items():
+        n = x["n_micro"]
+        np.testing.assert_allclose(x["losses"][0], ref["losses"][0], rtol=1e-5,
+                                   err_msg=f"[{tag}] rank {rank} step 1 loss")
+        for part in ("fc", "sfc"):
+            for li in range(2):
+                for k in ("w", "b"):
+                    np.testing.assert_allclose(x["merged1"][part][li][k],
+                                               ref["params1"][part][li][k], rtol=1e-4, atol=1e-5,
+                                               err_msg=f"[{tag}] rank {rank} {part}[{li}].{k}")
+        # stage s's "l{s+1}.fc.w" is the sequential params' "fc.{s}.w"
+        grad_err = max(_close(tag, f"stage {rank} step 1 gradient {name}", g,
+                              ref["grads1"][f"{name.split('.')[1]}.{rank}.{name.split('.')[2]}"],
+                              PP_TOL)
+                       for name, g in x["grads1"].items())
+        losses = x["losses"]
+        if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+            raise AssertionError(f"[{tag}] rank {rank}: losses not finite and falling: {losses}")
+        if abs(x["accuracy"] - ref["accuracy"]) > PP_ACCURACY_TOL:
+            raise AssertionError(f"[{tag}] rank {rank}: accuracy {x['accuracy']} against the "
+                                 f"sequential {ref['accuracy']} (> {PP_ACCURACY_TOL} apart)")
+        want = 3 * n * steps if rank == 0 else 0
+        if x["gather_calls"] != want or x["launches"].get("gather_rows", 0) != want:
+            raise AssertionError(f"[{tag}] stage {rank}: {x['gather_calls']} gather launches in "
+                                 f"the steps, {x['launches'].get('gather_rows', 0)} in all, "
+                                 f"expected {want}")
+        if x["launches"].get("bell_spmm", 0) <= 0:
+            raise AssertionError(f"[{tag}] rank {rank}: validation never launched bell_spmm")
+        _no_plain(f"{tag} rank {rank}", x["on_cuda"])
+        ms = x["step_ms"]
+        print(f"[{tag}] stage {rank} ({x['backend']}, {x['device']}): {steps} steps of {n} "
+              f"microbatches, {statistics.median(ms[1:]):.2f} ms a step (median after step 1; "
+              f"step 1 {ms[0]:.2f}), peak memory allocated {x.get('peak_mb', 0.0):.1f} MiB, "
+              f"set-up {x['setup_s']:.1f} s; step 1 gradients within {grad_err:.2e} of the "
+              f"largest; losses {json.dumps([round(v, 5) for v in losses])}; "
+              f"accuracy {x['accuracy']:.4f} (sequential {ref['accuracy']:.4f}); kernel launches "
+              f"{json.dumps(x['launches'])}")
+        launches[rank] = x["launches"]
+    x = ranks[0]
+    shifts = 2 * x["n_micro"]
+    shift_ms = ranks[1]["shift_ms"]
+    print(f"[{tag}] bubble (P-1)/(n_micro+P-1) = {x['bubble']:.4f}; {x['shift_bytes']} bytes a "
+          f"shift, {shifts} shifts a step, {shift_ms:.3f} ms a shift streamed alone ("
+          f"{shifts * shift_ms:.1f} ms a step if none overlapped, "
+          f"{shifts * shift_ms / statistics.median(x['step_ms'][1:]):.3f} of the step); "
+          f"sequential on one device "
+          f"{statistics.median(ref['step_ms'][1:]):.2f} ms a step; step 1 loss "
+          f"{x['losses'][0]:.6f} against {ref['losses'][0]:.6f}")
+    return launches
 
 
 def kernel_rows(r, dtype, f32=None) -> list:
@@ -2597,6 +2834,7 @@ def kernel_rows(r, dtype, f32=None) -> list:
         "at": f"arxiv feature table (169,343 x 128 {'f32' if f32 is None else 'bf16'}), one "
               "batch's n2 (128,000 rows)",
         "path": f"sage-minibatch{bf}",
+        "path_launches": {f"sage-minibatch{bf}": r["mb_launches"].get("gather_rows", 0)},
     }, lambda f: f["gather_times"][0]))
     if "spmd" in r:  # the sharded path: each rank's launches, the per-rank layout checks
         for row in rows:

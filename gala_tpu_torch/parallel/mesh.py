@@ -23,7 +23,7 @@ import os
 import torch
 import torch.distributed as dist
 
-from gala_tpu_torch.parallel.multihost import check_backend, initialize
+from gala_tpu_torch.parallel.multihost import check_backend, initialize, world_timeout
 
 
 @dataclasses.dataclass
@@ -61,8 +61,11 @@ def make_mesh(n: int | None = None, model_axis: int = 1, backend: str | None = N
         raise ValueError(f"requested {n} ranks, have {world}")
     model = model_axis if n % model_axis == 0 else 1
     data = n // model
-    data_groups = [dist.new_group([d * model + m for d in range(data)]) for m in range(model)]
-    model_groups = [dist.new_group([d * model + m for m in range(model)]) for d in range(data)]
+    limit = world_timeout()
+    data_groups = [dist.new_group([d * model + m for d in range(data)], timeout=limit)
+                   for m in range(model)]
+    model_groups = [dist.new_group([d * model + m for m in range(model)], timeout=limit)
+                    for d in range(data)]
     if rank >= n:
         return None
     d, m = divmod(rank, model)

@@ -21,6 +21,7 @@ card (NCCL refuses two ranks on one device).
 """
 from __future__ import annotations
 
+import datetime
 import os
 import tempfile
 
@@ -77,26 +78,40 @@ def is_primary() -> bool:
     return not dist.is_initialized() or dist.get_rank() == 0
 
 
-def _rank_main(rank: int, world: int, backend: str, store: str, fn, args) -> None:
+def world_timeout() -> datetime.timedelta:
+    """The default group's timeout (init_process_group's `timeout`), for
+    the groups a mesh creates: dist.new_group takes torch's default
+    otherwise, not the world's."""
+    pg = dist.distributed_c10d._get_default_group()
+    device = torch.device("cuda" if dist.get_backend() == "nccl" else "cpu")
+    return pg._get_backend(device).options._timeout
+
+
+def _rank_main(rank: int, world: int, backend: str, store: str, timeout, fn, args) -> None:
+    limit = None if timeout is None else datetime.timedelta(seconds=timeout)
     dist.init_process_group(backend, store=dist.FileStore(store, world), rank=rank,
-                            world_size=world)
+                            world_size=world, timeout=limit)
     try:
         fn(rank, *args)
     finally:
         dist.destroy_process_group()
 
 
-def spawn(fn, world: int, backend: str, *args, store: str | None = None) -> None:
+def spawn(fn, world: int, backend: str, *args, store: str | None = None,
+          timeout: float | None = None) -> None:
     """Run fn(rank, *args) in `world` fresh processes of this host, each a
     rank of one process group over a FileStore (`store`, a file path that
     must not exist yet; a temporary one by default): the counterpart of
     one JAX process driving every local chip.  `fn` must be importable
     (the processes start from a fresh import).  An exception in a rank
-    stops the others and is raised here."""
+    stops the others and is raised here.  timeout: seconds the group's
+    operations wait (torch's default, 30 minutes, when None), for the world
+    and every group a mesh creates (world_timeout): a send, receive or
+    collective that no peer matches raises after it."""
     check_backend(backend, world)
     if store is not None:
-        torch.multiprocessing.spawn(_rank_main, args=(world, backend, store, fn, args),
+        torch.multiprocessing.spawn(_rank_main, args=(world, backend, store, timeout, fn, args),
                                     nprocs=world, join=True)
         return
     with tempfile.TemporaryDirectory() as tmp:
-        spawn(fn, world, backend, *args, store=os.path.join(tmp, "store"))
+        spawn(fn, world, backend, *args, store=os.path.join(tmp, "store"), timeout=timeout)

@@ -6,10 +6,11 @@ package, so a spawned rank of a test that does (tests/
 test_torch_parallel.py, against gala_tpu) never loads it; chip_smoke.py
 runs the same jobs on the card against the single-device port.
 
-A job is a dict with "kind" (a key of JOBS), "name" and "mesh" (n,
-model_axis): every rank builds the mesh (parallel.mesh.make_mesh, which
-every rank must call); ranks outside it skip the job.  Results are
-pickled, one file per job and rank, `<name>.<rank>.pkl` (read_results).
+A job is a dict with "kind" (a key of JOBS), "name" and "mesh": every
+rank builds the mesh, which every rank must call (parallel.mesh.make_mesh
+on (n, model_axis), or parallel.pp.make_pipe_mesh on (n_stages,) for the
+pipeline's jobs); ranks outside it skip the job.  Results are pickled,
+one file per job and rank, `<name>.<rank>.pkl` (read_results).
 """
 from __future__ import annotations
 
@@ -19,9 +20,12 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gala_tpu_torch.parallel.graph import ShardedGraph
 from gala_tpu_torch.parallel.mesh import make_mesh
+from gala_tpu_torch.parallel.pp import make_pipe_mesh
+from gala_tpu_torch.utils.timing import fence
 
 
 # --------------------------------------------------------------------------- #
@@ -286,7 +290,184 @@ def assemble(ranks: dict, key: str) -> dict:
     return out
 
 
-JOBS = {"ops": _op_job, "compiled": _compiled_job, "train_step": _train_step_job}
+# --------------------------------------------------------------------------- #
+# pipeline jobs (parallel.pp)
+# --------------------------------------------------------------------------- #
+def gpipe_inputs(n_stages: int, b: int, w: int, n_micro: int, seed: int):
+    """The pp_gpipe job's stage matrices ((w, w) each, N(0, 0.3^2)) and
+    (n_micro, b, w) microbatch stream, from `seed` (tests/test_pp.py's
+    recipe)."""
+    rng = np.random.default_rng(seed)
+    mats = [rng.normal(size=(w, w)).astype(np.float32) * 0.3 for _ in range(n_stages)]
+    return mats, rng.normal(size=(n_micro, b, w)).astype(np.float32)
+
+
+def relu_stage(params, h, stage):
+    """The pp_gpipe job's stage body: relu(h @ w)."""
+    return torch.relu(h @ params["w"])
+
+
+def _gpipe_job(job, mesh, cache) -> dict:
+    """parallel.pp.gpipe of relu_stage for each of the job's cases {name:
+    (n_micro, w_out)} on gpipe_inputs(P, b, w, n_micro, seed): the output,
+    this stage's gradient of sum(out^2) and the host ms of each pass."""
+    from gala_tpu_torch.models.common import full_precision_matmuls
+    from gala_tpu_torch.parallel.pp import gpipe
+    from gala_tpu_torch.weights import stage_params_from_jax
+
+    full_precision_matmuls()
+    dev = mesh.device
+    out = {"stage": mesh.stage, "backend": mesh.backend, "device": str(dev), "cases": {}}
+    for name, (n_micro, w_out) in job["cases"].items():
+        mats, xs = gpipe_inputs(mesh.n_stages, job["b"], job["w"], n_micro, job["seed"])
+        params = stage_params_from_jax({"w": np.stack(mats)}, mesh.stage, dev)
+        xs = torch.from_numpy(xs).to(dev)
+        fence(dev)
+        dist.barrier(group=mesh.group)  # every stage starts the case together
+        t0 = time.perf_counter()
+        res = gpipe(mesh, relu_stage, params, xs, w_out)
+        fence(dev)
+        t1 = time.perf_counter()
+        (res.float() ** 2).sum().backward()
+        fence(dev)
+        out["cases"][name] = {"out": numpy_tree(res), "grad": numpy_tree(params["w"].grad),
+                              "forward_ms": (t1 - t0) * 1e3,
+                              "backward_ms": (time.perf_counter() - t1) * 1e3}
+    return out
+
+
+def _unmatched_job(job, mesh, cache) -> dict:
+    """A schedule the ranks disagree on: stage s streams 1 + s microbatches
+    through gpipe, so the next stage waits for a shift that is never sent
+    and the group's timeout must end the wait (multihost.spawn)."""
+    from gala_tpu_torch.parallel.pp import gpipe
+
+    xs = torch.zeros((1 + mesh.stage, 2, 2), device=mesh.device)
+    gpipe(mesh, relu_stage, {"w": torch.eye(2, device=mesh.device)}, xs, 2)
+    return {}
+
+
+def _shift_ms(mesh, shape, dtype, n: int = 50):
+    """Host ms a shift of (shape, dtype) takes from stage 0 to stage 1 in a
+    stream of n, as the forward schedule sends them: stage 1's time from
+    its first receive to its last, over n - 1; None on the other stages."""
+    from gala_tpu_torch.parallel.pp import _recv, _send, _wait
+
+    fence(mesh.device)
+    dist.barrier(group=mesh.group)
+    if mesh.stage == 0:
+        pending, t = [], torch.zeros(shape, dtype=dtype, device=mesh.device)
+        for _ in range(n):
+            _send(mesh, 1, t, pending)
+        _wait(pending)
+        return None
+    if mesh.stage != 1:
+        return None
+    _recv(mesh, 0, shape, dtype)
+    fence(mesh.device)
+    t0 = time.perf_counter()
+    for _ in range(n - 1):
+        _recv(mesh, 0, shape, dtype)
+    fence(mesh.device)
+    return (time.perf_counter() - t0) * 1e3 / (n - 1)
+
+
+def _copy_params_(params, new) -> None:
+    """Copy `new` into `params` by parameter name (the optimizer keeps its
+    tensors)."""
+    src = dict(new.named_parameters())
+    with torch.no_grad():
+        for name, p in params.named_parameters():
+            p.copy_(src[name])
+
+
+def _sage_pipeline_job(job, mesh, cache) -> dict:
+    """parallel.pp.make_sage_pipeline on the job's data: `steps` steps over
+    one epoch's microbatches (job["micro"], a pickle of numpy t, n1, n2, y,
+    m), from gala_tpu's stacked initial params where job["weights"] names
+    them (weights.stage_params_from_jax).  Returns the losses and host ms
+    of each step; step 1's merged params (merge_sage_params) and this
+    stage's gradients ({"l1.fc.w": ...}); this stage's gather calls during
+    the steps (the plain version's on the CPU, the kernel's launches on
+    CUDA); the kernel launches and plain calls on CUDA of the steps and
+    the validation; the steps' peak memory; the merged params' full-graph
+    test accuracy (models.sage.forward); on stage 1 the host ms of one
+    shift (_shift_ms); with job["logits"], the full-graph logits of the
+    initial params."""
+    from gala_tpu_torch.models import sage
+    from gala_tpu_torch.ops.graph import Graph
+    from gala_tpu_torch.ops.kernels import gather as kg
+    from gala_tpu_torch.ops.kernels._build import all_counts, reset_counts
+    from gala_tpu_torch.parallel.pp import make_sage_pipeline, merge_sage_params
+    from gala_tpu_torch.train import masked_accuracy
+    from gala_tpu_torch.weights import params_to_numpy, stage_params_from_jax
+
+    g_host, feats, labels, masks = make_data(job["data"], cache)
+    dev = mesh.device
+    t0 = time.perf_counter()
+    g = Graph.from_host(g_host, device=dev)  # the full graph, for validation
+    xt = g.pad_nodes(np.asarray(feats, np.float32))
+    y_pad = g.pad_nodes(np.asarray(labels, np.int64))
+    test = g.pad_nodes(np.asarray(masks["test"], bool))
+    params, opt, step = make_sage_pipeline(mesh, xt, job["f1"], job["hidden"],
+                                           int(labels.max()) + 1, seed=job["seed"])
+    if job.get("weights"):
+        _copy_params_(params, stage_params_from_jax(load(job["weights"]), mesh.stage, dev))
+    micro = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+             for k, v in load(job["micro"]).items()}
+    n_micro, b = micro["t"].shape
+    w_act = (1 + job["f1"]) * job["hidden"]
+    out = {"stage": mesh.stage, "backend": mesh.backend, "device": str(dev), "n_micro": n_micro,
+           "shift_bytes": b * w_act * xt.element_size(), "setup_s": time.perf_counter() - t0,
+           "bubble": (mesh.n_stages - 1) / (n_micro + mesh.n_stages - 1)}
+    if job.get("logits"):
+        with torch.no_grad():
+            out["logits0"] = numpy_tree(sage.forward(merge_sage_params(params, mesh), [g, g], xt))
+
+    plain, calls = kg.gather_rows_reference, []
+
+    def counted(x, idx):
+        calls.append(1)
+        return plain(x, idx)
+
+    losses, times = [], []
+    reset_counts()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    kg.gather_rows_reference = counted
+    try:
+        for i in range(job["steps"]):
+            fence(dev)
+            t0 = time.perf_counter()
+            params, opt, loss = step(params, opt, micro)
+            fence(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+            if i == 0:
+                out["merged1"] = params_to_numpy(merge_sage_params(params, mesh))
+                out["grads1"] = {k: numpy_tree(p.grad) for k, p in params.named_parameters()}
+    finally:
+        kg.gather_rows_reference = plain
+    out["gather_calls"] = kg.counts.launches if dev.type == "cuda" else len(calls)
+    if dev.type == "cuda":
+        out["peak_mb"] = torch.cuda.max_memory_allocated(dev) / 2**20
+    with torch.no_grad():
+        merged = merge_sage_params(params, mesh)
+        out["accuracy"] = float(masked_accuracy(sage.forward(merged, [g, g], xt), y_pad, test))
+    fence(dev)
+    out["launches"] = {c.name: c.launches for c in all_counts().values() if c.launches}
+    out["on_cuda"] = {c.name: c.reference_calls_on_cuda for c in all_counts().values()
+                      if c.reference_calls_on_cuda}
+    out["shift_ms"] = _shift_ms(mesh, (b, w_act), xt.dtype)
+    out.update(losses=losses, step_ms=times, merged=params_to_numpy(merged))
+    return out
+
+
+# kind: (job, mesh builder over job["mesh"])
+JOBS = {"ops": (_op_job, make_mesh), "compiled": (_compiled_job, make_mesh),
+        "train_step": (_train_step_job, make_mesh), "pp_gpipe": (_gpipe_job, make_pipe_mesh),
+        "pp_sage": (_sage_pipeline_job, make_pipe_mesh),
+        "pp_unmatched": (_unmatched_job, make_pipe_mesh)}
 
 
 def run_jobs(rank: int, jobs: list, out_dir: str, threads: int = 1) -> None:
@@ -294,8 +475,9 @@ def run_jobs(rank: int, jobs: list, out_dir: str, threads: int = 1) -> None:
     torch.set_num_threads(threads)
     cache = {}
     for job in jobs:
-        mesh = make_mesh(*job["mesh"], device=job.get("device"))
+        fn, make = JOBS[job["kind"]]
+        mesh = make(*job["mesh"], device=job.get("device"))
         if mesh is None:
             continue
-        res = JOBS[job["kind"]](job, mesh, cache)
+        res = fn(job, mesh, cache)
         dump(res, os.path.join(out_dir, f"{job['name']}.{rank}.pkl"))

@@ -63,3 +63,56 @@ def shard_params(params_np: dict, plan: dict | None, mesh) -> ParamDict:
                   for key, a in v.items()} if k in plan else v
               for k, v in params_np.items()}
     return params_from_jax(sliced, mesh.device)
+
+
+def _map_leaves(fn, tree):
+    if _is_leaf(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    return [_map_leaves(fn, v) for v in tree]
+
+
+def _first_leaf(tree):
+    while not _is_leaf(tree):
+        tree = next(iter(tree.values())) if isinstance(tree, dict) else tree[0]
+    return tree
+
+
+def _stage_layers(tree, n_stages: int) -> bool:
+    """A tree keyed by stage layer, "l1" .. "lP" (gala_tpu's pipelined
+    SAGE: layer i + 1 lives on stage i, zero slices on the others)."""
+    return isinstance(tree, dict) and set(tree) == {f"l{i + 1}" for i in range(n_stages)}
+
+
+def stage_params_from_jax(stacked_np: dict, stage: int, device="cpu") -> ParamDict:
+    """The stacked pipeline params of gala_tpu (every leaf with a leading
+    axis P, gala_tpu.parallel.pp.stack_stage_params) -> the port's params
+    of one stage (parallel.pp) on `device`: each leaf's slice `stage`.  A
+    tree keyed by layer, "l1" .. "lP", keeps only the stage's own layer:
+    the others are gala_tpu's zero off-stage slices."""
+    n_stages = int(np.shape(_first_leaf(stacked_np))[0])
+    tree = _map_leaves(lambda a: np.asarray(a)[stage], stacked_np)
+    if _stage_layers(tree, n_stages):
+        tree = {f"l{stage + 1}": tree[f"l{stage + 1}"]}
+    return params_from_jax(tree, device)
+
+
+def stage_params_to_jax(per_stage: list) -> dict:
+    """stage_params_from_jax's inverse: every stage's params (the port's)
+    -> gala_tpu's stacked tree, a layer a stage lacks as zeros."""
+    trees = [params_to_numpy(s) for s in per_stage]
+    keys = [f"l{i + 1}" for i in range(len(trees))]
+    if [list(t) for t in trees] == [[k] for k in keys]:
+        full = {k: t[k] for k, t in zip(keys, trees)}
+        trees = [{k: t.get(k, _map_leaves(np.zeros_like, full[k])) for k in keys} for t in trees]
+
+    def stack(ts):
+        first = ts[0]
+        if _is_leaf(first):
+            return np.stack(ts)
+        if isinstance(first, dict):
+            return {k: stack([t[k] for t in ts]) for k in first}
+        return [stack([t[i] for t in ts]) for i in range(len(first))]
+
+    return stack(trees)

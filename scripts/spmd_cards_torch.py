@@ -3,6 +3,7 @@
 card) against the single-device port on one of them.
 
     python3 scripts/spmd_cards_torch.py [--models gcn,gat] [--epochs 20]
+    python3 scripts/spmd_cards_torch.py --pp
 
 For each model (__graft_entry__.GCN_DSL, GAT_DSL) on the Arxiv stand-in
 (scale 1.0): the single-device port on cuda:0 trains `epochs` epochs
@@ -17,6 +18,13 @@ and kernel launches, and the halo's rows and bytes an exchange.  Ends
 with the card's name and power limit and one JSON line.  Needs at
 least one NVIDIA GPU; with one, the mesh is one rank.  Imports nothing
 of JAX.
+
+--pp runs the pipeline instead (parallel.pp.make_sage_pipeline): 2
+NCCL ranks, a card each (needs two cards), train_sage_minibatch's
+defaults on one epoch's microbatches a step, 20 steps, against the
+sequential single-device run on cuda:0 (chip_smoke.py's [pp-sage]
+checks: step 1's loss and params, accuracy, the gather launches); each
+stage's ms a step, bubble, bytes a shift and peak memory.
 """
 from __future__ import annotations
 
@@ -38,6 +46,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--models", default="gcn,gat")
     ap.add_argument("--epochs", type=int, default=20)
+    ap.add_argument("--pp", action="store_true", help="the SAGE pipeline over 2 NCCL ranks")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU")
@@ -54,6 +63,8 @@ def main() -> int:
         [f.result() for f in [pool.submit(m.build) for m in
                               (bell_spmm, attn_bell, sddmm, gather, dyn_weights)]]
     arxiv = load_dataset("Arxiv", None, 1.0)
+    if args.pp:
+        return pipeline(cs, arxiv, n_cards)
     programs = {"gcn": ("GCN_DSL", ("bell_spmm",)), "gat": ("GAT_DSL", ("attn_fwd", "attn_bwd2"))}
     out = {"device": torch.cuda.get_device_name(0), "cards": n_cards, "models": {}}
     with tempfile.TemporaryDirectory() as tmp:
@@ -90,6 +101,34 @@ def main() -> int:
                               "inference_ms": x["inference_time"] * 1e3,
                               "max_accuracy": x["max_accuracy"], "launches": launches[r]}
                           for r, x in ranks.items()}}
+    print(cs.nvidia_smi())
+    print(json.dumps(out))
+    return 0
+
+
+def pipeline(cs, arxiv, n_cards) -> int:
+    """The SAGE pipeline over NCCL ranks 0-1, a card each, against the
+    sequential single-device run."""
+    from gala_tpu_torch.parallel import multihost, worker
+
+    if n_cards < 2:
+        raise SystemExit(f"--pp needs two cards, this host has {n_cards}")
+    with tempfile.TemporaryDirectory() as tmp:
+        _, _, cards, refs = cs.pp_jobs(arxiv, tmp)
+        t0 = time.perf_counter()
+        multihost.spawn(worker.run_jobs, 2, "nccl", cards, tmp, 2, timeout=cs.SPAWN_TIMEOUT)
+        print(f"[pp] 2 NCCL ranks in {time.perf_counter() - t0:.1f} s", flush=True)
+        ranks = worker.read_results(tmp, cards[0]["name"])
+        launches = cs._check_sage("pp-nccl-cards", ranks, refs["sage"])
+    ref = refs["sage"]
+    out = {"device": torch.cuda.get_device_name(0), "cards": n_cards,
+           "sequential": {"step_ms": ref["step_ms"], "losses": ref["losses"],
+                          "accuracy": ref["accuracy"]},
+           "stages": {r: {"step_ms": x["step_ms"], "peak_mb": x["peak_mb"],
+                          "accuracy": x["accuracy"], "losses": x["losses"],
+                          "launches": launches[r]} for r, x in ranks.items()},
+           "bubble": ranks[0]["bubble"], "shift_bytes": ranks[0]["shift_bytes"],
+           "n_micro": ranks[0]["n_micro"]}
     print(cs.nvidia_smi())
     print(json.dumps(out))
     return 0
