@@ -15,8 +15,9 @@ and prints no "ok" line:
             toolchain probe (ops.kernels._build.toolchain_available: a
             child process builds and launches csrc/probe.cu, x * 2), for
             sm_90a into gala_tpu_torch/_build/; prints ptxas's registers
-            and spills (fails if bwd1's, bwd2's, their merge's or the
-            SDDMM's kernels spill), the probe's answer (fails unless
+            and spills (fails if the SpMM's pass 1, the attention
+            forward's, bwd1's, bwd2's, their merge's or the SDDMM's
+            kernels spill, at f32 and bf16), the probe's answer (fails unless
             True) and its kernel against x * 2 in this process, bitwise,
             at n = 1, 3, 16,384 and 2^20 + 3 and on views one float in,
             then timed beside torch.mul at its 128 x 128 tile and at 2^26
@@ -358,8 +359,10 @@ LIMITS_REPLACES = "scripts/pallas_bisect.py:40"
 # kernels redesigned since the first slices: ptxas must report no spill for them,
 # and for the bf16 forms of those that have one (the merge sums f32 partials at
 # both types, so it has none)
-NO_SPILL = ("attn_bwd1_kernel", "attn_bwd2_kernel", "attn_merge_sum_kernel", "sddmm_kernel")
-NO_SPILL_BF16 = ("attn_bwd1_kernel", "attn_bwd2_kernel", "sddmm_kernel")
+NO_SPILL = ("spmm_unit_kernel", "attn_fwd_kernel", "attn_bwd1_kernel", "attn_bwd2_kernel",
+            "attn_merge_sum_kernel", "sddmm_kernel")
+NO_SPILL_BF16 = ("spmm_unit_kernel", "attn_fwd_kernel", "attn_bwd1_kernel", "attn_bwd2_kernel",
+                 "sddmm_kernel")
 BF16_MANGLED = "__nv_bfloat16"  # in the mangled name of every bf16 instantiation
 BF16 = torch.bfloat16
 TAIL_LIMIT = 1.5

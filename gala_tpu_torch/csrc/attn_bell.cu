@@ -16,10 +16,11 @@
 // ops.  Here each kernel covers a whole layout in one call of two
 // launches over the layout's work units (ops/graph.py WorkUnits;
 // unit_gather.cuh), as the bell SpMM does.  The forward:
-//   pass 1  one warp per unit of at most 128 slots: the unit's softmax
-//           statistics (one max and two sums per head for the whole unit,
-//           not per 32-slot chunk), then its weighted gather of x.  A
-//           unit that is its whole row writes
+//   pass 1  several short units a warp, as the SpMM takes them (a hub's
+//           128-slot units one a warp): each unit's softmax statistics
+//           (one max and two sums per head for the whole unit, not per
+//           32-slot chunk), then its weighted gather of x.  A unit that
+//           is its whole row writes
 //           out, m, s (and out+, s+); a unit of a longer row (a hub: its
 //           units are its virtual rows) writes the unnormalised partial
 //           (m_u, s_u, s+_u, acc_u, acc+_u), the TPU kernel's
@@ -59,40 +60,54 @@
 // forward reads, and writes 3H floats a row.  There are a few
 // flops per gathered float (an exp per slot and head), and no tile is
 // reused, so tensor cores have no role.
-// The forward's design: per-slot scalar work lane-per-slot (a unit's 128
-// slots are 4 per lane), then the weighted row reduce with lanes across
-// the features, gathering with unit_gather.cuh's plain loads (float4
-// where fh % 4 == 0 and the tables are 16-byte aligned, scalar otherwise;
-// 32 / g slots in flight per step); slot columns and probabilities pass
-// between the phases through shared memory.  bwd2's pass 1 has the same
-// shape: its scalar phase keeps its per-head sums in shared memory, not
+// The forward's design.  Three units in four hold at most 8 slots, and
+// one warp a unit paid each one's whole chain (descriptor, scores, a max
+// and two sums over the whole warp, gather, store) for a few rows.  Now a
+// warp takes G units (unit_gather.cuh WarpUnits); a unit's 32 / G lanes
+// stage its columns (one coalesced sweep of the warp where the units lie
+// back to back), then take its scalar phase head by head through shared
+// memory (scores, then a max and two sums as reductions over the unit's
+// lanes alone; no per-head register arrays, so the 8-head form spills
+// nothing), then its gather with lanes across the features (16-byte
+// loads: 4 f32 or 8 bf16 columns; scalar where fh does not allow them),
+// its slot groups summed by a shuffle tree inside its lanes.  One form
+// serves every head count; it asks for 6 blocks per SM (40 registers).
+// Measured (H100 80GB HBM3, 700 W, scripts/unit_kernels_torch.py,
+// PERF.md): hf = 32 0.206 -> 0.148 ms (f32), 0.206 -> 0.130 (bf16); 8
+// heads at hf = 64 0.96 -> 0.48 / 0.37.  bwd2's pass 1 keeps one warp a
+// unit: its scalar phase keeps its per-head sums in shared memory, not
 // registers, and one warp walks every g-vector slice of a wide row
 // itself, so dvl's dot sees the whole head.
-// bwd1's pass 1 calls the forward's phases (unit_scores, unit_probs,
-// unit_gather), one head at a time in its scalar phase, and walks the
-// slices as bwd2 does.  All three are instantiated for one head and for
-// up to 8, so the one-head GAT path keeps 32 registers and 8 blocks per
-// SM (bwd2's 8-head form asks for 5 blocks per SM, and so does not
-// spill).
+// bwd1's pass 1 runs the one-warp-a-unit scalar and gather phases
+// (unit_scores, unit_probs, unit_gather), one head at a time in its scalar
+// phase, and walks the slices as bwd2 does.  Both are instantiated for one
+// head and for up to 8, so the one-head GAT path keeps 32 registers and 8
+// blocks per SM (bwd2's 8-head form asks for 5 blocks per SM, and so does
+// not spill).
 //
 // bf16 activations (gala_tpu's dtype=jnp.bfloat16): each kernel has a
 // second instantiation that reads x, vl and vr (and bwd1's dout) as bf16,
-// 8-byte loads of 4 columns a lane where float4 loads were, widened to
-// f32 in registers.  Everything else stays f32 as gala_tpu keeps it
+// widened to f32 in registers: the forward 16-byte loads of 8 columns a
+// lane (8-byte loads of 4 where fh % 8 != 0), bwd1 and bwd2 8-byte loads
+// of 4.  Everything else stays f32 as gala_tpu keeps it
 // (ops/attention.py:405-407, 763-768, 826-838): the scores, p, m, s, the
 // partials and both merges, the outputs (out, out+, s+; bwd1's [sds | A |
 // B]; bwd2's [dx | dvl]) and bwd2's [dout | vr | m | s | sds] table.  The
 // forward's x rows are half the bytes; bwd2's reads of x and vl (one row
 // per unit, one value per head) are what gala_tpu upcasts to f32.
 //
-// Not done yet (later work, see ROADMAP): 8 bf16 columns a lane (16-byte
-// loads) in place of 4.
+// Not done yet (later work, see ROADMAP): bwd1 and bwd2 one warp a unit
+// with 4 bf16 columns a lane.
 //
 // Masked slots (occupancy 0: padding and the phantom column) are skipped
 // without reading their rows.  Output rows that no unit or row writes
-// (padding) are left as the caller allocated them (zeros).
+// (padding) are 0: the forward zeroes them first (cudaMemsetAsync, from
+// WorkUnits.n_written on: every row below it is some unit's node), bwd1
+// and bwd2 leave them as the caller allocated them (zeros).
 
 #include <math.h>
+
+#include <initializer_list>
 
 #include "unit_gather.cuh"
 
@@ -108,40 +123,23 @@ constexpr float kFloor = -5e29f;  // floor of a row's max, _NEG / 2
 
 __device__ __forceinline__ float lrelu(float z, float slope) { return z > 0.f ? z : slope * z; }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = kWarp / 2; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(kFullMask, v, off));
-  return v;
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = kWarp / 2; off > 0; off >>= 1) v += __shfl_xor_sync(kFullMask, v, off);
   return v;
 }
 
-// a[h] for a head index known only at run time, without spilling the
-// register array to local memory
-template <int N>
-__device__ __forceinline__ float pick(const float (&a)[N], int h) {
-  float v = a[0];
-#pragma unroll
-  for (int i = 1; i < N; ++i) v = (i == h) ? a[i] : v;
-  return v;
-}
-
-// The forward's dynamic shared memory per warp: the unit's columns, then
-// H rows of kUnitSlots probabilities, each stored with the
+// The forward's dynamic shared memory per warp: its units' columns, then
+// H rows of kUnitSlots scores, then probabilities, each stored with the
 // sign of its zpre (+p where zpre > 0, -p elsewhere: the flash
-// statistics' mask rides in the sign bit).
+// statistics' mask rides in the sign bit); bwd1's and bwd2's start so.
 __host__ __device__ constexpr size_t fwd_warp_smem(int nh) {
   return sizeof(UnitSmem) + static_cast<size_t>(nh) * kUnitSlots * sizeof(float);
 }
 static_assert(fwd_warp_smem(kMaxHeads) * kWarpsPerBlock <= kDefaultSmem,
               "the forward would need cudaFuncSetAttribute");
 
-// The phases that the forward and bwd1 share (bwd1 runs them under the
-// row's saved max instead of the unit's own).
+// bwd1's phases, one warp a unit (under the row's saved max).
 //
 // Scalar phase, loads: lane t takes slots t, t + 32, t + 64 and t + 96 of
 // the unit (ucols, uocc: its slots' columns and occupancy, at its first
@@ -226,109 +224,156 @@ __device__ __forceinline__ void unit_gather(const UnitSmem& sm, int len,
   }
 }
 
-// Forward pass 1: one warp per unit.  With outpos != null the flash
-// statistics out+ = sum_{zpre>0} p x and s+ = sum_{zpre>0} p are taken
-// too.  The partial tables of split rows (unnormalised, p = e^(z - m_u)):
-// pacc, paccp (n_partials, hf); pm, ps, psp (n_partials, H).  MAXH >= H
-// bounds the per-head register arrays (1 for the GAT path's one head).
-template <int VEC, int MAXH, class T>
-__global__ void __launch_bounds__(kWarp * kWarpsPerBlock, kMinBlocks)
+// Resident blocks per SM that the forward asks of the compiler: 6 (40
+// registers; registers go in steps of 8 a thread, so 7 blocks would give
+// 32).  At 8 heads the shared memory allows no more blocks; at 32
+// registers the forward spilled (acc and acc+ are 2 VEC registers, 16 at 8
+// bf16 columns a lane).
+constexpr int kFwdMinBlocks = 6;
+// rows of a slot group in flight per step of the gather
+template <int VEC>
+constexpr int kFwdRows = VEC == 1 ? 4 : VEC == 4 ? 2 : 1;
+
+// Forward pass 1: several short units a warp (unit_gather.cuh WarpUnits;
+// one at g = 32).  With outpos != null the flash statistics out+ =
+// sum_{zpre>0} p x and s+ = sum_{zpre>0} p are taken too.  The partial
+// tables of split rows (unnormalised, p = e^(z - m_u)): pacc, paccp
+// (n_partials, hf); pm, ps, psp (n_partials, H).  One form serves every
+// head count (nh at run time): a one-head form of its own spilled.
+//
+// Scalar phase, by the unit's ul = 32 / G lanes (a lane takes the unit's
+// slots t0, t0 + ul, ...: at most 4, as a unit holds at most 4 ul slots):
+// the columns go to shared memory (-1 for a masked slot), then head by
+// head the scores zpre = vl[c, h] + vr[node, h] (kept in the head's row of
+// shared memory), the unit's max m = max(max lrelu(zpre), kFloor), and
+// p = e^(lrelu(zpre) - m) stored with the sign of zpre over the score, with
+// s = sum p and s+ = sum_{zpre>0} p; max and sums are reductions over the
+// unit's lanes, and lane t0 = h writes head h's statistics at once.  No
+// per-head register arrays: the 8-head forms hold what the one-head form
+// holds.  Gather phase: each slot group of the unit sums |p| x (and p x
+// over p > 0) over its slots, summed over the unit's slot groups by a
+// shuffle tree, and divided by the sum of the lane's head.
+template <int VEC, class T>
+__global__ void __launch_bounds__(kWarp * kWarpsPerBlock, kFwdMinBlocks)
 attn_fwd_kernel(const T* __restrict__ x, const T* __restrict__ vl,
                 const T* __restrict__ vr, const int32_t* __restrict__ cols,
                 const float* __restrict__ occ, const int64_t* __restrict__ unit_start,
                 const int32_t* __restrict__ unit_len, const int32_t* __restrict__ unit_node,
-                const int32_t* __restrict__ unit_part, float* __restrict__ out,
-                float* __restrict__ m_out, float* __restrict__ s_out, float* __restrict__ outpos,
-                float* __restrict__ spos_out, float* __restrict__ pacc, float* __restrict__ paccp,
-                float* __restrict__ pm, float* __restrict__ ps, float* __restrict__ psp,
-                int n_units, int hf, int nh, float slope, int log2_g) {
+                const int32_t* __restrict__ unit_part, const int32_t* __restrict__ warp_first,
+                float* __restrict__ out, float* __restrict__ m_out, float* __restrict__ s_out,
+                float* __restrict__ outpos, float* __restrict__ spos_out,
+                float* __restrict__ pacc, float* __restrict__ paccp, float* __restrict__ pm,
+                float* __restrict__ ps, float* __restrict__ psp, int n_warps, int hf,
+                int nh, float slope, int log2_g) {
   extern __shared__ float4 smem[];
   const int w = threadIdx.x / kWarp;
-  const int unit = blockIdx.x * kWarpsPerBlock + w;
-  if (unit >= n_units) return;  // the same for every lane of the warp
+  WarpUnits wu;
+  if (!warp_units(warp_first, blockIdx.x * kWarpsPerBlock + w, n_warps, unit_start, unit_len,
+                  wu))
+    return;  // the same for every lane of the warp
   char* base = reinterpret_cast<char*>(smem) + w * fwd_warp_smem(nh);
-  UnitSmem& sm = *reinterpret_cast<UnitSmem*>(base);
-  float* sh_p = reinterpret_cast<float*>(base + sizeof(UnitSmem));  // [H][kUnitSlots]
-
+  int32_t* col = reinterpret_cast<UnitSmem*>(base)->col;
+  stage_units(wu, [&](int i, int64_t slot) {
+    const int c = __ldg(cols + slot);
+    col[i] = __ldg(occ + slot) != 0.f ? c : -1;
+  });
+  col += wu.off;
+  float* sh_p = reinterpret_cast<float*>(base + sizeof(UnitSmem)) + wu.off;  // [H][kUnitSlots]
   const bool flash = outpos != nullptr;
-  const int fh = hf / nh;
-  const Lanes ln(log2_g, hf, fh, VEC);
-  const int len = unit_len[unit];
+  const int ul = 1 << wu.log2_ul;
+  __syncwarp();
 
-  // scalar phase: every head's scores, then one max and two sums per head
-  // for the unit
-  float vr_n[MAXH], m_u[MAXH], s_u[MAXH], sp_u[MAXH];
-#pragma unroll
-  for (int h = 0; h < MAXH; ++h) {
-    vr_n[h] = h < nh ? ld(vr + static_cast<size_t>(unit_node[unit]) * nh + h) : 0.f;
-    m_u[h] = kFloor;
-    s_u[h] = sp_u[h] = 0.f;
-  }
-  float zpre[kPer][MAXH];
-  bool real[kPer];
-  {
-    const int64_t first = load_at_use(unit_start + unit);
-    unit_scores<MAXH>(sm, cols + first, occ + first, vl, vr_n, len, nh, 0, ln.lane, zpre, real);
-  }
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-#pragma unroll
-    for (int h = 0; h < MAXH; ++h)
-      if (h < nh && real[i]) m_u[h] = fmaxf(m_u[h], lrelu(zpre[i][h], slope));
-  }
-#pragma unroll
-  for (int h = 0; h < MAXH; ++h) {
-    if (h < nh) {
-      m_u[h] = warp_max(m_u[h]);
-      unit_probs<MAXH>(zpre, real, h, m_u[h], slope, len, ln.lane, sh_p + h * kUnitSlots, s_u[h],
-                       sp_u[h]);
-      s_u[h] = warp_sum(s_u[h]);
-      if (flash) sp_u[h] = warp_sum(sp_u[h]);
+  // scalar phase: head by head scores, max and sums
+  const int node = wu.node(unit_node);
+  float s_keep = 1.f;  // lane t0 < nh: head t0's sum (1 where it is 0)
+  for (int h = 0; h < nh; ++h) {
+    float* ph = sh_p + h * kUnitSlots;
+    const float vr_h = ld(vr + static_cast<size_t>(node) * nh + h);
+    float m = kFloor;
+    for (int t = wu.t0(); t < wu.len; t += ul) {
+      const int c = col[t];
+      if (c >= 0) {
+        const float zp = ld(vl + static_cast<size_t>(c) * nh + h) + vr_h;
+        ph[t] = zp;
+        m = fmaxf(m, lrelu(zp, slope));
+      }
     }
+    m = unit_max(m, wu);
+    float sum = 0.f, sump = 0.f;
+    for (int t = wu.t0(); t < wu.len; t += ul) {
+      float p = 0.f;
+      bool pos = false;
+      if (col[t] >= 0) {
+        const float zp = ph[t];
+        p = expf(lrelu(zp, slope) - m);
+        pos = zp > 0.f;
+      }
+      sum += p;
+      if (pos) sump += p;
+      ph[t] = pos ? p : -p;
+    }
+    sum = unit_sum(sum, wu);
+    if (flash) sump = unit_sum(sump, wu);
+    if (wu.t0() == h && wu.valid() && blockIdx.y == 0) {
+      const int p = wu.part(unit_part);
+      if (p >= 0) {  // a partial of a split row, unnormalised
+        const size_t o = static_cast<size_t>(p) * nh + h;
+        pm[o] = m;
+        ps[o] = sum;
+        if (flash) psp[o] = sump;
+      } else {
+        const float s_fin = sum > 0.f ? sum : 1.f;
+        const size_t o = static_cast<size_t>(node) * nh + h;
+        m_out[o] = m;
+        s_out[o] = s_fin;
+        if (flash) spos_out[o] = sump / s_fin;
+      }
+    }
+    if (wu.t0() == h) s_keep = sum > 0.f ? sum : 1.f;
   }
   __syncwarp();
 
+  const RowLanes rl(wu, log2_g, hf, hf / nh, VEC, static_cast<int>(blockIdx.y));
+  // the sum of the lane's head, from the lane that keeps it
+  const float s_hd = __shfl_sync(kFullMask, s_keep, (wu.ui() << wu.log2_ul) + rl.hd);
   float acc[VEC], accp[VEC];
-  unit_gather<VEC>(sm, len, x, hf, ln, sh_p + ln.hd * kUnitSlots, flash, acc, accp);
-
-  const int p = unit_part[unit];
-  const int node = load_at_use(unit_node + unit);  // not held through the gather
-  const size_t col = static_cast<size_t>(ln.vcol) * VEC;
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) acc[i] = accp[i] = 0.f;
+  const float* php = sh_p + rl.hd * kUnitSlots;
+  gather_units<VEC, kFwdRows<VEC>>(col, wu, rl, x, hf, [&](int j) { return php[j] != 0.f; },
+                                   [&](int j, const float (&v)[VEC]) {
+                                     const float pv = php[j];
+                                     const float p = fabsf(pv);
+#pragma unroll
+                                     for (int i = 0; i < VEC; ++i) acc[i] = fmaf(p, v[i], acc[i]);
+                                     if (flash && pv > 0.f) {
+#pragma unroll
+                                       for (int i = 0; i < VEC; ++i)
+                                         accp[i] = fmaf(pv, v[i], accp[i]);
+                                     }
+                                   });
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    acc[i] = sum_groups(acc[i], wu, rl);
+    if (flash) accp[i] = sum_groups(accp[i], wu, rl);
+  }
+  if (rl.sg != 0 || !rl.active || !wu.valid()) return;
+  const size_t c0 = static_cast<size_t>(rl.vcol) * VEC;
+  const int p = wu.part(unit_part);
   if (p >= 0) {  // a partial of a split row, unnormalised
-    if (ln.sub == 0 && ln.active) {
-      const size_t o = static_cast<size_t>(p) * hf + col;
-      store_vec<VEC>(pacc + o, acc);
-      if (flash) store_vec<VEC>(paccp + o, accp);
-    }
-    if (blockIdx.y == 0 && ln.lane < nh) {
-      const size_t o = static_cast<size_t>(p) * nh + ln.lane;
-      pm[o] = pick(m_u, ln.lane);
-      ps[o] = pick(s_u, ln.lane);
-      if (flash) psp[o] = pick(sp_u, ln.lane);
-    }
+    const size_t o = static_cast<size_t>(p) * hf + c0;
+    store_vec<VEC>(pacc + o, acc);
+    if (flash) store_vec<VEC>(paccp + o, accp);
     return;
   }
-  float s_fin[MAXH];
+  const size_t o = static_cast<size_t>(wu.node(unit_node)) * hf + c0;
 #pragma unroll
-  for (int h = 0; h < MAXH; ++h) s_fin[h] = s_u[h] > 0.f ? s_u[h] : 1.f;
-  if (ln.sub == 0 && ln.active) {
-    const float s = pick(s_fin, ln.hd);
-    const size_t o = static_cast<size_t>(node) * hf + col;
-    float v[VEC];
+  for (int i = 0; i < VEC; ++i) acc[i] /= s_hd;
+  store_vec<VEC>(out + o, acc);
+  if (flash) {
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) v[i] = acc[i] / s;
-    store_vec<VEC>(out + o, v);
-    if (flash) {
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) v[i] = accp[i] / s;
-      store_vec<VEC>(outpos + o, v);
-    }
-  }
-  if (blockIdx.y == 0 && ln.lane < nh) {
-    const size_t o = static_cast<size_t>(node) * nh + ln.lane;
-    m_out[o] = pick(m_u, ln.lane);
-    s_out[o] = pick(s_fin, ln.lane);
-    if (flash) spos_out[o] = pick(sp_u, ln.lane) / pick(s_fin, ln.lane);
+    for (int i = 0; i < VEC; ++i) accp[i] /= s_hd;
+    store_vec<VEC>(outpos + o, accp);
   }
 }
 
@@ -698,13 +743,13 @@ bool bad_shape(int hf, int nh, int vec) {
          (vec == 4 && (hf / nh) % 4 != 0);
 }
 
-template <int VEC, int MAXH, class T>
+template <int VEC, class T>
 int launch_fwd(const void* x, const void* vl, const void* vr, const void* cols, const void* occ,
                const void* unit_start, const void* unit_len, const void* unit_node,
-               const void* unit_part, const void* split_node, const void* split_first,
-               const void* split_count, void* out, void* m, void* s, void* outpos, void* spos,
-               void* part, int n_units, int n_split, int n_partials, int hf, int nh,
-               float slope, cudaStream_t st) {
+               const void* unit_part, const void* warp_first, const void* split_node,
+               const void* split_first, const void* split_count, void* out, void* m, void* s,
+               void* outpos, void* spos, void* part, int n_warps, int n_split, int n_partials,
+               int hf, int nh, float slope, int log2_g, cudaStream_t st) {
   const size_t smem = fwd_warp_smem(nh) * kWarpsPerBlock;
   // the partial tables, one scratch block: acc, acc+ (P, hf); m, s, s+ (P, H)
   float* pacc = static_cast<float*>(part);
@@ -717,14 +762,14 @@ int launch_fwd(const void* x, const void* vl, const void* vr, const void* cols, 
   const auto f32 = [](const void* p) { return static_cast<const float*>(p); };
   const auto i32 = [](const void* p) { return static_cast<const int32_t*>(p); };
   const auto i64 = [](const void* p) { return static_cast<const int64_t*>(p); };
-  int log2_g;
+  int l;  // log2_g, which the caller checked
   dim3 grid;
-  reduce_grid(n_units, hf, VEC, &log2_g, &grid);
-  attn_fwd_kernel<VEC, MAXH, T><<<grid, kWarp * kWarpsPerBlock, smem, st>>>(
+  reduce_grid(n_warps, hf, VEC, &l, &grid);
+  attn_fwd_kernel<VEC, T><<<grid, kWarp * kWarpsPerBlock, smem, st>>>(
       t(x), t(vl), t(vr), i32(cols), f32(occ), i64(unit_start), i32(unit_len),
-      i32(unit_node), i32(unit_part), static_cast<float*>(out), static_cast<float*>(m),
-      static_cast<float*>(s), static_cast<float*>(outpos), static_cast<float*>(spos), pacc, paccp,
-      pm, ps, psp, n_units, hf, nh, slope, log2_g);
+      i32(unit_node), i32(unit_part), i32(warp_first), static_cast<float*>(out),
+      static_cast<float*>(m), static_cast<float*>(s), static_cast<float*>(outpos),
+      static_cast<float*>(spos), pacc, paccp, pm, ps, psp, n_warps, hf, nh, slope, log2_g);
   const int err = static_cast<int>(cudaGetLastError());
   if (err != 0 || n_split == 0) return err;
   attn_fwd_merge_kernel<<<n_split, kMergeThreads, 0, st>>>(
@@ -808,20 +853,43 @@ int dispatch(int vec, int nh, Run run) {
 template <class T>
 int fwd(const void* x, const void* vl, const void* vr, const void* cols, const void* occ,
         const void* unit_start, const void* unit_len, const void* unit_node,
-        const void* unit_part, const void* split_node, const void* split_first,
-        const void* split_count, void* out, void* m, void* s, void* outpos, void* spos,
-        void* part, int n_units, int n_split, int n_partials, int hf, int nh, float slope,
-        int vec, void* stream) {
-  if (n_units <= 0) return 0;
-  if (bad_shape(hf, nh, vec) || ((outpos == nullptr) != (spos == nullptr)) ||
-      (n_split > 0 && part == nullptr))
+        const void* unit_part, const void* warp_first, const void* split_node,
+        const void* split_first, const void* split_count, void* out, void* m, void* s,
+        void* outpos, void* spos, void* part, int n_warps, int n_split, int n_partials,
+        int n_pad, int zero_from, int hf, int nh, float slope, int vec, int log2_g,
+        void* stream) {
+  const bool wide = std::is_same_v<T, bf16> && vec == 8 && nh >= 1 && hf % nh == 0 &&
+                    (hf / nh) % 8 == 0 && nh <= kMaxHeads;
+  if ((!wide && bad_shape(hf, nh, vec)) || ((outpos == nullptr) != (spos == nullptr)) ||
+      (n_split > 0 && part == nullptr) || log2_g != row_lanes(hf / vec) ||
+      ((warp_first == nullptr) != (log2_g >= kPackedLanes)) || zero_from < 0 ||
+      (n_warps <= 0 && zero_from != 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  return dispatch(vec, nh, [&](auto vec_tag, auto maxh_tag) {
-    return launch_fwd<decltype(vec_tag)::value, decltype(maxh_tag)::value, T>(
-        x, vl, vr, cols, occ, unit_start, unit_len, unit_node, unit_part, split_node,
-        split_first, split_count, out, m, s, outpos, spos, part, n_units, n_split, n_partials,
-        hf, nh, slope, static_cast<cudaStream_t>(stream));
-  });
+  // rows that no unit writes (padding) are 0
+  const auto st = static_cast<cudaStream_t>(stream);
+  const size_t skip = static_cast<size_t>(zero_from) * sizeof(float);
+  const size_t rows = static_cast<size_t>(n_pad > zero_from ? n_pad - zero_from : 0) *
+                      sizeof(float);
+  int err = 0;
+  for (void* t : {out, outpos})
+    if (t != nullptr && rows > 0 && err == 0)
+      err = static_cast<int>(
+          cudaMemsetAsync(static_cast<char*>(t) + skip * hf, 0, rows * hf, st));
+  for (void* t : {m, s, spos})
+    if (t != nullptr && rows > 0 && err == 0)
+      err = static_cast<int>(
+          cudaMemsetAsync(static_cast<char*>(t) + skip * nh, 0, rows * nh, st));
+  if (err != 0 || n_warps <= 0) return err;
+  const auto run = [&](auto vec_tag) {
+    return launch_fwd<decltype(vec_tag)::value, T>(
+        x, vl, vr, cols, occ, unit_start, unit_len, unit_node, unit_part, warp_first,
+        split_node, split_first, split_count, out, m, s, outpos, spos, part, n_warps, n_split,
+        n_partials, hf, nh, slope, log2_g, st);
+  };
+  if constexpr (std::is_same_v<T, bf16>) {
+    if (vec == 8) return run(std::integral_constant<int, 8>{});
+  }
+  return vec == 4 ? run(std::integral_constant<int, 4>{}) : run(std::integral_constant<int, 1>{});
 }
 
 template <class T>
@@ -859,8 +927,8 @@ int bwd2(const void* wtab, const void* x, const void* vl, const void* cols, cons
   });
 }
 
-// The launch limits of pass-1 kernel `k` of a library function (fwd, bwd1
-// or bwd2) at H heads: 0 float4 and 1 scalar at f32, 3 float4 and 4
+// The launch limits of pass-1 kernel `k` of a library function (bwd1 or
+// bwd2) at H heads: 0 float4 and 1 scalar at f32, 3 float4 and 4
 // scalar at bf16 (2 is the pass-2 kernel, which the caller handles).
 template <template <int, int, class> class Kernel>
 int unit_limits(int k, int nh, size_t smem, int* out) {
@@ -879,12 +947,6 @@ int unit_limits(int k, int nh, size_t smem, int* out) {
   }
 }
 
-template <int VEC, int MAXH, class T>
-struct FwdKernel {
-  static int limits(int block, size_t smem, int* out) {
-    return launch_limits(attn_fwd_kernel<VEC, MAXH, T>, block, smem, out);
-  }
-};
 template <int VEC, int MAXH, class T>
 struct Bwd1Kernel {
   static int limits(int block, size_t smem, int* out) {
@@ -913,19 +975,28 @@ struct Bwd2Kernel {
 // the outputs and the scratch are f32 in both.
 
 // out (n_pad, hf), m, s (n_pad, H); outpos (n_pad, hf) and spos (n_pad, H)
-// may both be null (no flash statistics); part is f32 scratch of
+// may both be null (no flash statistics); rows [zero_from, n_pad) of
+// each output are set to 0 first (cudaMemsetAsync: the caller allocates
+// them uninitialised; zero_from is WorkUnits.n_written clipped to n_pad,
+// below which every row is some unit's node, and 0 without units), so
+// rows no unit writes are 0; part is f32 scratch of
 // n_partials * (2 hf + 3 H) floats, read only when n_split > 0.  Pass 2
-// is launched only when a row is split.
+// is launched only when a row is split.  warp_first is the fwd layout's
+// warp table for g = 2^log2_g lanes across a row (WorkUnits.warps: null
+// at log2_g = 5, where warp w takes unit w), n_warps its warp count;
+// log2_g must be row_lanes(hf / vec).  The bf16 entry also takes vec = 8
+// (fh % 8 == 0, x 16-byte aligned: 16-byte loads of 8 columns).
 #define GALA_ATTN_FWD(NAME, T)                                                                  \
   extern "C" int NAME(const void* x, const void* vl, const void* vr, const void* cols,          \
                       const void* occ, const void* unit_start, const void* unit_len,             \
-                      const void* unit_node, const void* unit_part, const void* split_node,      \
-                      const void* split_first, const void* split_count, void* out, void* m,      \
-                      void* s, void* outpos, void* spos, void* part, int n_units, int n_split,   \
-                      int n_partials, int hf, int nh, float slope, int vec, void* stream) {      \
-    return fwd<T>(x, vl, vr, cols, occ, unit_start, unit_len, unit_node, unit_part, split_node,  \
-                  split_first, split_count, out, m, s, outpos, spos, part, n_units, n_split,     \
-                  n_partials, hf, nh, slope, vec, stream);                                       \
+                      const void* unit_node, const void* unit_part, const void* warp_first,      \
+                      const void* split_node, const void* split_first, const void* split_count,  \
+                      void* out, void* m, void* s, void* outpos, void* spos, void* part,         \
+                      int n_warps, int n_split, int n_partials, int n_pad, int zero_from,       \
+                      int hf, int nh, float slope, int vec, int log2_g, void* stream) {          \
+    return fwd<T>(x, vl, vr, cols, occ, unit_start, unit_len, unit_node, unit_part, warp_first,  \
+                  split_node, split_first, split_count, out, m, s, outpos, spos, part, n_warps,  \
+                  n_split, n_partials, n_pad, zero_from, hf, nh, slope, vec, log2_g, stream);    \
   }
 GALA_ATTN_FWD(gala_attn_fwd_f32, float)
 GALA_ATTN_FWD(gala_attn_fwd_bf16, bf16)
@@ -971,12 +1042,21 @@ GALA_ATTN_BWD2(gala_attn_bwd2_bf16, bf16)
 // that H runs), four ints in `out`: registers per thread, static and
 // dynamic shared memory per block, resident blocks per SM.  Kernel k: 0
 // pass 1 (float4), 1 pass 1 (scalar), 2 pass 2, 3 pass 1 at bf16
-// (8-byte loads), 4 pass 1 at bf16 (scalar).  Returns the CUDA error, 0
-// on success.
+// (8-byte loads of 4 columns), 4 pass 1 at bf16 (scalar), 5 pass 1 at
+// bf16 (16-byte loads of 8 columns).  Returns the CUDA error, 0 on success.
 extern "C" int gala_attn_fwd_limits(int k, int nh, int* out) {
   if (nh < 1 || nh > kMaxHeads) return static_cast<int>(cudaErrorInvalidValue);
-  if (k == 2) return launch_limits(attn_fwd_merge_kernel, kMergeThreads, 0, out);
-  return unit_limits<FwdKernel>(k, nh, fwd_warp_smem(nh) * kWarpsPerBlock, out);
+  const int block = kWarp * kWarpsPerBlock;
+  const size_t smem = fwd_warp_smem(nh) * kWarpsPerBlock;
+  switch (k) {
+    case 0: return launch_limits(attn_fwd_kernel<4, float>, block, smem, out);
+    case 1: return launch_limits(attn_fwd_kernel<1, float>, block, smem, out);
+    case 2: return launch_limits(attn_fwd_merge_kernel, kMergeThreads, 0, out);
+    case 3: return launch_limits(attn_fwd_kernel<4, bf16>, block, smem, out);
+    case 4: return launch_limits(attn_fwd_kernel<1, bf16>, block, smem, out);
+    case 5: return launch_limits(attn_fwd_kernel<8, bf16>, block, smem, out);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // Launch limits of bwd2's kernels at H heads, as gala_attn_fwd_limits.

@@ -55,7 +55,7 @@ from gala_tpu_torch.train import (
 )
 from gala_tpu_torch.utils.timing import EpochTimer
 
-FORMAT_VERSION = 1
+FORMAT_VERSION = 2  # 2: the layouts carry the work units' warp tables
 WARMUP = 5
 
 
@@ -292,9 +292,11 @@ def load_exported(path: str, device=None) -> ExportedModel:
     in their place."""
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
-    if manifest["version"] > FORMAT_VERSION:
-        raise ValueError(f"artifact format v{manifest['version']} is newer than this loader "
-                         f"(v{FORMAT_VERSION})")
+    version = manifest["version"]
+    if version != FORMAT_VERSION:
+        age = "newer" if version > FORMAT_VERSION else "older"
+        raise ValueError(f"artifact format v{version} is {age} than this loader "
+                         f"(v{FORMAT_VERSION}): export the program again with this version")
     platforms = manifest["platforms"]
     if device is None:
         have = [p for p in platforms if _has(p)]

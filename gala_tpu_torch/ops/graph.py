@@ -78,6 +78,12 @@ _INT32_MAX = 2**31 - 1
 # L, the most slots of one work unit: kUnitSlots in csrc/unit_gather.cuh.
 # Equal to data.ell.K_BIG, so a hub's units are its virtual rows.
 UNIT_SLOTS = 128
+# A unit's level l is the largest l < UNIT_LEVELS with length <= UNIT_SLOTS
+# >> l; a warp takes min(2^l, 32 / g) units of one level (kLevels in
+# csrc/unit_gather.cuh), g = 2^log2_g lanes across a row.  Tables are kept
+# for log2_g < PACKED_LANES; at g = 32 a warp takes one unit.
+UNIT_LEVELS = 6
+PACKED_LANES = 5
 
 
 def _round_up(x: int, m: int) -> int:
@@ -141,7 +147,17 @@ class WorkUnits:
     its node still gets its epilogue.  Units are ordered longest first
     (stably), so no long unit starts last; with column tiling (see
     work_unit_tables) a row is first cut at its column-tile boundaries and
-    units run tile-major, longest first within a tile."""
+    units run tile-major, longest first within a tile.
+
+    The SpMM and the attention forward give a warp several short units
+    (warp_tables): for g = 2^log2_g lanes across a row (log2_g <
+    PACKED_LANES), warp w takes units [t[w], t[w + 1]) of the table t =
+    warp_first[warp_off[log2_g] : warp_off[log2_g + 1]], at most 32 / g of
+    them, all of one level and one column tile; at g = 32 warp w takes
+    unit w.  The tables are host work: a call reads its warp count here,
+    without a device sync (`warps`).  Every output row below n_written
+    is some row's node, so a call zeroes only the rows from n_written on
+    (padding)."""
 
     start: torch.Tensor          # (U,) int64 first slot of unit u
     length: torch.Tensor         # (U,) int32 slots of unit u
@@ -150,15 +166,29 @@ class WorkUnits:
     split_node: torch.Tensor     # (R_split,) int32 node of split row r
     split_first: torch.Tensor    # (R_split,) int32 its first partial
     split_count: torch.Tensor    # (R_split,) int32 its partials
+    warp_first: torch.Tensor     # int32 the warp tables, one per log2_g < PACKED_LANES
     n_units: int
     n_partials: int
+    warp_off: tuple              # PACKED_LANES + 1 ints: where each table starts, then the end
+    n_written: int               # the smallest output row that no row's node is
 
     @classmethod
     def from_rows(cls, row_start, row_len, row_node, device, cols=None,
                   col_tile: int = 0) -> "WorkUnits":
         t = work_unit_tables(row_start, row_len, row_node, cols, col_tile)
+        off = tuple(int(v) for v in t.pop("warp_off"))
+        n_written = int(t.pop("n_written"))
         return cls(**{k: _put(v, device) for k, v in t.items()},
-                   n_units=t["start"].shape[0], n_partials=int(t["split_count"].sum()))
+                   n_units=t["start"].shape[0], n_partials=int(t["split_count"].sum()),
+                   warp_off=off, n_written=n_written)
+
+    def warps(self, log2_g: int) -> tuple[int | None, int]:
+        """(the address of the warp table, warps) of a call with 2^log2_g
+        lanes across a row; (None, n_units) at 32 lanes, one unit a warp."""
+        if log2_g >= PACKED_LANES:
+            return None, self.n_units
+        lo, hi = self.warp_off[log2_g], self.warp_off[log2_g + 1]
+        return self.warp_first.data_ptr() + lo * self.warp_first.element_size(), hi - lo - 1
 
     def to(self, device, memo: dict | None = None) -> "WorkUnits":
         return _moved_fields(self, device, {} if memo is None else memo)
@@ -194,8 +224,8 @@ def _pieces(row_start, row_len, cols, col_tile: int):
 
 
 def work_unit_tables(row_start, row_len, row_node, cols=None, col_tile: int = 0) -> dict:
-    """WorkUnits' tables as numpy arrays (start int64, the rest int32),
-    from host descriptors.  With col_tile T > 0, `cols` the layout's
+    """WorkUnits' tables as numpy arrays (start int64, the rest int32)
+    and n_written, from host descriptors.  With col_tile T > 0, `cols` the layout's
     flat columns: a row is first cut into pieces at its column-tile
     boundaries (tile = col // T), each piece into units of at most
     UNIT_SLOTS slots, so every unit lies in one tile; a row of more than
@@ -220,10 +250,53 @@ def work_unit_tables(row_start, row_len, row_node, cols=None, col_tile: int = 0)
     if col_tile:
         order = order[np.argsort(p_tile[piece][order], kind="stable")]
     i32 = lambda a: a.astype(np.int32)  # noqa: E731
-    return dict(start=start[order], length=i32(length[order]),
+    warp_first, warp_off = warp_tables(length[order], p_tile[piece][order])
+    nodes = np.unique(row_node)
+    gap = np.flatnonzero(nodes != np.arange(nodes.shape[0]))
+    return dict(n_written=np.int32(gap[0] if gap.shape[0] else nodes.shape[0]),
+                start=start[order], length=i32(length[order]),
                 node=i32(row_node[row][order]), part=i32(part[order]),
                 split_node=i32(row_node[split]), split_first=i32(np.cumsum(count) - count),
-                split_count=i32(count))
+                split_count=i32(count), warp_first=warp_first, warp_off=warp_off)
+
+
+def row_lanes(vectors: int) -> int:
+    """log2 of the lanes across a row of `vectors` vectors (the smallest
+    power of two that covers them, at most 32): csrc/unit_gather.cuh's
+    reduce_grid."""
+    return min(max(int(vectors) - 1, 0).bit_length(), PACKED_LANES)
+
+
+def unit_levels(length) -> np.ndarray:
+    """Each unit's level: the largest l < UNIT_LEVELS with length <=
+    UNIT_SLOTS >> l (a unit of 0 to 4 slots is at the last level)."""
+    length = np.asarray(length, np.int64)
+    return sum((length <= UNIT_SLOTS >> (l + 1)).astype(np.int64)
+               for l in range(UNIT_LEVELS - 1))
+
+
+def warp_tables(length, tile) -> tuple[np.ndarray, np.ndarray]:
+    """The warp tables of units in kernel order (length and column tile of
+    each; tile-major, longest first within a tile): for each log2_g <
+    PACKED_LANES the first unit of every warp, then the unit count.  A
+    run of units of one tile and one level l is cut into warps of
+    min(2^l, 32 >> log2_g) units (the last may hold fewer), so a warp's
+    units hold at most UNIT_SLOTS slots together.  Returns (the tables
+    back to back, int32; PACKED_LANES + 1 offsets)."""
+    length = np.asarray(length, np.int64)
+    n = length.shape[0]
+    level = unit_levels(length)
+    key = np.asarray(tile, np.int64) * UNIT_LEVELS + level
+    head = np.ones(n, bool)
+    head[1:] = key[1:] != key[:-1]
+    run_first = np.maximum.accumulate(np.where(head, np.arange(n), 0))
+    pos = np.arange(n) - run_first
+    tables = []
+    for log2_g in range(PACKED_LANES):
+        per_warp = np.minimum(1 << level, 32 >> log2_g)
+        tables.append(np.append(np.flatnonzero(pos % per_warp == 0), n))
+    off = np.cumsum([0] + [t.shape[0] for t in tables])
+    return np.concatenate(tables).astype(np.int32), off.astype(np.int32)
 
 
 def tile_order(row_start, row_len, cols, col_tile) -> np.ndarray | None:

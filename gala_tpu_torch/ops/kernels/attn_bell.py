@@ -54,7 +54,8 @@ import torch
 from gala_tpu_torch.ops.kernels._build import (
     CSRC_DIR, DTYPES, Build, build_library, counts_for, dtype_counts, read_limits, wide,
 )
-from gala_tpu_torch.ops.kernels.bell_spmm import unit_slots
+from gala_tpu_torch.ops.graph import row_lanes
+from gala_tpu_torch.ops.kernels.bell_spmm import unit_slots, vector_width
 
 _SRC = os.path.join(CSRC_DIR, "attn_bell.cu")
 MAX_HEADS = 8
@@ -64,7 +65,7 @@ NAMES = ("attn_fwd", "attn_bwd1", "attn_bwd2")
 counts = {name: counts_for(name) for name in NAMES}
 # the unit kernels, in the order of gala_attn_{fwd,bwd1,bwd2}_limits
 FWD_KERNELS = ("attn_fwd_kernel<4>", "attn_fwd_kernel<1>", "attn_fwd_merge_kernel",
-               "attn_fwd_kernel<4> bf16", "attn_fwd_kernel<1> bf16")
+               "attn_fwd_kernel<4> bf16", "attn_fwd_kernel<1> bf16", "attn_fwd_kernel<8> bf16")
 BWD1_KERNELS = ("attn_bwd1_kernel<4>", "attn_bwd1_kernel<1>", "attn_merge_sum_kernel (bwd1)",
                 "attn_bwd1_kernel<4> bf16", "attn_bwd1_kernel<1> bf16")
 BWD2_KERNELS = ("attn_bwd2_kernel<4>", "attn_bwd2_kernel<1>", "attn_merge_sum_kernel (bwd2)",
@@ -75,7 +76,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 # the library's C functions and their argument types
 FUNCTIONS = {
-    **{f"gala_attn_fwd_{t}": [_P] * 18 + [_I] * 5 + [_F, _I, _P] for t in DTYPES.values()},
+    **{f"gala_attn_fwd_{t}": [_P] * 19 + [_I] * 7 + [_F, _I, _I, _P] for t in DTYPES.values()},
     **{f"gala_attn_bwd1_{t}": [_P] * 17 + [_I] * 4 + [_F, _I, _P] for t in DTYPES.values()},
     **{f"gala_attn_bwd2_{t}": [_P] * 14 + [_I] * 4 + [_F, _I, _P] for t in DTYPES.values()},
     "gala_attn_fwd_limits": [_I, _I, _P],
@@ -395,8 +396,12 @@ def _vec(x, nh, *tables) -> int:
 def _launch(name, x, *args) -> None:
     """Launch kernel `name` in x's dtype's form (gala_<name>_f32 or _bf16)."""
     fn = getattr(build().lib, f"gala_{name}_{DTYPES[x.dtype]}")
-    with torch.cuda.device(x.device):
-        err = fn(*args, torch.cuda.current_stream(x.device).cuda_stream)
+    dev = x.device.index
+    if dev != torch.cuda.current_device():  # a launch goes to the current device
+        with torch.cuda.device(dev):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
+    else:
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
     dtype_counts(name, x.dtype).launches += 1
@@ -440,21 +445,29 @@ def attn_fwd(lay, x, vl, vr, slope: float, n_pad: int, flash: bool):
 def attn_fwd_cuda(lay, x, vl, vr, slope: float, n_pad: int, flash: bool):
     """The forward kernel on CUDA tensors (arguments as checked by attn_fwd)."""
     hf, nh = x.shape[1], vl.shape[1]
-    out = torch.zeros((n_pad, hf), dtype=torch.float32, device=x.device)
-    m = torch.zeros((n_pad, nh), dtype=torch.float32, device=x.device)
-    s = torch.zeros_like(m)
-    outpos = torch.zeros_like(out) if flash else None
-    spos = torch.zeros_like(m) if flash else None
+    # padding rows zeroed by the call (rows no unit writes stay 0)
+    out = torch.empty((n_pad, hf), dtype=torch.float32, device=x.device)
+    m = torch.empty((n_pad, nh), dtype=torch.float32, device=x.device)
+    s = torch.empty_like(m)
+    outpos = torch.empty_like(out) if flash else None
+    spos = torch.empty_like(m) if flash else None
     u = lay.units
     # the split rows' partials: acc, acc+ (P, hf) then m, s, s+ (P, H)
     part = (torch.empty((u.n_partials * (2 * hf + 3 * nh),), dtype=torch.float32,
                         device=x.device) if u.n_partials else None)
+    # a lane's columns: 16 bytes of x where each head holds them, the
+    # outputs' rows aligned as x's (they are f32: 16 or 32 bytes a lane)
+    vec = vector_width(x, hf // nh) if out.data_ptr() % 16 == 0 else 1
+    log2_g = row_lanes(hf // vec)
+    table, n_warps = u.warps(log2_g)
     _launch("attn_fwd", x,
             x.data_ptr(), vl.data_ptr(), vr.data_ptr(), lay.flat_cols.data_ptr(),
-            lay.flat_vals.data_ptr(), *_unit_ptrs(u),
+            lay.flat_vals.data_ptr(), u.start.data_ptr(), u.length.data_ptr(),
+            u.node.data_ptr(), u.part.data_ptr(), table, u.split_node.data_ptr(),
+            u.split_first.data_ptr(), u.split_count.data_ptr(),
             out.data_ptr(), m.data_ptr(), s.data_ptr(), _ptr(outpos), _ptr(spos), _ptr(part),
-            u.n_units, u.split_node.shape[0], u.n_partials, hf, nh, float(slope),
-            _vec(x, nh, out))
+            n_warps, u.split_node.shape[0], u.n_partials, n_pad, min(u.n_written, n_pad), hf,
+            nh, float(slope), vec, log2_g)
     return out, m, s, outpos, spos
 
 

@@ -6,9 +6,12 @@ the default JAX path, the XLA gathers of gala_tpu.ops.spmm._bell_raw).
 The kernel (`gala_tpu_torch/csrc/bell_spmm.cu`) covers a whole layout in
 one call of two launches over the layout's work units
 (ops.graph.WorkUnits): pass 1 reduces each unit of at most UNIT_SLOTS
-slots, writing a node's row or, for a row split into several units, one
-partial; pass 2 sums each split row's partials in unit order.  Its note
-says what bounds it on the H100 and what the design does about that.
+slots, several short units a warp (the layout's warp table for the call's
+lanes across a row, WorkUnits.warps), writing a node's row or, for a row
+split into several units, one partial; pass 2 sums each split row's
+partials in unit order.  The call zeroes `out` first, so the wrapper
+allocates it with torch.empty.  Its note says what bounds it on the
+H100 and what the design does about that.
 
 Build: nvcc for sm_90a into a shared library with a plain C interface,
 loaded with ctypes, at first use, into `gala_tpu_torch/_build/`
@@ -48,7 +51,7 @@ import os
 
 import torch
 
-from gala_tpu_torch.ops.graph import BellDev
+from gala_tpu_torch.ops.graph import BellDev, row_lanes
 from gala_tpu_torch.ops.kernels._build import (
     CSRC_DIR, DTYPES, Build, build_library, counts_for, dtype_counts, read_limits, wide,
 )
@@ -57,14 +60,14 @@ _SRC = os.path.join(CSRC_DIR, "bell_spmm.cu")
 # the library's kernels, in the order of gala_bell_spmm_limits
 KERNELS = ("spmm_unit_kernel<4>", "spmm_unit_kernel<1>", "spmm_merge_kernel<4>",
            "spmm_merge_kernel<1>", "spmm_unit_kernel<4> bf16", "spmm_unit_kernel<1> bf16",
-           "spmm_merge_kernel<4> bf16", "spmm_merge_kernel<1> bf16")
+           "spmm_merge_kernel<4> bf16", "spmm_merge_kernel<1> bf16", "spmm_unit_kernel<8> bf16")
 
 counts = counts_for("bell_spmm")
 
 
 # the library's C functions and their argument types
 FUNCTIONS = {
-    **{f"gala_bell_spmm_{t}": [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    **{f"gala_bell_spmm_{t}": [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
        for t in DTYPES.values()},
     "gala_bell_spmm_limits": [ctypes.c_int, ctypes.c_void_p],
 }
@@ -230,30 +233,48 @@ def bell_spmm_plain(bell, x: torch.Tensor, n_out_pad: int,
     return bell_spmm_rows_reference(bell, x, n_out_pad, vals)
 
 
+def vector_width(x: torch.Tensor, width: int | None = None) -> int:
+    """The columns a lane keeps of rows of `width` (x's) elements: 16 bytes
+    (4 f32 or 8 bf16) where the width is a multiple and x is 16-byte
+    aligned; at bf16 4 (8-byte loads) where only 4 divide it and x is
+    8-byte aligned; else 1."""
+    width = x.shape[1] if width is None else width
+    for vec in (16 // x.element_size(), 4):
+        if width % vec == 0 and x.data_ptr() % (vec * x.element_size()) == 0:
+            return vec
+    return 1
+
+
 def bell_spmm_cuda(bell, x: torch.Tensor, n_out_pad: int,
                    vals: torch.Tensor | None = None) -> torch.Tensor:
     """The kernel on a CUDA tensor (arguments as checked by bell_spmm);
     raises when the library cannot be built or the launch fails."""
+    dev = x.device.index
+    if dev != torch.cuda.current_device():  # a launch goes to the current device
+        with torch.cuda.device(dev):
+            return bell_spmm_cuda(bell, x, n_out_pad, vals)
     fn = getattr(build().lib, f"gala_bell_spmm_{DTYPES[x.dtype]}")
     f = x.shape[1]
-    out = torch.zeros((n_out_pad, f), dtype=x.dtype, device=x.device)
     units = bell.units
     if units.n_units == 0 or f == 0:
-        return out
+        return torch.zeros((n_out_pad, f), dtype=x.dtype, device=x.device)
+    out = torch.empty((n_out_pad, f), dtype=x.dtype, device=x.device)  # padding zeroed by the call
     part = (torch.empty((units.n_partials, f), dtype=torch.float32, device=x.device)
             if units.n_partials else None)
-    vec = 4 if f % 4 == 0 and x.data_ptr() % (4 * x.element_size()) == 0 else 1
+    vec = vector_width(x)
+    log2_g = row_lanes(f // vec)
+    table, n_warps = units.warps(log2_g)
     ptr = (lambda t: t.data_ptr() if t is not None else None)  # noqa: E731
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(
-            x.data_ptr(), bell.flat_cols.data_ptr(),
-            (bell.flat_vals if vals is None else vals).data_ptr(),
-            units.start.data_ptr(), units.length.data_ptr(), units.node.data_ptr(),
-            units.part.data_ptr(), units.split_node.data_ptr(), units.split_first.data_ptr(),
-            units.split_count.data_ptr(), ptr(bell.diag), out.data_ptr(), ptr(part),
-            units.n_units, units.split_node.shape[0], f, vec, stream,
-        )
+    err = fn(
+        x.data_ptr(), bell.flat_cols.data_ptr(),
+        (bell.flat_vals if vals is None else vals).data_ptr(),
+        units.start.data_ptr(), units.length.data_ptr(), units.node.data_ptr(),
+        units.part.data_ptr(), table, units.split_node.data_ptr(),
+        units.split_first.data_ptr(), units.split_count.data_ptr(), ptr(bell.diag),
+        out.data_ptr(), ptr(part), n_warps, units.split_node.shape[0], n_out_pad,
+        min(units.n_written, n_out_pad), f, vec, log2_g,
+        torch._C._cuda_getCurrentRawStream(dev),
+    )
     if err != 0:
         raise RuntimeError(f"bell_spmm kernel launch failed with CUDA error {err}")
     dtype_counts("bell_spmm", x.dtype).launches += 1

@@ -50,7 +50,7 @@ from __future__ import annotations
 
 import torch
 
-from gala_tpu_torch.ops.graph import BellDev, SlotRows, WorkUnits, bin_views
+from gala_tpu_torch.ops.graph import PACKED_LANES, BellDev, SlotRows, WorkUnits, bin_views
 from gala_tpu_torch.ops.kernels import attn_bell as _attn
 from gala_tpu_torch.ops.kernels import bell_spmm as _spmm
 from gala_tpu_torch.ops.kernels import sddmm as _sddmm
@@ -58,7 +58,8 @@ from gala_tpu_torch.ops.kernels._build import wide
 
 NAMESPACE = "gala_tpu_torch"
 
-_UNIT_FIELDS = ("start", "length", "node", "part", "split_node", "split_first", "split_count")
+_UNIT_FIELDS = ("start", "length", "node", "part", "split_node", "split_first", "split_count",
+                "warp_first")
 _OPTIONAL = ("diag", "out_index", "big_vrow", "perm", "mask")
 _BELL, _SLOTS = 0, 1
 
@@ -78,7 +79,7 @@ def layout_args(lay) -> tuple[list[torch.Tensor], list[int]]:
             tensors.append(t)
             present |= 1 << bit
     ints = [_BELL if isinstance(lay, BellDev) else _SLOTS, present, lay.n_real, lay.n_src,
-            u.n_partials]
+            u.n_partials, u.n_written, *u.warp_off]
     if isinstance(lay, BellDev):
         big_k = lay.big_vals.shape[1] if lay.n_big else 0
         ints += [lay.n_big, big_k, len(lay.bin_ks), *lay.bin_ks, *lay.bin_counts]
@@ -87,16 +88,41 @@ def layout_args(lay) -> tuple[list[torch.Tensor], list[int]]:
     return tensors, ints
 
 
+def _check_packing(kind, present, tensors, ints, n_unit, warp_off, unit) -> None:
+    """Raise unless (tensors, ints) hold as many of each as layout_args
+    packs for this kind and these optional fields, and the warp tables'
+    offsets span warp_first: a layout packed another way (an older
+    artifact's) would hand the kernels garbage tables."""
+    n_tensors = 5 + n_unit + bin(present).count("1")
+    if kind == _BELL:
+        n_ints = 8 + 2 * ints[7] if len(ints) > 7 else None
+    else:
+        n_ints = 6 if kind == _SLOTS else None
+    ok = (n_ints == len(ints) and len(tensors) == n_tensors
+          and len(warp_off) == PACKED_LANES + 1 and warp_off[0] == 0
+          and all(a <= b for a, b in zip(warp_off, warp_off[1:]))
+          and warp_off[-1] == unit[-1].numel() and unit[-1].dtype == torch.int32)
+    if not ok:
+        raise ValueError(f"layout packed with {len(tensors)} tensors and "
+                         f"{len(ints) + len(warp_off) + 1} ints does not match this version's "
+                         "packing; export it again")
+
+
 def layout_of(tensors: list[torch.Tensor], ints: list[int], views: bool = True):
     """The BellDev or SlotRows that layout_args flattened (no host
     slot_order).  A BellDev's bins are views of flat_vals that only the
     plain version reads; views=False leaves them empty (the kernels read
     flat_vals)."""
-    kind, present, n_real, n_src, n_partials = ints[:5]
+    kind, present, n_real, n_src, n_partials, n_written = ints[:6]
+    n_off = PACKED_LANES + 1
+    warp_off, ints = tuple(ints[6 : 6 + n_off]), ints[:5] + ints[6 + n_off :]
     cols, vals, row_start, row_len, row_node = tensors[:5]
-    unit = tensors[5:12]
-    units = WorkUnits(*unit, n_units=unit[0].shape[0], n_partials=n_partials)
-    rest = iter(tensors[12:])
+    n_unit = len(_UNIT_FIELDS)
+    unit = tensors[5 : 5 + n_unit]
+    _check_packing(kind, present, tensors, ints, n_unit, warp_off, unit)
+    units = WorkUnits(*unit, n_units=unit[0].shape[0], n_partials=n_partials, warp_off=warp_off,
+                      n_written=n_written)
+    rest = iter(tensors[5 + n_unit :])
     opt = {name: next(rest) if present >> bit & 1 else None for bit, name in enumerate(_OPTIONAL)}
     if kind == _SLOTS:
         return SlotRows(flat_cols=cols, flat_vals=vals, perm=opt["perm"], mask=opt["mask"],

@@ -1,30 +1,26 @@
 #!/usr/bin/env python3
-"""The unit kernels' gather, plain loads against a ring of cp.async
-copies, on one NVIDIA GPU.
+"""Attention bwd2's gather, plain loads against a ring of cp.async copies,
+on one NVIDIA GPU.
 
     python3 scripts/ring_vs_plain_torch.py [--runs 25] [--calls 10] [--out PATH]
 
-The unit kernels (csrc/bell_spmm.cu, csrc/attn_bell.cu) ship plain loads
-(csrc/unit_gather.cuh `gather_unit`).  This script keeps the alternative
-they were measured against: RING below, a per-warp ring of two stages of
-16-byte cp.async.ca copies in shared memory, which the SpMM shipped
-before.  It copies the two sources into gala_tpu_torch/_build/ring_src/
+bwd1 and bwd2 (csrc/attn_bell.cu) gather one unit a warp with plain
+loads (csrc/unit_gather.cuh `gather_unit`); the SpMM and the forward
+gather through `gather_units`, which scripts/unit_variants_torch.py
+holds against bulk copies.  This script keeps the alternative plain
+loads were measured against: RING below, a per-warp ring of two stages
+of 16-byte cp.async.ca copies in shared memory, which the SpMM shipped
+before.  It copies attn_bell.cu into gala_tpu_torch/_build/ring_src/
 (git-ignored) beside a unit_gather.cuh whose `UnitSmem` and `gather_unit`
-are RING's, and builds them as lib*_ring_<hash>.so; nothing of the
-package selects that build.  Compiles __graft_entry__.GCN_DSL and GAT_DSL
-on the Arxiv stand-in (scale 1.0, strategy auto -> bell) and, on their
-full graphs, times with CUDA events:
-
-    the SpMM (pass 1 + merge) at F = 1, 32, 128 on the GCN's bell layout,
-    the attention forward (flash statistics on) at hf = 32, 40, one head,
-    bwd2 at hf = 32, 40, one head, on the transpose layout,
-
-each variant `runs` times (one run: `calls` back-to-back calls between
-two events, after a warm-up), the variants in turns run by run (ring,
-plain, plain, ring, ...).  F = 1 is a control: its rows are not a
-multiple of 4 floats, so both builds take plain loads there.  First it
-checks that both variants give the same result bit for bit (each lane
-sums the same slots in the same order either way).  Prints each case's
+are RING's, and builds it as libattn_bell_ring_<hash>.so; nothing of the
+package selects that build.  Compiles __graft_entry__.GAT_DSL on the
+Arxiv stand-in (scale 1.0, strategy auto -> bell) and, on its full
+graph, times bwd2 at hf = 32, 40, one head, on the transpose layout,
+with CUDA events, each variant `runs` times (one run: `calls`
+back-to-back calls between two events, after a warm-up), the variants in
+turns run by run (ring, plain, plain, ring, ...).  First it checks that
+both variants give the same result bit for bit (each lane sums the same
+slots in the same order either way).  Prints each case's
 median ms per call and its spread (min-max over the runs), the card's
 name and power limit, and one JSON line; writes the same JSON to --out
 (default results/ring_vs_plain.json, a git-ignored directory).  Imports
@@ -63,15 +59,17 @@ RING_GATHER = """__device__ __forceinline__ void cp_async16(void* dst, const voi
                : "memory");
 }
 
-template <int VEC, class Want, class Use>
-__device__ __forceinline__ void gather_unit(UnitSmem& sm, int len, const float* __restrict__ x,
+template <int VEC, class T, class Want, class Use>
+__device__ __forceinline__ void gather_unit(const UnitSmem& csm, int len, const T* __restrict__ x,
                                             int f, const Lanes& ln, Want want, Use use) {
-  if constexpr (VEC == 4) {
+  if (!ln.active) return;
+  const T* xv = x + static_cast<size_t>(ln.vcol) * VEC;
+  if constexpr (VEC == 4 && std::is_same_v<T, float>) {
+    UnitSmem& sm = const_cast<UnitSmem&>(csm);  // the ring's stages
     const int n_steps = (len + ln.groups - 1) / ln.groups;
-    const float* xv = x + static_cast<size_t>(ln.vcol) * 4;
     auto fetch = [&](int q) {
       const int j = q * ln.groups + ln.sub;
-      if (ln.active && j < len && want(j))
+      if (j < len && want(j))
         cp_async16(&sm.ring[q % kStages][ln.lane], xv + static_cast<size_t>(sm.col[j]) * f);
     };
 #pragma unroll
@@ -85,20 +83,18 @@ __device__ __forceinline__ void gather_unit(UnitSmem& sm, int len, const float* 
       cp_async_commit();
       cp_async_wait<kStages - 1>();
       const int j = q * ln.groups + ln.sub;
-      if (ln.active && j < len && want(j)) {
+      if (j < len && want(j)) {
         const float4 t = sm.ring[q % kStages][ln.lane];
         const float v[4] = {t.x, t.y, t.z, t.w};
         use(j, v);
       }
     }
   } else {
-    if (!ln.active) return;
-    const float* xv = x + static_cast<size_t>(ln.vcol) * VEC;
 #pragma unroll 4
     for (int j = ln.sub; j < len; j += ln.groups) {
       if (want(j)) {
         float v[VEC];
-        load_vec<VEC>(xv + static_cast<size_t>(sm.col[j]) * f, v);
+        load_vec<VEC>(xv + static_cast<size_t>(csm.col[j]) * f, v);
         use(j, v);
       }
     }
@@ -109,13 +105,12 @@ __device__ __forceinline__ void gather_unit(UnitSmem& sm, int len, const float* 
 
 
 def ring_sources(csrc: str, out_dir: str) -> str:
-    """bell_spmm.cu and attn_bell.cu copied into `out_dir` beside a
-    unit_gather.cuh with RING's UnitSmem and gather_unit; returns
-    out_dir."""
+    """attn_bell.cu copied into `out_dir` beside a unit_gather.cuh with
+    RING's UnitSmem and gather_unit; returns out_dir."""
     with open(os.path.join(csrc, "unit_gather.cuh")) as f:
         hdr = f.read()
     smem = "struct UnitSmem {\n  int32_t col[kUnitSlots];\n};"
-    first, last = "// The warp's gather of one unit", "// log2 of the lanes"
+    first, last = "// The warp's gather of one unit", "// Several units a warp"
     if hdr.count(smem) != 1 or hdr.count(first) != 1 or hdr.count(last) != 1:
         raise RuntimeError("unit_gather.cuh no longer has the UnitSmem / gather_unit this "
                            "script replaces")
@@ -123,8 +118,7 @@ def ring_sources(csrc: str, out_dir: str) -> str:
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "unit_gather.cuh"), "w") as f:
         f.write(hdr.replace(smem, RING_SMEM))
-    for name in ("bell_spmm.cu", "attn_bell.cu"):
-        shutil.copyfile(os.path.join(csrc, name), os.path.join(out_dir, name))
+    shutil.copyfile(os.path.join(csrc, "attn_bell.cu"), os.path.join(out_dir, "attn_bell.cu"))
     return out_dir
 
 
@@ -167,9 +161,8 @@ def main() -> int:
         raise SystemExit("needs an NVIDIA GPU")
 
     import gala_tpu_torch
-    from __graft_entry__ import GAT_DSL, GCN_DSL
+    from __graft_entry__ import GAT_DSL
     from gala_tpu_torch.ops.kernels import attn_bell as ak
-    from gala_tpu_torch.ops.kernels import bell_spmm as ks
     from gala_tpu_torch.ops.kernels._build import BUILD_DIR, CSRC_DIR, build_library
 
     smi = subprocess.run(
@@ -178,39 +171,31 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(smi)
     ring_dir = ring_sources(CSRC_DIR, os.path.join(BUILD_DIR, "ring_src"))
-    builds = {}
-    for mod, stem in ((ks, "bell_spmm"), (ak, "attn_bell")):
-        builds[(mod, "plain")] = mod.build()
-        builds[(mod, "ring")] = build_library(os.path.join(ring_dir, f"{stem}.cu"),
-                                              f"{stem}_ring", mod.FUNCTIONS)
-    for (mod, name), b in builds.items():
-        print(f"{mod.__name__} {name}: {b.path}")
+    builds = {"plain": ak.build(),
+              "ring": build_library(os.path.join(ring_dir, "attn_bell.cu"), "attn_bell_ring",
+                                    ak.FUNCTIONS)}
+    for name, b in builds.items():
+        print(f"attn_bell {name}: {b.path}")
 
-    gcn = gala_tpu_torch.compile_source(GCN_DSL, mode="train", scale=1.0, device="cuda")
     gat = gala_tpu_torch.compile_source(GAT_DSL, mode="train", scale=1.0, device="cuda")
-    g, ga = gcn.full_graphs[0], gat.full_graphs[0]
+    ga = gat.full_graphs[0]
     gen = torch.Generator(device="cuda").manual_seed(0)
     rand = lambda *shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
 
-    cases = []  # (kernel, width, module, call)
-    for f in (1, 32, 128):
-        x = rand(g.c_pad, f)
-        cases.append(("bell_spmm", f, ks, lambda x=x: ks.bell_spmm(g.bell, x, g.n_pad)))
+    cases = []  # (kernel, width, call)
     for hf in (32, 40):
         x, vl = rand(ga.c_pad, hf), rand(ga.c_pad, 1)
         vr, dout = rand(ga.n_pad, 1), rand(ga.n_pad, hf)
         out, m, s, _, _ = ak.attn_fwd_reference(ga.attn.fwd, x, vl, vr, SLOPE, ga.n_pad, False)
         w_tab = torch.cat([dout, vr, m, s, ak.per_head_dot(dout, out, 1)], dim=1)
-        cases.append(("attn_fwd", hf, ak, lambda x=x, vl=vl, vr=vr: ak.attn_fwd(
-            ga.attn.fwd, x, vl, vr, SLOPE, ga.n_pad, True)))
-        cases.append(("attn_bwd2", hf, ak, lambda x=x, vl=vl, w=w_tab: ak.attn_bwd2(
+        cases.append(("attn_bwd2", hf, lambda x=x, vl=vl, w=w_tab: ak.attn_bwd2(
             ga.attn.t, x, vl, w, SLOPE, ga.c_pad)))
 
     results = []
-    for kernel, width, mod, call in cases:
+    for kernel, width, call in cases:
         outs = {}
         for name in VARIANTS:
-            with variant(mod, builds[(mod, name)]):
+            with variant(ak, builds[name]):
                 res = call()
             outs[name] = res if isinstance(res, tuple) else (res,)
         same = all(torch.equal(a, b) for a, b in zip(outs["ring"], outs["plain"]))
@@ -219,7 +204,7 @@ def main() -> int:
         times = {name: [] for name in VARIANTS}
         for r in range(args.runs):  # the variants in turns, run by run
             for name in (("ring", "plain") if r % 2 == 0 else ("plain", "ring")):
-                with variant(mod, builds[(mod, name)]):
+                with variant(ak, builds[name]):
                     times[name] += event_runs(call, 1, args.calls)
         row = {"kernel": kernel, "width": width}
         for name, ts in times.items():

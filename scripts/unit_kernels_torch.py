@@ -1,20 +1,30 @@
 #!/usr/bin/env python3
 """Time the four unit kernels of gala_tpu_torch (the bell SpMM, the
 attention forward, bwd1 and bwd2) at the GCN and GAT paths' shapes on the
-Arxiv stand-in, in f32 and bf16, on one NVIDIA GPU.  Usage, from the root
-of a tree:
+Arxiv stand-in, in f32 and bf16, on one NVIDIA GPU, beside each call's
+bound and, for the SpMM at f32, `torch.sparse.mm` on the same matrix.
+Usage, from the root of a tree:
 
     python3 scripts/unit_kernels_torch.py [--label NAME]
 
 The SpMM runs on the GCN's full bell (bell_order with the diagonal split)
-at F = 1, 32, 128; the attention kernels on the fused GAT's layouts
-(bell_order without the split) at hf = 32, one head.  Each time is the
-median of 5 runs of 20 calls (CUDA events, after a warm-up), with the
-runs' min and max.  To compare two trees on one card, unpack the other
-tree (git archive) into a git-ignored directory, copy this script into its
-scripts/, and run it from each root in one chip call, in turns: parent,
-change, change, parent.  Prints the card's name and power limit, then one
-JSON line {"label", "device", "times": {kernel shape: [median, min, max]}}.
+at F = 1, 32, 128, and on the unfused GAT's ELL layout with per-slot
+values at F = 32, 40; the attention kernels on the fused GAT's layouts
+(bell_order without the split): the forward at hf = 32 and 40 with one
+head and at hf = 64 with 8 heads, bwd1 and bwd2 at hf = 32.  Each time is
+the median of 5 runs of 20 calls (CUDA events, after a warm-up), with the
+runs' min and max; beside it the device time of a call (torch.profiler's
+CUDA activity: its kernels and memsets), which differs where the host
+launches slower than the card runs (the small calls).  The bound is the
+larger of the bytes the call must move (each input once, each output
+once) over 3.35 TB/s and its
+operations over 67 TFLOP/s (NVIDIA's H100 SXM data sheet).  To compare
+two trees on one card, unpack the other tree (git archive) into a
+git-ignored directory, copy this script into its scripts/, and run it
+from each root in one chip call, in turns: parent, change, change,
+parent.  Prints the card's name and power limit, then one JSON line
+{"label", "device", "times": {kernel shape: [median, min, max]},
+"bounds": {kernel shape: ms}, "device_ms": {kernel shape: ms}}.
 """
 from __future__ import annotations
 
@@ -30,6 +40,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import torch  # noqa: E402
 
 SLOPE = 0.2
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 
 
 def cuda_ms(fn, reps: int = 20) -> float:
@@ -49,6 +61,56 @@ def cuda_ms(fn, reps: int = 20) -> float:
 def runs(fn, n: int = 5) -> list:
     t = sorted(cuda_ms(fn) for _ in range(n))
     return [statistics.median(t), t[0], t[-1]]
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """ms of device work per call (every kernel and memset the call
+    launches, by torch.profiler's CUDA activity), after a warm-up: what
+    the call costs the card, where a host that launches slower than the
+    card runs makes the events' time the host's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages()) / reps / 1e3
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def bound(n_bytes: int, n_ops: int) -> float:
+    """The least ms of a call: bytes over the HBM rate or operations over
+    the f32 rate, the larger."""
+    return max(n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S) * 1e3
+
+
+def layout_bytes(lay, vals=None) -> int:
+    return nbytes(lay.flat_cols, lay.flat_vals if vals is None else vals, lay.row_start,
+                  lay.row_len, lay.row_node, getattr(lay, "diag", None))
+
+
+def layout_csr(lay, n_out: int, n_src: int):
+    """The matrix of a row-descriptor layout (and its diagonal) as a torch
+    CSR tensor: the input of torch.sparse.mm."""
+    lens = lay.row_len.long()
+    first = torch.cumsum(lens, 0) - lens
+    slot = (torch.repeat_interleave(lay.row_start - first, lens)
+            + torch.arange(int(lens.sum()), device=lens.device))
+    rows = torch.repeat_interleave(lay.row_node.long(), lens)
+    cols, vals = lay.flat_cols.long()[slot], lay.flat_vals[slot]
+    if lay.diag is not None:
+        ids = torch.arange(lay.diag.shape[0], device=lens.device)
+        rows, cols = torch.cat([rows, ids]), torch.cat([cols, ids])
+        vals = torch.cat([vals, lay.diag[:, 0]])
+    coo = torch.sparse_coo_tensor(torch.stack([rows, cols]), vals, (n_out, n_src),
+                                  check_invariants=False)
+    return coo.coalesce().to_sparse_csr()
 
 
 def main(argv=None) -> int:
@@ -72,10 +134,21 @@ def main(argv=None) -> int:
     host = load_dataset("Arxiv", None, 1.0)[0]
     gcn = Graph.from_host(apply_reorder(host, bell_order(host))[0], strategy="bell",
                           device="cuda")
-    gat = Graph.from_host(apply_reorder(host, bell_order(host, split_diag=False))[0],
-                          strategy="bell", device="cuda", attention=True)
+    gat_host = apply_reorder(host, bell_order(host, split_diag=False))[0]
+    gat = Graph.from_host(gat_host, strategy="bell", device="cuda", attention=True)
+    edge = Graph.from_host(gat_host, strategy="ell", device="cuda", edge_vals=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    times = {}
+    times, bounds, device = {}, {}, {}
+
+    def measure(key, fn):
+        times[key] = runs(fn)
+        device[key] = device_ms(fn)
+
+    csr = layout_csr(gcn.bell, gcn.n_pad, gcn.c_pad)
+    evals = torch.rand((edge.e_pad,), generator=gen, device="cuda")
+    ell_vals = edge.ell.slot_values(evals)
+    fwd, t = gat.attn.fwd, gat.attn.t
+    f32 = 4
     for dtype in (torch.float32, torch.bfloat16):
         tag = "f32" if dtype == torch.float32 else "bf16"
 
@@ -84,19 +157,40 @@ def main(argv=None) -> int:
 
         for f in (1, 32, 128):
             x = rand(gcn.c_pad, f)
-            times[f"bell_spmm {tag} F={f}"] = runs(lambda: kernel.bell_spmm(gcn.bell, x, gcn.n_pad))
-        fwd, t = gat.attn.fwd, gat.attn.t
+            key = f"bell_spmm {tag} F={f}"
+            measure(key, lambda: kernel.bell_spmm(gcn.bell, x, gcn.n_pad))
+            bounds[key] = bound(layout_bytes(gcn.bell) + 2 * nbytes(x),
+                                2 * (gcn.bell.flat_cols.numel() + gcn.n_pad) * f)
+            if dtype == torch.float32:
+                measure(f"torch.sparse.mm f32 F={f}", lambda: torch.sparse.mm(csr, x))
+        for f in (32, 40):
+            x = rand(edge.c_pad, f)
+            key = f"bell_spmm ell slot values {tag} F={f}"
+            measure(key, lambda: kernel.bell_spmm(edge.ell, x, edge.n_pad, vals=ell_vals))
+            bounds[key] = bound(layout_bytes(edge.ell, ell_vals) + nbytes(x)
+                                + edge.n_pad * f * x.element_size(),
+                                2 * edge.ell.flat_cols.numel() * f)
+        for hf, nh in ((32, 1), (40, 1), (64, 8)):
+            x, vl, vr = rand(gat.c_pad, hf), rand(gat.c_pad, nh), rand(gat.n_pad, nh)
+            key = f"attn_fwd {tag} hf={hf} H={nh}"
+            measure(key, lambda: ak.attn_fwd(fwd, x, vl, vr, SLOPE, gat.n_pad, True))
+            bounds[key] = bound(layout_bytes(fwd) + nbytes(x, vl, vr)
+                                + 2 * gat.n_pad * hf * f32 + 3 * gat.n_pad * nh * f32,
+                                fwd.flat_cols.numel() * (4 * hf + 8 * nh))
         x, vl, vr, dout = rand(gat.c_pad, 32), rand(gat.c_pad, 1), rand(gat.n_pad, 1), rand(
             gat.n_pad, 32)
         out, m, s, _, _ = ak.attn_fwd(fwd, x, vl, vr, SLOPE, gat.n_pad, False)
         w_tab = torch.cat([dout.float(), vr.float(), m, s, ak.per_head_dot(dout, out, 1)], dim=1)
-        times[f"attn_fwd {tag} hf=32"] = runs(
-            lambda: ak.attn_fwd(fwd, x, vl, vr, SLOPE, gat.n_pad, True))
-        times[f"attn_bwd1 {tag} hf=32"] = runs(
-            lambda: ak.attn_bwd1(fwd, x, vl, vr, dout, m, s, SLOPE))
-        times[f"attn_bwd2 {tag} hf=32"] = runs(
-            lambda: ak.attn_bwd2(t, x, vl, w_tab, SLOPE, gat.c_pad))
-    print(json.dumps({"label": args.label, "device": smi, "times": times}))
+        measure(f"attn_bwd1 {tag} hf=32", lambda: ak.attn_bwd1(fwd, x, vl, vr, dout, m, s, SLOPE))
+        bounds[f"attn_bwd1 {tag} hf=32"] = bound(
+            layout_bytes(fwd) + nbytes(x, vl, vr, dout, m, s) + 3 * gat.n_pad * f32,
+            fwd.flat_cols.numel() * (2 * 32 + 12))
+        measure(f"attn_bwd2 {tag} hf=32", lambda: ak.attn_bwd2(t, x, vl, w_tab, SLOPE, gat.c_pad))
+        bounds[f"attn_bwd2 {tag} hf=32"] = bound(
+            layout_bytes(t) + nbytes(w_tab, x, vl) + gat.c_pad * 33 * f32,
+            t.flat_cols.numel() * (4 * 32 + 12))
+    print(json.dumps({"label": args.label, "device": smi, "times": times, "bounds": bounds,
+                      "device_ms": device}))
     return 0
 
 

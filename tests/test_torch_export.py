@@ -147,6 +147,18 @@ def test_version_guard(artifacts, tmp_path):
         load_exported(str(d))
 
 
+def test_older_artifact_is_refused(artifacts, tmp_path):
+    """A v1 artifact packs its layouts without the warp tables: loading it
+    raises and asks for a new export instead of misreading them."""
+    d = tmp_path / "older"
+    shutil.copytree(artifacts["gcn-dense"][1], d)
+    m = json.loads((d / "manifest.json").read_text())
+    m["version"] = 1
+    (d / "manifest.json").write_text(json.dumps(m))
+    with pytest.raises(ValueError, match="older.*export the program again"):
+        load_exported(str(d))
+
+
 def test_dynamic_sampling_refuses_export(tmp_path):
     cm = gala_tpu_torch.compile_source(GCN + "aggrFn=aggrFn.sample(5).dynamic();", mode="train",
                                        scale=SCALE, device="cpu")
@@ -291,3 +303,23 @@ def test_ops_are_the_direct_bindings_on_the_cpu(small):
         back = library.layout_of(*library.layout_args(lay))
         assert type(back) is type(lay) and library.layout_args(back)[1] == \
             library.layout_args(lay)[1]
+
+
+@pytest.mark.parametrize("name", ["bell", "t_bell", "ell", "attn_fwd"])
+def test_layout_packed_the_old_way_is_refused(small, name):
+    """A layout packed as before the warp tables (seven unit fields, no
+    table offsets, no n_written) raises in layout_of instead of giving the kernels a
+    first optional tensor as their table."""
+    bell, ell = small
+    lay = {"bell": bell.bell, "t_bell": bell.t_bell, "ell": ell.ell,
+           "attn_fwd": bell.attn.fwd}[name]
+    tensors, ints = library.layout_args(lay)
+    n_unit = len(library._UNIT_FIELDS)
+    old_tensors = tensors[: 4 + n_unit] + tensors[5 + n_unit :]
+    old_ints = ints[:5] + ints[6 + len(lay.units.warp_off) :]
+    with pytest.raises(ValueError, match="export it again"):
+        library.layout_of(old_tensors, old_ints)
+    with pytest.raises(ValueError, match="export it again"):
+        library.layout_of(tensors[:-1] if len(tensors) > 5 + n_unit else tensors + [tensors[0]],
+                          ints)
+    assert type(library.layout_of(tensors, ints)) is type(lay)

@@ -30,7 +30,7 @@ import gala_tpu_torch.data.ell as tell
 import gala_tpu_torch.data.reordering as treo
 import gala_tpu_torch.data.subgraph as tsub
 import gala_tpu_torch.data.synthetic as tsyn
-from gala_tpu_torch.ops.graph import UNIT_SLOTS, Graph, masked_units, shifted_slots
+from gala_tpu_torch.ops.graph import UNIT_SLOTS, Graph, masked_units, select_rows, shifted_slots
 from gala_tpu_torch.ops.kernels import _build
 from gala_tpu_torch.ops.kernels import attn_bell
 from gala_tpu_torch.ops.kernels import bell_spmm as kernel
@@ -304,6 +304,49 @@ def test_attention_forward_on_long_rows_and_masked_units(cuda, length, hf, nh, d
         for want in (attn_bell.attn_bwd1_reference(*args),
                      attn_bell.attn_bwd1_units_reference(*args)):
             assert ((b1 - torch.cat(want, dim=1)).abs() <= 1e-4 + 1e-4 * scale).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("every", [1, 3])
+def test_rows_no_unit_writes_are_zero_over_stale_memory(cuda, every, dtype):
+    """The SpMM and the forward zero only the output rows from
+    WorkUnits.n_written on.  Over memory the allocator last held full of
+    NaN, every row that no unit writes (padding, and the rows left out
+    when only every `every`-th descriptor row is kept) is 0, and the
+    rest are the units emulation's (the plain version reads the bins,
+    which select_rows leaves whole)."""
+    host, undirected = torch_case("hub_selfloops")
+    g = Graph.from_host(host, strategy="bell", undirected=undirected, device=cuda,
+                        attention=True)
+    keep = np.arange(g.bell.row_len.shape[0]) % every == 0
+    bell = select_rows(g.bell, keep)
+    fwd = select_rows(g.attn.fwd, np.arange(g.attn.fwd.row_len.shape[0]) % every == 0)
+    assert bell.units.n_written <= g.n_pad
+    assert (every == 1) == (bell.units.n_written == g.bell.n_real)
+    gen = torch.Generator(device=cuda).manual_seed(every)
+    x, vl, vr = (_randn(shape, gen, cuda, dtype) for shape in ((g.c_pad, 32), (g.c_pad, 1),
+                                                               (g.n_pad, 1)))
+
+    def stale(call):
+        torch.cuda.synchronize()
+        torch.full((64 << 20,), float("nan"), device=cuda)  # freed, then handed back
+        return call()
+
+    out = stale(lambda: kernel.bell_spmm(bell, x, g.n_pad))
+    written = torch.zeros(g.n_pad, dtype=torch.bool, device=cuda)
+    written[bell.row_node.long()] = True
+    assert (out[~written] == 0).all() and torch.isfinite(out).all()
+    assert _close(out, kernel.bell_spmm_units_reference(bell, x, g.n_pad),
+                  kernel.bell_spmm_units_reference(bell, x.abs(), g.n_pad))
+    got = stale(lambda: attn_bell.attn_fwd(fwd, x, vl, vr, 0.2, g.n_pad, True))
+    want = attn_bell.attn_fwd_units_reference(fwd, x, vl, vr, 0.2, g.n_pad, True)
+    scale = attn_bell.attn_fwd_units_reference(fwd, x.abs(), vl, vr, 0.2, g.n_pad, True)
+    written = torch.zeros(g.n_pad, dtype=torch.bool, device=cuda)
+    written[fwd.row_node.long()] = True
+    for a, b, sc in zip(got, want, (scale[0], 0.0, want[2], scale[3], want[4])):
+        assert (a[~written] == 0).all() and torch.isfinite(a).all()
+        assert ((a - b).abs() <= 1e-4 + 1e-4 * sc).all()
 
 
 BWD2_ROWS = [L + 1, 1000, 52 * L]  # transpose rows of 2, 8 and 52 units
