@@ -31,23 +31,23 @@
 //           acc, s+ and acc+; s = 1 where the sum is 0; out = acc / s.
 // bwd2, on the transpose layout (rows = sources c, slots = destinations
 // r), over that layout's units:
-//   pass 1  one warp per unit: p lane-per-slot from the destination's
-//           saved [vr | m | s | sds], then one gather of the rows' dout
-//           slices that sums dx = sum p dout and q = sum p lrelu' dout
-//           together; dvl = <q, x[c]> - sum p lrelu' sds once per unit
-//           (x[c] is one row for the whole unit).  A whole row writes
-//           [dx | dvl]; a unit of a split row writes that plain partial.
+//   pass 1  several short units a warp, as the forward takes them: p from
+//           each destination's saved [vr | m | s | sds], then one gather
+//           of the destinations' dout slices that sums dx = sum p dout and
+//           q = sum p lrelu' dout together; dvl = <q, x[c]> - sum p lrelu'
+//           sds once per unit (x[c] is one row for the whole unit).  A
+//           whole row writes [dx | dvl]; a unit of a split row writes that
+//           plain partial.
 //   pass 2  one block per split row sums its partials in unit order.
 // bwd1 (off the GAT path: it takes the flash identity), on the fwd
 // layout's units, with the rows' saved (m, s):
-//   pass 1  one warp per unit: the forward's scalar and gather phases
-//           under the row's max m_r (no max, no rescaling), so one read
-//           of each x[c] slice sums acc = sum p x and acc+ = sum_{zpre>0}
-//           p x; then sds = <dout[r], acc> and A = slope sds + (1 - slope)
-//           <dout[r], acc+> once per unit (dout[r] is one row for the
-//           whole unit), B from the probabilities' two sums.  A whole row
-//           writes [sds | A | B]; a unit of a split row that plain
-//           partial.
+//   pass 1  the forward's warps, scalar and gather phases under the row's
+//           max m_r (no max, no rescaling), so one read of each x[c] slice
+//           sums acc = sum p x and acc+ = sum_{zpre>0} p x; then sds =
+//           <dout[r], acc> and A = slope sds + (1 - slope) <dout[r], acc+>
+//           once per unit (dout[r] is one row for the whole unit), B from
+//           the probabilities' two sums.  A whole row writes [sds | A | B];
+//           a unit of a split row that plain partial.
 //   pass 2  bwd2's: one block per split row sums its partials in unit
 //           order.
 // No atomics: every sum is taken in a fixed order, so results are
@@ -60,50 +60,50 @@
 // forward reads, and writes 3H floats a row.  There are a few
 // flops per gathered float (an exp per slot and head), and no tile is
 // reused, so tensor cores have no role.
-// The forward's design.  Three units in four hold at most 8 slots, and
-// one warp a unit paid each one's whole chain (descriptor, scores, a max
-// and two sums over the whole warp, gather, store) for a few rows.  Now a
-// warp takes G units (unit_gather.cuh WarpUnits); a unit's 32 / G lanes
-// stage its columns (one coalesced sweep of the warp where the units lie
-// back to back), then take its scalar phase head by head through shared
-// memory (scores, then a max and two sums as reductions over the unit's
-// lanes alone; no per-head register arrays, so the 8-head form spills
-// nothing), then its gather with lanes across the features (16-byte
-// loads: 4 f32 or 8 bf16 columns; scalar where fh does not allow them),
-// its slot groups summed by a shuffle tree inside its lanes.  One form
-// serves every head count; it asks for 6 blocks per SM (40 registers).
-// Measured (H100 80GB HBM3, 700 W, scripts/unit_kernels_torch.py,
-// PERF.md): hf = 32 0.206 -> 0.148 ms (f32), 0.206 -> 0.130 (bf16); 8
-// heads at hf = 64 0.96 -> 0.48 / 0.37.  bwd2's pass 1 keeps one warp a
-// unit: its scalar phase keeps its per-head sums in shared memory, not
-// registers, and one warp walks every g-vector slice of a wide row
-// itself, so dvl's dot sees the whole head.
-// bwd1's pass 1 runs the one-warp-a-unit scalar and gather phases
-// (unit_scores, unit_probs, unit_gather), one head at a time in its scalar
-// phase, and walks the slices as bwd2 does.  Both are instantiated for one
-// head and for up to 8, so the one-head GAT path keeps 32 registers and 8
-// blocks per SM (bwd2's 8-head form asks for 5 blocks per SM, and so does
-// not spill).
+// One design for the three pass-1 kernels.  Three units in four hold at
+// most 8 slots, and one warp a unit paid each one's whole chain
+// (descriptor, scores, a max and two sums over the whole warp, gather,
+// store) for a few rows.  So a warp takes G units (unit_gather.cuh
+// WarpUnits, from the layout's warp table for its g); a unit's 32 / G
+// lanes stage its columns (one coalesced sweep of the warp where the units
+// lie back to back), then take its scalar phase head by head through
+// shared memory (the forward's scores, max and two sums; bwd1's
+// probabilities under the saved max and two sums; bwd2's probabilities and
+// sum p lrelu' sds; every max and sum a reduction over the unit's lanes
+// alone, and lane t0 = h of the unit keeps head h's result in a register:
+// no per-head register arrays, no per-unit sums in shared memory), then
+// its gather with lanes across the features, its slot groups summed by a
+// shuffle tree inside its lanes (gather_units, sum_groups).  bwd1's and
+// bwd2's dots with one row per unit (dout[r], x[c]) are summed over each
+// head's lanes and kept by lane t0 = h; a wide row's g-vector slices are
+// walked inside the warp there (n_slices), so a head that straddles two
+// slices is summed whole, where the forward takes its slice from
+// blockIdx.y.  The forward has one form for every head count and asks for
+// 6 blocks per SM (40 registers); bwd1 and bwd2 are instantiated for one
+// head (6 blocks, 40 registers: at 32 both spilled) and for up to 8 (5
+// blocks, 48 registers).
+// Measured (scripts/unit_kernels_torch.py, in turns with the one-warp-a-
+// unit parent, PERF.md; NVIDIA H100 80GB HBM3 at 700 W), f32 ms at hf =
+// 32 / 40, one head: the forward 0.2087 -> 0.1278 / 0.2326 -> 0.1907
+// (PR 15); bwd2 0.1566 -> 0.0972 / 0.1790 -> 0.1427; bwd1 0.1334 ->
+// 0.0920 / 0.1518 -> 0.1492 (PR 16).
 //
 // bf16 activations (gala_tpu's dtype=jnp.bfloat16): each kernel has a
 // second instantiation that reads x, vl and vr (and bwd1's dout) as bf16,
 // widened to f32 in registers: the forward 16-byte loads of 8 columns a
-// lane (8-byte loads of 4 where fh % 8 != 0), bwd1 and bwd2 8-byte loads
-// of 4.  Everything else stays f32 as gala_tpu keeps it
+// lane (8-byte loads of 4 where fh % 8 != 0), bwd1 8-byte loads of 4, and
+// bwd2 16-byte loads of its f32 table with 8-byte loads of 4 of its one
+// x[c] row a unit.  Everything else stays f32 as gala_tpu keeps it
 // (ops/attention.py:405-407, 763-768, 826-838): the scores, p, m, s, the
 // partials and both merges, the outputs (out, out+, s+; bwd1's [sds | A |
 // B]; bwd2's [dx | dvl]) and bwd2's [dout | vr | m | s | sds] table.  The
 // forward's x rows are half the bytes; bwd2's reads of x and vl (one row
 // per unit, one value per head) are what gala_tpu upcasts to f32.
 //
-// Not done yet (later work, see ROADMAP): bwd1 and bwd2 one warp a unit
-// with 4 bf16 columns a lane.
-//
 // Masked slots (occupancy 0: padding and the phantom column) are skipped
 // without reading their rows.  Output rows that no unit or row writes
-// (padding) are 0: the forward zeroes them first (cudaMemsetAsync, from
-// WorkUnits.n_written on: every row below it is some unit's node), bwd1
-// and bwd2 leave them as the caller allocated them (zeros).
+// (padding) are 0: each call zeroes them first (cudaMemsetAsync, from
+// WorkUnits.n_written on: every row below it is some unit's node).
 
 #include <math.h>
 
@@ -116,112 +116,32 @@ namespace {
 using namespace gala;
 
 constexpr int kMaxHeads = 8;
-constexpr int kPer = kUnitSlots / kWarp;  // a unit's slots per lane in the scalar phase
 constexpr int kMergeThreads = 64;
 constexpr float kNeg = -1e30f;    // masked score (gala_tpu's _NEG)
 constexpr float kFloor = -5e29f;  // floor of a row's max, _NEG / 2
 
 __device__ __forceinline__ float lrelu(float z, float slope) { return z > 0.f ? z : slope * z; }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = kWarp / 2; off > 0; off >>= 1) v += __shfl_xor_sync(kFullMask, v, off);
-  return v;
-}
-
-// The forward's dynamic shared memory per warp: its units' columns, then
-// H rows of kUnitSlots scores, then probabilities, each stored with the
-// sign of its zpre (+p where zpre > 0, -p elsewhere: the flash
-// statistics' mask rides in the sign bit); bwd1's and bwd2's start so.
-__host__ __device__ constexpr size_t fwd_warp_smem(int nh) {
+// The dynamic shared memory per warp of the three pass-1 kernels: its
+// units' columns, then H rows of kUnitSlots scores (the forward's), then
+// probabilities, each stored with the sign of its zpre (+p where zpre > 0,
+// -p elsewhere: the flash statistics' mask and lrelu' ride in the sign
+// bit).
+__host__ __device__ constexpr size_t unit_warp_smem(int nh) {
   return sizeof(UnitSmem) + static_cast<size_t>(nh) * kUnitSlots * sizeof(float);
 }
-static_assert(fwd_warp_smem(kMaxHeads) * kWarpsPerBlock <= kDefaultSmem,
-              "the forward would need cudaFuncSetAttribute");
+static_assert(unit_warp_smem(kMaxHeads) * kWarpsPerBlock <= kDefaultSmem,
+              "the unit kernels would need cudaFuncSetAttribute");
 
-// bwd1's phases, one warp a unit (under the row's saved max).
-//
-// Scalar phase, loads: lane t takes slots t, t + 32, t + 64 and t + 96 of
-// the unit (ucols, uocc: its slots' columns and occupancy, at its first
-// slot), writes their columns to sm.col and keeps each slot's mask
-// (real: occupancy != 0) and its scores zpre = vl[c, h0 + j] + vr_n[j]
-// for the N heads from h0 (0 on a masked slot or a head >= nh).  The
-// unit's two slot pointers take the registers that the layout's base
-// pointers and a 64-bit first slot would.
-template <int N, class T>
-__device__ __forceinline__ void unit_scores(UnitSmem& sm, const int32_t* __restrict__ ucols,
-                                            const float* __restrict__ uocc,
-                                            const T* __restrict__ vl,
-                                            const float (&vr_n)[N], int len, int nh,
-                                            int h0, int lane, float (&zpre)[kPer][N],
-                                            bool (&real)[kPer]) {
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int t = lane + i * kWarp;
-    int c = 0;
-    real[i] = false;
-    if (t < len) {
-      c = __ldg(ucols + t);
-      real[i] = __ldg(uocc + t) != 0.f;
-      sm.col[t] = c;
-    }
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      zpre[i][j] = 0.f;
-      if (h0 + j < nh && real[i])
-        zpre[i][j] = ld(vl + static_cast<size_t>(c) * nh + h0 + j) + vr_n[j];
-    }
-  }
-}
-
-// Scalar phase, probabilities of score column j under the max m: p =
-// e^(lrelu(zpre) - m) on a real slot, 0 on a masked one, stored at ph[t]
-// with the sign of zpre; adds the lane's p to s and, where zpre > 0, to sp.
-template <int N>
-__device__ __forceinline__ void unit_probs(const float (&zpre)[kPer][N], const bool (&real)[kPer],
-                                           int j, float m, float slope, int len, int lane,
-                                           float* ph, float& s, float& sp) {
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int t = lane + i * kWarp;
-    const float p = real[i] ? expf(lrelu(zpre[i][j], slope) - m) : 0.f;
-    const bool pos = zpre[i][j] > 0.f;
-    s += p;
-    if (pos) sp += p;
-    if (t < len) ph[t] = pos ? p : -p;
-  }
-}
-
-// Gather phase, lanes across features: acc = sum |ph[j]| x[col[j]] and,
-// with `pos`, acc+ = the same over the slots of ph[j] > 0 (zpre > 0), over
-// the lane's slot group, then summed over the slot groups (lanes that
-// share lane % g hold one vector).  A slot of weight 0 (masked, or
-// underflowed) is not read.
-template <int VEC, class T>
-__device__ __forceinline__ void unit_gather(const UnitSmem& sm, int len,
-                                            const T* __restrict__ x, int hf, const Lanes& ln,
-                                            const float* ph, bool pos, float (&acc)[VEC],
-                                            float (&accp)[VEC]) {
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) acc[i] = accp[i] = 0.f;
-  gather_unit<VEC>(sm, len, x, hf, ln, [&](int j) { return ph[j] != 0.f; },
-                   [&](int j, const float (&v)[VEC]) {
-                     const float pv = ph[j];
-                     const float p = fabsf(pv);
-#pragma unroll
-                     for (int i = 0; i < VEC; ++i) acc[i] = fmaf(p, v[i], acc[i]);
-                     if (pos && pv > 0.f) {
-#pragma unroll
-                       for (int i = 0; i < VEC; ++i) accp[i] = fmaf(pv, v[i], accp[i]);
-                     }
-                   });
-  for (int off = kWarp / 2; off >= ln.g; off >>= 1) {
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) {
-      acc[i] += __shfl_xor_sync(kFullMask, acc[i], off);
-      if (pos) accp[i] += __shfl_xor_sync(kFullMask, accp[i], off);
-    }
-  }
+// The staging of a warp's units' columns into shared memory (col, the
+// warp's share): a masked slot (occupancy 0: padding, the phantom column)
+// is stored as -1 and its row is never read.
+__device__ __forceinline__ void stage_columns(const WarpUnits& wu, const int32_t* __restrict__ cols,
+                                              const float* __restrict__ occ, int32_t* col) {
+  stage_units(wu, [&](int i, int64_t slot) {
+    const int c = __ldg(cols + slot);
+    col[i] = __ldg(occ + slot) != 0.f ? c : -1;
+  });
 }
 
 // Resident blocks per SM that the forward asks of the compiler: 6 (40
@@ -271,20 +191,19 @@ attn_fwd_kernel(const T* __restrict__ x, const T* __restrict__ vl,
   if (!warp_units(warp_first, blockIdx.x * kWarpsPerBlock + w, n_warps, unit_start, unit_len,
                   wu))
     return;  // the same for every lane of the warp
-  char* base = reinterpret_cast<char*>(smem) + w * fwd_warp_smem(nh);
+  char* base = reinterpret_cast<char*>(smem) + w * unit_warp_smem(nh);
   int32_t* col = reinterpret_cast<UnitSmem*>(base)->col;
-  stage_units(wu, [&](int i, int64_t slot) {
-    const int c = __ldg(cols + slot);
-    col[i] = __ldg(occ + slot) != 0.f ? c : -1;
-  });
+  stage_columns(wu, cols, occ, col);
   col += wu.off;
   float* sh_p = reinterpret_cast<float*>(base + sizeof(UnitSmem)) + wu.off;  // [H][kUnitSlots]
   const bool flash = outpos != nullptr;
   const int ul = 1 << wu.log2_ul;
   __syncwarp();
 
-  // scalar phase: head by head scores, max and sums
-  const int node = wu.node(unit_node);
+  // scalar phase: head by head scores, max and sums (a lane of no unit,
+  // past the warp's count, reads row 0 and takes no slot: its unit's node
+  // would lie past the table's end in the last warp)
+  const int node = wu.valid() ? wu.node(unit_node) : 0;
   float s_keep = 1.f;  // lane t0 < nh: head t0's sum (1 where it is 0)
   for (int h = 0; h < nh; ++h) {
     float* ph = sh_p + h * kUnitSlots;
@@ -430,30 +349,41 @@ attn_fwd_merge_kernel(const float* __restrict__ pacc, const float* __restrict__ 
   }
 }
 
-// The sum over each head's lanes of a per-lane dot v (lanes across a
-// g-vector slice, hd the head of the lane's vector), added by lane 0 to
-// sh[h]: a dot over a whole head, slice by slice.
-__device__ __forceinline__ void add_head_dots(const Lanes& ln, int heads, float v, float* sh) {
-  for (int h = 0; h < heads; ++h) {
-    float d = ln.active && ln.hd == h ? v : 0.f;
-    for (int off = ln.g / 2; off > 0; off >>= 1) d += __shfl_xor_sync(kFullMask, d, off);
-    if (ln.lane == 0) sh[h] += d;
+// The sum of a per-lane dot v over each head's lanes of the lanes' g-vector
+// slice (hd the head of a lane's vector; one head needs no head index),
+// added to `keep` by lane t0 = h of each unit: slice by slice, a dot over
+// a whole head.  Every lane of the warp calls it.
+template <int MAXH>
+__device__ __forceinline__ void keep_head_sums(const WarpUnits& wu, const RowLanes& rl, int heads,
+                                               float v, float& keep) {
+  for (int h = 0; h < (MAXH == 1 ? 1 : heads); ++h) {
+    float d = rl.active && (MAXH == 1 || rl.hd == h) ? v : 0.f;
+    for (int off = (1 << rl.log2_g) >> 1; off > 0; off >>= 1)
+      d += __shfl_xor_sync(kFullMask, d, off);
+    if (wu.t0() == h) keep += d;
   }
 }
 
-// bwd1's dynamic shared memory per warp: the forward's (the unit's
-// columns, H rows of kUnitSlots signed probabilities), then three per-head
-// sums: <dout[r], acc>, <dout[r], acc+> and slope s + (1 - slope) s+.
-__host__ __device__ constexpr size_t bwd1_warp_smem(int nh) {
-  return fwd_warp_smem(nh) + 3 * kMaxHeads * sizeof(float);
-}
-static_assert(bwd1_warp_smem(kMaxHeads) * kWarpsPerBlock <= kDefaultSmem,
-              "bwd1 would need cudaFuncSetAttribute");
+// Rows of a slot group in flight per step of bwd1's and bwd2's gathers,
+// and the resident blocks per SM that their one-head and multi-head forms
+// ask of the compiler: the forward's 6 (40 registers) and 5 (48).  None
+// spills (scripts/unit_variants_torch.py, PERF.md, on an H100 80GB HBM3
+// at 700 W): at 8 blocks (32 registers) bwd2's one-head 4-column form
+// spilled 24 B and bwd1's 8-56 B; bwd1's one-head 4-column form spills 28
+// B at 2 rows in flight, so it keeps 1.
+template <int VEC, int MAXH>
+constexpr int kBwd1Rows = VEC == 1 ? 4 : MAXH == 1 ? 1 : 2;
+template <int VEC>
+constexpr int kBwd2Rows = VEC == 1 ? 4 : 2;
+constexpr int kBwd1MinBlocks = 6;
+constexpr int kBwd1MinBlocksHeads = 5;
+constexpr int kBwd2MinBlocks = 6;
+constexpr int kBwd2MinBlocksHeads = 5;  // at 8 heads 36,864 B of shared memory a block: 6 fit
 
-// Backward pass 1, pass 1: one warp per unit of the fwd layout (a unit
-// reads up to 128 sources c of one destination r).  With the row's saved
-// (m, s), p = e^(lrelu(zpre) - m_r) / s_r and lr' = lrelu'(zpre) =
-// slope + (1 - slope) [zpre > 0]:
+// Backward pass 1, pass 1: the forward's warps of units of the fwd layout
+// (a unit reads up to 128 sources c of one destination r).  With the
+// row's saved (m, s), p = e^(lrelu(zpre) - m_r) / s_r and lr' =
+// lrelu'(zpre) = slope + (1 - slope) [zpre > 0]:
 //   sds = sum p <dout[r], x[c]>        = <dout[r], acc> / s_r
 //   A   = sum p lr' <dout[r], x[c]>    = slope sds + (1 - slope) <dout[r], acc+> / s_r
 //   B   = sum p lr'                    = (slope s + (1 - slope) s+) / s_r
@@ -464,68 +394,102 @@ static_assert(bwd1_warp_smem(kMaxHeads) * kWarpsPerBlock <= kDefaultSmem,
 // once per unit).  Output row [sds | A | B] (3H wide) goes to the node's
 // row of `out` for a unit that is its whole row, else to the unit's
 // partial row of `part` (plain partial sums: p is already the row's, as
-// in gala_tpu's per-virtual-row partials).  One warp walks all n_slices
+// in gala_tpu's per-virtual-row partials).  The warp walks all n_slices
 // g-vector slices of the row, so each head's dot sees the whole head.
+//
+// Scalar phase, by the unit's lanes, head by head: p stored with the sign
+// of zpre, s and s+ as sums over the unit's lanes, lane t0 = h keeping
+// slope s + (1 - slope) s+ (b_keep).  Gather phase: acc and acc+ by each
+// slot group, summed over the unit's slot groups, then the two dots with
+// the lane's dout[r] vector, summed over each head's lanes and kept by
+// lane t0 = h (sds_keep, pdp_keep).
 template <int VEC, int MAXH, class T>
-__global__ void __launch_bounds__(kWarp * kWarpsPerBlock, kMinBlocks)
+__global__ void __launch_bounds__(kWarp * kWarpsPerBlock,
+                                  MAXH == 1 ? kBwd1MinBlocks : kBwd1MinBlocksHeads)
 attn_bwd1_kernel(const T* __restrict__ x, const T* __restrict__ vl,
                  const T* __restrict__ vr, const T* __restrict__ dout,
                  const float* __restrict__ m, const float* __restrict__ s,
                  const int32_t* __restrict__ cols, const float* __restrict__ occ,
                  const int64_t* __restrict__ unit_start, const int32_t* __restrict__ unit_len,
                  const int32_t* __restrict__ unit_node, const int32_t* __restrict__ unit_part,
-                 float* __restrict__ out, float* __restrict__ part, int n_units, int hf, int nh,
-                 float slope, int log2_g, int n_slices) {
+                 const int32_t* __restrict__ warp_first, float* __restrict__ out,
+                 float* __restrict__ part, int n_warps, int hf, int nh, float slope, int log2_g,
+                 int n_slices) {
   extern __shared__ float4 smem[];
   const int w = threadIdx.x / kWarp;
-  const int unit = blockIdx.x * kWarpsPerBlock + w;
-  if (unit >= n_units) return;  // the same for every lane of the warp
+  WarpUnits wu;
+  if (!warp_units(warp_first, blockIdx.x * kWarpsPerBlock + w, n_warps, unit_start, unit_len,
+                  wu))
+    return;  // the same for every lane of the warp
   const int heads = MAXH == 1 ? 1 : nh;
-  char* base = reinterpret_cast<char*>(smem) + w * bwd1_warp_smem(heads);
-  UnitSmem& sm = *reinterpret_cast<UnitSmem*>(base);
-  float* sh_p = reinterpret_cast<float*>(base + sizeof(UnitSmem));  // [H][kUnitSlots]
-  float* sh_sds = sh_p + heads * kUnitSlots;                         // [H] <dout[r], acc>
-  float* sh_pdp = sh_sds + kMaxHeads;                                // [H] <dout[r], acc+>
-  float* sh_b = sh_pdp + kMaxHeads;                                  // [H] slope s + (1 - slope) s+
+  char* base = reinterpret_cast<char*>(smem) + w * unit_warp_smem(heads);
+  int32_t* col = reinterpret_cast<UnitSmem*>(base)->col;
+  stage_columns(wu, cols, occ, col);
+  col += wu.off;
+  float* sh_p = reinterpret_cast<float*>(base + sizeof(UnitSmem)) + wu.off;  // [H][kUnitSlots]
+  const int ul = 1 << wu.log2_ul;
+  __syncwarp();
 
-  const int lane = threadIdx.x & (kWarp - 1);
-  const int fh = hf / heads;
-  const int len = unit_len[unit];
-
-  // scalar phase, one head at a time (a head's scores take 4 registers,
-  // not 4 H): the forward's, under the row's saved max
+  // scalar phase: head by head, the forward's under the row's saved max
+  // (a lane of no unit reads row 0 and takes no slot)
+  float b_keep = 0.f;
   for (int h = 0; h < heads; ++h) {
-    const size_t o = static_cast<size_t>(unit_node[unit]) * heads + h;
-    const float vr_h[1] = {ld(vr + o)};
-    float zpre[kPer][1];
-    bool real[kPer];
-    const int64_t first = load_at_use(unit_start + unit);
-    unit_scores<1>(sm, cols + first, occ + first, vl, vr_h, len, heads, h, lane, zpre, real);
+    const size_t o = static_cast<size_t>(wu.valid() ? wu.node(unit_node) : 0) * heads + h;
+    const float vr_h = ld(vr + o);
+    const float m_r = __ldg(m + o);
     float sp = 0.f, spp = 0.f;
-    unit_probs<1>(zpre, real, 0, __ldg(m + o), slope, len, lane, sh_p + h * kUnitSlots, sp, spp);
-    sp = warp_sum(sp);
-    spp = warp_sum(spp);
-    if (lane == 0) {
-      sh_b[h] = fmaf(slope, sp, (1.f - slope) * spp);
-      sh_sds[h] = sh_pdp[h] = 0.f;
+    for (int t = wu.t0(); t < wu.len; t += ul) {
+      const int c = col[t];
+      float p = 0.f;
+      bool pos = false;
+      if (c >= 0) {
+        const float zp = ld(vl + static_cast<size_t>(c) * heads + h) + vr_h;
+        p = expf(lrelu(zp, slope) - m_r);
+        pos = zp > 0.f;
+      }
+      sp += p;
+      if (pos) spp += p;
+      sh_p[h * kUnitSlots + t] = pos ? p : -p;
     }
+    sp = unit_sum(sp, wu);
+    spp = unit_sum(spp, wu);
+    if (wu.t0() == h) b_keep = fmaf(slope, sp, (1.f - slope) * spp);
   }
   __syncwarp();
 
+  float sds_keep = 0.f, pdp_keep = 0.f;
   for (int y = 0; y < n_slices; ++y) {
     // gather phase: the forward's, acc and acc+ from one read of each x[c]
     // slice; at one head the probabilities need no head index
-    const Lanes ln(log2_g, hf, fh, VEC, y);
+    const RowLanes rl(wu, log2_g, hf, hf / heads, VEC, y);
     float acc[VEC], accp[VEC];
-    unit_gather<VEC>(sm, len, x, hf, ln, MAXH == 1 ? sh_p : sh_p + ln.hd * kUnitSlots, true,
-                     acc, accp);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) acc[i] = accp[i] = 0.f;
+    const float* ph = MAXH == 1 ? sh_p : sh_p + rl.hd * kUnitSlots;
+    gather_units<VEC, kBwd1Rows<VEC, MAXH>>(col, wu, rl, x, hf, [&](int j) { return ph[j] != 0.f; },
+                                     [&](int j, const float (&v)[VEC]) {
+                                       const float pv = ph[j];
+                                       const float p = fabsf(pv);
+#pragma unroll
+                                       for (int i = 0; i < VEC; ++i) acc[i] = fmaf(p, v[i], acc[i]);
+                                       if (pv > 0.f) {
+#pragma unroll
+                                         for (int i = 0; i < VEC; ++i)
+                                           accp[i] = fmaf(pv, v[i], accp[i]);
+                                       }
+                                     });
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      acc[i] = sum_groups(acc[i], wu, rl);
+      accp[i] = sum_groups(accp[i], wu, rl);
+    }
     // <dout[r], acc> and <dout[r], acc+> on the lane's vector, from one
     // read of the unit's dout slice, then over each head's lanes
     float d = 0.f, dp = 0.f;
-    if (ln.active) {
+    if (rl.active && wu.valid()) {
       float dv[VEC];
-      load_vec<VEC>(dout + static_cast<size_t>(unit_node[unit]) * hf +
-                        static_cast<size_t>(ln.vcol) * VEC,
+      load_vec<VEC>(dout + static_cast<size_t>(wu.node(unit_node)) * hf +
+                        static_cast<size_t>(rl.vcol) * VEC,
                     dv);
 #pragma unroll
       for (int i = 0; i < VEC; ++i) {
@@ -533,192 +497,159 @@ attn_bwd1_kernel(const T* __restrict__ x, const T* __restrict__ vl,
         dp = fmaf(accp[i], dv[i], dp);
       }
     }
-    add_head_dots(ln, heads, d, sh_sds);
-    add_head_dots(ln, heads, dp, sh_pdp);
+    keep_head_sums<MAXH>(wu, rl, heads, d, sds_keep);
+    keep_head_sums<MAXH>(wu, rl, heads, dp, pdp_keep);
   }
-  __syncwarp();
-  if (lane < heads) {
-    const int node = unit_node[unit];
-    const int pr = unit_part[unit];
-    float* orow = pr >= 0 ? part + static_cast<size_t>(pr) * 3 * heads
-                          : out + static_cast<size_t>(node) * 3 * heads;
-    const float s_r = __ldg(s + static_cast<size_t>(node) * heads + lane);
-    const float sds = sh_sds[lane] / s_r;
-    orow[lane] = sds;
-    orow[heads + lane] = fmaf(slope, sds, (1.f - slope) * (sh_pdp[lane] / s_r));
-    orow[2 * heads + lane] = sh_b[lane] / s_r;
-  }
+  const int h = wu.t0();
+  if (h >= heads || !wu.valid()) return;
+  const int node = wu.node(unit_node);
+  const int pr = wu.part(unit_part);
+  float* orow = pr >= 0 ? part + static_cast<size_t>(pr) * 3 * heads
+                        : out + static_cast<size_t>(node) * 3 * heads;
+  const float s_r = __ldg(s + static_cast<size_t>(node) * heads + h);
+  const float sds = sds_keep / s_r;
+  orow[h] = sds;
+  orow[heads + h] = fmaf(slope, sds, (1.f - slope) * (pdp_keep / s_r));
+  orow[2 * heads + h] = b_keep / s_r;
 }
 
-// bwd2's dynamic shared memory per warp: the forward's (the unit's
-// destinations, H rows of kUnitSlots signed probabilities), then
-// two per-head sums: sum p lrelu' sds and <q, x[c]>.
-__host__ __device__ constexpr size_t bwd2_warp_smem(int nh) {
-  return fwd_warp_smem(nh) + 2 * kMaxHeads * sizeof(float);
-}
-static_assert(bwd2_warp_smem(kMaxHeads) * kWarpsPerBlock <= kDefaultSmem,
-              "bwd2 would need cudaFuncSetAttribute");
-// resident blocks per SM that bwd2's multi-head instantiation asks of the
-// compiler: asking for 8 capped it at 32 registers, where it spilled
-// (at 8 heads a block takes 37,376 B of shared memory, so 6 fit an SM)
-constexpr int kBwd2MinBlocksHeads = 5;
-
-// Backward pass 2, pass 1: one warp per unit of the transpose layout (a
-// unit reads up to 128 destinations r of one source c).  With
-// p = e^(lrelu(zpre) - m_r) / s_r and lr' = lrelu'(zpre),
+// Backward pass 2, pass 1: the forward's warps of units, over the
+// transpose layout (a unit reads up to 128 destinations r of one source
+// c).  With p = e^(lrelu(zpre) - m_r) / s_r and lr' = lrelu'(zpre),
 //   dx[c]     = sum_r p dout[r]
 //   dvl[c, h] = sum_r p lr' (<dout[r, h], x[c, h]> - sds[r, h])
 //             = <q_h, x[c, h]> - sum_r p lr' sds[r, h],  q = sum_r p lr' dout[r]
 // (x[c] is the same for every slot of the row), so each destination row
-// is read once: its scalars [vr | m | s | sds] lane-per-slot, its dout
-// slice in the gather, which sums dx and q together.  Output row [dx |
-// dvl] (hf + H wide) goes to the node's row of `out` for a unit that is
+// is read once: its scalars [vr | m | s | sds] in the scalar phase, its
+// dout slice in the gather, which sums dx and q together.  Output row [dx
+// | dvl] (hf + H wide) goes to the node's row of `out` for a unit that is
 // its whole row, else to the unit's partial row of `part` (plain partial
-// sums: the TPU kernel's per-virtual-row output).  One warp walks all
+// sums: the TPU kernel's per-virtual-row output).  The warp walks all
 // n_slices g-vector slices of the row, so dvl's dot sees its whole head.
+//
+// Scalar phase, by the unit's lanes, head by head: p stored with the sign
+// of zpre (+p where zpre > 0, -p elsewhere), sum p lr' sds a sum over the
+// unit's lanes kept by lane t0 = h (sds_keep).  Gather phase: dx and q by
+// each slot group from the f32 table's dout slices (16-byte loads at
+// either type), summed over the unit's slot groups; <q, x[c]> summed over
+// each head's lanes and kept by lane t0 = h (dot_keep).
 template <int VEC, int MAXH, class T>
 __global__ void __launch_bounds__(kWarp * kWarpsPerBlock,
-                                  MAXH == 1 ? kMinBlocks : kBwd2MinBlocksHeads)
+                                  MAXH == 1 ? kBwd2MinBlocks : kBwd2MinBlocksHeads)
 attn_bwd2_kernel(const float* __restrict__ wtab, const T* __restrict__ x,
                  const T* __restrict__ vl, const int32_t* __restrict__ cols,
                  const float* __restrict__ occ, const int64_t* __restrict__ unit_start,
                  const int32_t* __restrict__ unit_len, const int32_t* __restrict__ unit_node,
-                 const int32_t* __restrict__ unit_part, float* __restrict__ out,
-                 float* __restrict__ part, int n_units, int hf, int nh, float slope, int log2_g,
-                 int n_slices) {
+                 const int32_t* __restrict__ unit_part, const int32_t* __restrict__ warp_first,
+                 float* __restrict__ out, float* __restrict__ part, int n_warps, int hf, int nh,
+                 float slope, int log2_g, int n_slices) {
   extern __shared__ float4 smem[];
   const int w = threadIdx.x / kWarp;
-  const int unit = blockIdx.x * kWarpsPerBlock + w;
-  if (unit >= n_units) return;  // the same for every lane of the warp
+  WarpUnits wu;
+  if (!warp_units(warp_first, blockIdx.x * kWarpsPerBlock + w, n_warps, unit_start, unit_len,
+                  wu))
+    return;  // the same for every lane of the warp
   const int heads = MAXH == 1 ? 1 : nh;
-  char* base = reinterpret_cast<char*>(smem) + w * bwd2_warp_smem(heads);
-  UnitSmem& sm = *reinterpret_cast<UnitSmem*>(base);
-  float* sh_p = reinterpret_cast<float*>(base + sizeof(UnitSmem));  // [H][kUnitSlots]
-  float* sh_sds = sh_p + heads * kUnitSlots;                         // [H] sum p lr' sds
-  float* sh_dot = sh_sds + kMaxHeads;                                // [H] <q, x[c]>
-
-  const int lane = threadIdx.x & (kWarp - 1);
-  const int fh = hf / heads;
+  char* base = reinterpret_cast<char*>(smem) + w * unit_warp_smem(heads);
+  int32_t* col = reinterpret_cast<UnitSmem*>(base)->col;
+  stage_columns(wu, cols, occ, col);
+  col += wu.off;
+  float* sh_p = reinterpret_cast<float*>(base + sizeof(UnitSmem)) + wu.off;  // [H][kUnitSlots]
+  const int ul = 1 << wu.log2_ul;
   const int wt = hf + 4 * heads;
-  const int len = unit_len[unit];
+  __syncwarp();
 
-  // the unit's destinations; a masked slot (occupancy 0) is stored as -1
-  // and never read
-  {
-    const int64_t first = load_at_use(unit_start + unit);
-    const int32_t* ucols = cols + first;
-    const float* uocc = occ + first;
-    for (int t = lane; t < len; t += kWarp)
-      sm.col[t] = __ldg(uocc + t) != 0.f ? __ldg(ucols + t) : -1;
-  }
-
-  // scalar phase: lane t takes slots t, t + 32, t + 64 and t + 96 (the
-  // column entries it wrote itself); p is stored with the sign of zpre
-  // (+p where zpre > 0, -p elsewhere), as the forward stores it
+  // scalar phase (a lane of no unit reads row 0 and takes no slot)
+  float sds_keep = 0.f;
   for (int h = 0; h < heads; ++h) {
-    const float vl_c = ld(vl + static_cast<size_t>(unit_node[unit]) * heads + h);
+    const float vl_c =
+        ld(vl + static_cast<size_t>(wu.valid() ? wu.node(unit_node) : 0) * heads + h);
     float sp = 0.f;
-    // two slots at a time: all four held four 16-byte loads in registers
-    // and spilled at the 32-register cap (PERF.md)
-#pragma unroll 2
-    for (int i = 0; i < kPer; ++i) {
-      const int t = lane + i * kWarp;
-      if (t < len) {
-        const int r = sm.col[t];
-        float pv = 0.f;
-        if (r >= 0) {
-          const float* wr = wtab + static_cast<size_t>(r) * wt + hf + h;
-          float vr_r, m_r, s_r, sds_r;
-          if constexpr (MAXH == 1 && VEC == 4) {
-            // [vr | m | s | sds] of one head: one 16-byte load (hf and wt
-            // are multiples of 4 and wtab is 16-byte aligned under VEC 4)
-            const float4 v = __ldg(reinterpret_cast<const float4*>(wr));
-            vr_r = v.x;
-            m_r = v.y;
-            s_r = v.z;
-            sds_r = v.w;
-          } else {
-            vr_r = __ldg(wr);
-            m_r = __ldg(wr + heads);
-            s_r = __ldg(wr + 2 * heads);
-            sds_r = __ldg(wr + 3 * heads);
-          }
-          const float zpre = vl_c + vr_r;
-          const float p = expf(lrelu(zpre, slope) - m_r) / s_r;
-          const bool pos = zpre > 0.f;
-          sp = fmaf(pos ? p : slope * p, sds_r, sp);
-          pv = pos ? p : -p;
+    for (int t = wu.t0(); t < wu.len; t += ul) {
+      const int r = col[t];
+      float pv = 0.f;
+      if (r >= 0) {
+        const float* wr = wtab + static_cast<size_t>(r) * wt + hf + h;
+        float vr_r, m_r, s_r, sds_r;
+        if constexpr (MAXH == 1 && VEC == 4) {
+          // [vr | m | s | sds] of one head: one 16-byte load (hf and wt
+          // are multiples of 4 and wtab is 16-byte aligned under VEC 4)
+          const float4 v = __ldg(reinterpret_cast<const float4*>(wr));
+          vr_r = v.x;
+          m_r = v.y;
+          s_r = v.z;
+          sds_r = v.w;
+        } else {
+          vr_r = __ldg(wr);
+          m_r = __ldg(wr + heads);
+          s_r = __ldg(wr + 2 * heads);
+          sds_r = __ldg(wr + 3 * heads);
         }
-        sh_p[h * kUnitSlots + t] = pv;
+        const float zpre = vl_c + vr_r;
+        const float p = expf(lrelu(zpre, slope) - m_r) / s_r;
+        const bool pos = zpre > 0.f;
+        sp = fmaf(pos ? p : slope * p, sds_r, sp);
+        pv = pos ? p : -p;
       }
+      sh_p[h * kUnitSlots + t] = pv;
     }
-    sp = warp_sum(sp);
-    if (lane == 0) {
-      sh_sds[h] = sp;
-      sh_dot[h] = 0.f;
-    }
+    sp = unit_sum(sp, wu);
+    if (wu.t0() == h) sds_keep = sp;
   }
   __syncwarp();
 
+  float dot_keep = 0.f;
   for (int y = 0; y < n_slices; ++y) {
     // gather phase: lanes across features; one read of each destination's
     // dout slice feeds dx += p v and q += p lr' v; a slot of weight 0
     // (masked, or underflowed) is not read
-    const Lanes ln(log2_g, hf, fh, VEC, y);
+    const RowLanes rl(wu, log2_g, hf, hf / heads, VEC, y);
     float dx[VEC], q[VEC];
 #pragma unroll
     for (int i = 0; i < VEC; ++i) dx[i] = q[i] = 0.f;
-    // one head: hd is 0 (not taking it from ln saved the register whose
-    // spill ptxas reported at the 32-register cap)
-    const float* ph = MAXH == 1 ? sh_p : sh_p + ln.hd * kUnitSlots;
-    gather_unit<VEC>(sm, len, wtab, wt, ln, [&](int j) { return ph[j] != 0.f; },
-                     [&](int j, const float (&v)[VEC]) {
-                       const float pv = ph[j];
-                       const float p = fabsf(pv);
-                       const float pl = pv > 0.f ? p : slope * p;
+    const float* ph = MAXH == 1 ? sh_p : sh_p + rl.hd * kUnitSlots;
+    gather_units<VEC, kBwd2Rows<VEC>>(col, wu, rl, wtab, wt, [&](int j) { return ph[j] != 0.f; },
+                                     [&](int j, const float (&v)[VEC]) {
+                                       const float pv = ph[j];
+                                       const float p = fabsf(pv);
+                                       const float pl = pv > 0.f ? p : slope * p;
 #pragma unroll
-                       for (int i = 0; i < VEC; ++i) {
-                         dx[i] = fmaf(p, v[i], dx[i]);
-                         q[i] = fmaf(pl, v[i], q[i]);
-                       }
-                     });
-
-    // sum the slot groups: lanes that share (lane % g) hold one vector
-    for (int off = kWarp / 2; off >= ln.g; off >>= 1) {
+                                       for (int i = 0; i < VEC; ++i) {
+                                         dx[i] = fmaf(p, v[i], dx[i]);
+                                         q[i] = fmaf(pl, v[i], q[i]);
+                                       }
+                                     });
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) {
-        dx[i] += __shfl_xor_sync(kFullMask, dx[i], off);
-        q[i] += __shfl_xor_sync(kFullMask, q[i], off);
-      }
+    for (int i = 0; i < VEC; ++i) {
+      dx[i] = sum_groups(dx[i], wu, rl);
+      q[i] = sum_groups(q[i], wu, rl);
     }
-    // <q, x[c]> on the lane's vector, then over each head's lanes.  The
+    // <q, x[c]> on the lane's vector, then over each head's lanes; the
     // output row [dx | dvl] (the node's row of out, or the unit's partial
-    // row) is addressed here, not held through the gather: at the
-    // 32-register cap that one register spilled.
-    const int c = unit_node[unit];
-    const int pr = unit_part[unit];
-    float* orow = pr >= 0 ? part + static_cast<size_t>(pr) * (hf + heads)
-                          : out + static_cast<size_t>(c) * (hf + heads);
+    // row) is addressed here, not held through the gather
     float d = 0.f;
-    if (ln.active) {
+    if (rl.active && wu.valid()) {
+      const int c = wu.node(unit_node);
       float xv[VEC];
-      load_vec<VEC>(x + static_cast<size_t>(c) * hf + static_cast<size_t>(ln.vcol) * VEC, xv);
+      load_vec<VEC>(x + static_cast<size_t>(c) * hf + static_cast<size_t>(rl.vcol) * VEC, xv);
 #pragma unroll
       for (int i = 0; i < VEC; ++i) d = fmaf(q[i], xv[i], d);
-      if (ln.sub == 0) {
+      if (rl.sg == 0) {
+        const int pr = wu.part(unit_part);
+        float* orow = pr >= 0 ? part + static_cast<size_t>(pr) * (hf + heads)
+                              : out + static_cast<size_t>(c) * (hf + heads);
 #pragma unroll
-        for (int i = 0; i < VEC; ++i) orow[ln.vcol * VEC + i] = dx[i];  // rows of hf + H floats
+        for (int i = 0; i < VEC; ++i) orow[rl.vcol * VEC + i] = dx[i];  // rows of hf + H floats
       }
     }
-    add_head_dots(ln, heads, d, sh_dot);
+    keep_head_sums<MAXH>(wu, rl, heads, d, dot_keep);
   }
-  __syncwarp();
-  if (lane < heads) {
-    const int pr = unit_part[unit];
-    float* orow = pr >= 0 ? part + static_cast<size_t>(pr) * (hf + heads)
-                          : out + static_cast<size_t>(unit_node[unit]) * (hf + heads);
-    orow[hf + lane] = sh_dot[lane] - sh_sds[lane];
-  }
+  const int h = wu.t0();
+  if (h >= heads || !wu.valid()) return;
+  const int pr = wu.part(unit_part);
+  float* orow = pr >= 0 ? part + static_cast<size_t>(pr) * (hf + heads)
+                        : out + static_cast<size_t>(wu.node(unit_node)) * (hf + heads);
+  orow[hf + h] = dot_keep - sds_keep;
 }
 
 // bwd1's and bwd2's pass 2: one block per split row; its partial rows
@@ -750,7 +681,7 @@ int launch_fwd(const void* x, const void* vl, const void* vr, const void* cols, 
                const void* split_first, const void* split_count, void* out, void* m, void* s,
                void* outpos, void* spos, void* part, int n_warps, int n_split, int n_partials,
                int hf, int nh, float slope, int log2_g, cudaStream_t st) {
-  const size_t smem = fwd_warp_smem(nh) * kWarpsPerBlock;
+  const size_t smem = unit_warp_smem(nh) * kWarpsPerBlock;
   // the partial tables, one scratch block: acc, acc+ (P, hf); m, s, s+ (P, H)
   float* pacc = static_cast<float*>(part);
   const size_t ph = static_cast<size_t>(n_partials) * hf, pn = static_cast<size_t>(n_partials) * nh;
@@ -792,50 +723,50 @@ int merge_sums(const void* part, const void* split_node, const void* split_first
   return static_cast<int>(cudaGetLastError());
 }
 
+// The grid of a backward pass 1: n_warps warps of units; each walks all
+// the g-vector slices of a row itself
+inline dim3 bwd_grid(int n_warps) {
+  return dim3((n_warps + kWarpsPerBlock - 1) / kWarpsPerBlock);
+}
+inline int n_slices(int hf, int vec, int log2_g) {
+  return (hf / vec + (1 << log2_g) - 1) >> log2_g;
+}
+
 template <int VEC, int MAXH, class T>
 int launch_bwd1(const void* x, const void* vl, const void* vr, const void* dout, const void* m,
                 const void* s, const void* cols, const void* occ, const void* unit_start,
                 const void* unit_len, const void* unit_node, const void* unit_part,
-                const void* split_node, const void* split_first, const void* split_count,
-                void* out, void* part, int n_units, int n_split, int hf, int nh, float slope,
-                cudaStream_t st) {
-  const size_t smem = bwd1_warp_smem(nh) * kWarpsPerBlock;
+                const void* warp_first, const void* split_node, const void* split_first,
+                const void* split_count, void* out, void* part, int n_warps, int n_split, int hf,
+                int nh, float slope, int log2_g, cudaStream_t st) {
+  const size_t smem = unit_warp_smem(nh) * kWarpsPerBlock;
   const auto t = [](const void* p) { return static_cast<const T*>(p); };
   const auto f32 = [](const void* p) { return static_cast<const float*>(p); };
   const auto i32 = [](const void* p) { return static_cast<const int32_t*>(p); };
   const auto i64 = [](const void* p) { return static_cast<const int64_t*>(p); };
-  int log2_g;
-  dim3 grid;
-  reduce_grid(n_units, hf, VEC, &log2_g, &grid);
-  const int n_slices = static_cast<int>(grid.y);  // walked inside the warp
-  grid.y = 1;
-  attn_bwd1_kernel<VEC, MAXH, T><<<grid, kWarp * kWarpsPerBlock, smem, st>>>(
+  attn_bwd1_kernel<VEC, MAXH, T><<<bwd_grid(n_warps), kWarp * kWarpsPerBlock, smem, st>>>(
       t(x), t(vl), t(vr), t(dout), f32(m), f32(s), i32(cols), f32(occ), i64(unit_start),
-      i32(unit_len), i32(unit_node), i32(unit_part), static_cast<float*>(out),
-      static_cast<float*>(part), n_units, hf, nh, slope, log2_g, n_slices);
+      i32(unit_len), i32(unit_node), i32(unit_part), i32(warp_first), static_cast<float*>(out),
+      static_cast<float*>(part), n_warps, hf, nh, slope, log2_g, n_slices(hf, VEC, log2_g));
   return merge_sums(part, split_node, split_first, split_count, out, n_split, 3 * nh, st);
 }
 
 template <int VEC, int MAXH, class T>
 int launch_bwd2(const void* wtab, const void* x, const void* vl, const void* cols,
                 const void* occ, const void* unit_start, const void* unit_len,
-                const void* unit_node, const void* unit_part, const void* split_node,
-                const void* split_first, const void* split_count, void* out, void* part,
-                int n_units, int n_split, int hf, int nh, float slope, cudaStream_t st) {
-  const size_t smem = bwd2_warp_smem(nh) * kWarpsPerBlock;
+                const void* unit_node, const void* unit_part, const void* warp_first,
+                const void* split_node, const void* split_first, const void* split_count,
+                void* out, void* part, int n_warps, int n_split, int hf, int nh, float slope,
+                int log2_g, cudaStream_t st) {
+  const size_t smem = unit_warp_smem(nh) * kWarpsPerBlock;
   const auto t = [](const void* p) { return static_cast<const T*>(p); };
   const auto f32 = [](const void* p) { return static_cast<const float*>(p); };
   const auto i32 = [](const void* p) { return static_cast<const int32_t*>(p); };
   const auto i64 = [](const void* p) { return static_cast<const int64_t*>(p); };
-  int log2_g;
-  dim3 grid;
-  reduce_grid(n_units, hf, VEC, &log2_g, &grid);
-  const int n_slices = static_cast<int>(grid.y);  // walked inside the warp
-  grid.y = 1;
-  attn_bwd2_kernel<VEC, MAXH, T><<<grid, kWarp * kWarpsPerBlock, smem, st>>>(
+  attn_bwd2_kernel<VEC, MAXH, T><<<bwd_grid(n_warps), kWarp * kWarpsPerBlock, smem, st>>>(
       f32(wtab), t(x), t(vl), i32(cols), f32(occ), i64(unit_start), i32(unit_len),
-      i32(unit_node), i32(unit_part), static_cast<float*>(out), static_cast<float*>(part),
-      n_units, hf, nh, slope, log2_g, n_slices);
+      i32(unit_node), i32(unit_part), i32(warp_first), static_cast<float*>(out),
+      static_cast<float*>(part), n_warps, hf, nh, slope, log2_g, n_slices(hf, VEC, log2_g));
   return merge_sums(part, split_node, split_first, split_count, out, n_split, hf + nh, st);
 }
 
@@ -850,6 +781,30 @@ int dispatch(int vec, int nh, Run run) {
   return nh == 1 ? run(One{}, One{}) : run(One{}, Max{});
 }
 
+// Rows [zero_from, n_pad) of each (n_pad, width) f32 output set to 0 on st
+// (rows that no unit writes: padding); null outputs are skipped.
+int zero_rows(std::initializer_list<void*> outs, int width, int n_pad, int zero_from,
+              cudaStream_t st) {
+  const size_t skip = static_cast<size_t>(zero_from) * width * sizeof(float);
+  const size_t bytes = static_cast<size_t>(n_pad > zero_from ? n_pad - zero_from : 0) * width *
+                       sizeof(float);
+  for (void* t : outs) {
+    if (t == nullptr || bytes == 0) continue;
+    const int err = static_cast<int>(cudaMemsetAsync(static_cast<char*>(t) + skip, 0, bytes, st));
+    if (err != 0) return err;
+  }
+  return 0;
+}
+
+// What every unit kernel's call must hold of its warp tables and zeroing:
+// log2_g = row_lanes(hf / vec), a warp table exactly below 32 lanes, and
+// zero_from within the rows (0 where there are no units)
+bool bad_units(int hf, int vec, int log2_g, const void* warp_first, int n_warps, int zero_from) {
+  return log2_g != row_lanes(hf / vec) ||
+         ((warp_first == nullptr) != (log2_g >= kPackedLanes)) || zero_from < 0 ||
+         (n_warps <= 0 && zero_from != 0);
+}
+
 template <class T>
 int fwd(const void* x, const void* vl, const void* vr, const void* cols, const void* occ,
         const void* unit_start, const void* unit_len, const void* unit_node,
@@ -861,24 +816,13 @@ int fwd(const void* x, const void* vl, const void* vr, const void* cols, const v
   const bool wide = std::is_same_v<T, bf16> && vec == 8 && nh >= 1 && hf % nh == 0 &&
                     (hf / nh) % 8 == 0 && nh <= kMaxHeads;
   if ((!wide && bad_shape(hf, nh, vec)) || ((outpos == nullptr) != (spos == nullptr)) ||
-      (n_split > 0 && part == nullptr) || log2_g != row_lanes(hf / vec) ||
-      ((warp_first == nullptr) != (log2_g >= kPackedLanes)) || zero_from < 0 ||
-      (n_warps <= 0 && zero_from != 0))
+      (n_split > 0 && part == nullptr) ||
+      bad_units(hf, vec, log2_g, warp_first, n_warps, zero_from))
     return static_cast<int>(cudaErrorInvalidValue);
   // rows that no unit writes (padding) are 0
   const auto st = static_cast<cudaStream_t>(stream);
-  const size_t skip = static_cast<size_t>(zero_from) * sizeof(float);
-  const size_t rows = static_cast<size_t>(n_pad > zero_from ? n_pad - zero_from : 0) *
-                      sizeof(float);
-  int err = 0;
-  for (void* t : {out, outpos})
-    if (t != nullptr && rows > 0 && err == 0)
-      err = static_cast<int>(
-          cudaMemsetAsync(static_cast<char*>(t) + skip * hf, 0, rows * hf, st));
-  for (void* t : {m, s, spos})
-    if (t != nullptr && rows > 0 && err == 0)
-      err = static_cast<int>(
-          cudaMemsetAsync(static_cast<char*>(t) + skip * nh, 0, rows * nh, st));
+  int err = zero_rows({out, outpos}, hf, n_pad, zero_from, st);
+  if (err == 0) err = zero_rows({m, s, spos}, nh, n_pad, zero_from, st);
   if (err != 0 || n_warps <= 0) return err;
   const auto run = [&](auto vec_tag) {
     return launch_fwd<decltype(vec_tag)::value, T>(
@@ -896,34 +840,41 @@ template <class T>
 int bwd1(const void* x, const void* vl, const void* vr, const void* dout, const void* m,
          const void* s, const void* cols, const void* occ, const void* unit_start,
          const void* unit_len, const void* unit_node, const void* unit_part,
-         const void* split_node, const void* split_first, const void* split_count, void* out,
-         void* part, int n_units, int n_split, int hf, int nh, float slope, int vec,
-         void* stream) {
-  if (n_units <= 0) return 0;
-  if (bad_shape(hf, nh, vec) || (n_split > 0 && part == nullptr))
+         const void* warp_first, const void* split_node, const void* split_first,
+         const void* split_count, void* out, void* part, int n_warps, int n_split, int n_pad,
+         int zero_from, int hf, int nh, float slope, int vec, int log2_g, void* stream) {
+  if (bad_shape(hf, nh, vec) || (n_split > 0 && part == nullptr) ||
+      bad_units(hf, vec, log2_g, warp_first, n_warps, zero_from))
     return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int err = zero_rows({out}, 3 * nh, n_pad, zero_from, st);
+  if (err != 0 || n_warps <= 0) return err;
   return dispatch(vec, nh, [&](auto vec_tag, auto maxh_tag) {
     return launch_bwd1<decltype(vec_tag)::value, decltype(maxh_tag)::value, T>(
-        x, vl, vr, dout, m, s, cols, occ, unit_start, unit_len, unit_node, unit_part, split_node,
-        split_first, split_count, out, part, n_units, n_split, hf, nh, slope,
-        static_cast<cudaStream_t>(stream));
+        x, vl, vr, dout, m, s, cols, occ, unit_start, unit_len, unit_node, unit_part, warp_first,
+        split_node, split_first, split_count, out, part, n_warps, n_split, hf, nh, slope, log2_g,
+        st);
   });
 }
 
 template <class T>
 int bwd2(const void* wtab, const void* x, const void* vl, const void* cols, const void* occ,
          const void* unit_start, const void* unit_len, const void* unit_node,
-         const void* unit_part, const void* split_node, const void* split_first,
-         const void* split_count, void* out, void* part, int n_units, int n_split, int hf,
-         int nh, float slope, int vec, void* stream) {
-  if (n_units <= 0) return 0;
-  if (bad_shape(hf, nh, vec) || (n_split > 0 && part == nullptr))
+         const void* unit_part, const void* warp_first, const void* split_node,
+         const void* split_first, const void* split_count, void* out, void* part, int n_warps,
+         int n_split, int n_pad, int zero_from, int hf, int nh, float slope, int vec, int log2_g,
+         void* stream) {
+  if (bad_shape(hf, nh, vec) || (n_split > 0 && part == nullptr) ||
+      bad_units(hf, vec, log2_g, warp_first, n_warps, zero_from))
     return static_cast<int>(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int err = zero_rows({out}, hf + nh, n_pad, zero_from, st);
+  if (err != 0 || n_warps <= 0) return err;
   return dispatch(vec, nh, [&](auto vec_tag, auto maxh_tag) {
     return launch_bwd2<decltype(vec_tag)::value, decltype(maxh_tag)::value, T>(
-        wtab, x, vl, cols, occ, unit_start, unit_len, unit_node, unit_part, split_node,
-        split_first, split_count, out, part, n_units, n_split, hf, nh, slope,
-        static_cast<cudaStream_t>(stream));
+        wtab, x, vl, cols, occ, unit_start, unit_len, unit_node, unit_part, warp_first,
+        split_node, split_first, split_count, out, part, n_warps, n_split, hf, nh, slope, log2_g,
+        st);
   });
 }
 
@@ -1002,38 +953,42 @@ GALA_ATTN_FWD(gala_attn_fwd_f32, float)
 GALA_ATTN_FWD(gala_attn_fwd_bf16, bf16)
 
 // out (n_pad, 3H) = [sds | A | B]; m, s (n_pad, H) the forward's saved
-// f32 statistics; the unit and split tables are the fwd layout's
-// WorkUnits; part is f32 scratch of n_partials * 3H floats, read only when
-// n_split > 0.  Pass 2 is launched only when a row is split.
+// f32 statistics; the unit, warp and split tables are the fwd layout's
+// WorkUnits (warp_first and log2_g as the forward takes them, n_warps the
+// table's warps); rows [zero_from, n_pad) of out are set to 0 first, as
+// the forward's; part is f32 scratch of n_partials * 3H floats, read only
+// when n_split > 0.  Pass 2 is launched only when a row is split.
 #define GALA_ATTN_BWD1(NAME, T)                                                                 \
   extern "C" int NAME(const void* x, const void* vl, const void* vr, const void* dout,          \
                       const void* m, const void* s, const void* cols, const void* occ,           \
                       const void* unit_start, const void* unit_len, const void* unit_node,       \
-                      const void* unit_part, const void* split_node, const void* split_first,    \
-                      const void* split_count, void* out, void* part, int n_units, int n_split,  \
-                      int hf, int nh, float slope, int vec, void* stream) {                      \
+                      const void* unit_part, const void* warp_first, const void* split_node,     \
+                      const void* split_first, const void* split_count, void* out, void* part,   \
+                      int n_warps, int n_split, int n_pad, int zero_from, int hf, int nh,        \
+                      float slope, int vec, int log2_g, void* stream) {                          \
     return bwd1<T>(x, vl, vr, dout, m, s, cols, occ, unit_start, unit_len, unit_node, unit_part, \
-                   split_node, split_first, split_count, out, part, n_units, n_split, hf, nh,    \
-                   slope, vec, stream);                                                          \
+                   warp_first, split_node, split_first, split_count, out, part, n_warps,         \
+                   n_split, n_pad, zero_from, hf, nh, slope, vec, log2_g, stream);              \
   }
 GALA_ATTN_BWD1(gala_attn_bwd1_f32, float)
 GALA_ATTN_BWD1(gala_attn_bwd1_bf16, bf16)
 
 // wtab (n_pad, hf + 4H) = [dout | vr | m | s | sds], f32 at either type
-// (gala_tpu's w_tab); out (c_pad, hf + H); the unit and split tables are
-// the transpose layout's WorkUnits; part is f32 scratch of n_partials *
-// (hf + H) floats, read only when n_split > 0.  Pass 2 is launched only
-// when a row is split.
+// (gala_tpu's w_tab); out (c_pad, hf + H), rows [zero_from, c_pad) set to
+// 0 first (c_pad is n_pad here); the unit, warp and split tables are the
+// transpose layout's WorkUnits (warp_first and log2_g as the forward takes
+// them); part is f32 scratch of n_partials * (hf + H) floats, read only
+// when n_split > 0.  Pass 2 is launched only when a row is split.
 #define GALA_ATTN_BWD2(NAME, T)                                                                 \
   extern "C" int NAME(const void* wtab, const void* x, const void* vl, const void* cols,        \
                       const void* occ, const void* unit_start, const void* unit_len,             \
-                      const void* unit_node, const void* unit_part, const void* split_node,      \
-                      const void* split_first, const void* split_count, void* out, void* part,   \
-                      int n_units, int n_split, int hf, int nh, float slope, int vec,            \
-                      void* stream) {                                                            \
+                      const void* unit_node, const void* unit_part, const void* warp_first,      \
+                      const void* split_node, const void* split_first, const void* split_count,  \
+                      void* out, void* part, int n_warps, int n_split, int n_pad, int zero_from, \
+                      int hf, int nh, float slope, int vec, int log2_g, void* stream) {          \
     return bwd2<T>(wtab, x, vl, cols, occ, unit_start, unit_len, unit_node, unit_part,          \
-                   split_node, split_first, split_count, out, part, n_units, n_split, hf, nh,    \
-                   slope, vec, stream);                                                          \
+                   warp_first, split_node, split_first, split_count, out, part, n_warps,         \
+                   n_split, n_pad, zero_from, hf, nh, slope, vec, log2_g, stream);              \
   }
 GALA_ATTN_BWD2(gala_attn_bwd2_f32, float)
 GALA_ATTN_BWD2(gala_attn_bwd2_bf16, bf16)
@@ -1047,7 +1002,7 @@ GALA_ATTN_BWD2(gala_attn_bwd2_bf16, bf16)
 extern "C" int gala_attn_fwd_limits(int k, int nh, int* out) {
   if (nh < 1 || nh > kMaxHeads) return static_cast<int>(cudaErrorInvalidValue);
   const int block = kWarp * kWarpsPerBlock;
-  const size_t smem = fwd_warp_smem(nh) * kWarpsPerBlock;
+  const size_t smem = unit_warp_smem(nh) * kWarpsPerBlock;
   switch (k) {
     case 0: return launch_limits(attn_fwd_kernel<4, float>, block, smem, out);
     case 1: return launch_limits(attn_fwd_kernel<1, float>, block, smem, out);
@@ -1063,12 +1018,12 @@ extern "C" int gala_attn_fwd_limits(int k, int nh, int* out) {
 extern "C" int gala_attn_bwd2_limits(int k, int nh, int* out) {
   if (nh < 1 || nh > kMaxHeads) return static_cast<int>(cudaErrorInvalidValue);
   if (k == 2) return launch_limits(attn_merge_sum_kernel, kMergeThreads, 0, out);
-  return unit_limits<Bwd2Kernel>(k, nh, bwd2_warp_smem(nh) * kWarpsPerBlock, out);
+  return unit_limits<Bwd2Kernel>(k, nh, unit_warp_smem(nh) * kWarpsPerBlock, out);
 }
 
 // Launch limits of bwd1's kernels at H heads, as gala_attn_fwd_limits.
 extern "C" int gala_attn_bwd1_limits(int k, int nh, int* out) {
   if (nh < 1 || nh > kMaxHeads) return static_cast<int>(cudaErrorInvalidValue);
   if (k == 2) return launch_limits(attn_merge_sum_kernel, kMergeThreads, 0, out);
-  return unit_limits<Bwd1Kernel>(k, nh, bwd1_warp_smem(nh) * kWarpsPerBlock, out);
+  return unit_limits<Bwd1Kernel>(k, nh, unit_warp_smem(nh) * kWarpsPerBlock, out);
 }

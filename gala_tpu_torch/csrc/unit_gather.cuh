@@ -10,37 +10,34 @@
 // bf16 store rounds to nearest even (__float2bfloat16_rn, XLA's rounding).
 //
 // A work unit (ops/graph.py WorkUnits) is at most kUnitSlots contiguous
-// slots of one row.  bwd1 and bwd2 run one warp a unit (`Lanes`,
-// `gather_unit`: 32 / g slots in flight per step of the warp, g lanes
-// across a row's vectors).  The SpMM and the attention forward run
-// several short units a warp (`WarpUnits`): three units in four hold at
-// most 8 slots, and one warp a unit paid the unit's whole chain of
-// dependent loads (descriptor, columns, rows, store) for a few rows.  A
-// unit's level l is the largest l < kLevels with length <= kUnitSlots >>
-// l; a warp takes G = min(2^l, 32 / g) consecutive units of one level (and
-// one column tile), so its units hold at most kUnitSlots slots together and
-// fit the one-unit shared memory.  The host cuts the warps once (ops/graph.py
-// warp_tables: one table per g < 32; at g = 32 a warp takes one unit): the
-// warp reads its first unit and count (one load), the units' descriptors
-// (one coalesced load, lane i unit i), then its 32 / G lanes per unit copy
-// that unit's columns and stage them, and each unit's 32 / (G g) slot
-// groups sum its rows, reduced by a shuffle tree inside the unit's lanes.
-// Every row is summed in a fixed order: results are bitwise the same from
-// call to call.
+// slots of one row.  Every unit kernel runs several short units a warp
+// (`WarpUnits`): three units in four hold at most 8 slots, and one warp a
+// unit paid the unit's whole chain of dependent loads (descriptor,
+// columns, rows, store) for a few rows.  A unit's level l is the largest
+// l < kLevels with length <= kUnitSlots >> l; a warp takes G = min(2^l,
+// 32 / g) consecutive units of one level (and one column tile), so its
+// units hold at most kUnitSlots slots together and fit the one-unit shared
+// memory.  The host cuts the warps once (ops/graph.py warp_tables: one
+// table per g < 32; at g = 32 a warp takes one unit): the warp reads its
+// first unit and count (one load), the units' descriptors (one coalesced
+// load, lane i unit i), then its 32 / G lanes per unit copy that unit's
+// columns and stage them, and each unit's 32 / (G g) slot groups sum its
+// rows, reduced by a shuffle tree inside the unit's lanes.  Every row is
+// summed in a fixed order: results are bitwise the same from call to
+// call.
 //
 // Plain loads were measured against a per-warp ring of 16-byte
 // cp.async.ca copies in shared memory (H100 80GB HBM3 at 700 W, Arxiv
-// stand-in; scripts/ring_vs_plain_torch.py, PERF.md): the results were
-// bitwise the same and plain loads were the faster in every case (the
-// SpMM by 1-4%, the attention forward by 10-15%, bwd2 by 5-10%), so the
-// ring was taken out.  Bulk copies of whole rows (cp.async.bulk of a
-// 512-byte row slice into a per-warp ring of 4, lane 0 issuing, each
-// stage's completion on an mbarrier; scripts/unit_variants_torch.py,
-// variant bulk) were about 3x slower than plain loads for the SpMM at
-// F = 128 f32 (bitwise equal results; PERF.md has the times): a row
-// waits for its barrier and one lane issues every copy.  The gathers are
-// latency-bound: occupancy (warps per SM) and L1 count for more than
-// explicit staging.
+// stand-in; PERF.md, PRs 6 and 15): the results were bitwise the same and
+// plain loads were the faster in every case (the SpMM by 1-4%, the
+// attention forward by 10-15%, bwd2 by 5-10%), so the ring was taken out.
+// Bulk copies of whole rows (cp.async.bulk of a 512-byte row slice into a
+// per-warp ring of 4, lane 0 issuing, each stage's completion on an
+// mbarrier; scripts/unit_variants_torch.py, variant bulk) were about 3x
+// slower than plain loads for the SpMM at F = 128 f32 (bitwise equal
+// results; PERF.md has the times): a row waits for its barrier and one
+// lane issues every copy.  The gathers are latency-bound: occupancy (warps
+// per SM) and L1 count for more than explicit staging.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -198,48 +195,8 @@ __device__ __forceinline__ int32_t load_at_use(const int32_t* p) {
   return v;
 }
 
-// Lane roles of a warp that reduces rows of x: g = 2^log2_g lanes across
-// the row's width/VEC vectors, 32/g slot groups; `slice` (blockIdx.y
-// unless given) selects which g-vector slice of the row this warp reduces.
-// hd is the head of the lane's vector for heads of fh columns (VEC divides
-// fh, so a vector never straddles two heads; fh = width gives hd = 0).
-struct Lanes {
-  int lane, sub, groups, g, vcol, hd;
-  bool active;
-  __device__ Lanes(int log2_g, int width, int fh, int vec)
-      : Lanes(log2_g, width, fh, vec, static_cast<int>(blockIdx.y)) {}
-  __device__ Lanes(int log2_g, int width, int fh, int vec, int slice) {
-    lane = threadIdx.x & (kWarp - 1);
-    g = 1 << log2_g;
-    groups = kWarp >> log2_g;
-    sub = lane >> log2_g;
-    vcol = slice * g + (lane & (g - 1));
-    active = vcol < width / vec;
-    hd = active ? (vcol * vec) / fh : 0;
-  }
-};
-
-// The warp's gather of one unit: for each slot j < len of this lane's slot
-// group for which want(j) holds, use(j, v) with v the lane's VEC values
-// (as f32) of row col[j] of x (row stride f elements of T, float or bf16).
-// col is the unit's columns in shared memory, filled before the call and
-// visible to the whole warp.  A slot that want() refuses is not read.
-template <int VEC, class T, class Want, class Use>
-__device__ __forceinline__ void gather_unit(const UnitSmem& sm, int len, const T* __restrict__ x,
-                                            int f, const Lanes& ln, Want want, Use use) {
-  if (!ln.active) return;
-  const T* xv = x + static_cast<size_t>(ln.vcol) * VEC;
-#pragma unroll 4
-  for (int j = ln.sub; j < len; j += ln.groups) {
-    if (want(j)) {
-      float v[VEC];
-      load_vec<VEC>(xv + static_cast<size_t>(sm.col[j]) * f, v);
-      use(j, v);
-    }
-  }
-}
-
-// Several units a warp (the SpMM's and the attention forward's pass 1).
+// Several units a warp (the pass 1 of the SpMM and the three attention
+// kernels).
 // The warp's units are [first, first + count); G = the power of two at
 // least count (count <= 32 / g, so G <= 32 / g); a unit has ul = 32 / G
 // lanes (lanes [ui ul, (ui + 1) ul) take unit ui).  The units' slots sit

@@ -77,8 +77,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the library's C functions and their argument types
 FUNCTIONS = {
     **{f"gala_attn_fwd_{t}": [_P] * 19 + [_I] * 7 + [_F, _I, _I, _P] for t in DTYPES.values()},
-    **{f"gala_attn_bwd1_{t}": [_P] * 17 + [_I] * 4 + [_F, _I, _P] for t in DTYPES.values()},
-    **{f"gala_attn_bwd2_{t}": [_P] * 14 + [_I] * 4 + [_F, _I, _P] for t in DTYPES.values()},
+    **{f"gala_attn_bwd1_{t}": [_P] * 18 + [_I] * 6 + [_F, _I, _I, _P] for t in DTYPES.values()},
+    **{f"gala_attn_bwd2_{t}": [_P] * 15 + [_I] * 6 + [_F, _I, _I, _P] for t in DTYPES.values()},
     "gala_attn_fwd_limits": [_I, _I, _P],
     "gala_attn_bwd1_limits": [_I, _I, _P],
     "gala_attn_bwd2_limits": [_I, _I, _P],
@@ -412,10 +412,22 @@ def _cuda_only(x, name):
         raise ValueError(f"{name} runs on cpu or cuda tensors, got {x.device}")
 
 
-def _unit_ptrs(u):
-    """A WorkUnits' tables in the kernels' argument order."""
-    return tuple(t.data_ptr() for t in (u.start, u.length, u.node, u.part, u.split_node,
-                                        u.split_first, u.split_count))
+def _unit_args(u, hf: int, vec: int) -> tuple[int, tuple]:
+    """(log2_g, a WorkUnits' tables in the kernels' argument order): the
+    unit tables, the warp table of g = 2^log2_g lanes across a row of hf /
+    vec vectors (ops.graph.row_lanes; None at 32 lanes), the split
+    tables."""
+    log2_g = row_lanes(hf // vec)
+    table, _ = u.warps(log2_g)
+    return log2_g, (u.start.data_ptr(), u.length.data_ptr(), u.node.data_ptr(),
+                    u.part.data_ptr(), table, u.split_node.data_ptr(),
+                    u.split_first.data_ptr(), u.split_count.data_ptr())
+
+
+def _unit_ints(u, log2_g: int, n_out: int) -> tuple:
+    """(warps, split rows, output rows, the first output row to zero) of a
+    call with 2^log2_g lanes across a row."""
+    return u.warps(log2_g)[1], u.split_node.shape[0], n_out, min(u.n_written, n_out)
 
 
 def _ptr(t):
@@ -458,16 +470,13 @@ def attn_fwd_cuda(lay, x, vl, vr, slope: float, n_pad: int, flash: bool):
     # a lane's columns: 16 bytes of x where each head holds them, the
     # outputs' rows aligned as x's (they are f32: 16 or 32 bytes a lane)
     vec = vector_width(x, hf // nh) if out.data_ptr() % 16 == 0 else 1
-    log2_g = row_lanes(hf // vec)
-    table, n_warps = u.warps(log2_g)
+    log2_g, tables = _unit_args(u, hf, vec)
+    n_warps, n_split, _, zero_from = _unit_ints(u, log2_g, n_pad)
     _launch("attn_fwd", x,
             x.data_ptr(), vl.data_ptr(), vr.data_ptr(), lay.flat_cols.data_ptr(),
-            lay.flat_vals.data_ptr(), u.start.data_ptr(), u.length.data_ptr(),
-            u.node.data_ptr(), u.part.data_ptr(), table, u.split_node.data_ptr(),
-            u.split_first.data_ptr(), u.split_count.data_ptr(),
+            lay.flat_vals.data_ptr(), *tables,
             out.data_ptr(), m.data_ptr(), s.data_ptr(), _ptr(outpos), _ptr(spos), _ptr(part),
-            n_warps, u.split_node.shape[0], u.n_partials, n_pad, min(u.n_written, n_pad), hf,
-            nh, float(slope), vec, log2_g)
+            n_warps, n_split, u.n_partials, n_pad, zero_from, hf, nh, float(slope), vec, log2_g)
     return out, m, s, outpos, spos
 
 
@@ -485,16 +494,25 @@ def attn_bwd1(lay, x, vl, vr, dout, m, s, slope: float):
     if x.device.type == "cpu":
         return attn_bwd1_reference(lay, x, vl, vr, dout, m, s, slope)
     _cuda_only(x, "attn_bwd1")
-    out = torch.zeros((n_pad, 3 * nh), dtype=torch.float32, device=x.device)
+    return attn_bwd1_cuda(lay, x, vl, vr, dout, m, s, slope)
+
+
+def attn_bwd1_cuda(lay, x, vl, vr, dout, m, s, slope: float):
+    """The bwd1 kernel on CUDA tensors (arguments as checked by attn_bwd1)."""
+    hf, nh, n_pad = x.shape[1], vl.shape[1], dout.shape[0]
+    # padding rows zeroed by the call (rows no unit writes stay 0)
+    out = torch.empty((n_pad, 3 * nh), dtype=torch.float32, device=x.device)
     u = lay.units
     # the split rows' partial [sds | A | B] rows
     part = (torch.empty((u.n_partials * 3 * nh,), dtype=torch.float32, device=x.device)
             if u.n_partials else None)
+    vec = _vec(x, nh, dout)
+    log2_g, tables = _unit_args(u, hf, vec)
     _launch("attn_bwd1", x,
             x.data_ptr(), vl.data_ptr(), vr.data_ptr(), dout.data_ptr(), m.data_ptr(),
-            s.data_ptr(), lay.flat_cols.data_ptr(), lay.flat_vals.data_ptr(), *_unit_ptrs(u),
-            out.data_ptr(), _ptr(part), u.n_units, u.split_node.shape[0], x.shape[1], nh,
-            float(slope), _vec(x, nh, dout))
+            s.data_ptr(), lay.flat_cols.data_ptr(), lay.flat_vals.data_ptr(), *tables,
+            out.data_ptr(), _ptr(part), *_unit_ints(u, log2_g, n_pad), hf, nh, float(slope),
+            vec, log2_g)
     return out[:, :nh], out[:, nh : 2 * nh], out[:, 2 * nh :]
 
 
@@ -523,15 +541,18 @@ def attn_bwd2(lay, x, vl, w_tab, slope: float, c_pad: int):
 def attn_bwd2_cuda(lay, x, vl, w_tab, slope: float, c_pad: int):
     """The bwd2 kernel on CUDA tensors (arguments as checked by attn_bwd2)."""
     hf, nh = x.shape[1], vl.shape[1]
-    out = torch.zeros((c_pad, hf + nh), dtype=torch.float32, device=x.device)
+    # padding rows zeroed by the call (rows no unit writes stay 0)
+    out = torch.empty((c_pad, hf + nh), dtype=torch.float32, device=x.device)
     u = lay.units
     # the split rows' partial [dx | dvl] rows
     part = (torch.empty((u.n_partials * (hf + nh),), dtype=torch.float32, device=x.device)
             if u.n_partials else None)
+    vec = _vec(x, nh, w_tab)
+    log2_g, tables = _unit_args(u, hf, vec)
     _launch("attn_bwd2", x,
             w_tab.data_ptr(), x.data_ptr(), vl.data_ptr(), lay.flat_cols.data_ptr(),
-            lay.flat_vals.data_ptr(), *_unit_ptrs(u), out.data_ptr(), _ptr(part),
-            u.n_units, u.split_node.shape[0], hf, nh, float(slope), _vec(x, nh, w_tab))
+            lay.flat_vals.data_ptr(), *tables, out.data_ptr(), _ptr(part),
+            *_unit_ints(u, log2_g, c_pad), hf, nh, float(slope), vec, log2_g)
     return out
 
 

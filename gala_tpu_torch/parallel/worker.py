@@ -347,6 +347,20 @@ def _unmatched_job(job, mesh, cache) -> dict:
     return {}
 
 
+def _lost_peer_job(job, mesh, cache) -> dict:
+    """A failure that the other rank reports first: stage 0 waits on a
+    receive from stage 1; stage 1 leaves the group (stage 0's receive fails
+    with a lost connection and its rank ends), waits job["delay"] seconds
+    and raises RuntimeError(job["error"]), the cause that multihost.spawn
+    must raise."""
+    if mesh.stage == 0:
+        dist.recv(torch.zeros(1), src=1)
+        return {}
+    dist.destroy_process_group()
+    time.sleep(job["delay"])
+    raise RuntimeError(job["error"])
+
+
 def _shift_ms(mesh, shape, dtype, n: int = 50):
     """Host ms a shift of (shape, dtype) takes from stage 0 to stage 1 in a
     stream of n, as the forward schedule sends them: stage 1's time from
@@ -467,7 +481,8 @@ def _sage_pipeline_job(job, mesh, cache) -> dict:
 JOBS = {"ops": (_op_job, make_mesh), "compiled": (_compiled_job, make_mesh),
         "train_step": (_train_step_job, make_mesh), "pp_gpipe": (_gpipe_job, make_pipe_mesh),
         "pp_sage": (_sage_pipeline_job, make_pipe_mesh),
-        "pp_unmatched": (_unmatched_job, make_pipe_mesh)}
+        "pp_unmatched": (_unmatched_job, make_pipe_mesh),
+        "lost_peer": (_lost_peer_job, make_pipe_mesh)}
 
 
 def run_jobs(rank: int, jobs: list, out_dir: str, threads: int = 1) -> None:

@@ -26,10 +26,12 @@ Differences from scripts/evaluate.py:
   on a TPU).  The port has no such gate and tiles as written, so this
   harness sets no variable and its last row is labelled `all-tiled`: it
   runs cir's coarsening and dir's column tile together.
-- Render the CSVs with the unchanged scripts/report.py
-  (`--indirs results_torch --out results_torch/RESULTS.md`); its title
-  and notes are written for the TPU runs (see the note this script
-  prints).
+- Every run ends by rendering <outdir>/RESULTS.md from the CSVs there
+  (`render`): scripts/report.py's sections and tables, under a title and
+  notes of the port's own that name the card from devices.csv (report.py
+  titles its output for the JAX package's TPU runs).  To render without
+  a run: python3 -c "import sys; sys.path[:0] = ['scripts'];
+  import evaluate_torch; evaluate_torch.render('results_torch')"
 
 Usage: python scripts/evaluate_torch.py --job fig16 --datasets Arxiv --iters 30
        python scripts/evaluate_torch.py --job fig16 --device cpu --scale 0.02 --iters 6
@@ -37,6 +39,8 @@ Usage: python scripts/evaluate_torch.py --job fig16 --datasets Arxiv --iters 30
 from __future__ import annotations
 
 import argparse
+import csv
+import importlib.util
 import os
 import subprocess
 import sys
@@ -47,11 +51,17 @@ MODELS = ["gcn", "gat", "gin", "sage"]
 # the reference's full Figure-16 matrix (Figures-16-17.py:7-12); use
 # --datasets / --scale to subset
 DATASETS = ["Cora", "Pubmed", "CoraFull", "Reddit", "Arxiv", "Products"]
-REPORT_NOTE = (
-    "note: scripts/report.py titles its output 'Results — TPU v5e' and its "
-    "table5 note describes gala_tpu's TPU memory gate; rows written by "
-    "scripts/evaluate_torch.py are gala_tpu_torch's on the device named in "
-    "devices.csv, and its table5 'all-tiled' row runs the column tile as written")
+# RESULTS.md notes of the port's own, where report.py's describe the TPU runs
+NOTES = {
+    "stat_fig16.csv": (
+        "Accuracy column: synthetic stand-in data (planted homophilous\n"
+        "communities) unless the row says `data=real`.  `-pallas` rows run\n"
+        "strategy `pallas_bell`, which the port runs as `bell`."),
+    "stat_table5.csv": (
+        "`dir` tiles columns as written (no GALA_FORCE_COL_TILE: the port has\n"
+        "no memory gate to drop the tile); the last row, `all-tiled`, runs\n"
+        "cir's coarsening and dir's column tile together."),
+}
 
 GCN_BODY = """
 aggrFn = dsl.get_aggregate(fn = dsl.fn.mul_sum);
@@ -179,6 +189,60 @@ def record_device(args):
                f"{args.job},{' '.join(args.datasets)},{args.scale},{args.iters},"
                f"{args.strategy},{args.tag},"
                f"\"{line}\",{torch.__version__},{torch.version.cuda}")
+
+
+def devices(outdir: str) -> list[str]:
+    """The distinct devices of <outdir>/devices.csv (the card's name and
+    power limit, with torch and CUDA), in the order they first appear."""
+    path = os.path.join(outdir, "devices.csv")
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        rows = list(csv.DictReader(f))
+    seen = {}
+    for r in rows:
+        seen.setdefault(f"{r['device']} (torch {r['torch']}, CUDA {r['cuda']})", None)
+    return list(seen)
+
+
+def render(outdir: str) -> str:
+    """Write <outdir>/RESULTS.md from the stat CSVs there, with
+    scripts/report.py's sections and table format (newest row per config
+    wins) under a title naming the card of devices.csv.  Returns the
+    path."""
+    spec = importlib.util.spec_from_file_location(
+        "report", os.path.join(os.path.dirname(os.path.abspath(__file__)), "report.py"))
+    report = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(report)
+    cards = devices(outdir)
+    title = cards[0].split(" (torch")[0] if len(cards) == 1 else (
+        "; ".join(c.split(" (torch")[0] for c in cards) if cards else "device not recorded")
+    parts = [
+        f"# Results — gala_tpu_torch on {title}, host-timed per-epoch means\n",
+        f"GENERATED by `scripts/evaluate_torch.py` from `{outdir}/` (newest row per config "
+        "wins). Do not hand-edit.\n",
+        "Produced by `scripts/evaluate_torch.py` jobs, the PyTorch/CUDA port's\n"
+        "twin of `scripts/evaluate.py`, on the device(s) that `devices.csv`\n"
+        "records: " + ("; ".join(cards) if cards else "none recorded") + ".\n"
+        "Datasets are registry-shaped synthetic stand-ins unless a `--data-root`\n"
+        "with real npy exports was given.  Schema and protocol match the\n"
+        "reference's evaluation harness (scripts/Evaluations/*.py): the first\n"
+        "5 epochs are left out, times are mean seconds per epoch, each phase\n"
+        "timed on the host between two device synchronizes.  f32 activations\n"
+        "unless noted.\n",
+    ]
+    for name, heading, fmt in report.SECTIONS:
+        header, rows = report.merged([outdir], name)
+        if header is None:
+            continue
+        parts.append(f"\n## {heading}\n")
+        if name in NOTES:
+            parts.append(NOTES[name] + "\n")
+        parts.append(report.md_table(header, rows, fmt))
+    out = os.path.join(outdir, "RESULTS.md")
+    with open(out, "w") as f:
+        f.write("\n".join(parts))
+    return out
 
 
 def job_fig16(args):
@@ -371,7 +435,7 @@ def main(argv=None):
     os.makedirs(args.outdir, exist_ok=True)
     record_device(args)
     JOBS[args.job](args)
-    print(REPORT_NOTE)
+    render(args.outdir)
 
 
 if __name__ == "__main__":

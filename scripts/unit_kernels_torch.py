@@ -11,7 +11,7 @@ The SpMM runs on the GCN's full bell (bell_order with the diagonal split)
 at F = 1, 32, 128, and on the unfused GAT's ELL layout with per-slot
 values at F = 32, 40; the attention kernels on the fused GAT's layouts
 (bell_order without the split): the forward at hf = 32 and 40 with one
-head and at hf = 64 with 8 heads, bwd1 and bwd2 at hf = 32.  Each time is
+head and at hf = 64 with 8 heads, bwd1 and bwd2 at BWD_SHAPES.  Each time is
 the median of 5 runs of 20 calls (CUDA events, after a warm-up), with the
 runs' min and max; beside it the device time of a call (torch.profiler's
 CUDA activity: its kernels and memsets), which differs where the host
@@ -40,6 +40,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import torch  # noqa: E402
 
 SLOPE = 0.2
+# (hf, H) of bwd1 and bwd2: the GAT path's one head at hf = 32 and 40, and 8
+# heads (fh = 4 and 8 in 4-column lanes, fh = 5 in scalar ones)
+BWD_SHAPES = ((32, 1), (40, 1), (32, 8), (64, 8), (40, 8))
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
@@ -177,18 +180,22 @@ def main(argv=None) -> int:
             bounds[key] = bound(layout_bytes(fwd) + nbytes(x, vl, vr)
                                 + 2 * gat.n_pad * hf * f32 + 3 * gat.n_pad * nh * f32,
                                 fwd.flat_cols.numel() * (4 * hf + 8 * nh))
-        x, vl, vr, dout = rand(gat.c_pad, 32), rand(gat.c_pad, 1), rand(gat.n_pad, 1), rand(
-            gat.n_pad, 32)
-        out, m, s, _, _ = ak.attn_fwd(fwd, x, vl, vr, SLOPE, gat.n_pad, False)
-        w_tab = torch.cat([dout.float(), vr.float(), m, s, ak.per_head_dot(dout, out, 1)], dim=1)
-        measure(f"attn_bwd1 {tag} hf=32", lambda: ak.attn_bwd1(fwd, x, vl, vr, dout, m, s, SLOPE))
-        bounds[f"attn_bwd1 {tag} hf=32"] = bound(
-            layout_bytes(fwd) + nbytes(x, vl, vr, dout, m, s) + 3 * gat.n_pad * f32,
-            fwd.flat_cols.numel() * (2 * 32 + 12))
-        measure(f"attn_bwd2 {tag} hf=32", lambda: ak.attn_bwd2(t, x, vl, w_tab, SLOPE, gat.c_pad))
-        bounds[f"attn_bwd2 {tag} hf=32"] = bound(
-            layout_bytes(t) + nbytes(w_tab, x, vl) + gat.c_pad * 33 * f32,
-            t.flat_cols.numel() * (4 * 32 + 12))
+        for hf, nh in BWD_SHAPES:
+            x, vl, vr = rand(gat.c_pad, hf), rand(gat.c_pad, nh), rand(gat.n_pad, nh)
+            dout = rand(gat.n_pad, hf)
+            out, m, s, _, _ = ak.attn_fwd(fwd, x, vl, vr, SLOPE, gat.n_pad, False)
+            w_tab = torch.cat([dout.float(), vr.float(), m, s, ak.per_head_dot(dout, out, nh)],
+                              dim=1)
+            key = f"attn_bwd1 {tag} hf={hf} H={nh}"
+            measure(key, lambda: ak.attn_bwd1(fwd, x, vl, vr, dout, m, s, SLOPE))
+            bounds[key] = bound(layout_bytes(fwd) + nbytes(x, vl, vr, dout, m, s)
+                                + 3 * gat.n_pad * nh * f32,
+                                fwd.flat_cols.numel() * (2 * hf + 12 * nh))
+            key = f"attn_bwd2 {tag} hf={hf} H={nh}"
+            measure(key, lambda: ak.attn_bwd2(t, x, vl, w_tab, SLOPE, gat.c_pad))
+            bounds[key] = bound(layout_bytes(t) + nbytes(w_tab, x, vl)
+                                + gat.c_pad * (hf + nh) * f32,
+                                t.flat_cols.numel() * (4 * hf + 12 * nh))
     print(json.dumps({"label": args.label, "device": smi, "times": times, "bounds": bounds,
                       "device_ms": device}))
     return 0

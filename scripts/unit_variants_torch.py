@@ -1,44 +1,56 @@
 #!/usr/bin/env python3
-"""The SpMM's and the attention forward's pass 1 against the variants
-they were measured against, on one NVIDIA GPU.
+"""The unit kernels' pass 1 (the SpMM, the attention forward, bwd1 and
+bwd2) against the variants they were measured against, on one NVIDIA GPU.
 
     python3 scripts/unit_variants_torch.py [--runs 7] [--out PATH]
+        [--variants NAME ...] [--kernels SUBSTRING ...]
 
 csrc/bell_spmm.cu and csrc/attn_bell.cu ship plain loads and two choices
 that trade registers against rows in flight: the rows of a slot group in
-flight per step of the gather (kRowsInFlight, kFwdRows) and the resident
-blocks per SM each kernel asks of the compiler (its __launch_bounds__,
-which caps its registers).  This script keeps the alternatives, as text
-substitutions in copies of the sources under
-gala_tpu_torch/_build/var_<name>/ (git-ignored), built as
+flight per step of the gather (kRowsInFlight, kFwdRows, kBwd1Rows,
+kBwd2Rows) and the resident blocks per SM each kernel asks of the
+compiler (its __launch_bounds__, which caps its registers).  This
+script keeps the alternatives, as text substitutions in copies of the
+sources under
+gala_tpu_torch/_build/var_<name>/ (git-ignored), built in parallel as
 lib*_<name>_<hash>.so (nothing of the package selects them; a library
 whose sources a variant leaves alone is the shipped build):
 
-    fwd_rows4   the forward with 4 rows in flight at 4-column lanes, 2 at 8
-    spmm_6x4    the SpMM at 6 blocks per SM (40 registers), 4 rows in flight
-    fwd_8blocks the forward at 8 blocks per SM (32 registers)
-    bulk        the SpMM's gather by bulk copies where a warp takes one unit
-                and its lanes cover 128 floats of a row (f32, F a multiple
-                of 4 and at least 128): lane 0 keeps RING rows in flight,
-                one cp.async.bulk of the 512-byte slice each into a
-                per-warp ring, each stage's completion on its own
-                mbarrier; the lanes sum in slot order.  Other shapes keep
-                plain loads (F = 32 is a control).
+    fwd_rows4           the forward with 4 rows in flight at 4-column lanes,
+                        2 at 8
+    spmm_6x4            the SpMM at 6 blocks per SM (40 registers), 4 rows
+                        in flight
+    fwd_8blocks         the forward at 8 blocks per SM (32 registers)
+    bwd1_8blocks        bwd1's one-head forms at 8 blocks per SM (32
+                        registers; the shipped: 6, 40 registers)
+    bwd2_8blocks        bwd2's one-head forms at 8 blocks per SM (32
+                        registers; the shipped: 6, 40 registers)
+    bulk                the SpMM's gather by bulk copies where a warp takes
+                        one unit and its lanes cover 128 floats of a row
+                        (f32, F a multiple of 4 and at least 128): lane 0
+                        keeps RING rows in flight, one cp.async.bulk of the
+                        512-byte slice each into a per-warp ring, each
+                        stage's completion on its own mbarrier; the lanes
+                        sum in slot order.  Other shapes keep plain loads
+                        (F = 32 is a control).
 
 It prints ptxas's spills of each variant's pass-1 kernels, checks that
 every variant's results are bitwise the shipped build's (the order of
 each sum is the same), and times the SpMM at F = 32 and 128 on the GCN's
-full bell and the forward (flash statistics on) at hf = 32 and 40 with
-one head and hf = 64 with 8, on the fused GAT's layout of the Arxiv
-stand-in, f32 and bf16: each variant `runs` times, in turns (one run: 20
-calls between two CUDA events, after a warm-up).  Prints the medians and
-the runs' spread, the card's name and power limit and one JSON line;
-writes the same JSON to --out (default results/unit_variants.json,
-git-ignored).  Imports nothing of JAX.
+full bell, the forward (flash statistics on) at hf = 32 and 40 with one
+head and hf = 64 with 8, and bwd1 and bwd2 at the same shapes, on the
+fused GAT's layouts of the Arxiv stand-in, f32 and bf16: each variant
+`runs` times, in turns (one run: 20 calls between two CUDA events, after
+a warm-up).  --variants and --kernels (substrings of the case names)
+choose a subset.  Prints the medians and the runs' spread, the card's
+name and power limit and one JSON line; writes the same JSON to --out
+(default results/unit_variants.json, git-ignored).  Imports nothing of
+JAX.
 """
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import json
 import os
@@ -58,6 +70,8 @@ SHIPPED_ROWS_SPMM = "constexpr int kRowsInFlight = VEC == 1 ? 4 : VEC == 4 ? 2 :
 SHIPPED_SPMM_BOUNDS = ("__global__ void __launch_bounds__(kWarp * kWarpsPerBlock, kMinBlocks)\n"
                        "spmm_unit_kernel")
 SHIPPED_FWD_BLOCKS = "constexpr int kFwdMinBlocks = 6;"
+SHIPPED_BWD1_BLOCKS = "constexpr int kBwd1MinBlocks = 6;"
+SHIPPED_BWD2_BLOCKS = "constexpr int kBwd2MinBlocks = 6;"
 VARIANTS = {
     "shipped": [],
     "fwd_rows4": [("attn_bell.cu", SHIPPED_ROWS_FWD,
@@ -67,6 +81,8 @@ VARIANTS = {
                  ("bell_spmm.cu", SHIPPED_SPMM_BOUNDS,
                   SHIPPED_SPMM_BOUNDS.replace("kMinBlocks", "6"))],
     "fwd_8blocks": [("attn_bell.cu", SHIPPED_FWD_BLOCKS, "constexpr int kFwdMinBlocks = 8;")],
+    "bwd1_8blocks": [("attn_bell.cu", SHIPPED_BWD1_BLOCKS, "constexpr int kBwd1MinBlocks = 8;")],
+    "bwd2_8blocks": [("attn_bell.cu", SHIPPED_BWD2_BLOCKS, "constexpr int kBwd2MinBlocks = 8;")],
 }
 
 RING = 4  # bulk: rows of a unit in flight
@@ -216,6 +232,9 @@ def variant_sources(csrc: str, out_dir: str, subs) -> str:
     return out_dir
 
 
+PASS1_KERNELS = r"(spmm_unit_kernel|attn_fwd_kernel|attn_bwd1_kernel|attn_bwd2_kernel)"
+
+
 def spills(log: str) -> list[str]:
     """ptxas's non-zero spill reports of the pass-1 kernels in a build log."""
     out, entry = [], ""
@@ -224,9 +243,8 @@ def spills(log: str) -> list[str]:
         if m:
             entry = m.group(1)
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if m and any(int(v) for v in m.groups()) and ("unit_kernel" in entry
-                                                        or "fwd_kernel" in entry):
-            kernel = re.search(r"(spmm_unit_kernel|attn_fwd_kernel)I\w+?E", entry)
+        if m and any(int(v) for v in m.groups()) and re.search(PASS1_KERNELS, entry):
+            kernel = re.search(PASS1_KERNELS + r"I\w+?Ev", entry)
             out.append(f"{kernel.group(0) if kernel else entry}: {m.group(0)}")
     return out
 
@@ -248,6 +266,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--runs", type=int, default=7)
     ap.add_argument("--out", default=os.path.join(ROOT, "results", "unit_variants.json"))
+    ap.add_argument("--variants", nargs="+", default=None,
+                    help="variants to build and time beside the shipped build")
+    ap.add_argument("--kernels", nargs="+", default=None,
+                    help="time only the cases whose name holds one of these")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU")
@@ -265,17 +287,21 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(smi)
-    names = list(VARIANTS)
+    names = ["shipped"] + [n for n in (args.variants or VARIANTS) if n != "shipped"]
+    jobs = {}  # (variant, module): the build of the sources it changes
+    with concurrent.futures.ThreadPoolExecutor(max_workers=8) as pool:
+        for name in names:
+            subs = VARIANTS[name]
+            d = variant_sources(CSRC_DIR, os.path.join(BUILD_DIR, f"var_{name}"), subs)
+            for mod, stem in ((ks, "bell_spmm"), (ak, "attn_bell")):
+                touched = {f"{stem}.cu", "unit_gather.cuh"} & {file for file, _, _ in subs}
+                if touched or name == "shipped":
+                    jobs[name, mod] = pool.submit(build_library, os.path.join(d, f"{stem}.cu"),
+                                                  f"{stem}_{name}", mod.FUNCTIONS)
     builds, spilled = {}, {}
     for name in names:
-        subs = VARIANTS[name]
-        d = variant_sources(CSRC_DIR, os.path.join(BUILD_DIR, f"var_{name}"), subs)
-        builds[name] = {}
-        for mod, stem in ((ks, "bell_spmm"), (ak, "attn_bell")):
-            touched = {f"{stem}.cu", "unit_gather.cuh"} & {file for file, _, _ in subs}
-            builds[name][mod] = (build_library(os.path.join(d, f"{stem}.cu"), f"{stem}_{name}",
-                                               mod.FUNCTIONS)
-                                 if touched or name == "shipped" else builds["shipped"][mod])
+        builds[name] = {mod: (jobs.get((name, mod)) or jobs["shipped", mod]).result()
+                        for mod in (ks, ak)}
         spilled[name] = [s for b in builds[name].values() for s in spills(b.log)]
         print(f"{name}: spills {spilled[name] or 'none'}")
 
@@ -310,6 +336,19 @@ def main() -> int:
             cases.append((f"attn_fwd {tag} hf={hf} H={nh}",
                           lambda x=x, vl=vl, vr=vr: ak.attn_fwd(gat.attn.fwd, x, vl, vr, 0.2,
                                                                 gat.n_pad, True)))
+            dout = rand(gat.n_pad, hf)
+            with use("shipped"):
+                out, m, s, _, _ = ak.attn_fwd(gat.attn.fwd, x, vl, vr, 0.2, gat.n_pad, False)
+            w_tab = torch.cat([dout.float(), vr.float(), m, s, ak.per_head_dot(dout, out, nh)],
+                              dim=1)
+            cases.append((f"attn_bwd1 {tag} hf={hf} H={nh}",
+                          lambda x=x, vl=vl, vr=vr, dout=dout, m=m, s=s:
+                          ak.attn_bwd1(gat.attn.fwd, x, vl, vr, dout, m, s, 0.2)))
+            cases.append((f"attn_bwd2 {tag} hf={hf} H={nh}",
+                          lambda x=x, vl=vl, w_tab=w_tab:
+                          (ak.attn_bwd2(gat.attn.t, x, vl, w_tab, 0.2, gat.c_pad),)))
+    if args.kernels:
+        cases = [(k, c) for k, c in cases if any(sub in k for sub in args.kernels)]
     times = {}
     for key, call in cases:
         with use("shipped"):

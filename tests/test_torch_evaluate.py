@@ -137,3 +137,40 @@ def test_the_twin_runs_on_the_card_unless_asked_and_records_the_device(tmp_path)
     lines = open(tmp_path / "devices.csv").read().splitlines()
     assert lines[0] == "job,datasets,scale,iters,strategy,tag,device,torch,cuda"
     assert lines[1].startswith('fig18,Cora,0.02,2,auto,,"cpu",')
+    # the run ends by rendering its RESULTS.md, titled with the device it ran on
+    title = open(tmp_path / "RESULTS.md").read().splitlines()[0]
+    assert title.startswith("# Results — gala_tpu_torch on cpu") and "TPU" not in title
+
+
+CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
+
+
+@pytest.mark.parametrize("cards", [[CARD], [CARD, "NVIDIA H100 80GB HBM3, 500.00 W"]],
+                         ids=["one-card", "two-cards"])
+def test_results_md_names_the_card_of_devices_csv(tmp_path, cards):
+    """render() writes RESULTS.md from a results_torch-shaped folder:
+    report.py's tables of the stat CSVs under a title and header that
+    name every card of devices.csv (name and power limit as nvidia-smi
+    gives them), with no TPU in the title, header or notes."""
+    with open(tmp_path / "devices.csv", "w") as f:
+        f.write("job,datasets,scale,iters,strategy,tag,device,torch,cuda\n")
+        for job, card in zip(("fig16", "table5"), cards * 2):
+            f.write(f'{job},Arxiv,1.0,30,auto,,"{card}",2.11.0+cu128,12.8\n')
+    with open(tmp_path / "stat_fig16.csv", "w") as f:
+        f.write("dataset,model,inference_time,total_time,accuracy,data\n"
+                "Arxiv,gcn,0.0002,0.0021,0.834,synthetic\n"
+                "Arxiv,gcn,0.0003,0.0024,0.833,synthetic\n")
+    with open(tmp_path / "stat_table5.csv", "w") as f:
+        f.write("dataset,opt,inference_time,total_time\nArxiv,all-tiled,0.001,0.002\n")
+    path = twin.render(str(tmp_path))
+    text = open(path).read()
+    title, body = text.split("\n", 1)
+    assert path == str(tmp_path / "RESULTS.md")
+    want = f"# Results — gala_tpu_torch on {'; '.join(cards)}, host-timed per-epoch means"
+    assert title == want
+    head = body.split("\n## ")[0]
+    assert all(card in head for card in cards) and "torch 2.11.0+cu128, CUDA 12.8" in head
+    assert "TPU" not in text and "v5e" not in text
+    # report.py's tables: the newest row per config, its number formats
+    assert "| Arxiv | gcn | 0.0003 | 0.0024 | 0.833 | synthetic |" in text
+    assert "| Arxiv | gcn | 0.0002 |" not in text and "all-tiled" in text

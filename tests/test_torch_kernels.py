@@ -264,14 +264,16 @@ def test_kernel_on_long_rows_matches_plain_version(cuda, length, f, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("hf,nh", [(32, 1), (40, 1), (32, 4)])
+@pytest.mark.parametrize("hf,nh", [(32, 1), (40, 1), (32, 4), (192, 2)])
 @pytest.mark.parametrize("length", LONG_ROWS)
 def test_attention_forward_on_long_rows_and_masked_units(cuda, length, hf, nh, dtype):
     """The forward and bwd1 kernels against their plain versions and
     their units emulations on rows of L-1 .. 52L slots, as built and with
     all-masked units and a wholly masked split row (bwd1 under the
     forward's (m, s) on that layout); two calls bitwise equal; bwd2
-    against its plain version as before."""
+    against its plain version as before.  hf = 192 at 2 heads: 48 4-column
+    vectors, two 32-vector slices, head 1 straddling them (bwd1 sums its
+    dots over both)."""
     host = long_row_host(length)
     g = Graph.from_host(host, strategy="bell", device=cuda, attention=True)
     gen = torch.Generator(device=cuda).manual_seed(length * 10 + hf + nh)
@@ -310,12 +312,13 @@ def test_attention_forward_on_long_rows_and_masked_units(cuda, length, hf, nh, d
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("every", [1, 3])
 def test_rows_no_unit_writes_are_zero_over_stale_memory(cuda, every, dtype):
-    """The SpMM and the forward zero only the output rows from
-    WorkUnits.n_written on.  Over memory the allocator last held full of
-    NaN, every row that no unit writes (padding, and the rows left out
-    when only every `every`-th descriptor row is kept) is 0, and the
-    rest are the units emulation's (the plain version reads the bins,
-    which select_rows leaves whole)."""
+    """The SpMM, the forward, bwd1 (fwd layout) and bwd2 (transpose
+    layout) zero only the output rows from WorkUnits.n_written on.  Over
+    memory the allocator last held full of NaN, every row that no unit
+    writes (padding, and the rows left out when only every `every`-th
+    descriptor row is kept) is 0 and finite, and the rest are the units
+    emulation's (the plain version reads the bins, which select_rows
+    leaves whole), within 1e-4 + 1e-4 * the emulation on magnitudes."""
     host, undirected = torch_case("hub_selfloops")
     g = Graph.from_host(host, strategy="bell", undirected=undirected, device=cuda,
                         attention=True)
@@ -348,9 +351,29 @@ def test_rows_no_unit_writes_are_zero_over_stale_memory(cuda, every, dtype):
         assert (a[~written] == 0).all() and torch.isfinite(a).all()
         assert ((a - b).abs() <= 1e-4 + 1e-4 * sc).all()
 
+    dout = _randn((g.n_pad, 32), gen, cuda, dtype)
+    _, m, s, _, _ = attn_bell.attn_fwd_reference(g.attn.fwd, x, vl, vr, 0.2, g.n_pad, True)
+    got = torch.cat(stale(lambda: attn_bell.attn_bwd1(fwd, x, vl, vr, dout, m, s, 0.2)), dim=1)
+    want = torch.cat(attn_bell.attn_bwd1_units_reference(fwd, x, vl, vr, dout, m, s, 0.2), dim=1)
+    a_sds, _, a_b = attn_bell.attn_bwd1_units_reference(fwd, x.abs(), vl, vr, dout.abs(), m, s,
+                                                        0.2)
+    assert (got[~written] == 0).all() and torch.isfinite(got).all()
+    assert ((got - want).abs() <= 1e-4 + 1e-4 * torch.cat([a_sds, a_sds, a_b], dim=1)).all()
+    t = select_rows(g.attn.t, np.arange(g.attn.t.row_len.shape[0]) % every == 0)
+    assert t.units.n_written <= g.c_pad
+    x, vl, w_tab = bwd2_inputs(g, 32, 1, gen, dtype)
+    a_tab = torch.cat([w_tab[:, :32].abs(), w_tab[:, 32:35], -w_tab[:, 35:].abs()], dim=1)
+    got = stale(lambda: attn_bell.attn_bwd2(t, x, vl, w_tab, 0.2, g.c_pad))
+    want = attn_bell.attn_bwd2_units_reference(t, x, vl, w_tab, 0.2, g.c_pad)
+    scale = attn_bell.attn_bwd2_units_reference(t, x.abs(), vl, a_tab, 0.2, g.c_pad)
+    written = torch.zeros(g.c_pad, dtype=torch.bool, device=cuda)
+    written[t.row_node.long()] = True
+    assert (got[~written] == 0).all() and torch.isfinite(got).all()
+    assert ((got - want).abs() <= 1e-4 + 1e-4 * scale).all()
+
 
 BWD2_ROWS = [L + 1, 1000, 52 * L]  # transpose rows of 2, 8 and 52 units
-BWD2_SHAPES = [(32, 1), (40, 1), (33, 1), (32, 4), (32, 8), (40, 8)]  # (hf, H)
+BWD2_SHAPES = [(32, 1), (40, 1), (33, 1), (32, 4), (32, 8), (40, 8), (192, 2)]  # (hf, H)
 
 
 def bwd2_inputs(g, hf, nh, gen, dtype=torch.float32):
@@ -370,8 +393,9 @@ def bwd2_inputs(g, hf, nh, gen, dtype=torch.float32):
 def test_bwd2_over_units_matches_plain_versions(cuda, length, hf, nh, dtype):
     """bwd2 over the transpose layout's work units against attn_bwd2_reference
     and attn_bwd2_units_reference, on a source row of `length` slots as
-    built and with masked units; one head, 4 and 8 (fh 40 / 33 / 5 take
-    scalar loads, 33 and 40 at 8 heads two 32-vector slices); two calls
+    built and with masked units; one head, 2, 4 and 8 (fh 40 / 33 / 5 take
+    scalar loads, 33 and 40 at 8 heads two 32-vector slices; fh 96 at 2
+    heads two slices of 4-column vectors, head 1 straddling them); two calls
     bitwise equal; one launch counted per call.  Tolerance 1e-4 + 1e-4 *
     the plain version on magnitudes, as compare_with_plain takes it."""
     g = Graph.from_host(long_row_host(length), strategy="bell", device=cuda, attention=True)

@@ -270,6 +270,38 @@ def test_nccl_without_cuda_raises(tmp_path):
         multihost.spawn(worker.run_jobs, 2, "nccl", [job], str(tmp_path))
 
 
+def test_spawn_raises_the_root_cause_and_names_every_rank(tmp_path):
+    """Rank 1 leaves the group, so rank 0's receive fails with a lost
+    connection and rank 0 ends first; rank 1 then raises the chosen error.
+    spawn raises that error, not the lost connection, and names both
+    ranks."""
+    job = dict(kind="lost_peer", name="lost_peer", mesh=(2,), device="cpu", delay=3.0,
+               error="the chosen error")
+    with pytest.raises(Exception, match="the chosen error") as info:
+        multihost.spawn(worker.run_jobs, 2, "gloo", [job], str(tmp_path),
+                        store=str(tmp_path / "store"), timeout=TIMEOUT)
+    msg = str(info.value)
+    assert "rank 1 of 2 failed, the root cause" in msg and "rank 0: " in msg
+    assert any(s in msg for s in multihost.PEER_LOST)
+
+
+LOST = "RuntimeError: [pair.cc:534] Connection closed by peer [127.0.0.1]:4242"
+
+
+@pytest.mark.parametrize("errors,stopped,want", [
+    ({0: LOST, 1: "DistBackendError: Timed out waiting 5000ms"}, set(), 1),
+    ({0: "ValueError: a", 1: "ValueError: b"}, set(), 0),
+    ({0: LOST, 1: "rank exited: signal SIGKILL"}, set(), 1),
+    ({0: "rank exited: terminated by spawn after 30 s", 1: LOST}, {0}, 1),
+    ({2: LOST, 3: LOST}, set(), 2),
+], ids=["timeout-after-lost-peer", "two-causes", "killed", "stopped", "all-lost"])
+def test_root_cause_ranks_a_rank_own_error_first(errors, stopped, want):
+    """A rank's own error comes before a death without a traceback, which
+    comes before a lost peer, which comes before a rank spawn stopped;
+    among equals the lowest rank."""
+    assert multihost.root_cause(errors, stopped) == want
+
+
 def test_unmatched_shift_fails_within_the_timeout(tmp_path):
     """Ranks that disagree on the stream's length: the next stage waits
     for a shift that never comes, and the group's timeout ends the spawn."""

@@ -291,6 +291,62 @@ def test_graph_layouts_write_every_real_row(pair, attn_pair, tiled):
 
 
 # --------------------------------------------------------------------------- #
+# what the attention bindings hand their kernels
+# --------------------------------------------------------------------------- #
+# kind: (the layout's side, index of the warp table among the C arguments,
+# index of n_warps, of the output rows n_out, of zero_from, of vec, of log2_g)
+_ARGS = {"fwd": ("fwd", 9, 19, 22, 23, 27, 28), "bwd1": ("fwd", 12, 18, 20, 21, 25, 26),
+         "bwd2": ("t", 9, 15, 17, 18, 22, 23)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nh", [1, 4])
+@pytest.mark.parametrize("hf", [32, 40, 132])
+@pytest.mark.parametrize("kind", sorted(_ARGS))
+def test_attention_bindings_pass_the_warp_tables(attn_pair, monkeypatch, kind, hf, nh, dtype):
+    """Each attention binding (its CUDA half run on CPU tensors, the launch
+    mocked) hands its C entry the layout's warp table for log2_g =
+    row_lanes(hf / vec) (none at 32 lanes, where a warp takes one unit),
+    that table's warp count, log2_g itself, and n_written clipped to the
+    output rows as the first row to zero: the forward and bwd1 from the
+    fwd layout's WorkUnits, bwd2 from the transpose layout's.  vec: 16
+    bytes of x a lane in the forward (vector_width), 4 columns in bwd1
+    and bwd2 where each head holds them, else 1."""
+    _, tg = attn_pair
+    side, i_table, i_warps, i_rows, i_zero, i_vec, i_log2 = _ARGS[kind]
+    lay = getattr(tg.attn, side)
+    gen = torch.Generator().manual_seed(hf + nh)
+    rand = lambda *shape: torch.randn(shape, generator=gen).to(dtype)  # noqa: E731
+    x, vl, vr, dout = rand(tg.c_pad, hf), rand(tg.c_pad, nh), rand(tg.n_pad, nh), rand(tg.n_pad, hf)
+    m, s = torch.zeros(tg.n_pad, nh), torch.ones(tg.n_pad, nh)
+    launched = []
+    monkeypatch.setattr(KA, "_launch", lambda name, t, *args: launched.append((name, args)))
+    if kind == "fwd":
+        KA.attn_fwd_cuda(lay, x, vl, vr, SLOPE, tg.n_pad, True)
+        n_out, vec = tg.n_pad, KB.vector_width(x, hf // nh)
+    elif kind == "bwd1":
+        KA.attn_bwd1_cuda(lay, x, vl, vr, dout, m, s, SLOPE)
+        n_out, vec = tg.n_pad, 4 if (hf // nh) % 4 == 0 else 1
+    else:
+        w_tab = torch.zeros(tg.n_pad, hf + 4 * nh)
+        KA.attn_bwd2_cuda(lay, x, vl, w_tab, SLOPE, tg.c_pad)
+        n_out, vec = tg.c_pad, 4 if (hf // nh) % 4 == 0 else 1
+    (name, args), = launched
+    assert name == f"attn_{kind}" and len(args) + 1 == len(KA.FUNCTIONS[f"gala_{name}_f32"])
+    u = lay.units
+    log2_g = row_lanes(hf // vec)
+    table, n_warps = u.warps(log2_g)
+    assert (args[i_vec], args[i_log2]) == (vec, log2_g)
+    assert (args[i_table], args[i_warps]) == (table, n_warps)
+    if log2_g < PACKED_LANES:
+        assert table == u.warp_first[u.warp_off[log2_g]:].data_ptr() and n_warps < u.n_units
+    else:
+        assert table is None and n_warps == u.n_units
+    assert (args[i_rows], args[i_zero]) == (n_out, min(u.n_written, n_out))
+    assert u.n_written == lay.n_real
+
+
+# --------------------------------------------------------------------------- #
 # the unit-order plain versions against gala_tpu
 # --------------------------------------------------------------------------- #
 _OFFS = np.cumsum([0] + WIDTHS)
