@@ -596,7 +596,8 @@ class DynSlots:
     (gala_tpu's DynMeta, expanded from rows to slots on the host): slot s
     lies at in-row position pos[s] of a row of deg[s] neighbors, the
     row's real in-degree (0 on padding rows).  Epoch weights w(deg, pos)
-    come from ops.kernels.dyn_weights, in the layout's flat_vals order."""
+    (ops.kernels.dyn_weights), in the layout's flat_vals order, are
+    computed by the sampled SpMM (ops.kernels.bell_spmm.bell_spmm_sampled)."""
 
     deg: torch.Tensor    # (S,) int32
     pos: torch.Tensor    # (S,) int32

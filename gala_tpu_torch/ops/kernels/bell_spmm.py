@@ -43,6 +43,16 @@ CUDA tensors, so a run can show that its aggregations went through the
 kernel (bf16 launches under "bell_spmm_bf16", `_build.dtype_counts`).
 `bell_spmm_units_reference` repeats the kernel's two passes in
 plain PyTorch, for the tests and the card's checks only.
+
+Dynamic neighbor sampling (`bell_spmm_sampled`, ops.spmm.SampledSpmm's
+forward and transpose): the same call with each slot's value replaced by
+its sampling weight (ops.kernels.dyn_weights), times the structural value
+on 'bell'.  On a CUDA tensor the kernel's sampled form computes the
+weights in pass 1's staging from the layout's DynSlots (C entries
+gala_bell_spmm_dyn_f32 / _bf16, launches counted under "bell_spmm_dyn",
+bf16 under "bell_spmm_dyn_bf16"); on a CPU tensor the plain weights
+(`dyn_weights_reference`) go to the row-descriptor plain version.  Both
+equal the SpMM with the plain weights as its values, bit for bit.
 """
 from __future__ import annotations
 
@@ -55,12 +65,17 @@ from gala_tpu_torch.ops.graph import BellDev, row_lanes
 from gala_tpu_torch.ops.kernels._build import (
     CSRC_DIR, DTYPES, Build, build_library, counts_for, dtype_counts, read_limits, wide,
 )
+from gala_tpu_torch.ops.kernels.dyn_weights import _check as _check_sampling
+from gala_tpu_torch.ops.kernels.dyn_weights import dyn_weights_reference
 
 _SRC = os.path.join(CSRC_DIR, "bell_spmm.cu")
 # the library's kernels, in the order of gala_bell_spmm_limits
 KERNELS = ("spmm_unit_kernel<4>", "spmm_unit_kernel<1>", "spmm_merge_kernel<4>",
            "spmm_merge_kernel<1>", "spmm_unit_kernel<4> bf16", "spmm_unit_kernel<1> bf16",
-           "spmm_merge_kernel<4> bf16", "spmm_merge_kernel<1> bf16", "spmm_unit_kernel<8> bf16")
+           "spmm_merge_kernel<4> bf16", "spmm_merge_kernel<1> bf16", "spmm_unit_kernel<8> bf16",
+           "spmm_unit_kernel<4> sampled", "spmm_unit_kernel<1> sampled",
+           "spmm_unit_kernel<4> sampled bf16", "spmm_unit_kernel<1> sampled bf16",
+           "spmm_unit_kernel<8> sampled bf16")
 
 counts = counts_for("bell_spmm")
 
@@ -69,6 +84,8 @@ counts = counts_for("bell_spmm")
 FUNCTIONS = {
     **{f"gala_bell_spmm_{t}": [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
        for t in DTYPES.values()},
+    **{f"gala_bell_spmm_dyn_{t}": [ctypes.c_void_p] * 16 + [ctypes.c_int] * 10
+       + [ctypes.c_void_p] for t in DTYPES.values()},
     "gala_bell_spmm_limits": [ctypes.c_int, ctypes.c_void_p],
 }
 
@@ -246,14 +263,22 @@ def vector_width(x: torch.Tensor, width: int | None = None) -> int:
 
 
 def bell_spmm_cuda(bell, x: torch.Tensor, n_out_pad: int,
-                   vals: torch.Tensor | None = None) -> torch.Tensor:
-    """The kernel on a CUDA tensor (arguments as checked by bell_spmm);
-    raises when the library cannot be built or the launch fails."""
+                   vals: torch.Tensor | None = None, sampled: tuple | None = None) -> torch.Tensor:
+    """The kernel on a CUDA tensor (arguments as checked by bell_spmm, or
+    by bell_spmm_sampled with `sampled` = (DynSlots, k, ra, rb,
+    structural): the sampled form); raises when the library cannot be
+    built or the launch fails."""
     dev = x.device.index
     if dev != torch.cuda.current_device():  # a launch goes to the current device
         with torch.cuda.device(dev):
-            return bell_spmm_cuda(bell, x, n_out_pad, vals)
-    fn = getattr(build().lib, f"gala_bell_spmm_{DTYPES[x.dtype]}")
+            return bell_spmm_cuda(bell, x, n_out_pad, vals, sampled)
+    name, vals_ptr = "bell_spmm", (bell.flat_vals if vals is None else vals).data_ptr()
+    dyn_ptrs, dyn_ints = (), ()
+    if sampled is not None:
+        meta, k, ra, rb, structural = sampled
+        name, vals_ptr = "bell_spmm_dyn", bell.flat_vals.data_ptr() if structural else None
+        dyn_ptrs, dyn_ints = (meta.deg.data_ptr(), meta.pos.data_ptr()), (k, ra, rb)
+    fn = getattr(build().lib, f"gala_{name}_{DTYPES[x.dtype]}")
     f = x.shape[1]
     units = bell.units
     if units.n_units == 0 or f == 0:
@@ -266,18 +291,17 @@ def bell_spmm_cuda(bell, x: torch.Tensor, n_out_pad: int,
     table, n_warps = units.warps(log2_g)
     ptr = (lambda t: t.data_ptr() if t is not None else None)  # noqa: E731
     err = fn(
-        x.data_ptr(), bell.flat_cols.data_ptr(),
-        (bell.flat_vals if vals is None else vals).data_ptr(),
+        x.data_ptr(), bell.flat_cols.data_ptr(), vals_ptr, *dyn_ptrs,
         units.start.data_ptr(), units.length.data_ptr(), units.node.data_ptr(),
         units.part.data_ptr(), table, units.split_node.data_ptr(),
         units.split_first.data_ptr(), units.split_count.data_ptr(), ptr(bell.diag),
         out.data_ptr(), ptr(part), n_warps, units.split_node.shape[0], n_out_pad,
-        min(units.n_written, n_out_pad), f, vec, log2_g,
+        min(units.n_written, n_out_pad), f, vec, log2_g, *dyn_ints,
         torch._C._cuda_getCurrentRawStream(dev),
     )
     if err != 0:
-        raise RuntimeError(f"bell_spmm kernel launch failed with CUDA error {err}")
-    dtype_counts("bell_spmm", x.dtype).launches += 1
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
+    dtype_counts(name, x.dtype).launches += 1
     return out
 
 
@@ -295,3 +319,23 @@ def bell_spmm(bell, x: torch.Tensor, n_out_pad: int,
     if x.device.type != "cuda":
         raise ValueError(f"bell_spmm runs on cpu or cuda tensors, got {x.device}")
     return bell_spmm_cuda(bell, x, n_out_pad, vals)
+
+
+def bell_spmm_sampled(bell, x: torch.Tensor, n_out_pad: int, meta, k: int, ra: int, rb: int,
+                      structural: bool) -> torch.Tensor:
+    """out = A_s @ x on a row-descriptor layout, A_s's slot values the
+    sampling weights of (k, ra, rb) for the layout's DynSlots `meta`
+    (ops.kernels.dyn_weights), times its flat_vals where `structural`:
+    the kernel's sampled form on a CUDA tensor, the plain weights into
+    the row-descriptor plain version on a CPU tensor.  Bitwise the
+    SpMM run with dyn_weights_reference's weights as `vals`."""
+    k, ra, rb = int(k), int(ra), int(rb)
+    _check(bell, x, n_out_pad, None)
+    _check_sampling(meta.deg, meta.pos, k, ra, rb, bell.flat_vals)
+    if x.device.type == "cpu":
+        w = dyn_weights_reference(meta.deg, meta.pos, k, ra, rb,
+                                  bell.flat_vals if structural else None)
+        return bell_spmm_rows_reference(bell, x, n_out_pad, w)
+    if x.device.type != "cuda":
+        raise ValueError(f"bell_spmm_sampled runs on cpu or cuda tensors, got {x.device}")
+    return bell_spmm_cuda(bell, x, n_out_pad, sampled=(meta, k, ra, rb, bool(structural)))

@@ -1,5 +1,5 @@
-"""Per-slot weights of dynamic neighbor sampling: the hand-written Hopper
-kernel, its build, its wrapper and its plain PyTorch version.
+"""Per-slot weights of dynamic neighbor sampling: their plain PyTorch
+version, the input check the sampled SpMM shares, and the CPU dispatch.
 
 Dynamic sampling (`aggrFn=aggrFn.sample(k).dynamic()`) sums, for each row
 of degree d, the k neighbors at in-row positions (ra*i + rb) mod d,
@@ -8,50 +8,35 @@ the row's ordinary aggregation with slot weights
 
     w(d, p) = #{i < k : (ra*i + rb) mod d == p}    (0 where d <= 0)
 
-so ops.spmm.spmm_sampled runs the bell SpMM kernel with `dyn_weights`'
-output as its slot values, times the structural values on 'bell' (as
-gala_tpu's _dyn_reweight) and alone on the edge-list layouts (as its
-_sampled_ell, whose values are 1).  Replaces gala_tpu's XLA
-_dyn_counts / _dyn_reweight (gala_tpu/ops/spmm.py:894-923), not a Pallas
-kernel: in eager PyTorch their loop of k elementwise steps would cost
-about 3k launches per sampled SpMM call, the kernel one.
+times the structural values on 'bell' (as gala_tpu's _dyn_reweight) and
+alone on the edge-list layouts (as its _sampled_ell, whose values are 1).
+Replaces gala_tpu's XLA _dyn_counts / _dyn_reweight
+(gala_tpu/ops/spmm.py:894-923), not a Pallas kernel.
 
-The kernel (`gala_tpu_torch/csrc/dyn_weights.cu`, one thread a slot) is
-built like the other kernels: nvcc for sm_90a into a plain-C shared
-library in `gala_tpu_torch/_build/` (git-ignored) at first use, loaded
-with ctypes by `ops.kernels._build.build_library`.  Its note says what
-bounds it on the H100.
-
-Dispatch (`dyn_weights`): CPU tensors run `dyn_weights_reference`; CUDA
-tensors run the kernel or raise (no fallback).  Both give the same f32
-bits: each weight is a count (a small integer, exact in f32) times one
-value.  (ra, rb) are Python ints, passed to the kernel as scalars, so no
-device tensor is made per epoch; ra*(k-1) + rb must fit an int32, as in
-gala_tpu's int32 arithmetic (97*k + 97 for dynamic_sample_params' pairs).
-`counts` records kernel launches and plain-version calls on CUDA tensors.
+On the card no kernel of its own computes them: the bell SpMM kernel's
+sampled form (`ops.kernels.bell_spmm.bell_spmm_sampled`, C entries
+gala_bell_spmm_dyn_f32 / _bf16 in `gala_tpu_torch/csrc/bell_spmm.cu`)
+computes each slot's weight in the staging step where it would load the
+slot's value, so no (S,) weights tensor is written and read again; its
+note says what bounds it.  So `dyn_weights` runs the plain version on CPU
+tensors and raises on CUDA tensors, naming the fused SpMM;
+`dyn_weights_reference` is what the sampled SpMM's CPU path runs and
+what the card's checks hold the fused form to.  Each weight is a count
+(a small integer, exact in f32) times one value, so the two forms give
+the same f32 bits.  (ra, rb) are Python ints, passed to the kernel as
+scalars; ra*(k-1) + rb must fit an int32, as in gala_tpu's int32
+arithmetic (97*k + 97 for dynamic_sample_params' pairs).  `counts`
+records plain-version calls on CUDA tensors (it has no launches).
 """
 from __future__ import annotations
 
-import ctypes
-import os
-
 import torch
 
-from gala_tpu_torch.ops.kernels._build import CSRC_DIR, Build, build_library, counts_for
+from gala_tpu_torch.ops.kernels._build import counts_for
 
-_SRC = os.path.join(CSRC_DIR, "dyn_weights.cu")
 _INT32_MAX = 2**31 - 1
 
 counts = counts_for("dyn_weights")
-
-
-def build() -> Build:
-    """Compile (once per source version) and load the kernel library.
-    Raises when nvcc is missing or the build fails."""
-    return build_library(_SRC, "dyn_weights", {
-        "gala_dyn_weights": [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 3
-        + [ctypes.c_void_p],
-    })
 
 
 def dyn_weights_reference(deg: torch.Tensor, pos: torch.Tensor, k: int, ra: int, rb: int,
@@ -91,23 +76,15 @@ def dyn_weights(deg: torch.Tensor, pos: torch.Tensor, k: int, ra: int, rb: int,
                 vals: torch.Tensor | None = None) -> torch.Tensor:
     """(S,) f32 sampling weights of one epoch's (ra, rb) for slots at
     in-row position `pos` of rows of degree `deg` (ops.graph.DynSlots),
-    times the slots' `vals` where given: the kernel on CUDA tensors, the
-    plain version on CPU tensors."""
+    times the slots' `vals` where given: the plain version on CPU
+    tensors.  On CUDA tensors it raises: the card computes the weights
+    inside the sampled SpMM (ops.kernels.bell_spmm.bell_spmm_sampled)."""
     k, ra, rb = int(k), int(ra), int(rb)
     _check(deg, pos, k, ra, rb, vals)
     if deg.device.type == "cpu":
         return dyn_weights_reference(deg, pos, k, ra, rb, vals)
-    if deg.device.type != "cuda":
-        raise ValueError(f"dyn_weights runs on cpu or cuda tensors, got {deg.device}")
-    out = torch.empty(deg.shape, dtype=torch.float32, device=deg.device)
-    if deg.numel() == 0:
-        return out
-    fn = build().lib.gala_dyn_weights
-    with torch.cuda.device(deg.device):
-        stream = torch.cuda.current_stream(deg.device).cuda_stream
-        err = fn(deg.data_ptr(), pos.data_ptr(), vals.data_ptr() if vals is not None else None,
-                 out.data_ptr(), deg.numel(), k, ra, rb, stream)
-    if err != 0:
-        raise RuntimeError(f"dyn_weights kernel launch failed with CUDA error {err}")
-    counts.launches += 1
-    return out
+    if deg.device.type == "cuda":
+        raise RuntimeError("dyn_weights has no kernel of its own on the card: the sampled SpMM "
+                           "computes the weights in its staging "
+                           "(ops.kernels.bell_spmm.bell_spmm_sampled)")
+    raise ValueError(f"dyn_weights runs on cpu tensors, got {deg.device}")

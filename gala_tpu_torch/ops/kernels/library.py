@@ -44,7 +44,7 @@ Importing this module registers the ops; it builds and loads no CUDA
 library (that happens at the first CUDA call).  The kernels that stay
 direct ctypes bindings: bwd1 (off the path: the flash identity replaces
 it), the row gather (minibatch SAGE, which is not exported) and the
-dynamic-sampling weights (dynamic sampling refuses export).
+SpMM's sampled form (bell_spmm_sampled; dynamic sampling refuses export).
 """
 from __future__ import annotations
 

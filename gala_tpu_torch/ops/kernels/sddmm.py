@@ -16,10 +16,11 @@ once too.
 
 The kernel (`gala_tpu_torch/csrc/sddmm.cu`) splits the work by edges: a
 warp takes a run of 128 edges whose indices it loads once, and groups of
-up to 32 lanes (one float4 or float of the row each) take them four at a
-time, their row gathers in flight together; its note says what bounds it
-on the H100.  Built like the other kernels: nvcc for sm_90a into a
-plain-C shared library in `gala_tpu_torch/_build/` (git-ignored) at
+up to 32 lanes (one 16-byte vector of the row each: 4 f32 or 8 bf16
+elements, `lane_width`) take its batches of four edges, their row
+gathers in flight together, keeping b's row while the destination
+repeats; its note says what bounds it on the H100.  Built like the other
+kernels: nvcc for sm_90a into a plain-C shared library in `gala_tpu_torch/_build/` (git-ignored) at
 first use, loaded with ctypes by `ops.kernels._build.build_library`.
 
 Dispatch (`sddmm`, and the custom op `gala_tpu_torch::sddmm` of
@@ -39,20 +40,25 @@ import torch
 from gala_tpu_torch.ops.kernels._build import (
     CSRC_DIR, DTYPES, Build, build_library, counts_for, dtype_counts, wide,
 )
+from gala_tpu_torch.ops.kernels.bell_spmm import vector_width
 
 _SRC = os.path.join(CSRC_DIR, "sddmm.cu")
 
 counts = counts_for("sddmm")
 
 
+# the library's C functions and their argument types
+FUNCTIONS = {
+    f"gala_sddmm_{t}": [ctypes.c_void_p] * 5 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ] for t in DTYPES.values()
+}
+
+
 def build() -> Build:
     """Compile (once per source version) and load the kernel library.
     Raises when nvcc is missing or the build fails."""
-    return build_library(_SRC, "sddmm", {
-        f"gala_sddmm_{t}": [ctypes.c_void_p] * 5 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ] for t in DTYPES.values()
-    })
+    return build_library(_SRC, "sddmm", FUNCTIONS)
 
 
 def sddmm_reference(src: torch.Tensor, dst: torch.Tensor, a: torch.Tensor,
@@ -82,6 +88,13 @@ def _check(src, dst, a, b) -> None:
         raise ValueError(f"sddmm operands on several devices: {sorted(map(str, devices))}")
 
 
+def lane_width(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The elements of a row a lane of the kernel loads: vector_width of
+    both operands (16 bytes where F and both tables allow it, 4 at bf16
+    where only 4 divide F, else 1)."""
+    return min(vector_width(a), vector_width(b))
+
+
 def sddmm_cuda(src: torch.Tensor, dst: torch.Tensor, a: torch.Tensor,
                b: torch.Tensor) -> torch.Tensor:
     """The kernel on CUDA tensors (arguments as checked by sddmm); raises
@@ -93,8 +106,7 @@ def sddmm_cuda(src: torch.Tensor, dst: torch.Tensor, a: torch.Tensor,
     out = torch.empty(n_edges, dtype=a.dtype, device=a.device)
     if n_edges == 0:
         return out
-    align = 4 * a.element_size()
-    vec = 4 if f % 4 == 0 and a.data_ptr() % align == 0 and b.data_ptr() % align == 0 else 1
+    vec = lane_width(a, b)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = fn(a.data_ptr(), b.data_ptr(), src.data_ptr(), dst.data_ptr(), out.data_ptr(),

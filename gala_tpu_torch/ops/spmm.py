@@ -14,12 +14,15 @@ Semantics:  out[d] = sum over edges e with dst[e]==d of vals[e] * x[src[e]]
 
 Dynamic neighbor sampling (`spmm_sampled`, gala_tpu's spmm_sampled): k
 picks (ra*i + rb) mod deg per row, summed with repetition, are the row's
-aggregation with per-slot weights w(deg, pos) (ops.kernels.dyn_weights,
-one kernel launch a product), so `SampledSpmm` runs the same SpMM kernel
-with those weights as slot values: on 'bell' times the structural values
-(gala_tpu's _spmm_dyn_bell), on every other strategy over the edge-list
-layouts with value 1 (its _spmm_dyn); the backward re-samples the
-transpose rows with the same (ra, rb).  No per-epoch index gather.
+aggregation with per-slot weights w(deg, pos) (ops.kernels.dyn_weights),
+so `SampledSpmm` runs the SpMM kernel's sampled form
+(ops.kernels.bell_spmm.bell_spmm_sampled), which computes each slot's
+weight where it stages the slot's value: one launch a product, no
+weights tensor.  On 'bell' the weights multiply the structural values
+(gala_tpu's _spmm_dyn_bell), on every other strategy the edge-list
+layouts take them alone, value 1 a pick (its _spmm_dyn); the backward
+re-samples the transpose rows with the same (ra, rb).  No per-epoch
+index gather.
 
 Learned edge values (`spmm_ev`, forward edge order; the custom op
 `gala_tpu_torch::spmm_ev`) ride the same executor as per-slot values
@@ -50,16 +53,11 @@ import torch
 from gala_tpu_torch.models.common import full_precision_matmuls
 from gala_tpu_torch.ops.graph import Graph
 from gala_tpu_torch.ops.kernels import library
-from gala_tpu_torch.ops.kernels.bell_spmm import bell_spmm, bell_spmm_reference
-from gala_tpu_torch.ops.kernels.dyn_weights import dyn_weights
+from gala_tpu_torch.ops.kernels.bell_spmm import bell_spmm_reference, bell_spmm_sampled
 from gala_tpu_torch.ops.kernels.library import sddmm_edges
 
 __all__ = ["BellSpmmEv", "SampledSpmm", "bell_spmm_reference", "degrees", "sddmm_edges",
            "spmm", "spmm_direct", "spmm_ev", "spmm_ev_bell", "spmm_sampled"]
-
-
-def _sampled_weights(lay, meta, structural: bool, k: int, ra: int, rb: int) -> torch.Tensor:
-    return dyn_weights(meta.deg, meta.pos, k, ra, rb, lay.flat_vals if structural else None)
 
 
 class SampledSpmm(torch.autograd.Function):
@@ -72,13 +70,13 @@ class SampledSpmm(torch.autograd.Function):
     def forward(ctx, x, lay, t_lay, meta, t_meta, structural: bool, k: int, ra: int, rb: int,
                 n_out: int, c_out: int):
         ctx.t_lay, ctx.t_meta, ctx.c_out = t_lay, t_meta, c_out
-        ctx.sample = (structural, k, ra, rb)
-        return bell_spmm(lay, x, n_out, vals=_sampled_weights(lay, meta, structural, k, ra, rb))
+        ctx.sample = (k, ra, rb, structural)
+        return bell_spmm_sampled(lay, x, n_out, meta, k, ra, rb, structural)
 
     @staticmethod
     def backward(ctx, dz):
-        w = _sampled_weights(ctx.t_lay, ctx.t_meta, *ctx.sample)
-        return (bell_spmm(ctx.t_lay, dz.contiguous(), ctx.c_out, vals=w),) + (None,) * 10
+        return (bell_spmm_sampled(ctx.t_lay, dz.contiguous(), ctx.c_out, ctx.t_meta,
+                                  *ctx.sample),) + (None,) * 10
 
 
 class DenseSpmmEv(torch.autograd.Function):

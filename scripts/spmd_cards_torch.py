@@ -53,15 +53,15 @@ def main() -> int:
 
     import chip_smoke as cs
     from gala_tpu_torch.data.datasets import load_dataset
-    from gala_tpu_torch.ops.kernels import attn_bell, bell_spmm, dyn_weights, gather, sddmm
+    from gala_tpu_torch.ops.kernels import attn_bell, bell_spmm, gather, sddmm
     from gala_tpu_torch.parallel import multihost, worker
 
     n_cards = torch.cuda.device_count()
     print(f"{cs.nvidia_smi()}; {n_cards} card(s); torch {torch.__version__}", flush=True)
     # every library built here, before the ranks start
-    with ThreadPoolExecutor(max_workers=5) as pool:
+    with ThreadPoolExecutor(max_workers=4) as pool:
         [f.result() for f in [pool.submit(m.build) for m in
-                              (bell_spmm, attn_bell, sddmm, gather, dyn_weights)]]
+                              (bell_spmm, attn_bell, sddmm, gather)]]
     arxiv = load_dataset("Arxiv", None, 1.0)
     if args.pp:
         return pipeline(cs, arxiv, n_cards)

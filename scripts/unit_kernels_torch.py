@@ -1,17 +1,27 @@
 #!/usr/bin/env python3
 """Time the four unit kernels of gala_tpu_torch (the bell SpMM, the
-attention forward, bwd1 and bwd2) at the GCN and GAT paths' shapes on the
-Arxiv stand-in, in f32 and bf16, on one NVIDIA GPU, beside each call's
-bound and, for the SpMM at f32, `torch.sparse.mm` on the same matrix.
-Usage, from the root of a tree:
+attention forward, bwd1 and bwd2), the SDDMM and the sampled SpMM at the
+paths' shapes on the Arxiv stand-in, in f32 and bf16, on one NVIDIA GPU,
+beside each call's bound and, for the SpMM at f32, `torch.sparse.mm` on
+the same matrix.  Usage, from the root of a tree:
 
-    python3 scripts/unit_kernels_torch.py [--label NAME]
+    python3 scripts/unit_kernels_torch.py [--label NAME] [--kernels SUBSTRING ...]
 
 The SpMM runs on the GCN's full bell (bell_order with the diagonal split)
 at F = 1, 32, 128, and on the unfused GAT's ELL layout with per-slot
 values at F = 32, 40; the attention kernels on the fused GAT's layouts
 (bell_order without the split): the forward at hf = 32 and 40 with one
-head and at hf = 64 with 8 heads, bwd1 and bwd2 at BWD_SHAPES.  Each time is
+head and at hf = 64 with 8 heads, bwd1 and bwd2 at BWD_SHAPES; the SDDMM
+on the unfused GAT's padded edge lists (2,102,667 edges) at F = 32 and
+40, a (c_pad, F) and b (n_pad, F), the two calls of its backward; one
+sampled SpMM call (dynamic sampling, k = 20, one epoch's (ra, rb)) at F
+= 32, forward and transpose, on the full-graph and first training
+subgraph layouts of GCN_DSL + `aggrFn=aggrFn.sample(20).dynamic();`:
+the tree's own form (bell_spmm_sampled where the tree has it, else the
+weights kernel dyn_weights and then bell_spmm with its weights), and in
+a tree with the fused form also the SpMM run on weights made beforehand
+(the kernel's gather and sums alone).  --kernels keeps the cases whose
+name holds one of the given substrings.  Each time is
 the median of 5 runs of 20 calls (CUDA events, after a warm-up), with the
 runs' min and max; beside it the device time of a call (torch.profiler's
 CUDA activity: its kernels and memsets), which differs where the host
@@ -119,6 +129,8 @@ def layout_csr(lay, n_out: int, n_src: int):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--label", default=os.path.basename(os.getcwd()))
+    ap.add_argument("--kernels", nargs="+", default=None,
+                    help="time only the cases whose name holds one of these")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("unit_kernels_torch.py needs an NVIDIA GPU")
@@ -133,8 +145,11 @@ def main(argv=None) -> int:
     from gala_tpu_torch.ops.graph import Graph
     from gala_tpu_torch.ops.kernels import attn_bell as ak
     from gala_tpu_torch.ops.kernels import bell_spmm as kernel
+    from gala_tpu_torch.ops.kernels import sddmm as ks
+    from gala_tpu_torch.ops.kernels.dyn_weights import dyn_weights_reference
 
-    host = load_dataset("Arxiv", None, 1.0)[0]
+    data = load_dataset("Arxiv", None, 1.0)
+    host = data[0]
     gcn = Graph.from_host(apply_reorder(host, bell_order(host))[0], strategy="bell",
                           device="cuda")
     gat_host = apply_reorder(host, bell_order(host, split_diag=False))[0]
@@ -144,6 +159,8 @@ def main(argv=None) -> int:
     times, bounds, device = {}, {}, {}
 
     def measure(key, fn):
+        if args.kernels and not any(k in key for k in args.kernels):
+            return
         times[key] = runs(fn)
         device[key] = device_ms(fn)
 
@@ -152,6 +169,7 @@ def main(argv=None) -> int:
     ell_vals = edge.ell.slot_values(evals)
     fwd, t = gat.attn.fwd, gat.attn.t
     f32 = 4
+    dyn = sampled_layouts(data)
     for dtype in (torch.float32, torch.bfloat16):
         tag = "f32" if dtype == torch.float32 else "bf16"
 
@@ -196,9 +214,60 @@ def main(argv=None) -> int:
             bounds[key] = bound(layout_bytes(t) + nbytes(w_tab, x, vl)
                                 + gat.c_pad * (hf + nh) * f32,
                                 t.flat_cols.numel() * (4 * hf + 12 * nh))
+        for f in (32, 40):
+            a, b = rand(edge.c_pad, f), rand(edge.n_pad, f)
+            key = f"sddmm {tag} F={f}"
+            measure(key, lambda: ks.sddmm(edge.src, edge.dst, a, b))
+            bounds[key] = bound(nbytes(edge.src, edge.dst, a, b) + edge.e_pad * a.element_size(),
+                                2 * edge.e_pad * f)
+        for name, lay, meta, rows, n_out in dyn:
+            x = rand(rows, 32)
+            key = f"bell_spmm sampled {tag} {name} F=32"
+            measure(key, lambda: sampled_call(lay, x, n_out, meta))
+            # deg, pos and the structural values in place of the slot values
+            bounds[key] = bound(layout_bytes(lay) + nbytes(meta.deg, meta.pos, x)
+                                + n_out * 32 * x.element_size(),
+                                (2 * 32 + SAMPLE_K) * lay.flat_cols.numel())
+            if hasattr(kernel, "bell_spmm_sampled"):
+                w = dyn_weights_reference(meta.deg, meta.pos, SAMPLE_K, RA, RB, lay.flat_vals)
+                measure(f"bell_spmm on made weights {tag} {name} F=32",
+                        lambda: kernel.bell_spmm(lay, x, n_out, vals=w))
     print(json.dumps({"label": args.label, "device": smi, "times": times, "bounds": bounds,
                       "device_ms": device}))
     return 0
+
+
+SAMPLE_K, RA, RB = 20, 96, 96  # k of table7's dynamic schedule; one epoch's (ra, rb)
+
+
+def sampled_layouts(data) -> list:
+    """(name, layout, DynSlots, input rows, output rows) of each sampled
+    SpMM call of one epoch of the dynamic GCN: forward and transpose on the
+    full graph and on the first training subgraph."""
+    import gala_tpu_torch
+    from __graft_entry__ import GCN_DSL
+
+    cm = gala_tpu_torch.compile_source(GCN_DSL + "aggrFn=aggrFn.sample(20).dynamic();\n",
+                                       mode="train", data=data, device="cuda")
+    out = []
+    for name, g in (("full", cm.full_graphs[0]), ("subgraph", cm.train_graphs[0])):
+        out.append((f"{name} forward", g.bell, g.dyn_f, g.c_pad, g.n_pad))
+        out.append((f"{name} transpose", g.t_bell, g.dyn_t, g.n_pad, g.c_pad))
+    return out
+
+
+def sampled_call(lay, x, n_out, meta):
+    """One sampled SpMM call on 'bell' (the weights times the structural
+    values) as the tree runs it: the fused form where it has one, else
+    the weights kernel and then the SpMM with its weights."""
+    from gala_tpu_torch.ops.kernels import bell_spmm as kernel
+
+    if hasattr(kernel, "bell_spmm_sampled"):
+        return kernel.bell_spmm_sampled(lay, x, n_out, meta, SAMPLE_K, RA, RB, True)
+    from gala_tpu_torch.ops.kernels.dyn_weights import dyn_weights
+
+    w = dyn_weights(meta.deg, meta.pos, SAMPLE_K, RA, RB, lay.flat_vals)
+    return kernel.bell_spmm(lay, x, n_out, vals=w)
 
 
 if __name__ == "__main__":

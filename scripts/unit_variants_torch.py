@@ -25,6 +25,9 @@ whose sources a variant leaves alone is the shipped build):
                         registers; the shipped: 6, 40 registers)
     bwd2_8blocks        bwd2's one-head forms at 8 blocks per SM (32
                         registers; the shipped: 6, 40 registers)
+    sampled_8blocks     the SpMM's sampled form at 8 blocks per SM (32
+                        registers, the unsampled form's; it spills 8-12
+                        bytes; the shipped: 6, 40 registers)
     bulk                the SpMM's gather by bulk copies where a warp takes
                         one unit and its lanes cover 128 floats of a row
                         (f32, F a multiple of 4 and at least 128): lane 0
@@ -39,7 +42,9 @@ every variant's results are bitwise the shipped build's (the order of
 each sum is the same), and times the SpMM at F = 32 and 128 on the GCN's
 full bell, the forward (flash statistics on) at hf = 32 and 40 with one
 head and hf = 64 with 8, and bwd1 and bwd2 at the same shapes, on the
-fused GAT's layouts of the Arxiv stand-in, f32 and bf16: each variant
+fused GAT's layouts of the Arxiv stand-in, and the SpMM's sampled form at
+F = 32 on the dynamic GCN's full bell (k = 20, one epoch's (ra, rb)), f32 and
+bf16: each variant
 `runs` times, in turns (one run: 20 calls between two CUDA events, after
 a warm-up).  --variants and --kernels (substrings of the case names)
 choose a subset.  Prints the medians and the runs' spread, the card's
@@ -67,11 +72,13 @@ sys.path.insert(0, ROOT)
 SOURCES = ("bell_spmm.cu", "attn_bell.cu", "unit_gather.cuh")
 SHIPPED_ROWS_FWD = "constexpr int kFwdRows = VEC == 1 ? 4 : VEC == 4 ? 2 : 1;"
 SHIPPED_ROWS_SPMM = "constexpr int kRowsInFlight = VEC == 1 ? 4 : VEC == 4 ? 2 : 1;"
-SHIPPED_SPMM_BOUNDS = ("__global__ void __launch_bounds__(kWarp * kWarpsPerBlock, kMinBlocks)\n"
+SHIPPED_SPMM_BOUNDS = ("__global__ void __launch_bounds__(kWarp * kWarpsPerBlock, "
+                       "SAMPLED ? kSampledBlocks : kMinBlocks)\n"
                        "spmm_unit_kernel")
 SHIPPED_FWD_BLOCKS = "constexpr int kFwdMinBlocks = 6;"
 SHIPPED_BWD1_BLOCKS = "constexpr int kBwd1MinBlocks = 6;"
 SHIPPED_BWD2_BLOCKS = "constexpr int kBwd2MinBlocks = 6;"
+SHIPPED_SAMPLED_BLOCKS = "constexpr int kSampledBlocks = 6;"
 VARIANTS = {
     "shipped": [],
     "fwd_rows4": [("attn_bell.cu", SHIPPED_ROWS_FWD,
@@ -83,6 +90,8 @@ VARIANTS = {
     "fwd_8blocks": [("attn_bell.cu", SHIPPED_FWD_BLOCKS, "constexpr int kFwdMinBlocks = 8;")],
     "bwd1_8blocks": [("attn_bell.cu", SHIPPED_BWD1_BLOCKS, "constexpr int kBwd1MinBlocks = 8;")],
     "bwd2_8blocks": [("attn_bell.cu", SHIPPED_BWD2_BLOCKS, "constexpr int kBwd2MinBlocks = 8;")],
+    "sampled_8blocks": [("bell_spmm.cu", SHIPPED_SAMPLED_BLOCKS,
+                         "constexpr int kSampledBlocks = 8;")],
 }
 
 RING = 4  # bulk: rows of a unit in flight
@@ -317,8 +326,9 @@ def main() -> int:
     host = load_dataset("Arxiv", None, 1.0)[0]
     gcn = Graph.from_host(apply_reorder(host, bell_order(host))[0], strategy="bell",
                           device="cuda")
-    gat = Graph.from_host(apply_reorder(host, bell_order(host, split_diag=False))[0],
-                          strategy="bell", device="cuda", attention=True)
+    gat_host = apply_reorder(host, bell_order(host, split_diag=False))[0]
+    gat = Graph.from_host(gat_host, strategy="bell", device="cuda", attention=True)
+    dyn = Graph.from_host(gat_host, strategy="bell", device="cuda", dynamic_sample=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -347,6 +357,10 @@ def main() -> int:
             cases.append((f"attn_bwd2 {tag} hf={hf} H={nh}",
                           lambda x=x, vl=vl, w_tab=w_tab:
                           (ak.attn_bwd2(gat.attn.t, x, vl, w_tab, 0.2, gat.c_pad),)))
+        x = rand(dyn.c_pad, 32)
+        cases.append((f"bell_spmm sampled {tag} F=32",
+                      lambda x=x: (ks.bell_spmm_sampled(dyn.bell, x, dyn.n_pad, dyn.dyn_f, 20, 96,
+                                                        96, True),)))
     if args.kernels:
         cases = [(k, c) for k, c in cases if any(sub in k for sub in args.kernels)]
     times = {}

@@ -1,6 +1,6 @@
-"""The CUDA kernels (bell SpMM, the three attention kernels, SDDMM, row
-gather, the dynamic-sampling weights) against their plain PyTorch
-versions, on the card.
+"""The CUDA kernels (bell SpMM and its sampled form, the three attention
+kernels, SDDMM, row gather) against their plain PyTorch versions, on the
+card.
 
 This file imports neither jax nor gala_tpu, so it runs on a machine with
 the GPU, where JAX is not installed (tests/conftest.py imports jax, hence
@@ -616,6 +616,37 @@ def test_sddmm_on_hub_edge_lists_is_repeatable(cuda, length, f, dtype):
         assert _close(out, ref, sddmm.sddmm_reference(src, dst, av.abs(), b.abs()))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("f", [8, 40, 128, 136])
+@pytest.mark.parametrize("length", [L + 1, 52 * L])
+def test_sddmm_16_byte_lanes_on_hub_edge_lists(cuda, length, f, dtype):
+    """The SDDMM's 16-byte lanes (8 bf16 or 4 f32 elements; F = 136 at bf16
+    is 17 vectors, at f32 34: two rounds) on an edge list with a
+    destination of `length` edges, and with either operand one element
+    off 16-byte alignment (lane_width 1): within 1e-4 + 1e-4 * sum_f
+    |a||b| of the plain version plus bf16's rounding, two calls bitwise
+    equal, one launch a call."""
+    g = Graph.from_host(long_row_host(length), strategy="segment", device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(length + 3 * f)
+    a = _randn((g.c_pad, f), gen, cuda, dtype)
+    b = _randn((g.n_pad, f), gen, cuda, dtype)
+    a2 = _randn((g.c_pad * f + 1,), gen, cuda, dtype)[1:].view(g.c_pad, f)
+    b2 = _randn((g.n_pad * f + 1,), gen, cuda, dtype)[1:].view(g.n_pad, f)
+    assert sddmm.lane_width(a, b) == 16 // a.element_size()
+    assert sddmm.lane_width(a2, b) == sddmm.lane_width(a, b2) == 1
+    counts = _build.dtype_counts("sddmm", dtype)
+    for av, bv in ((a, b), (a2, b), (a, b2)):
+        launches = counts.launches
+        out = sddmm.sddmm(g.src, g.dst, av, bv)
+        again = sddmm.sddmm(g.src, g.dst, av, bv)
+        torch.cuda.synchronize()
+        assert counts.launches == launches + 2
+        assert torch.equal(out, again) and out.dtype == dtype
+        ref = sddmm.sddmm_reference(g.src, g.dst, av, bv)
+        assert _close(out, ref, sddmm.sddmm_reference(g.src, g.dst, av.abs(), bv.abs()))
+
+
 PROBE_SIZES = [1, 3, 16384, 2**20 + 3]
 
 
@@ -745,47 +776,69 @@ def test_gather_refuses_what_it_does_not_take_on_the_card(cuda):
 
 
 def test_dyn_weights_source_names_what_it_replaces():
-    with open(dyn_weights._SRC) as f:
+    """The weights are computed in the SpMM's sampled staging: its source
+    names the XLA weights it replaces and its bound, and no source of a
+    weights kernel of its own is left."""
+    with open(kernel._SRC) as f:
         src = f.read()
     assert "gala_tpu/ops/spmm.py::_dyn_counts" in src and "3.35 TB/s" in src
-    assert os.path.dirname(dyn_weights._SRC) == os.path.dirname(kernel._SRC)
+    assert "gala_bell_spmm_dyn_f32" in src and "gala_bell_spmm_dyn_bf16" in src
+    assert not os.path.exists(os.path.join(_build.CSRC_DIR, "dyn_weights.cu"))
+    assert not hasattr(dyn_weights, "build")
 
 
-def _sampled_graphs(device):
+def _sampled_graphs(device, col_tile=None):
     """The hub case with dynamic sampling's inputs, on 'bell' (bins and
-    hub virtual rows) and on 'segment' (the edge lists)."""
+    hub virtual rows) and on 'segment' (the edge lists); with `col_tile`
+    each row's slots grouped by column tile (units whose positions have
+    gaps)."""
     host, _ = torch_case("hub_selfloops")
-    return {s: Graph.from_host(host, strategy=s, device=device, dynamic_sample=True)
-            for s in ("bell", "segment")}
+    return {s: Graph.from_host(host, strategy=s, device=device, dynamic_sample=True,
+                               col_tile=col_tile) for s in ("bell", "segment")}
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("k,ra,rb", [(1, 5, 7), (20, 96, 96), (300, 17, 5)])
-def test_dyn_weights_matches_plain_version_bitwise_on_the_card(cuda, k, ra, rb):
-    """Each weight is a count times one value: kernel and plain version
-    agree bit for bit, with and without the structural values, on both
-    sides of both layouts; one launch a call."""
-    for strategy, g in _sampled_graphs(cuda).items():
-        sides = ((g.bell, g.dyn_f), (g.t_bell, g.dyn_t)) if strategy == "bell" else (
-            (g.seg, g.dyn_f), (g.t_seg, g.dyn_t))
-        for lay, meta in sides:
-            for vals in (None, lay.flat_vals):
-                launches = dyn_weights.counts.launches
-                got = dyn_weights.dyn_weights(meta.deg, meta.pos, k, ra, rb, vals)
-                torch.cuda.synchronize()
-                assert dyn_weights.counts.launches == launches + 1
-                want = dyn_weights.dyn_weights_reference(meta.deg, meta.pos, k, ra, rb, vals)
-                assert got.dtype == torch.float32 and torch.equal(got, want)
+def test_dyn_weights_matches_plain_version_bitwise_on_the_card(cuda, k, ra, rb, dtype):
+    """The sampled SpMM computes each weight (a count times one value) in
+    its staging: the fused call equals the SpMM kernel run with the plain
+    weights as its values bit for bit (the same weights, the same sums),
+    with and without the structural values, on both sides of 'bell' and
+    'segment', untiled and in column tiles of 150 (units whose positions
+    have gaps), at F = 1, 32 and 33 (scalar and 16-byte lanes); one
+    launch a call under bell_spmm_dyn, none of a weights kernel (the
+    CUDA form of dyn_weights raises)."""
+    gen = torch.Generator(device=cuda).manual_seed(k)
+    counts = _build.dtype_counts("bell_spmm_dyn", dtype)
+    graphs = [g for tile in (None, 150) for g in _sampled_graphs(cuda, tile).items()]
+    for strategy, g in graphs:
+        sides = ((g.bell, g.dyn_f, g.c_pad, g.n_pad), (g.t_bell, g.dyn_t, g.n_pad, g.c_pad)) if (
+            strategy == "bell") else ((g.seg, g.dyn_f, g.c_pad, g.n_pad),
+                                      (g.t_seg, g.dyn_t, g.n_pad, g.c_pad))
+        for lay, meta, rows, n_out in sides:
+            for structural in (False, True):
+                w = dyn_weights.dyn_weights_reference(meta.deg, meta.pos, k, ra, rb,
+                                                      lay.flat_vals if structural else None)
+                for f in (1, 32, 33):
+                    x = _randn((rows, f), gen, cuda, dtype)
+                    launches = counts.launches
+                    got = kernel.bell_spmm_sampled(lay, x, n_out, meta, k, ra, rb, structural)
+                    torch.cuda.synchronize()
+                    assert counts.launches == launches + 1 and got.dtype == dtype
+                    assert torch.equal(got, kernel.bell_spmm(lay, x, n_out, vals=w))
+        with pytest.raises(RuntimeError, match="bell_spmm_sampled"):
+            dyn_weights.dyn_weights(g.dyn_f.deg, g.dyn_f.pos, k, ra, rb)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("strategy", ["bell", "segment"])
 def test_spmm_sampled_on_the_card_matches_cpu(cuda, strategy, dtype):
-    """spmm_sampled forward and x-gradient on the card (the weights kernel
-    and the SpMM kernel, forward and transpose) against the same call on
-    CPU tensors: _close's tolerance over the sampled product on
-    magnitudes."""
+    """spmm_sampled forward and x-gradient on the card (the SpMM kernel's
+    sampled form, forward and transpose: two launches, no weights kernel,
+    no plain version) against the same call on CPU tensors: _close's
+    tolerance over the sampled product on magnitudes."""
     from gala_tpu_torch.ops.spmm import spmm_sampled
 
     k, ra, rb = 20, 13, 2
@@ -795,10 +848,18 @@ def test_spmm_sampled_on_the_card_matches_cpu(cuda, strategy, dtype):
     dz = torch.randn((g_cpu.n_pad, 33), generator=gen).to(dtype)
     results = {}
     for name, g in (("card", g_card), ("cpu", g_cpu)):
+        _build.reset_counts()
         xt = x.to(g.device).requires_grad_(True)
         out = spmm_sampled(g, xt, k, ra, rb)
         out.backward(dz.to(g.device))
         results[name] = (out.detach().cpu(), xt.grad.cpu())
+        if name == "card":
+            torch.cuda.synchronize()
+            launches = {n: c.launches for n, c in _build.all_counts().items() if c.launches}
+            on_cuda = {n: c.reference_calls_on_cuda for n, c in _build.all_counts().items()
+                       if c.reference_calls_on_cuda}
+            assert launches == {_build.dtype_counts("bell_spmm_dyn", dtype).name: 2}
+            assert dyn_weights.counts.launches == 0 and on_cuda == {}
     lay, t_lay = (g_cpu.bell, g_cpu.t_bell) if strategy == "bell" else (g_cpu.seg, g_cpu.t_seg)
     for i, (lay_, meta, inp, n_out) in enumerate(((lay, g_cpu.dyn_f, x, g_cpu.n_pad),
                                                   (t_lay, g_cpu.dyn_t, dz, g_cpu.c_pad))):

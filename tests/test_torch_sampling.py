@@ -35,7 +35,7 @@ from __graft_entry__ import GCN_DSL
 from gala_tpu.data.csr import coo_to_csr as jcoo_to_csr
 from gala_tpu.data.synthetic import synthetic_dataset as jax_dataset
 from gala_tpu.ops.graph import Graph as JGraph
-from gala_tpu.ops.spmm import _dyn_reweight
+from gala_tpu.ops.spmm import _dyn_counts, _dyn_reweight
 from gala_tpu.ops.spmm import spmm_sampled as jspmm_sampled
 from gala_tpu_torch.data.csr import coo_to_csr as tcoo_to_csr
 from gala_tpu_torch.data.sampling import dynamic_sample_params
@@ -358,3 +358,107 @@ def test_table7_training_matches_jax(table7, monkeypatch):
     assert pairs == [dict(zip(("_ra", "_rb"), dynamic_sample_params(e, 0))) for e in range(6)]
     assert all(type(v) is int for d in pairs for v in d.values())
     assert len({tuple(d.values()) for d in pairs}) > 1
+
+
+def _stepped_counts(deg, pos, starts, lens, k, ra, rb):
+    """The sampled SpMM's counts as its pass 1 makes them
+    (csrc/bell_spmm.cu weigh_slots), emulated on the host: each work unit
+    (slots [start, start + len) of one row) reads its row's degree d at
+    its first slot, steps r through the row's k picks (from rb mod d,
+    adding ra mod d and subtracting d on overflow, no division in the
+    loop) and counts at each slot the picks at its position; a row of
+    degree 0 takes no pick."""
+    count = np.zeros(deg.shape, np.float32)
+    for s, n in zip(np.asarray(starts).tolist(), np.asarray(lens).tolist()):
+        d = int(deg[s]) if n else 0
+        if d <= 0:
+            continue
+        p = pos[s : s + n].astype(np.int64)
+        r, step = rb % d, ra % d
+        for _ in range(k):
+            count[s : s + n] += p == r
+            r += step
+            if r >= d:
+                r -= d
+    return count
+
+
+@pytest.mark.parametrize("k,ra,rb", [(0, 5, 7), (1, 5, 7), (20, 96, 96), (300, 17, 5),
+                                     (13, 0, 2**20), (7, 96 * 1000, 31)])
+def test_staging_count_matches_the_plain_weights_and_jax(k, ra, rb):
+    """The stepped count (each slot a unit of its own) equals
+    dyn_weights_reference and gala_tpu's _dyn_counts bit for bit (times
+    the values too), on random slots with rows of degree 0, positions at
+    or past the degree, k above the degree and ra a multiple of the degree
+    (every pick at one position)."""
+    rng = np.random.default_rng(k + ra)
+    n = 4000
+    d = rng.integers(0, 60, n).astype(np.int32)
+    d[:200] = 0
+    d[200:400] = np.array([1, 2, 3, 4, 6, 8, 12, 16, 24, 32], np.int32)[rng.integers(0, 10, 200)]
+    p = (rng.random(n) * (d + 3)).astype(np.int32)  # some at or past the degree
+    vals = rng.uniform(-2.0, 2.0, n).astype(np.float32)
+    want = _stepped_counts(d, p, np.arange(n), np.ones(n, np.int64), k, ra, rb)
+    got = KD.dyn_weights_reference(torch.from_numpy(d), torch.from_numpy(p), k, ra, rb).numpy()
+    jx = np.asarray(_dyn_counts(jnp.asarray(d), jnp.asarray(p), k, ra, rb))
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    np.testing.assert_array_equal(jx.view(np.int32), want.view(np.int32))
+    weighted = KD.dyn_weights_reference(torch.from_numpy(d), torch.from_numpy(p), k, ra, rb,
+                                        torch.from_numpy(vals)).numpy()
+    np.testing.assert_array_equal(weighted.view(np.int32), (want * vals).view(np.int32))
+    assert (want[:200] == 0).all() and (want[p >= d] == 0).all()
+
+
+@pytest.mark.parametrize("col_tile", [None, 150])
+@pytest.mark.parametrize("strategy", ["bell", "segment"])
+def test_units_step_their_rows_picks_onto_the_plain_weights(strategy, col_tile):
+    """On every sampled layout, forward and transpose, a work unit's slots
+    share their row's degree (what lets a lane step through the row's
+    picks once for all its slots; with column tiles their positions have
+    gaps), and the units' stepped counts equal the plain weights bit for
+    bit."""
+    src, dst, vals, n = _coo(True)
+    tg = TGraph.from_host(tcoo_to_csr(src, dst, vals, n_rows=n), strategy=strategy,
+                          device="cpu", dynamic_sample=True, col_tile=col_tile)
+    sides = ((tg.bell, tg.dyn_f), (tg.t_bell, tg.dyn_t)) if strategy == "bell" else (
+        (tg.seg, tg.dyn_f), (tg.t_seg, tg.dyn_t))
+    gaps = 0
+    for lay, meta in sides:
+        deg, pos = meta.deg.numpy(), meta.pos.numpy()
+        starts, lens = lay.units.start.numpy(), lay.units.length.numpy()
+        for s, m in zip(starts.tolist(), lens.tolist()):
+            if m:  # a row of no slots keeps one unit of none
+                assert (deg[s : s + m] == deg[s]).all()
+                gaps += pos[s + m - 1] - pos[s] != m - 1
+        for k, ra, rb in SAMPLES:
+            want = KD.dyn_weights_reference(meta.deg, meta.pos, k, ra, rb).numpy()
+            got = _stepped_counts(deg, pos, starts, lens, k, ra, rb)
+            np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    assert (gaps > 0) == (col_tile is not None)
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports a CUDA device: what the dispatch sees."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+def test_dyn_weights_runs_plain_without_a_card_and_raises_on_one():
+    """Without a card dyn_weights is its plain version (no launch); given
+    CUDA tensors it raises, naming the sampled SpMM that computes the
+    weights on the card, and runs no plain version there."""
+    _, tg = graph_pair("segment", True)
+    deg, pos = tg.dyn_f.deg, tg.dyn_f.pos
+    KD.counts.reset()
+    got = KD.dyn_weights(deg, pos, 9, 13, 2)
+    assert torch.equal(got, KD.dyn_weights_reference(deg, pos, 9, 13, 2))
+    assert KD.counts.launches == 0 and not hasattr(KD, "build")
+    with pytest.raises(RuntimeError, match="bell_spmm_sampled"):
+        KD.dyn_weights(deg.as_subclass(_OnCard), pos.as_subclass(_OnCard), 9, 13, 2)
+    assert KD.counts.launches == 0 and KD.counts.reference_calls_on_cuda == 0

@@ -410,3 +410,139 @@ def test_attn_fwd_units_reference_matches_jax(attn_pair, attn_oracle, dtype):
     for name, g, w in zip(("out", "m", "s", "out+", "s+"), got, want):
         assert g.dtype == torch.float32, name
         np.testing.assert_allclose(g.numpy(), w, err_msg=name, **ATTN_TOL)
+
+
+# --------------------------------------------------------------------------- #
+# the SDDMM's split of an edge list over warps, groups and lanes
+# --------------------------------------------------------------------------- #
+def sddmm_split(n_edges: int, fv: int, per_lane: int):
+    """The host mirror of csrc/sddmm.cu sddmm_kernel's split: a warp takes a
+    run of 32 * per_lane edges, lane l holding the indices of edges
+    per_lane * l .. per_lane * l + per_lane - 1 of it; gs = min(fv, 32)
+    lanes a group, ng = 32 // gs groups; group k takes the batches of
+    holder lanes k, k + ng, k + 2 ng, ... < 32, one a step, and in each
+    of its edges lane `sub` of the group reads vectors sub, sub + gs, ...
+    < fv.  Returns (edge, warp, group, step) of every edge the groups
+    take, and each group's (first lane, lanes, vectors of each lane)."""
+    run = 32 * per_lane
+    gs = min(fv, 32)
+    ng = 32 // gs
+    warps = -(-n_edges // run)
+    steps = -(-32 // ng)
+    w, k, s, u = np.meshgrid(np.arange(warps), np.arange(ng), np.arange(steps),
+                             np.arange(per_lane), indexing="ij")
+    holder = k + s * ng
+    edge = w.astype(np.int64) * run + holder * per_lane + u
+    live = (holder < 32) & (edge < n_edges)
+    lanes = [(k * gs, gs, [list(range(sub, fv, gs)) for sub in range(gs)]) for k in range(ng)]
+    return edge[live], w[live], k[live], s[live], lanes
+
+
+def _sddmm_edges_per_lane():
+    import re
+
+    from gala_tpu_torch.ops.kernels import sddmm
+
+    with open(sddmm._SRC) as f:
+        return int(re.search(r"constexpr int kEdgesPerLane = (\d+);", f.read()).group(1))
+
+
+@pytest.mark.parametrize("fv", [1, 4, 5, 8, 10, 32, 33, 40])
+@pytest.mark.parametrize("n_edges", [1, 127, 128, 129, 2**20 + 3])
+def test_sddmm_split_takes_every_edge_once(n_edges, fv):
+    """Every edge of the list is taken by exactly one group of one warp, in
+    its warp's run; a group takes its batches in order, 4 ng edges apart,
+    the warp's groups on neighbouring batches at each step; the groups'
+    lanes are disjoint and inside the warp, and in every edge each of the
+    row's fv vectors is read by exactly one lane of its group (F / VEC =
+    fv: 5 and 10 are F = 40 at bf16 and f32, not rounded to a power of
+    two)."""
+    per_lane = _sddmm_edges_per_lane()
+    edge, warp, group, step, lanes = sddmm_split(n_edges, fv, per_lane)
+    ng = 32 // min(fv, 32)
+    assert np.array_equal(np.bincount(edge, minlength=n_edges), np.ones(n_edges, np.int64))
+    assert (edge // (32 * per_lane) == warp).all()
+    batch = edge % (32 * per_lane) // per_lane  # the holder lane of each edge
+    assert (batch == group + step * ng).all()
+    order = np.lexsort((edge, step, group, warp))
+    e, w, k = edge[order], warp[order], group[order]
+    same = (w[1:] == w[:-1]) & (k[1:] == k[:-1])
+    gaps = np.diff(e)[same]
+    assert ((gaps == 1) | (gaps == per_lane * (ng - 1) + 1)).all()  # in order, batch after batch
+    used = np.zeros(32, np.int64)
+    for first, gs, vectors in lanes:
+        used[first : first + gs] += 1
+        assert sorted(j for v in vectors for j in v) == list(range(fv))
+    assert used.max() == 1 and used.sum() == ng * min(fv, 32)
+
+
+@pytest.mark.parametrize("dtype,width,want", [
+    (torch.float32, 32, 4), (torch.float32, 40, 4), (torch.float32, 33, 1),
+    (torch.bfloat16, 32, 8), (torch.bfloat16, 40, 8), (torch.bfloat16, 36, 4),
+    (torch.bfloat16, 1, 1),
+])
+def test_sddmm_lane_width(dtype, width, want):
+    """The SDDMM wrapper's lane width: vector_width taken over both
+    operands (16 bytes where F and both tables allow it, 8 bytes of 4 bf16
+    columns where only 4 divide F), and 1 where either operand lies one
+    element off its alignment."""
+    from gala_tpu_torch.ops.kernels import sddmm
+
+    a, b = torch.zeros((7, width), dtype=dtype), torch.zeros((5, width), dtype=dtype)
+    assert sddmm.lane_width(a, b) == want == min(KB.vector_width(a), KB.vector_width(b))
+    off = torch.zeros(7 * width + 1, dtype=dtype)[1:].view(7, width)
+    assert sddmm.lane_width(off, b) == sddmm.lane_width(b, off[:5]) == (want if width == 1 else 1)
+
+
+# --------------------------------------------------------------------------- #
+# what the sampled SpMM's binding hands its kernel
+# --------------------------------------------------------------------------- #
+@pytest.fixture(scope="module")
+def sampled_graph():
+    src, dst, vals, n = short_row_coo()
+    return TGraph.from_host(tcoo_to_csr(src, dst, vals, n_rows=n), strategy="bell",
+                            device="cpu", dynamic_sample=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("structural", [False, True])
+@pytest.mark.parametrize("side", ["bell", "t_bell"])
+def test_sampled_spmm_binding_passes_the_sampling_inputs(sampled_graph, monkeypatch, side,
+                                                         structural, dtype):
+    """bell_spmm_sampled's CUDA half (run on CPU tensors, the launch
+    mocked) calls gala_bell_spmm_dyn_<dtype> with the layout's DynSlots
+    (deg, pos) after the values, the structural values or null, the
+    unsampled call's unit tables, lanes and rows, and (k, ra, rb) before
+    the stream; one launch counted under bell_spmm_dyn."""
+    from types import SimpleNamespace
+
+    from gala_tpu_torch.ops.kernels import _build
+
+    g = sampled_graph
+    lay, meta, rows, n_out = ((g.bell, g.dyn_f, g.c_pad, g.n_pad) if side == "bell"
+                              else (g.t_bell, g.dyn_t, g.n_pad, g.c_pad))
+    x = torch.randn((rows, 32), generator=torch.Generator().manual_seed(2)).to(dtype)
+    calls = {}
+
+    def recorder(name):
+        return lambda *args: calls.setdefault(name, args) and 0
+
+    name = f"gala_bell_spmm_dyn_{_build.DTYPES[dtype]}"
+    plain = f"gala_bell_spmm_{_build.DTYPES[dtype]}"
+    lib = SimpleNamespace(**{n: recorder(n) for n in (name, plain)})
+    monkeypatch.setattr(KB, "build", lambda: SimpleNamespace(lib=lib))
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda dev: 0, raising=False)
+    counts = _build.dtype_counts("bell_spmm_dyn", dtype)
+    launches = counts.launches
+    KB.bell_spmm_cuda(lay, x, n_out, sampled=(meta, 20, 96, 7, structural))
+    KB.bell_spmm_cuda(lay, x, n_out)
+    assert counts.launches == launches + 1
+    got, want = calls[name], calls[plain]
+    assert len(got) == len(KB.FUNCTIONS[name]) and len(want) == len(KB.FUNCTIONS[plain])
+    assert got[2] == (lay.flat_vals.data_ptr() if structural else None)
+    assert got[3:5] == (meta.deg.data_ptr(), meta.pos.data_ptr())
+    # the unit tables and diag, then (out, part: fresh allocations), then the ints
+    assert got[:2] == want[:2] and got[5:14] == want[3:12] and got[16:23] == want[14:21]
+    assert (got[15] is None) == (want[13] is None) == (lay.units.n_partials == 0)
+    assert got[-4:] == (20, 96, 7, 0)
