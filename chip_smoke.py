@@ -2058,7 +2058,8 @@ def phase_profile(gcn_cm, spmm_build_log):
                     gcn_cm.train(iters=3, warmup=1)
         launches, on_cuda = read()
         _no_plain("profile", on_cuda)
-        traces = [os.path.join(log_dir, f) for f in os.listdir(log_dir) if f.endswith(".json")]
+        traces = [os.path.join(log_dir, f) for f in os.listdir(log_dir)
+                  if f.endswith(".json") and not f.endswith(".counts.json")]
         if len(traces) != 1:
             raise AssertionError(f"[profile] expected one trace in {log_dir}, found {traces}")
         size = os.path.getsize(traces[0])

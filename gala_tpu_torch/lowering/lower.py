@@ -12,6 +12,14 @@ col_tile directive reaches every graph as column tiling
 gate, which drops a tile below its flat-intermediate budget, has nothing
 to budget here.  use_long (or the spec's) builds the full graph with
 int64 edge ids (Graph.from_host(long_indices=True)), as gala_tpu does.
+
+Each stage's host seconds are kept in CompiledModel.lower_spans, under
+the names of its spans (utils.profiling.marker): `gala.lower.ir`
+(autoschedule, IR, passes), `gala.lower.sample`, `gala.lower.relabel`
+(bell_order and apply_reorder), `gala.lower.subgraphs`
+(mask_subgraphs), `gala.lower.layout` (every Graph.from_host, summed;
+within it `gala.lower.layout.attention`, the fused-attention layouts)
+and `gala.lower.inputs` (the padded inputs and make_forward).
 """
 from __future__ import annotations
 
@@ -33,6 +41,7 @@ from gala_tpu_torch.models.common import activation_dtype
 from gala_tpu_torch.ops.graph import NODE_PAD, Graph, choose_strategy
 from gala_tpu_torch.passes.pipeline import run_passes
 from gala_tpu_torch.train import TrainResult, train
+from gala_tpu_torch.utils.profiling import marker
 
 
 @dataclasses.dataclass
@@ -61,6 +70,8 @@ class CompiledModel:
     host_feats: object = None
     host_labels: object = None
     host_masks: object = None
+    # host seconds of each lowering stage, by span name (module docstring)
+    lower_spans: dict = dataclasses.field(default_factory=dict)
 
     def make_params(self, seed: int = 0):
         dim_env = {
@@ -153,6 +164,7 @@ def lower(
     """
     dtype = activation_dtype(dtype)
     device = torch.device(device)
+    spans: dict[str, float] = {}
 
     # ---- dataset ---------------------------------------------------- #
     if data is None:
@@ -160,26 +172,28 @@ def lower(
     g_host, feats, labels, masks = data
     n_classes = int(labels.max()) + 1
 
-    # ---- input-aware schedule --------------------------------------- #
-    if spec.opt_input is not None:
-        autoschedule(spec, g_host, feats.shape[1], n_classes)
-    # the bound dataset always wins over declared sizes
-    spec.graph.feat_size = int(feats.shape[1])
-    spec.graph.label_size = n_classes
-    if spec.output_sizes:
-        spec.output_sizes[-1] = n_classes
+    with marker("gala.lower.ir", into=spans):
+        # ---- input-aware schedule ----------------------------------- #
+        if spec.opt_input is not None:
+            autoschedule(spec, g_host, feats.shape[1], n_classes)
+        # the bound dataset always wins over declared sizes
+        spec.graph.feat_size = int(feats.shape[1])
+        spec.graph.label_size = n_classes
+        if spec.output_sizes:
+            spec.output_sizes[-1] = n_classes
 
-    # ---- IR + middle-end passes ------------------------------------- #
-    prog = generate_ir(spec)
-    prog = run_passes(prog, spec, mode=mode)
+        # ---- IR + middle-end passes --------------------------------- #
+        prog = generate_ir(spec)
+        prog = run_passes(prog, spec, mode=mode)
 
     # ---- data-level transformations --------------------------------- #
     # data sampling, and static kernel sampling lowered to the same
     # fixed-degree resample (data.sampling: the picks of (5, 7))
-    if spec.graph.sample:
-        g_host = sample_graph_ab(g_host, int(spec.graph.sample))
-    elif spec.compute.sample:
-        g_host = sample_graph_ab(g_host, int(spec.compute.sample))
+    with marker("gala.lower.sample", into=spans):
+        if spec.graph.sample:
+            g_host = sample_graph_ab(g_host, int(spec.graph.sample))
+        elif spec.compute.sample:
+            g_host = sample_graph_ab(g_host, int(spec.compute.sample))
     dynamic = bool(spec.compute.sample_dynamic)
     # graphs with learned per-edge values (the unfused GAT chain, the
     # sparse rewrite's precomputed values) need the edge lists and, above
@@ -208,47 +222,53 @@ def lower(
     if strategy == "auto":
         strategy = choose_strategy(g_host.n_rows + NODE_PAD, g_host.n_cols + NODE_PAD,
                                    g_host.n_edges, edge_vals=edge_vals)
-    if strategy in ("bell", "pallas_bell"):
-        # relabel nodes in degree-class order so the binned layout's
-        # output order is the identity (no reorder at run time); fused
-        # attention keeps self loops as slots, so its class order is
-        # computed without the diagonal split; so do dynamic-sampling
-        # bells (slot position must equal CSR position)
-        from gala_tpu_torch.data.ell import bell_order
-        from gala_tpu_torch.data.reordering import apply_reorder
+    with marker("gala.lower.relabel", into=spans):
+        if strategy in ("bell", "pallas_bell"):
+            # relabel nodes in degree-class order so the binned layout's
+            # output order is the identity (no reorder at run time); fused
+            # attention keeps self loops as slots, so its class order is
+            # computed without the diagonal split; so do dynamic-sampling
+            # bells (slot position must equal CSR position)
+            from gala_tpu_torch.data.ell import bell_order
+            from gala_tpu_torch.data.reordering import apply_reorder
 
-        order = bell_order(g_host, split_diag=not attention and not dynamic)
-        g_host, feats, labels, masks, _ = apply_reorder(
-            g_host, order, feats, labels, masks
-        )
+            order = bell_order(g_host, split_diag=not attention and not dynamic)
+            g_host, feats, labels, masks, _ = apply_reorder(
+                g_host, order, feats, labels, masks
+            )
 
     col_tile = spec.col_tile or None
-    full_g = Graph.from_host(g_host, strategy=strategy, undirected=spec.graph.undirected,
-                             device=device, edge_vals=edge_vals, attention=attention,
-                             dynamic_sample=dynamic, col_tile=col_tile,
-                             long_indices=bool(use_long or spec.use_long))
+    with marker("gala.lower.layout", into=spans):
+        full_g = Graph.from_host(g_host, strategy=strategy, undirected=spec.graph.undirected,
+                                 device=device, edge_vals=edge_vals, attention=attention,
+                                 dynamic_sample=dynamic, col_tile=col_tile,
+                                 long_indices=bool(use_long or spec.use_long), spans=spans)
     n_layers = spec.num_layers
     full_graphs = [full_g] * n_layers
 
     train_graphs = subs = None
-    if prog.uses_training_subgraphs:
-        subs = mask_subgraphs(g_host, masks["train"], n_layers)
-        train_graphs = [
-            Graph.from_host(s, strategy=strategy, undirected=False, device=device,
-                            edge_vals=edge_vals, attention=attention, dynamic_sample=dynamic,
-                            col_tile=col_tile)
-            for s in subs
-        ]
+    with marker("gala.lower.subgraphs", into=spans):
+        if prog.uses_training_subgraphs:
+            subs = mask_subgraphs(g_host, masks["train"], n_layers)
+    if subs is not None:
+        with marker("gala.lower.layout", into=spans):
+            train_graphs = [
+                Graph.from_host(s, strategy=strategy, undirected=False, device=device,
+                                edge_vals=edge_vals, attention=attention,
+                                dynamic_sample=dynamic, col_tile=col_tile, spans=spans)
+                for s in subs
+            ]
 
-    x = full_g.pad_nodes(np.asarray(feats, np.float32))
-    if dtype is not None:
-        # mixed precision: bf16 activations, f32 params and loss (gala_tpu's)
-        x = x.to(dtype)
-    y = full_g.pad_nodes(np.asarray(labels, np.int64))
-    tm = full_g.pad_nodes(np.asarray(masks["train"], bool))
-    sm = full_g.pad_nodes(np.asarray(masks["test"], bool))
+    with marker("gala.lower.inputs", into=spans):
+        x = full_g.pad_nodes(np.asarray(feats, np.float32))
+        if dtype is not None:
+            # mixed precision: bf16 activations, f32 params and loss (gala_tpu's)
+            x = x.to(dtype)
+        y = full_g.pad_nodes(np.asarray(labels, np.int64))
+        tm = full_g.pad_nodes(np.asarray(masks["train"], bool))
+        sm = full_g.pad_nodes(np.asarray(masks["test"], bool))
 
-    invariant, forward, forward_rows = make_forward(prog)
+        invariant, forward, forward_rows = make_forward(prog)
 
     return CompiledModel(
         spec=spec,
@@ -270,4 +290,5 @@ def lower(
         host_feats=feats,
         host_labels=labels,
         host_masks=masks,
+        lower_spans=spans,
     )

@@ -31,6 +31,12 @@ beside x); the kernels return f32 and the op returns out in x's dtype,
 while the backward's residual is the f32 out (gala_tpu's out32_node), so
 sds = <dout, out> is taken before the rounding.  The backward tables,
 dvr and the gradients are f32 and are cast back to the inputs' dtypes.
+
+Under a profiler (utils.profiling) `attention_aggregate` is the span
+`gala.attention` and counts its work under that name: the layout's real
+destination rows and nonzeros (AttnBell.n_rows, n_edges), x's width, the
+heads and x's item size; its gradient is `gala.attention.grad`, counted
+with the real source rows (AttnBell.n_cols).
 """
 from __future__ import annotations
 
@@ -43,6 +49,7 @@ from gala_tpu_torch.data.csr import HostCSR
 from gala_tpu_torch.data.ell import build_binned_ell
 from gala_tpu_torch.ops.graph import BellDev, moved
 from gala_tpu_torch.ops.kernels import library
+from gala_tpu_torch.utils.profiling import count, marker, recording
 
 
 # --------------------------------------------------------------------------- #
@@ -76,10 +83,22 @@ def build_attention_bell(g: HostCSR):
 @dataclasses.dataclass
 class AttnBell:
     """Device tensors of the fused-attention layout: `fwd` (rows =
-    destinations) and `t` (rows = sources)."""
+    destinations) and `t` (rows = sources), and the graph's real edge
+    count (0 where the builder gave none)."""
 
     fwd: BellDev
     t: BellDev
+    n_edges: int = 0
+
+    @property
+    def n_rows(self) -> int:
+        """Real destination rows."""
+        return self.fwd.n_real
+
+    @property
+    def n_cols(self) -> int:
+        """Real source rows."""
+        return self.t.n_real
 
     @classmethod
     def from_host(cls, g: HostCSR, n_pad: int, c_pad: int, device,
@@ -89,11 +108,13 @@ class AttnBell:
         return cls(
             fwd=BellDev.from_host(hb, n_pad, g.n_rows, device, col_tile),
             t=BellDev.from_host(hbt, c_pad, g.n_cols, device, col_tile),
+            n_edges=int(g.n_edges),
         )
 
     def to(self, device, memo: dict | None = None) -> "AttnBell":
         memo = {} if memo is None else memo
-        return AttnBell(fwd=moved(self.fwd, device, memo), t=moved(self.t, device, memo))
+        return dataclasses.replace(self, fwd=moved(self.fwd, device, memo),
+                                   t=moved(self.t, device, memo))
 
 
 # --------------------------------------------------------------------------- #
@@ -108,7 +129,15 @@ def attention_aggregate(n_pad: int, c_pad: int, slope: float, ab: AttnBell,
 
     The forward emits the flash statistics only when a gradient is wanted
     (they double the weighted reduce)."""
-    flash = torch.is_grad_enabled() and any(t.requires_grad for t in (x, vl, vr))
-    vl, vr = (t.to(x.dtype).contiguous() for t in (vl, vr))
-    out = library.attention(x.contiguous(), vl, vr, ab, n_pad, c_pad, float(slope), flash)
-    return out.to(x.dtype)
+    with marker("gala.attention"):
+        grad_work = None
+        if recording():
+            work = {"nnz": ab.n_edges, "width": int(x.shape[1]), "heads": int(vl.shape[1]),
+                    "itemsize": x.element_size()}
+            count("gala.attention", rows=ab.n_rows, **work)
+            grad_work = {"rows": ab.n_cols, **work}
+        flash = torch.is_grad_enabled() and any(t.requires_grad for t in (x, vl, vr))
+        vl, vr = (t.to(x.dtype).contiguous() for t in (vl, vr))
+        out = library.attention(x.contiguous(), vl, vr, ab, n_pad, c_pad, float(slope), flash,
+                                grad_work if flash else None)
+        return out.to(x.dtype)

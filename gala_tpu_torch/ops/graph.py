@@ -66,6 +66,7 @@ import torch
 
 from gala_tpu_torch.data.csr import HostCSR, densify, is_symmetric
 from gala_tpu_torch.data.csr import transpose as host_transpose
+from gala_tpu_torch.utils.profiling import marker
 
 if TYPE_CHECKING:
     from gala_tpu_torch.ops.attention import AttnBell
@@ -691,6 +692,7 @@ class Graph:
         dynamic_sample: bool = False,
         col_tile: float | None = None,
         long_indices: bool = False,
+        spans: dict | None = None,
     ) -> "Graph":
         """The padded edge lists, their transpose permutation and their
         layouts (`seg`, `t_seg`) are built where gala_tpu keeps them by
@@ -701,7 +703,9 @@ class Graph:
         docstring), as gala_tpu's Graph.from_host(dynamic_sample=True).
         col_tile: source rows per column tile of every row-descriptor
         layout (column tiling, the module docstring); long_indices: int64
-        edge ids, as gala_tpu's (on past 2^31 padded edges regardless)."""
+        edge ids, as gala_tpu's (on past 2^31 padded edges regardless).
+        spans: where the fused-attention layout's build adds its host
+        seconds, under `gala.lower.layout.attention` (utils.profiling)."""
         device = torch.device(device)
         # is_symmetric costs two full edge argsorts: only pay it when
         # the answer is consulted
@@ -837,7 +841,8 @@ class Graph:
         if attention and strategy == "bell":
             from gala_tpu_torch.ops.attention import AttnBell
 
-            attn = AttnBell.from_host(g, n_pad, c_pad, device, tile)
+            with marker("gala.lower.layout.attention", into=spans):
+                attn = AttnBell.from_host(g, n_pad, c_pad, device, tile)
 
         return cls(
             src=src, dst=dst, vals=vals,

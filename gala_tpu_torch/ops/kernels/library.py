@@ -40,6 +40,11 @@ no launch is counted.  The differentiable ops (bell_spmm, spmm_ev,
 attn_fwd) have an Autograd kernel (`_register_gradient`), so a program
 exported with them back-propagates after loading.
 
+The gradients of bell_spmm and attn_fwd are the spans `gala.spmm.grad`
+and `gala.attention.grad` (utils.profiling), each counting the work
+that its forward's caller attached to the gradient's node (`spmm` and
+`attention`'s `grad_work`, under a profiler only).
+
 Importing this module registers the ops; it builds and loads no CUDA
 library (that happens at the first CUDA call).  The kernels that stay
 direct ctypes bindings: bwd1 (off the path: the flash identity replaces
@@ -55,6 +60,7 @@ from gala_tpu_torch.ops.kernels import attn_bell as _attn
 from gala_tpu_torch.ops.kernels import bell_spmm as _spmm
 from gala_tpu_torch.ops.kernels import sddmm as _sddmm
 from gala_tpu_torch.ops.kernels._build import wide
+from gala_tpu_torch.utils.profiling import count, marker
 
 NAMESPACE = "gala_tpu_torch"
 
@@ -233,17 +239,36 @@ class _BellSpmmGrad(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dz):
         lay, lay_ints, n_out, t_lay, t_ints, c_out = ctx.args
-        dx = _call(bell_spmm_op, dz.contiguous(), t_lay, t_ints, None, c_out, lay, lay_ints,
-                   n_out)
+        with marker("gala.spmm.grad"):
+            _count_grad(ctx, "gala.spmm.grad")
+            dx = _call(bell_spmm_op, dz.contiguous(), t_lay, t_ints, None, c_out, lay, lay_ints,
+                       n_out)
         return dx, None, None, None, None, None, None, None
 
 
 _register_gradient(bell_spmm_op, _BellSpmmGrad, (0,))
 
 
-def spmm(x: torch.Tensor, lay, t_lay, n_out: int, c_out: int) -> torch.Tensor:
-    """out = A @ x on `lay`, differentiable in x through `t_lay` (A^T)."""
-    return bell_spmm_op(x, *layout_args(lay), None, n_out, *layout_args(t_lay), c_out)
+def _attach_work(out: torch.Tensor, grad_work: dict | None) -> None:
+    """Hand `grad_work` to the gradient that will run for `out` (the
+    autograd Function's node is its ctx)."""
+    if grad_work is not None and out.grad_fn is not None:
+        out.grad_fn.grad_work = grad_work
+
+
+def _count_grad(ctx, name: str) -> None:
+    work = getattr(ctx, "grad_work", None)
+    if work is not None:
+        count(name, **work)
+
+
+def spmm(x: torch.Tensor, lay, t_lay, n_out: int, c_out: int,
+         grad_work: dict | None = None) -> torch.Tensor:
+    """out = A @ x on `lay`, differentiable in x through `t_lay` (A^T);
+    its gradient counts `grad_work` under `gala.spmm.grad`."""
+    out = bell_spmm_op(x, *layout_args(lay), None, n_out, *layout_args(t_lay), c_out)
+    _attach_work(out, grad_work)
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -400,26 +425,30 @@ class _AttnFwdGrad(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout, *_stats):
-        x, vl, vr, out, m, s, outpos, spos = ctx.saved_tensors
-        t_lay, t_ints, slope, c_pad = ctx.args
-        dout = wide(dout)
-        nh = vl.shape[1]
-        sds = _attn.per_head_dot(dout, out, nh)
-        dvr = (1.0 - slope) * (_attn.per_head_dot(dout, outpos, nh) - sds * spos)
-        w_tab = torch.cat([dout, wide(vr), m, s, sds], dim=1)
-        dxx = attn_bwd2_op(x, vl, w_tab, t_lay, t_ints, slope, c_pad)
-        hf = x.shape[1]
-        return (dxx[:, :hf].to(x.dtype), dxx[:, hf:].to(vl.dtype), dvr.to(vr.dtype),
-                None, None, None, None, None, None, None, None)
+        with marker("gala.attention.grad"):
+            _count_grad(ctx, "gala.attention.grad")
+            x, vl, vr, out, m, s, outpos, spos = ctx.saved_tensors
+            t_lay, t_ints, slope, c_pad = ctx.args
+            dout = wide(dout)
+            nh = vl.shape[1]
+            sds = _attn.per_head_dot(dout, out, nh)
+            dvr = (1.0 - slope) * (_attn.per_head_dot(dout, outpos, nh) - sds * spos)
+            w_tab = torch.cat([dout, wide(vr), m, s, sds], dim=1)
+            dxx = attn_bwd2_op(x, vl, w_tab, t_lay, t_ints, slope, c_pad)
+            hf = x.shape[1]
+            return (dxx[:, :hf].to(x.dtype), dxx[:, hf:].to(vl.dtype), dvr.to(vr.dtype),
+                    None, None, None, None, None, None, None, None)
 
 
 _register_gradient(attn_fwd_op, _AttnFwdGrad, (0, 1, 2))
 
 
 def attention(x: torch.Tensor, vl: torch.Tensor, vr: torch.Tensor, ab, n_pad: int, c_pad: int,
-              slope: float, flash: bool) -> torch.Tensor:
+              slope: float, flash: bool, grad_work: dict | None = None) -> torch.Tensor:
     """The fused attention's out (n_pad, hf), f32, on an AttnBell;
-    differentiable in x, vl and vr when `flash`."""
+    differentiable in x, vl and vr when `flash`; its gradient counts
+    `grad_work` under `gala.attention.grad`."""
     out, *_ = attn_fwd_op(x, vl, vr, *layout_args(ab.fwd), *layout_args(ab.t), slope, n_pad,
                           c_pad, flash)
+    _attach_work(out, grad_work)
     return out

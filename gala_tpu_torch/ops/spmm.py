@@ -45,6 +45,13 @@ learned values are f32 (a learned bf16 value upcast exactly) and rounded
 to bf16 in the product, as gala_tpu's vals.astype(x.dtype).  'dense'
 follows gala_tpu's jnp.dot(f32 A, bf16 x, preferred_element_type=x.dtype):
 the product in f32, the result rounded to x's dtype.
+
+Under a profiler (utils.profiling) `spmm` is the span `gala.spmm`, on
+every strategy, and counts its work under that name: the graph's real
+rows and nonzeros (Graph.n_nodes, n_edges), x's width and item size.
+The custom op's gradient is the span `gala.spmm.grad`, counted with the
+transpose's rows (ops.kernels.library).  A rank's ShardGraph counts
+nothing.
 """
 from __future__ import annotations
 
@@ -55,6 +62,7 @@ from gala_tpu_torch.ops.graph import Graph
 from gala_tpu_torch.ops.kernels import library
 from gala_tpu_torch.ops.kernels.bell_spmm import bell_spmm_reference, bell_spmm_sampled
 from gala_tpu_torch.ops.kernels.library import sddmm_edges
+from gala_tpu_torch.utils.profiling import count, marker, recording
 
 __all__ = ["BellSpmmEv", "SampledSpmm", "bell_spmm_reference", "degrees", "sddmm_edges",
            "spmm", "spmm_direct", "spmm_ev", "spmm_ev_bell", "spmm_sampled"]
@@ -164,21 +172,29 @@ def spmm(g: Graph, x: torch.Tensor) -> torch.Tensor:
     transpose layout.  `x` is (c_pad, F); returns (n_pad, F).  On a rank's
     ShardGraph (strategy 'spmd') the sharded form: the bell layouts, else
     the halo exchange, else the all_gather."""
-    if g.strategy == "spmd":
-        if g.bell is not None:
-            return _spmd("spmd_spmm_bell", g, x)
-        if g.use_halo:
-            return _spmd("spmd_spmm_halo", g.src_halo, g.dst_local, g.vals, x, g.send_idx,
-                         g.rows_per_shard, g.n_shards, g.halo, g.edges_local, g.group)
-        return _spmd("spmd_spmm", g.src, g.dst_local, g.vals, x, g.rows_per_shard, g.group)
-    if g.strategy == "dense":
-        full_precision_matmuls()
-        return torch.matmul(g.a_dense, x.to(g.a_dense.dtype)).to(x.dtype)
-    if g.strategy == "bell":
-        return library.spmm(x, g.bell, g.t_bell, g.n_pad, g.c_pad)
-    if g.strategy == "ell":
-        return library.spmm(x, g.ell, g.t_ell, g.n_pad, g.c_pad)
-    return library.spmm(x, g.seg, g.t_seg, g.n_pad, g.c_pad)
+    with marker("gala.spmm"):
+        grad_work = None
+        if recording() and g.strategy != "spmd":
+            width, itemsize = int(x.shape[1]), x.element_size()
+            count("gala.spmm", rows=g.n_nodes, nnz=g.n_edges, width=width, heads=1,
+                  itemsize=itemsize)
+            grad_work = {"rows": g.n_cols, "nnz": g.n_edges, "width": width, "heads": 1,
+                         "itemsize": itemsize}
+        if g.strategy == "spmd":
+            if g.bell is not None:
+                return _spmd("spmd_spmm_bell", g, x)
+            if g.use_halo:
+                return _spmd("spmd_spmm_halo", g.src_halo, g.dst_local, g.vals, x, g.send_idx,
+                             g.rows_per_shard, g.n_shards, g.halo, g.edges_local, g.group)
+            return _spmd("spmd_spmm", g.src, g.dst_local, g.vals, x, g.rows_per_shard, g.group)
+        if g.strategy == "dense":
+            full_precision_matmuls()
+            return torch.matmul(g.a_dense, x.to(g.a_dense.dtype)).to(x.dtype)
+        if g.strategy == "bell":
+            return library.spmm(x, g.bell, g.t_bell, g.n_pad, g.c_pad, grad_work)
+        if g.strategy == "ell":
+            return library.spmm(x, g.ell, g.t_ell, g.n_pad, g.c_pad, grad_work)
+        return library.spmm(x, g.seg, g.t_seg, g.n_pad, g.c_pad, grad_work)
 
 
 def spmm_ev(g: Graph, vals: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

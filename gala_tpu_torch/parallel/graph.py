@@ -284,7 +284,8 @@ class ShardedGraph:
                     fwd=BellDev.from_host(shard_bell(dst, src, ones, r, n_tab)[0], r + 1, r,
                                           device),
                     t=BellDev.from_host(shard_bell(src, dst, ones, n_tab, r)[0], n_tab + 1,
-                                        n_tab, device))
+                                        n_tab, device),
+                    n_edges=int(dst.shape[0]))
         return ShardGraph(
             src=_put(self.src[s], device), dst_local=_put(self.dst_local[s], device),
             vals=_put(self.vals[s], device), occ=_put(self.occ[s], device),

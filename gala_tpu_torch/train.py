@@ -22,6 +22,12 @@ port of gala_tpu.train).
   params in place and the optimizer's state before the invariant prefix;
   `checkpoint_path` saves both, with step=iters, after the deferred
   metrics.
+- spans (utils.profiling.marker, recorded only under a profiler):
+  `gala.prefix` each invariant call, `gala.epoch_inputs`, `gala.step`
+  each training epoch (inside it `gala.forward`, `gala.backward`,
+  `gala.optimizer` and, on validation epochs, `gala.snapshot`),
+  `gala.infer` each inference epoch, `gala.test_eval` the deferred
+  metrics, `gala.checkpoint`; EpochTimer's boundaries are `gala.fence`.
 
 gala_tpu's XLA devices (lax.scan epoch chunks, the anti-hoisting bump,
 the compile warm-up pool, host-fetch fences) have no counterpart here:
@@ -40,6 +46,7 @@ from torch import nn
 
 from gala_tpu_torch.checkpoint import restore, save_checkpoint
 from gala_tpu_torch.ops.graph import Graph
+from gala_tpu_torch.utils.profiling import marker
 from gala_tpu_torch.utils.timing import EpochTimer
 
 
@@ -183,15 +190,19 @@ def train(
         restore(resume_from, params, opt)
 
     with torch.no_grad():
+        x_train = x_full = x
         if invariant is not None:
-            x_train = invariant(train_graphs if train_graphs is not None else full_graphs, x)
-            x_full = invariant(full_graphs, x) if train_graphs is not None else x_train
-        else:
-            x_train = x_full = x
+            with marker("gala.prefix"):
+                x_train = invariant(train_graphs if train_graphs is not None else full_graphs, x)
+            x_full = x_train
+            if train_graphs is not None:
+                with marker("gala.prefix"):
+                    x_full = invariant(full_graphs, x)
     use_sub = train_graphs is not None
     gs_train = train_graphs if use_sub else full_graphs
     # every epoch's extra inputs, made before the timed regions
-    extras = [epoch_inputs(e) for e in range(iters)] if epoch_inputs else [{}] * iters
+    with marker("gala.epoch_inputs"):
+        extras = [epoch_inputs(e) for e in range(iters)] if epoch_inputs else [{}] * iters
 
     def with_extra(xc, extra):
         return {**xc, **extra} if extra and isinstance(xc, dict) else xc
@@ -235,16 +246,21 @@ def train(
             timer.start()
             if measure_memory:
                 mem_mb = device_memory_mb(device)
-        is_valid, graphs, xc = inputs(epoch)
-        opt.zero_grad(set_to_none=True)
-        loss = loss_fn(graphs, xc)
-        loss.backward()
-        if group is not None:
-            all_reduce_grads(params, group)
-        opt.step()
-        losses.append(loss.detach())
-        if is_valid:
-            snapshots.append((snapshot_params(params), extras[epoch]))
+        with marker("gala.step"):
+            is_valid, graphs, xc = inputs(epoch)
+            opt.zero_grad(set_to_none=True)
+            with marker("gala.forward"):
+                loss = loss_fn(graphs, xc)
+            with marker("gala.backward"):
+                loss.backward()
+                if group is not None:
+                    all_reduce_grads(params, group)
+            with marker("gala.optimizer"):
+                opt.step()
+            losses.append(loss.detach())
+            if is_valid:
+                with marker("gala.snapshot"):
+                    snapshots.append((snapshot_params(params), extras[epoch]))
     total_time = timer.stop(n=max(iters - warmup, 1))
 
     # ---- inference phase: forward-only epochs, same graph schedule ----- #
@@ -252,17 +268,20 @@ def train(
         for epoch in range(iters):
             if epoch == warmup:
                 timer.start()
-            _, graphs, xc = inputs(epoch)
-            forward(params, graphs, xc)
+            with marker("gala.infer"):
+                _, graphs, xc = inputs(epoch)
+                forward(params, graphs, xc)
         inference_time = timer.stop(n=max(iters - warmup, 1))
 
         # ---- deferred metrics (outside both timed regions) ------------- #
-        losses_host = torch.stack(losses).cpu().tolist() if losses else []
-        accs = (torch.stack([test_acc(p, e) for p, e in snapshots]).cpu().tolist()
-                if snapshots else [])
+        with marker("gala.test_eval"):
+            losses_host = torch.stack(losses).cpu().tolist() if losses else []
+            accs = (torch.stack([test_acc(p, e) for p, e in snapshots]).cpu().tolist()
+                    if snapshots else [])
 
     if checkpoint_path:
-        save_checkpoint(checkpoint_path, params, opt.state_dict(), step=iters)
+        with marker("gala.checkpoint"):
+            save_checkpoint(checkpoint_path, params, opt.state_dict(), step=iters)
 
     return TrainResult(
         inference_time=inference_time,

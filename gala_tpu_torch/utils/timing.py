@@ -4,7 +4,8 @@ PyTorch enqueues CUDA work and returns before the device finishes, so a
 timed region is bracketed by `torch.cuda.synchronize()`, once at each
 boundary and never inside the region: everything enqueued before the
 closing synchronize has run when it returns.  On the CPU there is
-nothing to wait for.
+nothing to wait for.  Each boundary is the span `gala.fence`
+(utils.profiling) under a profiler.
 """
 from __future__ import annotations
 
@@ -12,6 +13,8 @@ import time
 
 import torch
 import torch.distributed as dist
+
+from gala_tpu_torch.utils.profiling import marker
 
 
 def fence(device) -> None:
@@ -33,9 +36,10 @@ class EpochTimer:
         self.seconds = 0.0
 
     def _fence(self) -> None:
-        fence(self.device)
-        if self.group is not None:
-            dist.barrier(group=self.group)
+        with marker("gala.fence"):
+            fence(self.device)
+            if self.group is not None:
+                dist.barrier(group=self.group)
 
     def start(self) -> None:
         self._fence()

@@ -25,7 +25,7 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from scripts.profile_torch_gcn import _device_us, _is_kernel  # noqa: E402
+from scripts.profile_torch_gat_edge import _device_us, _is_kernel  # noqa: E402
 
 
 def main() -> int:

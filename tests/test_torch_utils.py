@@ -100,8 +100,10 @@ def test_profile_trace_writes_a_chrome_trace_with_marker_regions(tmp_path, monke
                 torch.ones(64).sum()
             double(torch.ones(8))
         assert log_dir == (given or str(tmp_path / "default"))
-        traces = glob.glob(os.path.join(log_dir, "*.json"))
+        traces = [p for p in glob.glob(os.path.join(log_dir, "*.json"))
+                  if not p.endswith(".counts.json")]
         assert len(traces) == 1
+        assert os.path.exists(traces[0][: -len(".json")] + ".counts.json")
         with open(traces[0]) as f:
             names = {e.get("name") for e in json.load(f)["traceEvents"]}
         assert {"gala_region", "annotated_fn"} <= names
