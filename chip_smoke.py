@@ -64,14 +64,17 @@ and prints no "ok" line:
             docstring states the tolerance: 1e-4 + 1e-4 * the magnitudes
             of the summed terms), bwd1 also against the flash identity, on
             the GAT run's full-graph and training-subgraph layouts and on
-            the generated hub graph, at (hf, H) = (32, 1), (40, 1), (32, 4),
+            the generated hub graph, at (hf, H) = (32, 1), (40, 1), (32, 4)
+            and the padded (41, 1), (21, 3) (heads of 41 and 7 at their
+            row pitch, 44 and 8 columns; 48 and 8 in the bf16 forward),
             and two forward calls bitwise equal; bwd1 (over the fwd
             layout's work units) and bwd2 (over the transpose layout's)
             also against their units emulations and a second call,
             bitwise, there and on the hub graph with masked units; then
             attention_aggregate forward and backward on the hub graph on
             the card against the same call on CPU tensors (same tolerance
-            form); then each kernel's and plain version's times at the GAT
+            form), where a padded shape launches the forward's 16-byte
+            form (<4> f32, <8> bf16) and bwd2's 4-column one; then each kernel's and plain version's times at the GAT
             path's shapes, and each kernel's on the full layout against
             the layout without its rows over 128 slots (bwd1 and bwd2
             fail above 1.5x per slot).
@@ -355,7 +358,8 @@ ATTN_REPLACES = {
     "attn_bwd1": "gala_tpu/ops/pallas/attn_bell.py:307",
     "attn_bwd2": "gala_tpu/ops/pallas/attn_bell.py:456",
 }
-ATTN_SHAPES = ((32, 1), (40, 1), (32, 4))  # (hf, H); the GAT path runs (32, 1), (40, 1)
+# (hf, H); the GAT path runs (32, 1), (40, 1); (41, 1) and (21, 3) run at a row pitch
+ATTN_SHAPES = ((32, 1), (40, 1), (32, 4), (41, 1), (21, 3))
 SLOPE = 0.2
 SDDMM_SOURCE = "gala_tpu_torch/csrc/sddmm.cu"
 SDDMM_REPLACES = "gala_tpu/ops/pallas/sddmm.py:183"
@@ -535,10 +539,11 @@ def check_units(ak, kind, what, lay, *args, tag="attn-kernel"):
         scale = torch.cat([a_sds, a_sds, a_b], dim=1)
     else:
         x, vl, w_tab, c_pad = args
-        hf, nh = x.shape[1], vl.shape[1]
+        nh = vl.shape[1]
+        d = w_tab.shape[1] - 4 * nh  # dout's block, at the table's pitch
         call = lambda fn: fn(lay, x, vl, w_tab, SLOPE, c_pad)  # noqa: E731
-        a_tab = torch.cat([w_tab[:, :hf].abs(), w_tab[:, hf : hf + 3 * nh],
-                           -w_tab[:, hf + 3 * nh :].abs()], dim=1)
+        a_tab = torch.cat([w_tab[:, :d].abs(), w_tab[:, d : d + 3 * nh],
+                           -w_tab[:, d + 3 * nh :].abs()], dim=1)
         scale = ak.attn_bwd2_reference(lay, x.abs(), vl, a_tab, SLOPE, c_pad)
     kernel, plain, units = (getattr(ak, f"attn_{kind}{end}")
                             for end in ("", "_reference", "_units_reference"))
@@ -801,6 +806,18 @@ def phase_gat(gala_tpu_torch, dtype=torch.float32, data=None):
     return cm, launches, res
 
 
+def device_kernels(fn) -> list:
+    """The names of the device kernels that fn() launches (torch.profiler's
+    CUDA activity)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+
+
 def _aggregate_on(device, ab, g, inputs):
     """attention_aggregate forward + backward of sum(out * dout) on `device`."""
     from gala_tpu_torch.ops.attention import attention_aggregate
@@ -850,8 +867,7 @@ def phase_attn_kernel(cm, ak, dtype=torch.float32):
                     max_err[name] = max(max_err[name], err)
             x, vl, vr, dout = inputs
             out, m, s = twice[0][:3]
-            w_tab = torch.cat([dout.float(), vr.float(), m, s, ak.per_head_dot(dout, out, nh)],
-                              dim=1)
+            w_tab = ak.bwd2_table(x, dout, vr, m, s, ak.per_head_dot(dout, out, nh))
             for side, kind in (("fwd", "bwd1"), ("t", "bwd2")):
                 lay = getattr(g.attn, side)
                 lays = [("", lay)] + ([(", masked units", masked_units(lay))]
@@ -885,6 +901,16 @@ def phase_attn_kernel(cm, ak, dtype=torch.float32):
                                      f"({gt.dtype}) differs from CPU by {err.max().item():.3e}")
         print(f"[{tag}] attention_aggregate hub graph hf={hf} H={nh}, card vs cpu: "
               + ", ".join(errs))
+        fh = hf // nh
+        if fh % 4:  # padded: the 16-byte forward and 4-column bwd2 run
+            names = device_kernels(lambda: _aggregate_on("cuda", hub.attn, hub,
+                                                         [t.detach() for t in inputs]))
+            lanes = (f"attn_fwd_kernel<{16 // dtype.itemsize},", "attn_bwd2_kernel<4,")
+            print(f"[{tag}] attention_aggregate hf={hf} H={nh} at its row pitch launches "
+                  + ", ".join(sorted({n for n in names if "attn_" in n})))
+            if not all(any(k in n for n in names) for k in lanes):
+                raise AssertionError(f"attention_aggregate hf={hf} H={nh}: no {lanes} launch "
+                                     f"among {names}")
 
     timings = {}
     lay_f, lay_t = full.attn.fwd, full.attn.t
@@ -893,7 +919,7 @@ def phase_attn_kernel(cm, ak, dtype=torch.float32):
         vr, dout = rand(full.n_pad, nh), rand(full.n_pad, hf)
         out, m, s, _, _ = ak.attn_fwd(lay_f, x, vl, vr, SLOPE, full.n_pad, False)
         sds = ak.per_head_dot(dout, out, nh)
-        w_tab = torch.cat([dout.float(), vr.float(), m, s, sds], dim=1)
+        w_tab = ak.bwd2_table(x, dout, vr, m, s, sds)
         calls = {
             "attn_fwd": (lambda: ak.attn_fwd(lay_f, x, vl, vr, SLOPE, full.n_pad, True),
                          lambda: ak.attn_fwd_reference(lay_f, x, vl, vr, SLOPE, full.n_pad,
@@ -1398,8 +1424,8 @@ def phase_long_kernel(arxiv, kernel, ak):
            (a_sds, a_sds, b1_want[2]))
     del far
     torch.cuda.empty_cache()
-    w_tab = torch.cat([dout, vr, m, s, b1_want[0]], dim=1)
-    a_tab = torch.cat([dout.abs(), vr, m, s, -b1_want[0].abs()], dim=1)
+    w_tab = ak.bwd2_table(x, dout, vr, m, s, b1_want[0])
+    a_tab = ak.bwd2_table(x, dout.abs(), vr, m, s, -b1_want[0].abs())
     far = shifted_slots(t_l, LONG_SHIFT)
     report("attn_bwd2", [ak.attn_bwd2(far, x, vl, w_tab, SLOPE, g.c_pad)],
            [ak.attn_bwd2(t_l, x, vl, w_tab, SLOPE, g.c_pad)],

@@ -152,7 +152,7 @@ __device__ __forceinline__ void stage_columns(const WarpUnits& wu, const int32_t
 constexpr int kFwdMinBlocks = 6;
 // rows of a slot group in flight per step of the gather
 template <int VEC>
-constexpr int kFwdRows = VEC == 1 ? 4 : VEC == 4 ? 2 : 1;
+constexpr int kFwdRows = VEC == 4 ? 2 : 1;
 
 // Forward pass 1: several short units a warp (unit_gather.cuh WarpUnits;
 // one at g = 32).  With outpos != null the flash statistics out+ =
@@ -371,10 +371,9 @@ __device__ __forceinline__ void keep_head_sums(const WarpUnits& wu, const RowLan
 // at 700 W): at 8 blocks (32 registers) bwd2's one-head 4-column form
 // spilled 24 B and bwd1's 8-56 B; bwd1's one-head 4-column form spills 28
 // B at 2 rows in flight, so it keeps 1.
-template <int VEC, int MAXH>
-constexpr int kBwd1Rows = VEC == 1 ? 4 : MAXH == 1 ? 1 : 2;
-template <int VEC>
-constexpr int kBwd2Rows = VEC == 1 ? 4 : 2;
+template <int MAXH>
+constexpr int kBwd1Rows = MAXH == 1 ? 1 : 2;
+constexpr int kBwd2Rows = 2;
 constexpr int kBwd1MinBlocks = 6;
 constexpr int kBwd1MinBlocksHeads = 5;
 constexpr int kBwd2MinBlocks = 6;
@@ -466,7 +465,7 @@ attn_bwd1_kernel(const T* __restrict__ x, const T* __restrict__ vl,
 #pragma unroll
     for (int i = 0; i < VEC; ++i) acc[i] = accp[i] = 0.f;
     const float* ph = MAXH == 1 ? sh_p : sh_p + rl.hd * kUnitSlots;
-    gather_units<VEC, kBwd1Rows<VEC, MAXH>>(col, wu, rl, x, hf, [&](int j) { return ph[j] != 0.f; },
+    gather_units<VEC, kBwd1Rows<MAXH>>(col, wu, rl, x, hf, [&](int j) { return ph[j] != 0.f; },
                                      [&](int j, const float (&v)[VEC]) {
                                        const float pv = ph[j];
                                        const float p = fabsf(pv);
@@ -571,9 +570,9 @@ attn_bwd2_kernel(const float* __restrict__ wtab, const T* __restrict__ x,
       if (r >= 0) {
         const float* wr = wtab + static_cast<size_t>(r) * wt + hf + h;
         float vr_r, m_r, s_r, sds_r;
-        if constexpr (MAXH == 1 && VEC == 4) {
+        if constexpr (MAXH == 1) {
           // [vr | m | s | sds] of one head: one 16-byte load (hf and wt
-          // are multiples of 4 and wtab is 16-byte aligned under VEC 4)
+          // are multiples of 4 and wtab is 16-byte aligned)
           const float4 v = __ldg(reinterpret_cast<const float4*>(wr));
           vr_r = v.x;
           m_r = v.y;
@@ -608,7 +607,7 @@ attn_bwd2_kernel(const float* __restrict__ wtab, const T* __restrict__ x,
 #pragma unroll
     for (int i = 0; i < VEC; ++i) dx[i] = q[i] = 0.f;
     const float* ph = MAXH == 1 ? sh_p : sh_p + rl.hd * kUnitSlots;
-    gather_units<VEC, kBwd2Rows<VEC>>(col, wu, rl, wtab, wt, [&](int j) { return ph[j] != 0.f; },
+    gather_units<VEC, kBwd2Rows>(col, wu, rl, wtab, wt, [&](int j) { return ph[j] != 0.f; },
                                      [&](int j, const float (&v)[VEC]) {
                                        const float pv = ph[j];
                                        const float p = fabsf(pv);
@@ -670,8 +669,7 @@ attn_merge_sum_kernel(const float* __restrict__ part, const int32_t* __restrict_
 }
 
 bool bad_shape(int hf, int nh, int vec) {
-  return nh < 1 || nh > kMaxHeads || hf <= 0 || hf % nh != 0 || (vec != 1 && vec != 4) ||
-         (vec == 4 && (hf / nh) % 4 != 0);
+  return nh < 1 || nh > kMaxHeads || hf <= 0 || hf % nh != 0 || vec != 4 || (hf / nh) % 4 != 0;
 }
 
 template <int VEC, class T>
@@ -770,15 +768,14 @@ int launch_bwd2(const void* wtab, const void* x, const void* vl, const void* col
   return merge_sums(part, split_node, split_first, split_count, out, n_split, hf + nh, st);
 }
 
-// run(VEC, MAXH) for the instantiation that (vec, nh) selects: float4 or
-// scalar loads, one head or up to kMaxHeads
+// run(VEC, MAXH) for the instantiation that nh selects: 4-column loads,
+// one head or up to kMaxHeads
 template <class Run>
-int dispatch(int vec, int nh, Run run) {
+int dispatch(int nh, Run run) {
   using One = std::integral_constant<int, 1>;
   using Four = std::integral_constant<int, 4>;
   using Max = std::integral_constant<int, kMaxHeads>;
-  if (vec == 4) return nh == 1 ? run(Four{}, One{}) : run(Four{}, Max{});
-  return nh == 1 ? run(One{}, One{}) : run(One{}, Max{});
+  return nh == 1 ? run(Four{}, One{}) : run(Four{}, Max{});
 }
 
 // Rows [zero_from, n_pad) of each (n_pad, width) f32 output set to 0 on st
@@ -833,7 +830,7 @@ int fwd(const void* x, const void* vl, const void* vr, const void* cols, const v
   if constexpr (std::is_same_v<T, bf16>) {
     if (vec == 8) return run(std::integral_constant<int, 8>{});
   }
-  return vec == 4 ? run(std::integral_constant<int, 4>{}) : run(std::integral_constant<int, 1>{});
+  return run(std::integral_constant<int, 4>{});
 }
 
 template <class T>
@@ -849,7 +846,7 @@ int bwd1(const void* x, const void* vl, const void* vr, const void* dout, const 
   const auto st = static_cast<cudaStream_t>(stream);
   const int err = zero_rows({out}, 3 * nh, n_pad, zero_from, st);
   if (err != 0 || n_warps <= 0) return err;
-  return dispatch(vec, nh, [&](auto vec_tag, auto maxh_tag) {
+  return dispatch(nh, [&](auto vec_tag, auto maxh_tag) {
     return launch_bwd1<decltype(vec_tag)::value, decltype(maxh_tag)::value, T>(
         x, vl, vr, dout, m, s, cols, occ, unit_start, unit_len, unit_node, unit_part, warp_first,
         split_node, split_first, split_count, out, part, n_warps, n_split, hf, nh, slope, log2_g,
@@ -870,7 +867,7 @@ int bwd2(const void* wtab, const void* x, const void* vl, const void* cols, cons
   const auto st = static_cast<cudaStream_t>(stream);
   const int err = zero_rows({out}, hf + nh, n_pad, zero_from, st);
   if (err != 0 || n_warps <= 0) return err;
-  return dispatch(vec, nh, [&](auto vec_tag, auto maxh_tag) {
+  return dispatch(nh, [&](auto vec_tag, auto maxh_tag) {
     return launch_bwd2<decltype(vec_tag)::value, decltype(maxh_tag)::value, T>(
         wtab, x, vl, cols, occ, unit_start, unit_len, unit_node, unit_part, warp_first,
         split_node, split_first, split_count, out, part, n_warps, n_split, hf, nh, slope, log2_g,
@@ -879,8 +876,8 @@ int bwd2(const void* wtab, const void* x, const void* vl, const void* cols, cons
 }
 
 // The launch limits of pass-1 kernel `k` of a library function (bwd1 or
-// bwd2) at H heads: 0 float4 and 1 scalar at f32, 3 float4 and 4
-// scalar at bf16 (2 is the pass-2 kernel, which the caller handles).
+// bwd2) at H heads: 0 at f32, 2 at bf16 (1 is the pass-2 kernel, which
+// the caller handles).
 template <template <int, int, class> class Kernel>
 int unit_limits(int k, int nh, size_t smem, int* out) {
   const int block = kWarp * kWarpsPerBlock;
@@ -888,12 +885,8 @@ int unit_limits(int k, int nh, size_t smem, int* out) {
   switch (k) {
     case 0: return one ? Kernel<4, 1, float>::limits(block, smem, out)
                        : Kernel<4, kMaxHeads, float>::limits(block, smem, out);
-    case 1: return one ? Kernel<1, 1, float>::limits(block, smem, out)
-                       : Kernel<1, kMaxHeads, float>::limits(block, smem, out);
-    case 3: return one ? Kernel<4, 1, bf16>::limits(block, smem, out)
+    case 2: return one ? Kernel<4, 1, bf16>::limits(block, smem, out)
                        : Kernel<4, kMaxHeads, bf16>::limits(block, smem, out);
-    case 4: return one ? Kernel<1, 1, bf16>::limits(block, smem, out)
-                       : Kernel<1, kMaxHeads, bf16>::limits(block, smem, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -917,9 +910,12 @@ struct Bwd2Kernel {
 // layout arrays are ops.graph.BellDev's (flat_cols, flat_vals as slot
 // occupancy) and its WorkUnits tables (the fwd layout's for the forward
 // and bwd1, the transpose layout's for bwd2; unit_start int64, the
-// others int32).  `vec` is 4 (fh % 4 == 0 and
-// 16-byte aligned feature tables) or 1.  Each launches on `stream`
-// without synchronising and returns cudaGetLastError() (0 on success).
+// others int32).  `vec` is 4: fh % 4 == 0 and 16-byte aligned feature
+// tables (the wrappers, ops/kernels/attn_bell.py row_pitch, pad a head
+// whose fh is not a multiple of 4 to a lane, its columns at h * pitch
+// and zeros after them, and pass hf = H * pitch).  Each launches on
+// `stream` without synchronising and returns cudaGetLastError() (0 on
+// success).
 
 // Each kernel has two entry points: *_f32 (x, vl, vr and dout float) and
 // *_bf16 (the same tables bf16, bf16 activations).  Every other table,
@@ -996,20 +992,18 @@ GALA_ATTN_BWD2(gala_attn_bwd2_bf16, bf16)
 // Launch limits of the forward's kernels at H heads (the instantiation
 // that H runs), four ints in `out`: registers per thread, static and
 // dynamic shared memory per block, resident blocks per SM.  Kernel k: 0
-// pass 1 (float4), 1 pass 1 (scalar), 2 pass 2, 3 pass 1 at bf16
-// (8-byte loads of 4 columns), 4 pass 1 at bf16 (scalar), 5 pass 1 at
-// bf16 (16-byte loads of 8 columns).  Returns the CUDA error, 0 on success.
+// pass 1 (float4), 1 pass 2, 2 pass 1 at bf16 (8-byte loads of 4
+// columns), 3 pass 1 at bf16 (16-byte loads of 8 columns).  Returns the
+// CUDA error, 0 on success.
 extern "C" int gala_attn_fwd_limits(int k, int nh, int* out) {
   if (nh < 1 || nh > kMaxHeads) return static_cast<int>(cudaErrorInvalidValue);
   const int block = kWarp * kWarpsPerBlock;
   const size_t smem = unit_warp_smem(nh) * kWarpsPerBlock;
   switch (k) {
     case 0: return launch_limits(attn_fwd_kernel<4, float>, block, smem, out);
-    case 1: return launch_limits(attn_fwd_kernel<1, float>, block, smem, out);
-    case 2: return launch_limits(attn_fwd_merge_kernel, kMergeThreads, 0, out);
-    case 3: return launch_limits(attn_fwd_kernel<4, bf16>, block, smem, out);
-    case 4: return launch_limits(attn_fwd_kernel<1, bf16>, block, smem, out);
-    case 5: return launch_limits(attn_fwd_kernel<8, bf16>, block, smem, out);
+    case 1: return launch_limits(attn_fwd_merge_kernel, kMergeThreads, 0, out);
+    case 2: return launch_limits(attn_fwd_kernel<4, bf16>, block, smem, out);
+    case 3: return launch_limits(attn_fwd_kernel<8, bf16>, block, smem, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1017,13 +1011,13 @@ extern "C" int gala_attn_fwd_limits(int k, int nh, int* out) {
 // Launch limits of bwd2's kernels at H heads, as gala_attn_fwd_limits.
 extern "C" int gala_attn_bwd2_limits(int k, int nh, int* out) {
   if (nh < 1 || nh > kMaxHeads) return static_cast<int>(cudaErrorInvalidValue);
-  if (k == 2) return launch_limits(attn_merge_sum_kernel, kMergeThreads, 0, out);
+  if (k == 1) return launch_limits(attn_merge_sum_kernel, kMergeThreads, 0, out);
   return unit_limits<Bwd2Kernel>(k, nh, unit_warp_smem(nh) * kWarpsPerBlock, out);
 }
 
 // Launch limits of bwd1's kernels at H heads, as gala_attn_fwd_limits.
 extern "C" int gala_attn_bwd1_limits(int k, int nh, int* out) {
   if (nh < 1 || nh > kMaxHeads) return static_cast<int>(cudaErrorInvalidValue);
-  if (k == 2) return launch_limits(attn_merge_sum_kernel, kMergeThreads, 0, out);
+  if (k == 1) return launch_limits(attn_merge_sum_kernel, kMergeThreads, 0, out);
   return unit_limits<Bwd1Kernel>(k, nh, unit_warp_smem(nh) * kWarpsPerBlock, out);
 }

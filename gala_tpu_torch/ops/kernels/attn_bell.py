@@ -18,6 +18,20 @@ each with dout[r] per unit gives sds and A.
 Heads: x is (rows, hf) with head h in columns [h*fh, (h+1)*fh),
 fh = hf / H, 1 <= H <= 8.
 
+Row pitch: a kernel lane loads 4 columns of a head (16 bytes at f32, 8
+at bf16), or 8 in the bf16 forward where the head holds them (16
+bytes).  Where fh is not a multiple of 4, the CUDA wrappers run the
+kernels at a padded pitch (`row_pitch`: fh rounded up to a lane, 41 ->
+44, or 48 in the bf16 forward): x (and bwd1's dout, bwd2's dout block of
+w_tab, which `bwd2_table` writes pitched) with head h at columns
+[h*pitch, h*pitch + fh) and zeros after it (`pad_heads`), launched at
+hf = H * pitch, the outputs cut back to H * fh columns (`unpad_heads`).
+Scores come from vl and vr, which have no pitch, and the zero columns
+add 0 to every sum, so the function is the same.  Each padded call
+counts `gala.attention.pitch` (utils.profiling) while a profiler
+records.  Where fh is a multiple of 4, nothing is copied; every table a
+kernel gets is 16-byte aligned, so there is no scalar form.
+
 Layouts are ops.attention.AttnBell's: `flat_vals` holds slot occupancy
 (1.0 per real edge, 0.0 on padding slots), used only as a mask.
 
@@ -55,7 +69,8 @@ from gala_tpu_torch.ops.kernels._build import (
     CSRC_DIR, DTYPES, Build, build_library, counts_for, dtype_counts, read_limits, wide,
 )
 from gala_tpu_torch.ops.graph import row_lanes
-from gala_tpu_torch.ops.kernels.bell_spmm import unit_slots, vector_width
+from gala_tpu_torch.ops.kernels.bell_spmm import unit_slots
+from gala_tpu_torch.utils.profiling import count
 
 _SRC = os.path.join(CSRC_DIR, "attn_bell.cu")
 MAX_HEADS = 8
@@ -64,12 +79,10 @@ NEG = -1e30  # masked score; a row's max is floored at NEG / 2 (gala_tpu's _NEG)
 NAMES = ("attn_fwd", "attn_bwd1", "attn_bwd2")
 counts = {name: counts_for(name) for name in NAMES}
 # the unit kernels, in the order of gala_attn_{fwd,bwd1,bwd2}_limits
-FWD_KERNELS = ("attn_fwd_kernel<4>", "attn_fwd_kernel<1>", "attn_fwd_merge_kernel",
-               "attn_fwd_kernel<4> bf16", "attn_fwd_kernel<1> bf16", "attn_fwd_kernel<8> bf16")
-BWD1_KERNELS = ("attn_bwd1_kernel<4>", "attn_bwd1_kernel<1>", "attn_merge_sum_kernel (bwd1)",
-                "attn_bwd1_kernel<4> bf16", "attn_bwd1_kernel<1> bf16")
-BWD2_KERNELS = ("attn_bwd2_kernel<4>", "attn_bwd2_kernel<1>", "attn_merge_sum_kernel (bwd2)",
-                "attn_bwd2_kernel<4> bf16", "attn_bwd2_kernel<1> bf16")
+FWD_KERNELS = ("attn_fwd_kernel<4>", "attn_fwd_merge_kernel", "attn_fwd_kernel<4> bf16",
+               "attn_fwd_kernel<8> bf16")
+BWD1_KERNELS = ("attn_bwd1_kernel<4>", "attn_merge_sum_kernel (bwd1)", "attn_bwd1_kernel<4> bf16")
+BWD2_KERNELS = ("attn_bwd2_kernel<4>", "attn_merge_sum_kernel (bwd2)", "attn_bwd2_kernel<4> bf16")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -285,8 +298,10 @@ def attn_bwd1_units_reference(lay, x, vl, vr, dout, m, s, slope: float):
 
 def attn_bwd2_reference(lay, x, vl, w_tab, slope: float, c_pad: int):
     """Plain backward pass 2 on a transpose layout (rows = source nodes c,
-    slots = destinations r): w_tab (n_pad, hf + 4H) = [dout | vr | m | s |
-    sds] in node order.  Returns [dx | dvl] (c_pad, hf + H)."""
+    slots = destinations r): w_tab (n_pad, H * pitch + 4H) = [dout | vr |
+    m | s | sds] in node order, dout's head h at columns h * pitch
+    (bwd2_table; pitch = fh on the CPU).  Returns [dx | dvl] (c_pad,
+    hf + H)."""
     _note_cuda("attn_bwd2", x)
     x, vl = wide(x), wide(vl)
     hf, nh = x.shape[1], vl.shape[1]
@@ -296,13 +311,12 @@ def attn_bwd2_reference(lay, x, vl, w_tab, slope: float, c_pad: int):
     c = lay.row_node.long()[rows]
     w = w_tab[lay.flat_cols.long()]
     real = (lay.flat_vals != 0)[:, None]
-    do = w[:, :hf].view(-1, nh, fh)
-    vr_g, m_g, s_g, sds_g = (w[:, hf + i * nh : hf + (i + 1) * nh] for i in range(4))
+    do, vr_g, m_g, s_g, sds_g = _table_blocks(w, nh, fh)
     zpre = vl[c] + vr_g
     p = torch.where(real, torch.exp(_lrelu(zpre, slope) - m_g) / s_g, 0.0)
     dp = (do * x[c].view(-1, nh, fh)).sum(-1)
     dz = p * (dp - sds_g) * torch.where(zpre > 0, 1.0, slope)
-    dx = _row_sum(rows, (p[..., None] * do).view(-1, hf), n_rows)
+    dx = _row_sum(rows, (p[..., None] * do).reshape(-1, hf), n_rows)
     dvl = _row_sum(rows, dz, n_rows)
     return _to_nodes(lay, torch.cat([dx, dvl], dim=1), c_pad)
 
@@ -325,15 +339,22 @@ def attn_bwd2_units_reference(lay, x, vl, w_tab, slope: float, c_pad: int):
     c = units.node.long()[unit]
     w = w_tab[lay.flat_cols.long()[slot]]
     real = (lay.flat_vals[slot] != 0)[:, None]
-    do = w[:, :hf].view(-1, nh, fh)
-    vr_g, m_g, s_g, sds_g = (w[:, hf + i * nh : hf + (i + 1) * nh] for i in range(4))
+    do, vr_g, m_g, s_g, sds_g = _table_blocks(w, nh, fh)
     zpre = vl[c] + vr_g
     p = torch.where(real, torch.exp(_lrelu(zpre, slope) - m_g) / s_g, 0.0)
     pl = p * torch.where(zpre > 0, 1.0, slope)
-    dx = _row_sum(unit, (p[..., None] * do).view(-1, hf), n_u)
-    q = _row_sum(unit, (pl[..., None] * do).view(-1, hf), n_u)
+    dx = _row_sum(unit, (p[..., None] * do).reshape(-1, hf), n_u)
+    q = _row_sum(unit, (pl[..., None] * do).reshape(-1, hf), n_u)
     dvl = per_head_dot(q, x[units.node.long()], nh) - _row_sum(unit, pl * sds_g, n_u)
     return _sum_units(units, torch.cat([dx, dvl], dim=1), c_pad)
+
+
+def _table_blocks(w, nh: int, fh: int) -> tuple:
+    """Rows w of bwd2's table, at the pitch its width gives: dout (rows, H,
+    fh), then vr, m, s and sds (rows, H)."""
+    d = w.shape[1] - 4 * nh
+    do = w[:, :d].view(-1, nh, d // nh)[..., :fh]
+    return (do, *(w[:, d + i * nh : d + (i + 1) * nh] for i in range(4)))
 
 
 def _sum_units(units, acc, n_out):
@@ -384,15 +405,6 @@ def _check(lay, x, vl, tables: dict, n_out: int, f32: tuple = ()) -> None:
         raise TypeError(f"work-unit starts must be int64, got {lay.units.start.dtype}")
 
 
-def _vec(x, nh, *tables) -> int:
-    """4 (vectors of 4 elements: float4 loads, 8-byte loads at bf16) when
-    every head's width is a multiple of 4 and the feature tables are
-    aligned to 4 of their elements, else 1."""
-    ok = (x.shape[1] // nh) % 4 == 0 and all(t.data_ptr() % (4 * t.element_size()) == 0
-                                             for t in (x, *tables))
-    return 4 if ok else 1
-
-
 def _launch(name, x, *args) -> None:
     """Launch kernel `name` in x's dtype's form (gala_<name>_f32 or _bf16)."""
     fn = getattr(build().lib, f"gala_{name}_{DTYPES[x.dtype]}")
@@ -434,6 +446,84 @@ def _ptr(t):
     return t.data_ptr() if t is not None else None
 
 
+# --------------------------------------------------------------------------- #
+# row pitch
+# --------------------------------------------------------------------------- #
+def row_pitch(fh: int, lane: int = 4) -> int:
+    """The columns a head of fh takes in the kernels' feature tables: fh
+    where it is a multiple of 4, which every kernel's lanes take as it is;
+    else fh rounded up to `lane` columns, one lane's load (4; 8 in the
+    bf16 forward, which loads 16 bytes a lane)."""
+    return fh if fh % 4 == 0 else -(-fh // lane) * lane
+
+
+def head_blocks(t: torch.Tensor, nh: int, pitch: int) -> list[torch.Tensor]:
+    """t (rows, nh * fh) as the column blocks of its pitched form, for one
+    torch.cat: each head's fh columns, then pitch - fh zero columns; [t]
+    where pitch == fh."""
+    rows, fh = t.shape[0], t.shape[1] // nh
+    if pitch == fh:
+        return [t]
+    zeros = t.new_zeros((rows, pitch - fh))
+    return [b for h in range(nh) for b in (t[:, h * fh : (h + 1) * fh], zeros)]
+
+
+def pad_heads(t: torch.Tensor, nh: int, pitch: int) -> torch.Tensor:
+    """(rows, nh * pitch): head h of t (rows, nh * fh) at columns
+    [h * pitch, h * pitch + fh), zeros after it; t itself where
+    pitch == fh."""
+    blocks = head_blocks(t, nh, pitch)
+    return blocks[0] if len(blocks) == 1 else torch.cat(blocks, dim=1)
+
+
+def unpad_heads(t: torch.Tensor, nh: int, fh: int, pitch: int) -> torch.Tensor:
+    """t (rows, nh * pitch + tail) cut back to (rows, nh * fh + tail):
+    head h's first fh columns, then the `tail` columns after the heads
+    (bwd2's dvl).  t itself where pitch == fh; a view at one head with no
+    tail; else a copy."""
+    if pitch == fh:
+        return t
+    if nh == 1 and t.shape[1] == pitch:
+        return t[:, :fh]
+    return torch.cat([t[:, h * pitch : h * pitch + fh] for h in range(nh)]
+                     + [t[:, nh * pitch :]], dim=1)
+
+
+def _pitched(op: str, t: torch.Tensor, nh: int, lane: int = 4) -> tuple[int, int]:
+    """(fh, pitch) of a CUDA call on t with nh heads and lanes of `lane`
+    columns; a call that pads counts `gala.attention.pitch` (its columns,
+    pitched columns, heads and kernel), while a profiler records."""
+    fh = t.shape[1] // nh
+    pitch = row_pitch(fh, lane)
+    if pitch != fh:
+        count("gala.attention.pitch", cols=nh * fh, pitch=nh * pitch, heads=nh, op=op)
+    return fh, pitch
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t 16-byte aligned, as the kernels' lanes load it: t itself, or a
+    copy of a misaligned view."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _bwd2_pitch(x: torch.Tensor, nh: int) -> int:
+    """The pitch of bwd2's table on x's device: row_pitch on CUDA, fh on
+    the CPU (the plain version takes no pitch)."""
+    fh = x.shape[1] // nh
+    return row_pitch(fh) if x.is_cuda else fh
+
+
+def bwd2_table(x, dout, vr, m, s, sds) -> torch.Tensor:
+    """bwd2's w_tab [dout | vr | m | s | sds] (rows, H * pitch + 4H), f32,
+    for x of H = vr.shape[1] heads, in one torch.cat: dout's head h at
+    columns [h * pitch, h * pitch + fh), zeros after it, at the kernel's
+    row pitch on CUDA tensors and pitch = fh on CPU ones.  attn_bwd2
+    takes only this table."""
+    nh = vr.shape[1]
+    return torch.cat([*head_blocks(wide(dout), nh, _bwd2_pitch(x, nh)), wide(vr), m, s,
+                      sds], dim=1)
+
+
 def _check_fwd(lay, x, vl, vr, n_pad: int) -> None:
     _check(lay, x, vl, {"vr": vr}, n_pad)
     if x.shape[0] < lay.n_src or vr.shape != (n_pad, vl.shape[1]):
@@ -455,8 +545,13 @@ def attn_fwd(lay, x, vl, vr, slope: float, n_pad: int, flash: bool):
 
 
 def attn_fwd_cuda(lay, x, vl, vr, slope: float, n_pad: int, flash: bool):
-    """The forward kernel on CUDA tensors (arguments as checked by attn_fwd)."""
-    hf, nh = x.shape[1], vl.shape[1]
+    """The forward kernel on CUDA tensors (arguments as checked by attn_fwd),
+    at x's row pitch for lanes of 16 bytes; out and outpos come back as
+    H * fh columns."""
+    nh, lane = vl.shape[1], 16 // x.element_size()
+    fh, pitch = _pitched("attn_fwd", x, nh, lane)
+    x = _aligned(pad_heads(x, nh, pitch))
+    hf = x.shape[1]
     # padding rows zeroed by the call (rows no unit writes stay 0)
     out = torch.empty((n_pad, hf), dtype=torch.float32, device=x.device)
     m = torch.empty((n_pad, nh), dtype=torch.float32, device=x.device)
@@ -467,9 +562,9 @@ def attn_fwd_cuda(lay, x, vl, vr, slope: float, n_pad: int, flash: bool):
     # the split rows' partials: acc, acc+ (P, hf) then m, s, s+ (P, H)
     part = (torch.empty((u.n_partials * (2 * hf + 3 * nh),), dtype=torch.float32,
                         device=x.device) if u.n_partials else None)
-    # a lane's columns: 16 bytes of x where each head holds them, the
-    # outputs' rows aligned as x's (they are f32: 16 or 32 bytes a lane)
-    vec = vector_width(x, hf // nh) if out.data_ptr() % 16 == 0 else 1
+    # a lane's columns: 16 bytes of x where each head holds them, else 8
+    # (bf16 heads of 4k columns); the outputs are f32, 16 or 32 bytes a lane
+    vec = lane if pitch % lane == 0 else 4
     log2_g, tables = _unit_args(u, hf, vec)
     n_warps, n_split, _, zero_from = _unit_ints(u, log2_g, n_pad)
     _launch("attn_fwd", x,
@@ -477,7 +572,9 @@ def attn_fwd_cuda(lay, x, vl, vr, slope: float, n_pad: int, flash: bool):
             lay.flat_vals.data_ptr(), *tables,
             out.data_ptr(), m.data_ptr(), s.data_ptr(), _ptr(outpos), _ptr(spos), _ptr(part),
             n_warps, n_split, u.n_partials, n_pad, zero_from, hf, nh, float(slope), vec, log2_g)
-    return out, m, s, outpos, spos
+    if flash:
+        outpos = unpad_heads(outpos, nh, fh, pitch)
+    return unpad_heads(out, nh, fh, pitch), m, s, outpos, spos
 
 
 def attn_bwd1(lay, x, vl, vr, dout, m, s, slope: float):
@@ -498,29 +595,34 @@ def attn_bwd1(lay, x, vl, vr, dout, m, s, slope: float):
 
 
 def attn_bwd1_cuda(lay, x, vl, vr, dout, m, s, slope: float):
-    """The bwd1 kernel on CUDA tensors (arguments as checked by attn_bwd1)."""
-    hf, nh, n_pad = x.shape[1], vl.shape[1], dout.shape[0]
+    """The bwd1 kernel on CUDA tensors (arguments as checked by attn_bwd1),
+    x and dout at x's row pitch for lanes of 4 columns."""
+    nh, n_pad = vl.shape[1], dout.shape[0]
+    _, pitch = _pitched("attn_bwd1", x, nh)
+    x, dout = _aligned(pad_heads(x, nh, pitch)), _aligned(pad_heads(dout, nh, pitch))
+    hf = x.shape[1]
     # padding rows zeroed by the call (rows no unit writes stay 0)
     out = torch.empty((n_pad, 3 * nh), dtype=torch.float32, device=x.device)
     u = lay.units
     # the split rows' partial [sds | A | B] rows
     part = (torch.empty((u.n_partials * 3 * nh,), dtype=torch.float32, device=x.device)
             if u.n_partials else None)
-    vec = _vec(x, nh, dout)
-    log2_g, tables = _unit_args(u, hf, vec)
+    log2_g, tables = _unit_args(u, hf, 4)
     _launch("attn_bwd1", x,
             x.data_ptr(), vl.data_ptr(), vr.data_ptr(), dout.data_ptr(), m.data_ptr(),
             s.data_ptr(), lay.flat_cols.data_ptr(), lay.flat_vals.data_ptr(), *tables,
             out.data_ptr(), _ptr(part), *_unit_ints(u, log2_g, n_pad), hf, nh, float(slope),
-            vec, log2_g)
+            4, log2_g)
     return out[:, :nh], out[:, nh : 2 * nh], out[:, 2 * nh :]
 
 
 def _check_bwd2(lay, x, vl, w_tab, c_pad: int) -> None:
     _check(lay, x, vl, {"w_tab": w_tab}, c_pad, f32=("w_tab",))
-    hf, nh = x.shape[1], vl.shape[1]
-    if w_tab.shape[1] != hf + 4 * nh or w_tab.shape[0] < lay.n_src:
-        raise ValueError(f"w_tab {tuple(w_tab.shape)} must be (>= {lay.n_src}, {hf + 4 * nh})")
+    nh = vl.shape[1]
+    width = nh * _bwd2_pitch(x, nh) + 4 * nh
+    if w_tab.shape[1] != width or w_tab.shape[0] < lay.n_src:
+        raise ValueError(f"w_tab {tuple(w_tab.shape)} must be (>= {lay.n_src}, {width}), "
+                         "as bwd2_table builds it")
     if x.shape[0] < lay.n_real:
         raise ValueError(f"x has {x.shape[0]} rows, the layout has {lay.n_real} source rows")
 
@@ -528,7 +630,7 @@ def _check_bwd2(lay, x, vl, w_tab, c_pad: int) -> None:
 def attn_bwd2(lay, x, vl, w_tab, slope: float, c_pad: int):
     """Backward pass 2 on a transpose layout (see attn_bwd2_reference):
     returns [dx | dvl] (c_pad, hf + H), f32.  x and vl share one dtype;
-    w_tab is f32.  The direct binding; the custom op
+    w_tab is f32, built by bwd2_table.  The direct binding; the custom op
     `gala_tpu_torch::attn_bwd2` (ops.kernels.library) runs the same two
     functions."""
     _check_bwd2(lay, x, vl, w_tab, c_pad)
@@ -539,21 +641,26 @@ def attn_bwd2(lay, x, vl, w_tab, slope: float, c_pad: int):
 
 
 def attn_bwd2_cuda(lay, x, vl, w_tab, slope: float, c_pad: int):
-    """The bwd2 kernel on CUDA tensors (arguments as checked by attn_bwd2)."""
-    hf, nh = x.shape[1], vl.shape[1]
+    """The bwd2 kernel on CUDA tensors (arguments as checked by attn_bwd2),
+    x at its row pitch for lanes of 4 columns, as w_tab's dout block
+    (bwd2_table); [dx | dvl] comes back as H * fh + H columns."""
+    nh = vl.shape[1]
+    fh, pitch = _pitched("attn_bwd2", x, nh)
+    x, w_tab = _aligned(pad_heads(x, nh, pitch)), _aligned(w_tab)
+    hf = x.shape[1]
     # padding rows zeroed by the call (rows no unit writes stay 0)
     out = torch.empty((c_pad, hf + nh), dtype=torch.float32, device=x.device)
     u = lay.units
     # the split rows' partial [dx | dvl] rows
     part = (torch.empty((u.n_partials * (hf + nh),), dtype=torch.float32, device=x.device)
             if u.n_partials else None)
-    vec = _vec(x, nh, w_tab)
-    log2_g, tables = _unit_args(u, hf, vec)
+    log2_g, tables = _unit_args(u, hf, 4)
     _launch("attn_bwd2", x,
             w_tab.data_ptr(), x.data_ptr(), vl.data_ptr(), lay.flat_cols.data_ptr(),
             lay.flat_vals.data_ptr(), *tables, out.data_ptr(), _ptr(part),
-            *_unit_ints(u, log2_g, c_pad), hf, nh, float(slope), vec, log2_g)
-    return out
+            *_unit_ints(u, log2_g, c_pad), hf, nh, float(slope), 4, log2_g)
+    del x, w_tab, part  # pitched copies and scratch freed before the cut-back copy
+    return unpad_heads(out, nh, fh, pitch)
 
 
 # --------------------------------------------------------------------------- #
@@ -605,10 +712,10 @@ def compare_with_plain(ab, x, vl, vr, dout, slope: float, n_pad: int, c_pad: int
     check("bwd1 A - sds B = flash identity", a - sds * b,
           (1.0 - slope) * (per_head_dot(dout, outpos, nh) - sds * spos), 2 * a_sds)
 
-    w_tab = torch.cat([dout.float(), vr.float(), r_m, r_s, r_sds], dim=1)
+    w_tab = bwd2_table(x, dout, vr, r_m, r_s, r_sds)
     dxx = attn_bwd2(ab.t, x, vl, w_tab, slope, c_pad)
     r_dxx = attn_bwd2_reference(ab.t, x, vl, w_tab, slope, c_pad)
-    a_tab = torch.cat([dout.float().abs(), vr.float(), r_m, r_s, -r_sds.abs()], dim=1)
+    a_tab = bwd2_table(x, dout.abs(), vr, r_m, r_s, -r_sds.abs())
     a_dxx = attn_bwd2_reference(ab.t, x.abs(), vl, a_tab, slope, c_pad)
     hf = x.shape[1]
     check("bwd2 dx", dxx[:, :hf], r_dxx[:, :hf], a_dxx[:, :hf])
@@ -625,7 +732,7 @@ def aggregate_scales(ab, x, vl, vr, dout, slope: float, n_pad: int, c_pad: int):
     _, m, s, _, spos = attn_fwd_reference(ab.fwd, x, vl, vr, slope, n_pad, True)
     a_out, _, _, a_outpos, _ = attn_fwd_reference(ab.fwd, x.abs(), vl, vr, slope, n_pad, True)
     a_sds = per_head_dot(dout.abs().float(), a_out, nh)
-    a_tab = torch.cat([dout.abs().float(), vr.float(), m, s, -a_sds], dim=1)
+    a_tab = bwd2_table(x, dout.abs(), vr, m, s, -a_sds)
     a_dxx = attn_bwd2_reference(ab.t, x.abs(), vl, a_tab, slope, c_pad)
     a_dvr = (1.0 - slope) * (per_head_dot(dout.abs(), a_outpos, nh) + a_sds * spos)
     return a_out, a_dxx[:, :hf], a_dxx[:, hf:], a_dvr

@@ -408,7 +408,9 @@ class _AttnFwdGrad(torch.autograd.Function):
     """The gradient of out by the flash identity: sds = <dout, out> and
     dvr = (1 - slope)(<dout, out+> - sds s+) from node-sized tensors,
     then one bwd2 sweep over the transpose layout for [dx | dvl].  Needs
-    the flash statistics (flash = True)."""
+    the flash statistics (flash = True).  x is saved unpadded; on CUDA
+    tensors bwd2 pads it again, and bwd2_table writes its table's dout
+    block at the kernel's row pitch."""
 
     @staticmethod
     def forward(ctx, x, vl, vr, lay, lay_ints, t_lay, t_ints, slope, n_pad, c_pad, flash):
@@ -433,7 +435,7 @@ class _AttnFwdGrad(torch.autograd.Function):
             nh = vl.shape[1]
             sds = _attn.per_head_dot(dout, out, nh)
             dvr = (1.0 - slope) * (_attn.per_head_dot(dout, outpos, nh) - sds * spos)
-            w_tab = torch.cat([dout, wide(vr), m, s, sds], dim=1)
+            w_tab = _attn.bwd2_table(x, dout, vr, m, s, sds)
             dxx = attn_bwd2_op(x, vl, w_tab, t_lay, t_ints, slope, c_pad)
             hf = x.shape[1]
             return (dxx[:, :hf].to(x.dtype), dxx[:, hf:].to(vl.dtype), dvr.to(vr.dtype),

@@ -10,8 +10,10 @@ the same matrix.  Usage, from the root of a tree:
 The SpMM runs on the GCN's full bell (bell_order with the diagonal split)
 at F = 1, 32, 128, and on the unfused GAT's ELL layout with per-slot
 values at F = 32, 40; the attention kernels on the fused GAT's layouts
-(bell_order without the split): the forward at hf = 32 and 40 with one
-head and at hf = 64 with 8 heads, bwd1 and bwd2 at BWD_SHAPES; the SDDMM
+(bell_order without the split): the forward at hf = 32, 40 and 41 with
+one head and at hf = 64 and 40 with 8 heads, bwd1 and bwd2 at BWD_SHAPES
+(bwd2's table built as the tree's backward builds it: by
+attn_bell.bwd2_table where the tree has it); the SDDMM
 on the unfused GAT's padded edge lists (2,102,667 edges) at F = 32 and
 40, a (c_pad, F) and b (n_pad, F), the two calls of its backward; one
 sampled SpMM call (dynamic sampling, k = 20, one epoch's (ra, rb)) at F
@@ -50,9 +52,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import torch  # noqa: E402
 
 SLOPE = 0.2
-# (hf, H) of bwd1 and bwd2: the GAT path's one head at hf = 32 and 40, and 8
-# heads (fh = 4 and 8 in 4-column lanes, fh = 5 in scalar ones)
-BWD_SHAPES = ((32, 1), (40, 1), (32, 8), (64, 8), (40, 8))
+# (hf, H) of bwd1 and bwd2: the GAT path's one head at hf = 32 and 40, the
+# Reddit GAT's output layer at 41, and 8 heads (fh = 4 and 8 in 4-column
+# lanes, fh = 5 at a row pitch of 8 where the tree pads)
+BWD_SHAPES = ((32, 1), (40, 1), (41, 1), (32, 8), (64, 8), (40, 8))
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
@@ -191,7 +194,7 @@ def main(argv=None) -> int:
             bounds[key] = bound(layout_bytes(edge.ell, ell_vals) + nbytes(x)
                                 + edge.n_pad * f * x.element_size(),
                                 2 * edge.ell.flat_cols.numel() * f)
-        for hf, nh in ((32, 1), (40, 1), (64, 8)):
+        for hf, nh in ((32, 1), (40, 1), (41, 1), (64, 8), (40, 8)):
             x, vl, vr = rand(gat.c_pad, hf), rand(gat.c_pad, nh), rand(gat.n_pad, nh)
             key = f"attn_fwd {tag} hf={hf} H={nh}"
             measure(key, lambda: ak.attn_fwd(fwd, x, vl, vr, SLOPE, gat.n_pad, True))
@@ -202,8 +205,7 @@ def main(argv=None) -> int:
             x, vl, vr = rand(gat.c_pad, hf), rand(gat.c_pad, nh), rand(gat.n_pad, nh)
             dout = rand(gat.n_pad, hf)
             out, m, s, _, _ = ak.attn_fwd(fwd, x, vl, vr, SLOPE, gat.n_pad, False)
-            w_tab = torch.cat([dout.float(), vr.float(), m, s, ak.per_head_dot(dout, out, nh)],
-                              dim=1)
+            w_tab = bwd2_table(ak, x, dout, vr, m, s, ak.per_head_dot(dout, out, nh))
             key = f"attn_bwd1 {tag} hf={hf} H={nh}"
             measure(key, lambda: ak.attn_bwd1(fwd, x, vl, vr, dout, m, s, SLOPE))
             bounds[key] = bound(layout_bytes(fwd) + nbytes(x, vl, vr, dout, m, s)
@@ -211,8 +213,8 @@ def main(argv=None) -> int:
                                 fwd.flat_cols.numel() * (2 * hf + 12 * nh))
             key = f"attn_bwd2 {tag} hf={hf} H={nh}"
             measure(key, lambda: ak.attn_bwd2(t, x, vl, w_tab, SLOPE, gat.c_pad))
-            bounds[key] = bound(layout_bytes(t) + nbytes(w_tab, x, vl)
-                                + gat.c_pad * (hf + nh) * f32,
+            bounds[key] = bound(layout_bytes(t) + nbytes(x, vl)
+                                + gat.n_pad * (hf + 4 * nh) * f32 + gat.c_pad * (hf + nh) * f32,
                                 t.flat_cols.numel() * (4 * hf + 12 * nh))
         for f in (32, 40):
             a, b = rand(edge.c_pad, f), rand(edge.n_pad, f)
@@ -235,6 +237,15 @@ def main(argv=None) -> int:
     print(json.dumps({"label": args.label, "device": smi, "times": times, "bounds": bounds,
                       "device_ms": device}))
     return 0
+
+
+def bwd2_table(ak, x, dout, vr, m, s, sds):
+    """bwd2's w_tab as the tree's backward builds it: attn_bell.bwd2_table
+    where the tree has it (its dout block at the kernel's row pitch), else
+    [dout | vr | m | s | sds] as it stands."""
+    if hasattr(ak, "bwd2_table"):
+        return ak.bwd2_table(x, dout, vr, m, s, sds)
+    return torch.cat([dout.float(), vr.float(), m, s, sds], dim=1)
 
 
 SAMPLE_K, RA, RB = 20, 96, 96  # k of table7's dynamic schedule; one epoch's (ra, rb)

@@ -264,7 +264,7 @@ def test_kernel_on_long_rows_matches_plain_version(cuda, length, f, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("hf,nh", [(32, 1), (40, 1), (32, 4), (192, 2)])
+@pytest.mark.parametrize("hf,nh", [(32, 1), (40, 1), (41, 1), (32, 4), (192, 2)])
 @pytest.mark.parametrize("length", LONG_ROWS)
 def test_attention_forward_on_long_rows_and_masked_units(cuda, length, hf, nh, dtype):
     """The forward and bwd1 kernels against their plain versions and
@@ -273,7 +273,8 @@ def test_attention_forward_on_long_rows_and_masked_units(cuda, length, hf, nh, d
     forward's (m, s) on that layout); two calls bitwise equal; bwd2
     against its plain version as before.  hf = 192 at 2 heads: 48 4-column
     vectors, two 32-vector slices, head 1 straddling them (bwd1 sums its
-    dots over both)."""
+    dots over both); hf = 41 at its row pitch (44 columns; 48 in the bf16
+    forward, whose lanes load 16 bytes)."""
     host = long_row_host(length)
     g = Graph.from_host(host, strategy="bell", device=cuda, attention=True)
     gen = torch.Generator(device=cuda).manual_seed(length * 10 + hf + nh)
@@ -373,17 +374,26 @@ def test_rows_no_unit_writes_are_zero_over_stale_memory(cuda, every, dtype):
 
 
 BWD2_ROWS = [L + 1, 1000, 52 * L]  # transpose rows of 2, 8 and 52 units
-BWD2_SHAPES = [(32, 1), (40, 1), (33, 1), (32, 4), (32, 8), (40, 8), (192, 2)]  # (hf, H)
+BWD2_SHAPES = [(32, 1), (40, 1), (33, 1), (41, 1), (32, 4), (32, 8), (40, 8), (192, 2)]  # (hf, H)
 
 
 def bwd2_inputs(g, hf, nh, gen, dtype=torch.float32):
     """x, vl (in `dtype`) and an f32 destination table [dout | vr | m | s |
-    sds] drawn on the card (pass 2 is a function of the table alone)."""
+    sds] drawn on the card (pass 2 is a function of the table alone), as
+    attn_bell.bwd2_table builds it."""
     rand = lambda *shape: torch.randn(shape, generator=gen, device=g.device)  # noqa: E731
     s = torch.rand((g.n_pad, nh), generator=gen, device=g.device) * 1.5 + 0.5
-    w_tab = torch.cat([rand(g.n_pad, hf), rand(g.n_pad, nh), rand(g.n_pad, nh), s,
-                       rand(g.n_pad, nh)], dim=1)
-    return rand(g.c_pad, hf).to(dtype), rand(g.c_pad, nh).to(dtype), w_tab
+    dout, vr, m, sds = rand(g.n_pad, hf), rand(g.n_pad, nh), rand(g.n_pad, nh), rand(g.n_pad, nh)
+    x, vl = rand(g.c_pad, hf).to(dtype), rand(g.c_pad, nh).to(dtype)
+    return x, vl, attn_bell.bwd2_table(x, dout, vr, m, s, sds)
+
+
+def abs_table(w_tab, nh):
+    """bwd2's table with |dout| and -|sds| (at its pitch): the plain version
+    on it gives the magnitudes of the summed terms."""
+    d = w_tab.shape[1] - 4 * nh
+    return torch.cat([w_tab[:, :d].abs(), w_tab[:, d : d + 3 * nh],
+                      -w_tab[:, d + 3 * nh :].abs()], dim=1)
 
 
 @pytest.mark.cuda
@@ -393,17 +403,17 @@ def bwd2_inputs(g, hf, nh, gen, dtype=torch.float32):
 def test_bwd2_over_units_matches_plain_versions(cuda, length, hf, nh, dtype):
     """bwd2 over the transpose layout's work units against attn_bwd2_reference
     and attn_bwd2_units_reference, on a source row of `length` slots as
-    built and with masked units; one head, 2, 4 and 8 (fh 40 / 33 / 5 take
-    scalar loads, 33 and 40 at 8 heads two 32-vector slices; fh 96 at 2
-    heads two slices of 4-column vectors, head 1 straddling them); two calls
+    built and with masked units; one head, 2, 4 and 8 (fh 33, 41 and 5 run
+    at their row pitch, 36, 44 and 8 columns, as 4-column vectors; fh 96
+    at 2 heads two slices of 4-column vectors, head 1 straddling them);
+    two calls
     bitwise equal; one launch counted per call.  Tolerance 1e-4 + 1e-4 *
     the plain version on magnitudes, as compare_with_plain takes it."""
     g = Graph.from_host(long_row_host(length), strategy="bell", device=cuda, attention=True)
     assert int(g.attn.t.row_len.max()) >= length and g.attn.t.units.n_partials
     gen = torch.Generator(device=cuda).manual_seed(length + hf * 10 + nh)
     x, vl, w_tab = bwd2_inputs(g, hf, nh, gen, dtype)
-    a_tab = torch.cat([w_tab[:, :hf].abs(), w_tab[:, hf : hf + 3 * nh],
-                       -w_tab[:, hf + 3 * nh :].abs()], dim=1)
+    a_tab = abs_table(w_tab, nh)
     counts = _build.dtype_counts("attn_bwd2", dtype)
     for lay in (g.attn.t, masked_units(g.attn.t)):
         launches = counts.launches
@@ -501,7 +511,9 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         kernel.bell_spmm(g.bell, x.cpu(), g.n_pad)
 
 
-ATTN_SHAPES = [(32, 1), (40, 1), (32, 4), (40, 4)]  # (hf, H); fh 10 takes scalar loads
+# (hf, H); fh 41, 10 and 7 run at their row pitch (44, 12 and 8; 48, 16 and 8 in
+# the bf16 forward)
+ATTN_SHAPES = [(32, 1), (40, 1), (41, 1), (32, 4), (40, 4), (21, 3)]
 
 
 @pytest.mark.cuda
@@ -526,12 +538,75 @@ def test_attention_kernels_match_plain_versions_on_the_card(cuda, case, hf, nh, 
     assert all(c.launches == before[n] + 1 for n, c in counts.items())
     assert {k: v for k, v in res.items() if v[1]} == {}
     out, m, s, _, _ = attn_bell.attn_fwd(g.attn.fwd, x, vl, vr, 0.2, g.n_pad, True)
-    w_tab = torch.cat([dout.float(), vr.float(), m, s, attn_bell.per_head_dot(dout, out, nh)],
-                      dim=1)
+    w_tab = attn_bell.bwd2_table(x, dout, vr, m, s, attn_bell.per_head_dot(dout, out, nh))
     for call in (lambda: attn_bell.attn_fwd(g.attn.fwd, x, vl, vr, 0.2, g.n_pad, True),
                  lambda: attn_bell.attn_bwd1(g.attn.fwd, x, vl, vr, dout, m, s, 0.2),
                  lambda: (attn_bell.attn_bwd2(g.attn.t, x, vl, w_tab, 0.2, g.c_pad),)):
         assert all(torch.equal(a, b) for a, b in zip(call(), call()))
+
+
+def _device_kernels(fn) -> list[str]:
+    """The names of the device kernels that fn() launches (torch.profiler's
+    CUDA activity)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("hf,nh", [(41, 1), (21, 3)])
+def test_pitched_attention_runs_16_byte_lanes_and_backpropagates(cuda, hf, nh, dtype):
+    """attention_aggregate forward and backward at heads of 41 and 7
+    columns, which run at their row pitch: out and the gradients of x, vl
+    and vr against the same op on CPU copies (the plain versions) within
+    1e-4 + 1e-4 * the magnitudes of the summed terms
+    (attn_bell.aggregate_scales) and one bf16 unit where the result is
+    bf16; the forward launches its 16-byte form (attn_fwd_kernel<4> at
+    f32, <8> at bf16) and bwd2 its 4-column one, and each kernel call
+    counts `gala.attention.pitch` once, at its own pitch."""
+    from gala_tpu_torch.ops.attention import attention_aggregate
+    from gala_tpu_torch.utils import profiling
+
+    host, undirected = torch_case("hub_selfloops")
+    g = Graph.from_host(host, strategy="bell", undirected=undirected, device=cuda,
+                        attention=True)
+    g_cpu = Graph.from_host(host, strategy="bell", undirected=undirected, device="cpu",
+                            attention=True)
+    gen = torch.Generator(device=cuda).manual_seed(hf + nh)
+    inputs = [_randn(shape, gen, cuda, dtype) for shape in
+              ((g.c_pad, hf), (g.c_pad, nh), (g.n_pad, nh), (g.n_pad, hf))]
+    dout = inputs.pop()
+    results = []
+    for graph, dev in ((g, cuda), (g_cpu, "cpu")):
+        x, vl, vr = (t.detach().to(dev).requires_grad_(True) for t in inputs)
+        out = attention_aggregate(graph.n_pad, graph.c_pad, 0.2, graph.attn, x, vl, vr)
+        out.backward(dout.to(dev))
+        results.append([t.cpu() for t in (out.detach(), x.grad, vl.grad, vr.grad)])
+    scales = attn_bell.aggregate_scales(g_cpu.attn, *(t.cpu() for t in inputs), dout.cpu(), 0.2,
+                                        g.n_pad, g.c_pad)
+    for got, want, scale in zip(*results, scales):
+        assert got.shape == want.shape and _close(got, want, scale)
+
+    x, vl, vr = (t.clone().requires_grad_(True) for t in inputs)
+
+    def step():
+        profiling.clear_counts()
+        attention_aggregate(g.n_pad, g.c_pad, 0.2, g.attn, x, vl, vr).backward(dout)
+
+    names = [n for n in _device_kernels(step) if "attn_" in n]
+    lane = 16 // dtype.itemsize
+    assert any(f"attn_fwd_kernel<{lane}," in n for n in names), names
+    assert any("attn_bwd2_kernel<4," in n for n in names), names
+    pitched = [c for c in profiling.counts() if c["name"] == "gala.attention.pitch"]
+    assert [c["op"] for c in pitched] == ["attn_fwd", "attn_bwd2"]
+    fh = hf // nh
+    assert [(c["cols"], c["pitch"]) for c in pitched] == [
+        (hf, nh * attn_bell.row_pitch(fh, lane)), (hf, nh * attn_bell.row_pitch(fh))]
 
 
 SDDMM_WIDTHS = [1, 3, 32, 33, 40, 128]  # ragged widths take scalar loads

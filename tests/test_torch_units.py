@@ -309,32 +309,44 @@ def test_attention_bindings_pass_the_warp_tables(attn_pair, monkeypatch, kind, h
     row_lanes(hf / vec) (none at 32 lanes, where a warp takes one unit),
     that table's warp count, log2_g itself, and n_written clipped to the
     output rows as the first row to zero: the forward and bwd1 from the
-    fwd layout's WorkUnits, bwd2 from the transpose layout's.  vec: 16
-    bytes of x a lane in the forward (vector_width), 4 columns in bwd1
-    and bwd2 where each head holds them, else 1."""
+    fwd layout's WorkUnits, bwd2 from the transpose layout's.  Every head
+    runs at its row pitch (fh 33 and 10 padded to 36 and 12, in the bf16
+    forward to 40 and 16), so vec is 16 bytes of x a lane in the forward
+    where the pitch holds them (8 bytes at bf16 fh = 132), 4 columns in
+    bwd1 and bwd2, and hf the pitched width; where fh is a multiple of 4,
+    the call hands the kernel x itself, and every call returns hf-wide
+    outputs."""
     _, tg = attn_pair
     side, i_table, i_warps, i_rows, i_zero, i_vec, i_log2 = _ARGS[kind]
+    i_x, i_hf = (1 if kind == "bwd2" else 0), i_vec - 3
     lay = getattr(tg.attn, side)
     gen = torch.Generator().manual_seed(hf + nh)
     rand = lambda *shape: torch.randn(shape, generator=gen).to(dtype)  # noqa: E731
     x, vl, vr, dout = rand(tg.c_pad, hf), rand(tg.c_pad, nh), rand(tg.n_pad, nh), rand(tg.n_pad, hf)
     m, s = torch.zeros(tg.n_pad, nh), torch.ones(tg.n_pad, nh)
+    lane = 16 // dtype.itemsize if kind == "fwd" else 4
+    pitch = KA.row_pitch(hf // nh, lane)
     launched = []
     monkeypatch.setattr(KA, "_launch", lambda name, t, *args: launched.append((name, args)))
     if kind == "fwd":
-        KA.attn_fwd_cuda(lay, x, vl, vr, SLOPE, tg.n_pad, True)
-        n_out, vec = tg.n_pad, KB.vector_width(x, hf // nh)
+        got = KA.attn_fwd_cuda(lay, x, vl, vr, SLOPE, tg.n_pad, True)
+        n_out, vec, wide_outs = tg.n_pad, lane if pitch % lane == 0 else 4, (got[0], got[3])
     elif kind == "bwd1":
-        KA.attn_bwd1_cuda(lay, x, vl, vr, dout, m, s, SLOPE)
-        n_out, vec = tg.n_pad, 4 if (hf // nh) % 4 == 0 else 1
+        got = KA.attn_bwd1_cuda(lay, x, vl, vr, dout, m, s, SLOPE)
+        n_out, vec, wide_outs = tg.n_pad, 4, ()
+        assert all(t.shape == (tg.n_pad, nh) for t in got)
     else:
-        w_tab = torch.zeros(tg.n_pad, hf + 4 * nh)
-        KA.attn_bwd2_cuda(lay, x, vl, w_tab, SLOPE, tg.c_pad)
-        n_out, vec = tg.c_pad, 4 if (hf // nh) % 4 == 0 else 1
+        w_tab = torch.zeros(tg.n_pad, nh * pitch + 4 * nh)
+        got = KA.attn_bwd2_cuda(lay, x, vl, w_tab, SLOPE, tg.c_pad)
+        n_out, vec, wide_outs = tg.c_pad, 4, ()
+        assert got.shape == (tg.c_pad, hf + nh)
+    assert all(t.shape == (n_out, hf) for t in wide_outs)
     (name, args), = launched
     assert name == f"attn_{kind}" and len(args) + 1 == len(KA.FUNCTIONS[f"gala_{name}_f32"])
+    assert args[i_hf] == nh * pitch
+    assert (args[i_x] == x.data_ptr()) == (pitch == hf // nh)
     u = lay.units
-    log2_g = row_lanes(hf // vec)
+    log2_g = row_lanes(nh * pitch // vec)
     table, n_warps = u.warps(log2_g)
     assert (args[i_vec], args[i_log2]) == (vec, log2_g)
     assert (args[i_table], args[i_warps]) == (table, n_warps)
