@@ -64,9 +64,11 @@ and prints no "ok" line:
             docstring states the tolerance: 1e-4 + 1e-4 * the magnitudes
             of the summed terms), bwd1 also against the flash identity, on
             the GAT run's full-graph and training-subgraph layouts and on
-            the generated hub graph, at (hf, H) = (32, 1), (40, 1), (32, 4)
-            and the padded (41, 1), (21, 3) (heads of 41 and 7 at their
-            row pitch, 44 and 8 columns; 48 and 8 in the bf16 forward),
+            the generated hub graph, at (hf, H) = (32, 1), (40, 1), (32, 4),
+            the padded (41, 1), (21, 3) (heads of 41 and 7 at their
+            row pitch, 44 and 8 columns; 48 and 8 in the bf16 forward)
+            and gat_heads(8, out=8)'s (64, 8), (328, 8) (8 heads of 41
+            at 352 columns; 384 in the bf16 forward),
             and two forward calls bitwise equal; bwd1 (over the fwd
             layout's work units) and bwd2 (over the transpose layout's)
             also against their units emulations and a second call,
@@ -74,7 +76,9 @@ and prints no "ok" line:
             attention_aggregate forward and backward on the hub graph on
             the card against the same call on CPU tensors (same tolerance
             form), where a padded shape launches the forward's 16-byte
-            form (<4> f32, <8> bf16) and bwd2's 4-column one; then each kernel's and plain version's times at the GAT
+            form (<4> f32, <8> bf16) and bwd2's 4-column one, as does a
+            many-head shape, bwd2 at its 8-head template (<4, 8>); then
+            each kernel's and plain version's times at the GAT
             path's shapes, and each kernel's on the full layout against
             the layout without its rows over 128 slots (bwd1 and bwd2
             fail above 1.5x per slot).
@@ -358,8 +362,9 @@ ATTN_REPLACES = {
     "attn_bwd1": "gala_tpu/ops/pallas/attn_bell.py:307",
     "attn_bwd2": "gala_tpu/ops/pallas/attn_bell.py:456",
 }
-# (hf, H); the GAT path runs (32, 1), (40, 1); (41, 1) and (21, 3) run at a row pitch
-ATTN_SHAPES = ((32, 1), (40, 1), (32, 4), (41, 1), (21, 3))
+# (hf, H); the GAT path runs (32, 1), (40, 1); (41, 1) and (21, 3) run at a row pitch;
+# gat_heads(8, out=8) runs (64, 8) and (328, 8), eight heads of 41 pitched to 352 columns
+ATTN_SHAPES = ((32, 1), (40, 1), (32, 4), (41, 1), (21, 3), (64, 8), (328, 8))
 SLOPE = 0.2
 SDDMM_SOURCE = "gala_tpu_torch/csrc/sddmm.cu"
 SDDMM_REPLACES = "gala_tpu/ops/pallas/sddmm.py:183"
@@ -902,11 +907,14 @@ def phase_attn_kernel(cm, ak, dtype=torch.float32):
         print(f"[{tag}] attention_aggregate hub graph hf={hf} H={nh}, card vs cpu: "
               + ", ".join(errs))
         fh = hf // nh
-        if fh % 4:  # padded: the 16-byte forward and 4-column bwd2 run
+        if fh % 4 or nh > 1:  # padded or many heads: the 16-byte forward and the
+            # 4-column bwd2 at its heads' template (1, else ak's most, 8)
             names = device_kernels(lambda: _aggregate_on("cuda", hub.attn, hub,
                                                          [t.detach() for t in inputs]))
-            lanes = (f"attn_fwd_kernel<{16 // dtype.itemsize},", "attn_bwd2_kernel<4,")
-            print(f"[{tag}] attention_aggregate hf={hf} H={nh} at its row pitch launches "
+            lanes = (f"attn_fwd_kernel<{16 // dtype.itemsize},",
+                     f"attn_bwd2_kernel<4, {1 if nh == 1 else 8},")
+            print(f"[{tag}] attention_aggregate hf={hf} H={nh} (pitch "
+                  f"{ak.row_pitch(fh, 16 // dtype.itemsize)}) launches "
                   + ", ".join(sorted({n for n in names if "attn_" in n})))
             if not all(any(k in n for n in names) for k in lanes):
                 raise AssertionError(f"attention_aggregate hf={hf} H={nh}: no {lanes} launch "

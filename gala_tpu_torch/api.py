@@ -10,7 +10,8 @@ from __future__ import annotations
 
 
 def compile_source(source: str, device="cuda", **opts):
-    from gala_tpu_torch.dsl.parser import parse_source
+    """Parse (the port's extensions included: lowering.heads) and compile."""
+    from gala_tpu_torch.lowering.heads import parse_source
     from gala_tpu_torch.lowering.lower import lower
 
     spec = parse_source(source)

@@ -33,12 +33,13 @@ from gala_tpu_torch.ir.data_ir import DataFormat
 from gala_tpu_torch.models.common import (
     ParamDict, epsilon_param, linear, linear_init, scale_by_eps,
 )
-from gala_tpu_torch.ops.attention import attention_aggregate
+from gala_tpu_torch.ops.attention import attention_aggregate, elu, head_mean, head_scores
 from gala_tpu_torch.ops.edge import edge_softmax, leaky_relu, sddvv_add, sddvv_mul
 from gala_tpu_torch.ops.graph import Graph
 from gala_tpu_torch.ops.spmm import spmm, spmm_direct, spmm_ev, spmm_sampled
 
 _FFN_OPS = (ComputeOp.FFN, ComputeOp.FFN_EDGE, ComputeOp.FFN_SELF, ComputeOp.FFN_REPEAT)
+_TRANSFORMS = {"head_mean": head_mean, "elu": elu}
 
 
 def _resolve(dim: int, dim_env: dict[int, int]) -> int:
@@ -166,6 +167,13 @@ def _eval_node(node: ComputeNode, env, params, graphs):
         return F.leaky_relu(ins[0], slope)
     if op is ComputeOp.RELU:
         return torch.relu(ins[0])
+    if op is ComputeOp.TRANSFORM:
+        # lowering.heads: "head_mean" over the output heads, "elu"
+        name, heads = node.params
+        return _TRANSFORMS[name](ins[0], int(heads))
+    if op is ComputeOp.FFN_EDGE and node.params:
+        # lowering.heads: each head's score from its own columns
+        return head_scores(params[node.inputs[1].name], ins[0], int(node.params[0]))
     if op in _FFN_OPS:
         w = node.inputs[1]
         split = (getattr(g0, "tp_plan", None) or {}).get(w.name)
@@ -191,6 +199,7 @@ _ROW_LOCAL_OPS = frozenset({
     ComputeOp.FFN, ComputeOp.FFN_EDGE, ComputeOp.FFN_SELF,
     ComputeOp.FFN_REPEAT, ComputeOp.RELU, ComputeOp.LEAKY_RELU, ComputeOp.ROW_BROADCAST,
     ComputeOp.ADD, ComputeOp.MUL, ComputeOp.SCALAR_ADD_EPS_MULTIPLY,
+    ComputeOp.TRANSFORM,
 })
 
 

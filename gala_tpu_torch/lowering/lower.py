@@ -36,6 +36,7 @@ from gala_tpu_torch.ir.build import generate_ir
 from gala_tpu_torch.ir.compute_ir import Program, uses_edge_values, uses_fused_attention
 from gala_tpu_torch.ir.data_ir import SYM_CLASSES, SYM_FEATS
 from gala_tpu_torch.lowering.autoschedule import autoschedule
+from gala_tpu_torch.lowering import heads
 from gala_tpu_torch.lowering.interp import make_forward, make_init_params
 from gala_tpu_torch.models.common import activation_dtype
 from gala_tpu_torch.ops.graph import NODE_PAD, Graph, choose_strategy
@@ -184,6 +185,8 @@ def lower(
 
         # ---- IR + middle-end passes --------------------------------- #
         prog = generate_ir(spec)
+        if isinstance(spec, heads.HeadsSpec):
+            prog = heads.rewrite(prog, spec)
         prog = run_passes(prog, spec, mode=mode)
 
     # ---- data-level transformations --------------------------------- #
@@ -222,6 +225,8 @@ def lower(
     if strategy == "auto":
         strategy = choose_strategy(g_host.n_rows + NODE_PAD, g_host.n_cols + NODE_PAD,
                                    g_host.n_edges, edge_vals=edge_vals)
+    if isinstance(spec, heads.HeadsSpec):
+        heads.check(spec, attention, strategy)
     with marker("gala.lower.relabel", into=spans):
         if strategy in ("bell", "pallas_bell"):
             # relabel nodes in degree-class order so the binned layout's

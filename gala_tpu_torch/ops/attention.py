@@ -37,6 +37,11 @@ Under a profiler (utils.profiling) `attention_aggregate` is the span
 destination rows and nonzeros (AttnBell.n_rows, n_edges), x's width, the
 heads and x's item size; its gradient is `gala.attention.grad`, counted
 with the real source rows (AttnBell.n_cols).
+
+The GAT paper's heads around it (the DSL's gat_heads): `head_scores`,
+each head's score from its own columns, `head_mean`, the output layer's
+mean over heads, and `elu`; spans `gala.head_scores`, `gala.head_mean`
+and `gala.elu` (their forwards), each counting (rows, heads, width).
 """
 from __future__ import annotations
 
@@ -44,9 +49,11 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from gala_tpu_torch.data.csr import HostCSR
 from gala_tpu_torch.data.ell import build_binned_ell
+from gala_tpu_torch.models.common import full_precision_matmuls
 from gala_tpu_torch.ops.graph import BellDev, moved
 from gala_tpu_torch.ops.kernels import library
 from gala_tpu_torch.utils.profiling import count, marker, recording
@@ -141,3 +148,34 @@ def attention_aggregate(n_pad: int, c_pad: int, slope: float, ab: AttnBell,
         out = library.attention(x.contiguous(), vl, vr, ab, n_pad, c_pad, float(slope), flash,
                                 grad_work if flash else None)
         return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------- #
+# GAT-form heads
+# --------------------------------------------------------------------------- #
+def head_scores(p, x: torch.Tensor, heads: int) -> torch.Tensor:
+    """(N, H) scores, score[n, h] = x[n, h*fh:(h+1)*fh] @ w[:, h] + b[h],
+    from p = {"w": (fh, H), "b": (H,)}: one product of x with the
+    block-diagonal (H*fh, H) matrix that holds w's columns, so x is read
+    once and not copied per head."""
+    with marker("gala.head_scores"):
+        count("gala.head_scores", rows=int(x.shape[0]), heads=heads, width=int(x.shape[1]))
+        full_precision_matmuls()
+        w = p["w"].to(x.dtype)
+        eye = torch.eye(heads, dtype=x.dtype, device=x.device)
+        block = (w.t()[:, :, None] * eye[:, None, :]).reshape(-1, heads)
+        return torch.matmul(x, block) + p["b"].to(x.dtype)
+
+
+def head_mean(x: torch.Tensor, heads: int) -> torch.Tensor:
+    """(N, H*C) -> (N, C): the mean over the H heads of C columns each."""
+    with marker("gala.head_mean"):
+        count("gala.head_mean", rows=int(x.shape[0]), heads=heads, width=int(x.shape[1]))
+        return x.view(x.shape[0], heads, -1).mean(dim=1)
+
+
+def elu(x: torch.Tensor, heads: int = 1) -> torch.Tensor:
+    """ELU (alpha 1) of the layer's output, `heads` heads wide."""
+    with marker("gala.elu"):
+        count("gala.elu", rows=int(x.shape[0]), heads=heads, width=int(x.shape[1]))
+        return F.elu(x)

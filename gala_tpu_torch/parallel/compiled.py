@@ -110,6 +110,8 @@ def shard_compiled(
         raise ValueError("CompiledModel lacks host data; re-run lower()")
     if cm.spec.compute.sample_dynamic:
         raise NotImplementedError("dynamic sampling is single-chip only")
+    if getattr(cm.spec, "gat_heads", 0):
+        raise NotImplementedError("gat_heads programs are single-chip only")
     mesh = mesh or make_mesh(model_axis=1)
     n_shards = mesh.shape["data"]
     shard = mesh.coords[0]

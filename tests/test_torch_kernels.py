@@ -609,6 +609,38 @@ def test_pitched_attention_runs_16_byte_lanes_and_backpropagates(cuda, hf, nh, d
         (hf, nh * attn_bell.row_pitch(fh, lane)), (hf, nh * attn_bell.row_pitch(fh))]
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("nh,fh", [(8, 8), (8, 41)])
+def test_attention_aggregate_at_eight_heads_matches_plain_version(cuda, nh, fh, dtype):
+    """attention_aggregate forward and gradient at the GAT paper's 8 heads
+    (8 of 8, and 8 of 41: pitch 44, 352 columns at f32) on the hub graph:
+    out and the gradients of x, vl and vr against the same op on CPU
+    copies (the plain versions) within 1e-4 + 1e-4 * the magnitudes of the
+    summed terms (attn_bell.aggregate_scales)."""
+    from gala_tpu_torch.ops.attention import attention_aggregate
+
+    host, undirected = torch_case("hub_selfloops")
+    graphs = [Graph.from_host(host, strategy="bell", undirected=undirected, device=dev,
+                              attention=True) for dev in (cuda, "cpu")]
+    g = graphs[0]
+    hf = nh * fh
+    gen = torch.Generator(device=cuda).manual_seed(hf)
+    inputs = [_randn(shape, gen, cuda, dtype) for shape in
+              ((g.c_pad, hf), (g.c_pad, nh), (g.n_pad, nh), (g.n_pad, hf))]
+    dout = inputs.pop()
+    results = []
+    for graph, dev in zip(graphs, (cuda, "cpu")):
+        x, vl, vr = (t.detach().to(dev).requires_grad_(True) for t in inputs)
+        out = attention_aggregate(graph.n_pad, graph.c_pad, 0.2, graph.attn, x, vl, vr)
+        out.backward(dout.to(dev))
+        results.append([t.cpu() for t in (out.detach(), x.grad, vl.grad, vr.grad)])
+    scales = attn_bell.aggregate_scales(graphs[1].attn, *(t.cpu() for t in inputs), dout.cpu(),
+                                        0.2, g.n_pad, g.c_pad)
+    for got, want, scale in zip(*results, scales):
+        assert got.shape == want.shape and _close(got, want, scale)
+
+
 SDDMM_WIDTHS = [1, 3, 32, 33, 40, 128]  # ragged widths take scalar loads
 
 
