@@ -77,7 +77,8 @@ and prints no "ok" line:
             the card against the same call on CPU tensors (same tolerance
             form), where a padded shape launches the forward's 16-byte
             form (<4> f32, <8> bf16) and bwd2's 4-column one, as does a
-            many-head shape, bwd2 at its 8-head template (<4, 8>); then
+            many-head shape, each at its head template (<.., 1> at one
+            head, <.., 8> at more: the heads across lanes); then
             each kernel's and plain version's times at the GAT
             path's shapes, and each kernel's on the full layout against
             the layout without its rows over 128 slots (bwd1 and bwd2
@@ -813,11 +814,18 @@ def phase_gat(gala_tpu_torch, dtype=torch.float32, data=None):
 
 def device_kernels(fn) -> list:
     """The names of the device kernels that fn() launches (torch.profiler's
-    CUDA activity)."""
+    CUDA activity).  fn runs twice inside one session and the names of
+    both calls come back: a session can lose its first activities (on the
+    card, late in this script, one held neither the call's host-to-device
+    copies nor its first kernel, which ran: its merge kernel and outputs
+    were there), so a launch check reads the second call too.  A kernel
+    that each call launches once is then listed twice; the launch check
+    prints each one's count, so a lost record shows as x1."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
         fn()
         torch.cuda.synchronize()
     return [e.name for e in prof.events() if e.device_type.name == "CUDA"]
@@ -908,14 +916,16 @@ def phase_attn_kernel(cm, ak, dtype=torch.float32):
               + ", ".join(errs))
         fh = hf // nh
         if fh % 4 or nh > 1:  # padded or many heads: the 16-byte forward and the
-            # 4-column bwd2 at its heads' template (1, else ak's most, 8)
+            # 4-column bwd2, each at its heads' template (1, else ak's most, 8)
             names = device_kernels(lambda: _aggregate_on("cuda", hub.attn, hub,
                                                          [t.detach() for t in inputs]))
-            lanes = (f"attn_fwd_kernel<{16 // dtype.itemsize},",
-                     f"attn_bwd2_kernel<4, {1 if nh == 1 else 8},")
+            maxh = 1 if nh == 1 else ak.MAX_HEADS
+            lanes = (f"attn_fwd_kernel<{16 // dtype.itemsize}, {maxh},",
+                     f"attn_bwd2_kernel<4, {maxh},")
             print(f"[{tag}] attention_aggregate hf={hf} H={nh} (pitch "
                   f"{ak.row_pitch(fh, 16 // dtype.itemsize)}) launches "
-                  + ", ".join(sorted({n for n in names if "attn_" in n})))
+                  + ", ".join(f"{n} x{names.count(n)}"
+                              for n in sorted({n for n in names if "attn_" in n})))
             if not all(any(k in n for n in names) for k in lanes):
                 raise AssertionError(f"attention_aggregate hf={hf} H={nh}: no {lanes} launch "
                                      f"among {names}")

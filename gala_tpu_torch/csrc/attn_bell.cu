@@ -59,34 +59,56 @@
 // [dout | vr | m | s | sds] of the destination, once; bwd1 what the
 // forward reads, and writes 3H floats a row.  There are a few
 // flops per gathered float (an exp per slot and head), and no tile is
-// reused, so tensor cores have no role.
+// reused, so tensor cores have no role.  In 32-byte sector requests a
+// real slot costs, at 8 heads on the GAT paper's two layers (8 of 8, 8 of
+// 41 at pitch 44: 64 and 352 columns): the forward 8 + 8 and 24 + 44 (a
+// head's score a request, head by head, in each of the wide layer's 3
+// slices) before the heads went across lanes, 1 + 8 and 1 + 44 after;
+// bwd2 32 + 8 and 32 + 44 (vr, m, s and sds a request each, head by
+// head) before, 4 + 8 and 4 + 44 after.  What is left is the row's
+// gather; how much of it L2 serves was not read (no hardware counters on
+// the card), and the wide layer's 0.88 against a predicted 0.65 suggests
+// its scalar reads had been L2 hits.
 // One design for the three pass-1 kernels.  Three units in four hold at
 // most 8 slots, and one warp a unit paid each one's whole chain
 // (descriptor, scores, a max and two sums over the whole warp, gather,
 // store) for a few rows.  So a warp takes G units (unit_gather.cuh
 // WarpUnits, from the layout's warp table for its g); a unit's 32 / G
 // lanes stage its columns (one coalesced sweep of the warp where the units
-// lie back to back), then take its scalar phase head by head through
-// shared memory (the forward's scores, max and two sums; bwd1's
-// probabilities under the saved max and two sums; bwd2's probabilities and
-// sum p lrelu' sds; every max and sum a reduction over the unit's lanes
-// alone, and lane t0 = h of the unit keeps head h's result in a register:
-// no per-head register arrays, no per-unit sums in shared memory), then
-// its gather with lanes across the features, its slot groups summed by a
-// shuffle tree inside its lanes (gather_units, sum_groups).  bwd1's and
-// bwd2's dots with one row per unit (dout[r], x[c]) are summed over each
-// head's lanes and kept by lane t0 = h; a wide row's g-vector slices are
-// walked inside the warp there (n_slices), so a head that straddles two
-// slices is summed whole, where the forward takes its slice from
-// blockIdx.y.  The forward has one form for every head count and asks for
-// 6 blocks per SM (40 registers); bwd1 and bwd2 are instantiated for one
-// head (6 blocks, 40 registers: at 32 both spilled) and for up to 8 (5
-// blocks, 48 registers).
-// Measured (scripts/unit_kernels_torch.py, in turns with the one-warp-a-
-// unit parent, PERF.md; NVIDIA H100 80GB HBM3 at 700 W), f32 ms at hf =
-// 32 / 40, one head: the forward 0.2087 -> 0.1278 / 0.2326 -> 0.1907
-// (PR 15); bwd2 0.1566 -> 0.0972 / 0.1790 -> 0.1427; bwd1 0.1334 ->
-// 0.0920 / 0.1518 -> 0.1492 (PR 16).
+// lie back to back), then take its scalar phase through shared memory
+// (the forward's scores, max and two sums; bwd1's probabilities under the
+// saved max and two sums; bwd2's probabilities and sum p lrelu' sds),
+// then its gather with lanes across the features, its slot groups summed
+// by a shuffle tree inside its lanes (gather_units, sum_groups).  The
+// forward's and bwd2's scalar lanes take (slot, head) (HeadLanes:
+// neighbouring lanes the heads of one slot, so a slot's H scores are one
+// coalesced read; at one head the unit's slots, through the same code in
+// bwd2 and a loop of its own in the forward), each lane keeps its head's
+// running max and sums, and the slot lanes of a head reduce them, once
+// for all heads.  Lane t0 = h of the unit keeps head h's result in a
+// register: no per-head register arrays, no per-unit sums in shared
+// memory.  bwd1 (off the GAT path) keeps its
+// scalar phase head by head: its kernel phase is the only caller, so the
+// multi-head lanes would change what no cell runs.  bwd1's and bwd2's
+// dots with one row per unit (dout[r], x[c]) are summed over each head's
+// lanes and kept by lane t0 = h; a wide row's g-vector slices are walked
+// inside the warp (n_slices), so a head that straddles two slices is
+// summed whole; the one-head forward takes its slice from blockIdx.y,
+// the multi-head forward walks them too, so a wide row stages its
+// columns and takes its scalar phase once.  Each kernel is instantiated
+// for one head (6 blocks per SM, 40 registers: at 32 they spilled) and
+// for up to 8 (5 blocks, 48 registers; the bf16 forward's 8-column form
+// 4 blocks, 56).
+// Measured (scripts/unit_kernels_torch.py, in turns with the tree
+// before each change, PERF.md; NVIDIA H100 80GB HBM3 at 700 W), f32 ms.
+// Several units a warp against one, at hf = 32 / 40 and one head: the
+// forward 0.2087 -> 0.1278 / 0.2326 -> 0.1907; bwd2 0.1566 -> 0.0972 /
+// 0.1790 -> 0.1427; bwd1 0.1334 -> 0.0920 / 0.1518 -> 0.1492.  The heads
+// across lanes against head by head, 8 heads at hf = 64 / 328 (pitch 44)
+// on the benchmark's Reddit-shaped graph: the forward
+// 12.25 -> 8.23 / 52.91 -> 45.76, bwd2 31.21 -> 9.85 / 51.79 -> 45.64;
+// on the Arxiv stand-in: the forward 0.4512 -> 0.2663 / 3.4993 ->
+// 2.4611, bwd2 0.5809 -> 0.2668 / 2.2844 -> 2.0250.
 //
 // bf16 activations (gala_tpu's dtype=jnp.bfloat16): each kernel has a
 // second instantiation that reads x, vl and vr (and bwd1's dout) as bf16,
@@ -126,9 +148,14 @@ __device__ __forceinline__ float lrelu(float z, float slope) { return z > 0.f ? 
 // units' columns, then H rows of kUnitSlots scores (the forward's), then
 // probabilities, each stored with the sign of its zpre (+p where zpre > 0,
 // -p elsewhere: the flash statistics' mask and lrelu' ride in the sign
-// bit).
+// bit).  Rows of several heads lie head_stride floats apart: 4 more than
+// kUnitSlots, so the heads of one slot fall in different banks (bank 4h +
+// t), as the multi-head scalar phase writes them and the gathers read them.
+__host__ __device__ constexpr int head_stride(int nh) {
+  return nh == 1 ? kUnitSlots : kUnitSlots + 4;
+}
 __host__ __device__ constexpr size_t unit_warp_smem(int nh) {
-  return sizeof(UnitSmem) + static_cast<size_t>(nh) * kUnitSlots * sizeof(float);
+  return sizeof(UnitSmem) + static_cast<size_t>(nh) * head_stride(nh) * sizeof(float);
 }
 static_assert(unit_warp_smem(kMaxHeads) * kWarpsPerBlock <= kDefaultSmem,
               "the unit kernels would need cudaFuncSetAttribute");
@@ -144,12 +171,42 @@ __device__ __forceinline__ void stage_columns(const WarpUnits& wu, const int32_t
   });
 }
 
+// The scalar phase's lanes: a unit's ul lanes are HP head lanes (H
+// rounded up to a power of two; HP <= g <= ul, as fh >= 4) by ul / HP slot
+// lanes.  Lane t0 takes head h = t0 % HP (none where h >= H) and the unit's
+// slots t0 / HP, t0 / HP + ul / HP, ...: neighbouring lanes take the heads
+// of one slot, so its H scores (vl[c, 0:H]; bwd2's vr, m, s and sds blocks
+// of its table row) are read as coalesced pieces.  A lane keeps a running
+// max and sums of its head over its slots; the slot lanes of a head then
+// reduce them (log2(ul / HP) shuffle steps, unit_max / unit_sum from
+// stride HP), and lane t0 = h holds head h's results.  At one head (MAXH
+// 1, HP = 1 at compile time) lane t0 takes slots t0, t0 + ul, ... and the
+// reductions run over the whole unit.
+template <int MAXH>
+struct HeadLanes {
+  int log2_hp, h, step;
+  bool on;
+  __device__ __forceinline__ HeadLanes(const WarpUnits& wu, int nh) {
+    log2_hp = MAXH == 1 ? 0 : 32 - __clz(nh - 1);
+    h = wu.t0() & ((1 << log2_hp) - 1);
+    step = 1 << (wu.log2_ul - log2_hp);
+    on = MAXH == 1 || h < nh;
+  }
+  __device__ __forceinline__ int first(const WarpUnits& wu) const { return wu.t0() >> log2_hp; }
+  __device__ __forceinline__ int stop() const { return 1 << log2_hp; }
+};
+
 // Resident blocks per SM that the forward asks of the compiler: 6 (40
 // registers; registers go in steps of 8 a thread, so 7 blocks would give
 // 32).  At 8 heads the shared memory allows no more blocks; at 32
 // registers the forward spilled (acc and acc+ are 2 VEC registers, 16 at 8
-// bf16 columns a lane).
+// bf16 columns a lane).  The multi-head form, which walks its slices,
+// spilled 20-44 B at 40 registers, so it asks for 5 (48), as bwd1 and bwd2
+// do at H > 1, and for 4 (56) at 8 bf16 columns a lane, which spilled 4 B
+// at 48.
 constexpr int kFwdMinBlocks = 6;
+template <int VEC>
+constexpr int kFwdMinBlocksHeads = VEC == 8 ? 4 : 5;
 // rows of a slot group in flight per step of the gather
 template <int VEC>
 constexpr int kFwdRows = VEC == 4 ? 2 : 1;
@@ -158,23 +215,31 @@ constexpr int kFwdRows = VEC == 4 ? 2 : 1;
 // one at g = 32).  With outpos != null the flash statistics out+ =
 // sum_{zpre>0} p x and s+ = sum_{zpre>0} p are taken too.  The partial
 // tables of split rows (unnormalised, p = e^(z - m_u)): pacc, paccp
-// (n_partials, hf); pm, ps, psp (n_partials, H).  One form serves every
-// head count (nh at run time): a one-head form of its own spilled.
+// (n_partials, hf); pm, ps, psp (n_partials, H).  Two forms: one head
+// (MAXH 1) and up to 8 (MAXH 8).
 //
-// Scalar phase, by the unit's ul = 32 / G lanes (a lane takes the unit's
-// slots t0, t0 + ul, ...: at most 4, as a unit holds at most 4 ul slots):
-// the columns go to shared memory (-1 for a masked slot), then head by
-// head the scores zpre = vl[c, h] + vr[node, h] (kept in the head's row of
-// shared memory), the unit's max m = max(max lrelu(zpre), kFloor), and
-// p = e^(lrelu(zpre) - m) stored with the sign of zpre over the score, with
-// s = sum p and s+ = sum_{zpre>0} p; max and sums are reductions over the
-// unit's lanes, and lane t0 = h writes head h's statistics at once.  No
-// per-head register arrays: the 8-head forms hold what the one-head form
-// holds.  Gather phase: each slot group of the unit sums |p| x (and p x
-// over p > 0) over its slots, summed over the unit's slot groups by a
-// shuffle tree, and divided by the sum of the lane's head.
-template <int VEC, class T>
-__global__ void __launch_bounds__(kWarp * kWarpsPerBlock, kFwdMinBlocks)
+// Scalar phase, by the unit's ul = 32 / G lanes: the columns go to shared
+// memory (-1 for a masked slot), then each lane's scores zpre = vl[c, h] +
+// vr[node, h] of its head h (kept in the head's row of shared memory), the
+// head's max m = max(max lrelu(zpre), kFloor) over the unit, and p =
+// e^(lrelu(zpre) - m) stored with the sign of zpre over the score, with s
+// = sum p and s+ = sum_{zpre>0} p; max and sums are reductions over the
+// head's lanes, and lane t0 = h writes head h's statistics.  At H > 1 the
+// lanes take (slot, head) (HeadLanes), all heads in one pass.  At one head
+// a lane takes the unit's slots t0, t0 + ul, ... (at most 4, as a unit
+// holds at most 4 ul slots) in a loop over the call's heads: HeadLanes at
+// HP = 1 has the same lane map and order of sums, but written through it
+// the 4-column forms spilled 4 B at 40 registers (one pass) or ran 0.9-1.3%
+// slower (a loop of passes), so the one-head form keeps its own loop.  No
+// per-head register arrays.  Gather phase: each slot group of the unit
+// sums |p| x (and p x over p > 0) over its slots, summed over the unit's
+// slot groups by a shuffle tree, and divided by the sum of the lane's
+// head.  At one head a block takes one g-vector slice of its rows
+// (blockIdx.y); at H > 1 the warp walks all n_slices of them, so a wide
+// row stages its columns and takes its scalar phase once.
+template <int VEC, int MAXH, class T>
+__global__ void __launch_bounds__(kWarp * kWarpsPerBlock,
+                                  MAXH == 1 ? kFwdMinBlocks : kFwdMinBlocksHeads<VEC>)
 attn_fwd_kernel(const T* __restrict__ x, const T* __restrict__ vl,
                 const T* __restrict__ vr, const int32_t* __restrict__ cols,
                 const float* __restrict__ occ, const int64_t* __restrict__ unit_start,
@@ -184,7 +249,7 @@ attn_fwd_kernel(const T* __restrict__ x, const T* __restrict__ vl,
                 float* __restrict__ outpos, float* __restrict__ spos_out,
                 float* __restrict__ pacc, float* __restrict__ paccp, float* __restrict__ pm,
                 float* __restrict__ ps, float* __restrict__ psp, int n_warps, int hf,
-                int nh, float slope, int log2_g) {
+                int nh, float slope, int log2_g, int n_slices) {
   extern __shared__ float4 smem[];
   const int w = threadIdx.x / kWarp;
   WarpUnits wu;
@@ -195,31 +260,48 @@ attn_fwd_kernel(const T* __restrict__ x, const T* __restrict__ vl,
   int32_t* col = reinterpret_cast<UnitSmem*>(base)->col;
   stage_columns(wu, cols, occ, col);
   col += wu.off;
-  float* sh_p = reinterpret_cast<float*>(base + sizeof(UnitSmem)) + wu.off;  // [H][kUnitSlots]
+  // [H][head_stride(H)]
+  float* sh_p = reinterpret_cast<float*>(base + sizeof(UnitSmem)) + wu.off;
   const bool flash = outpos != nullptr;
-  const int ul = 1 << wu.log2_ul;
   __syncwarp();
 
-  // scalar phase: head by head scores, max and sums (a lane of no unit,
-  // past the warp's count, reads row 0 and takes no slot: its unit's node
-  // would lie past the table's end in the last warp)
+  // scalar phase: scores, max and sums (a lane of no unit, past the warp's
+  // count, reads row 0 and takes no slot: its unit's node would lie past
+  // the table's end in the last warp)
   const int node = wu.valid() ? wu.node(unit_node) : 0;
   float s_keep = 1.f;  // lane t0 < nh: head t0's sum (1 where it is 0)
-  for (int h = 0; h < nh; ++h) {
-    float* ph = sh_p + h * kUnitSlots;
-    const float vr_h = ld(vr + static_cast<size_t>(node) * nh + h);
+  // head h's statistics, by the lane that holds them
+  const auto write_stats = [&](int h, float m, float sum, float sump) {
+    const int p = wu.part(unit_part);
+    if (p >= 0) {  // a partial of a split row, unnormalised
+      const size_t o = static_cast<size_t>(p) * nh + h;
+      pm[o] = m;
+      ps[o] = sum;
+      if (flash) psp[o] = sump;
+    } else {
+      const float s_fin = sum > 0.f ? sum : 1.f;
+      const size_t o = static_cast<size_t>(node) * nh + h;
+      m_out[o] = m;
+      s_out[o] = s_fin;
+      if (flash) spos_out[o] = sump / s_fin;
+    }
+  };
+  if constexpr (MAXH > 1) {
+    const HeadLanes<MAXH> hl(wu, nh);
+    float* ph = sh_p + hl.h * head_stride(MAXH);
+    const float vr_h = hl.on ? ld(vr + static_cast<size_t>(node) * nh + hl.h) : 0.f;
     float m = kFloor;
-    for (int t = wu.t0(); t < wu.len; t += ul) {
+    for (int t = hl.first(wu); hl.on && t < wu.len; t += hl.step) {
       const int c = col[t];
       if (c >= 0) {
-        const float zp = ld(vl + static_cast<size_t>(c) * nh + h) + vr_h;
+        const float zp = ld(vl + static_cast<size_t>(c) * nh + hl.h) + vr_h;
         ph[t] = zp;
         m = fmaxf(m, lrelu(zp, slope));
       }
     }
-    m = unit_max(m, wu);
+    m = unit_max(m, wu, hl.stop());
     float sum = 0.f, sump = 0.f;
-    for (int t = wu.t0(); t < wu.len; t += ul) {
+    for (int t = hl.first(wu); hl.on && t < wu.len; t += hl.step) {
       float p = 0.f;
       bool pos = false;
       if (col[t] >= 0) {
@@ -231,68 +313,96 @@ attn_fwd_kernel(const T* __restrict__ x, const T* __restrict__ vl,
       if (pos) sump += p;
       ph[t] = pos ? p : -p;
     }
-    sum = unit_sum(sum, wu);
-    if (flash) sump = unit_sum(sump, wu);
-    if (wu.t0() == h && wu.valid() && blockIdx.y == 0) {
-      const int p = wu.part(unit_part);
-      if (p >= 0) {  // a partial of a split row, unnormalised
-        const size_t o = static_cast<size_t>(p) * nh + h;
-        pm[o] = m;
-        ps[o] = sum;
-        if (flash) psp[o] = sump;
-      } else {
-        const float s_fin = sum > 0.f ? sum : 1.f;
-        const size_t o = static_cast<size_t>(node) * nh + h;
-        m_out[o] = m;
-        s_out[o] = s_fin;
-        if (flash) spos_out[o] = sump / s_fin;
+    sum = unit_sum(sum, wu, hl.stop());
+    if (flash) sump = unit_sum(sump, wu, hl.stop());
+    if (wu.t0() == hl.h && hl.on && wu.valid()) write_stats(hl.h, m, sum, sump);
+    if (wu.t0() == hl.h) s_keep = sum > 0.f ? sum : 1.f;
+  } else {
+    const int ul = 1 << wu.log2_ul;
+    for (int h = 0; h < nh; ++h) {
+      float* ph = sh_p + h * kUnitSlots;
+      const float vr_h = ld(vr + static_cast<size_t>(node) * nh + h);
+      float m = kFloor;
+      for (int t = wu.t0(); t < wu.len; t += ul) {
+        const int c = col[t];
+        if (c >= 0) {
+          const float zp = ld(vl + static_cast<size_t>(c) * nh + h) + vr_h;
+          ph[t] = zp;
+          m = fmaxf(m, lrelu(zp, slope));
+        }
       }
+      m = unit_max(m, wu);
+      float sum = 0.f, sump = 0.f;
+      for (int t = wu.t0(); t < wu.len; t += ul) {
+        float p = 0.f;
+        bool pos = false;
+        if (col[t] >= 0) {
+          const float zp = ph[t];
+          p = expf(lrelu(zp, slope) - m);
+          pos = zp > 0.f;
+        }
+        sum += p;
+        if (pos) sump += p;
+        ph[t] = pos ? p : -p;
+      }
+      sum = unit_sum(sum, wu);
+      if (flash) sump = unit_sum(sump, wu);
+      if (wu.t0() == h && wu.valid() && blockIdx.y == 0) write_stats(h, m, sum, sump);
+      if (wu.t0() == h) s_keep = sum > 0.f ? sum : 1.f;
     }
-    if (wu.t0() == h) s_keep = sum > 0.f ? sum : 1.f;
   }
   __syncwarp();
 
-  const RowLanes rl(wu, log2_g, hf, hf / nh, VEC, static_cast<int>(blockIdx.y));
-  // the sum of the lane's head, from the lane that keeps it
-  const float s_hd = __shfl_sync(kFullMask, s_keep, (wu.ui() << wu.log2_ul) + rl.hd);
-  float acc[VEC], accp[VEC];
+  // gather phase of g-vector slice y; acc and acc+ are reused slice by slice
+  const auto gather_slice = [&](int y) {
+    const RowLanes rl(wu, log2_g, hf, hf / nh, VEC, y);
+    // the sum of the lane's head, from the lane that keeps it
+    const float s_hd = __shfl_sync(kFullMask, s_keep, (wu.ui() << wu.log2_ul) + rl.hd);
+    float acc[VEC], accp[VEC];
 #pragma unroll
-  for (int i = 0; i < VEC; ++i) acc[i] = accp[i] = 0.f;
-  const float* php = sh_p + rl.hd * kUnitSlots;
-  gather_units<VEC, kFwdRows<VEC>>(col, wu, rl, x, hf, [&](int j) { return php[j] != 0.f; },
-                                   [&](int j, const float (&v)[VEC]) {
-                                     const float pv = php[j];
-                                     const float p = fabsf(pv);
-#pragma unroll
-                                     for (int i = 0; i < VEC; ++i) acc[i] = fmaf(p, v[i], acc[i]);
-                                     if (flash && pv > 0.f) {
+    for (int i = 0; i < VEC; ++i) acc[i] = accp[i] = 0.f;
+    const float* php = sh_p + rl.hd * head_stride(MAXH);
+    gather_units<VEC, kFwdRows<VEC>>(col, wu, rl, x, hf, [&](int j) { return php[j] != 0.f; },
+                                     [&](int j, const float (&v)[VEC]) {
+                                       const float pv = php[j];
+                                       const float p = fabsf(pv);
 #pragma unroll
                                        for (int i = 0; i < VEC; ++i)
-                                         accp[i] = fmaf(pv, v[i], accp[i]);
-                                     }
-                                   });
+                                         acc[i] = fmaf(p, v[i], acc[i]);
+                                       if (flash && pv > 0.f) {
 #pragma unroll
-  for (int i = 0; i < VEC; ++i) {
-    acc[i] = sum_groups(acc[i], wu, rl);
-    if (flash) accp[i] = sum_groups(accp[i], wu, rl);
-  }
-  if (rl.sg != 0 || !rl.active || !wu.valid()) return;
-  const size_t c0 = static_cast<size_t>(rl.vcol) * VEC;
-  const int p = wu.part(unit_part);
-  if (p >= 0) {  // a partial of a split row, unnormalised
-    const size_t o = static_cast<size_t>(p) * hf + c0;
-    store_vec<VEC>(pacc + o, acc);
-    if (flash) store_vec<VEC>(paccp + o, accp);
-    return;
-  }
-  const size_t o = static_cast<size_t>(wu.node(unit_node)) * hf + c0;
+                                         for (int i = 0; i < VEC; ++i)
+                                           accp[i] = fmaf(pv, v[i], accp[i]);
+                                       }
+                                     });
 #pragma unroll
-  for (int i = 0; i < VEC; ++i) acc[i] /= s_hd;
-  store_vec<VEC>(out + o, acc);
-  if (flash) {
+    for (int i = 0; i < VEC; ++i) {
+      acc[i] = sum_groups(acc[i], wu, rl);
+      if (flash) accp[i] = sum_groups(accp[i], wu, rl);
+    }
+    if (rl.sg != 0 || !rl.active || !wu.valid()) return;
+    const size_t c0 = static_cast<size_t>(rl.vcol) * VEC;
+    const int p = wu.part(unit_part);
+    if (p >= 0) {  // a partial of a split row, unnormalised
+      const size_t o = static_cast<size_t>(p) * hf + c0;
+      store_vec<VEC>(pacc + o, acc);
+      if (flash) store_vec<VEC>(paccp + o, accp);
+      return;
+    }
+    const size_t o = static_cast<size_t>(wu.node(unit_node)) * hf + c0;
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) accp[i] /= s_hd;
-    store_vec<VEC>(outpos + o, accp);
+    for (int i = 0; i < VEC; ++i) acc[i] /= s_hd;
+    store_vec<VEC>(out + o, acc);
+    if (flash) {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) accp[i] /= s_hd;
+      store_vec<VEC>(outpos + o, accp);
+    }
+  };
+  if constexpr (MAXH == 1) {
+    gather_slice(static_cast<int>(blockIdx.y));
+  } else {
+    for (int y = 0; y < n_slices; ++y) gather_slice(y);
   }
 }
 
@@ -425,7 +535,8 @@ attn_bwd1_kernel(const T* __restrict__ x, const T* __restrict__ vl,
   int32_t* col = reinterpret_cast<UnitSmem*>(base)->col;
   stage_columns(wu, cols, occ, col);
   col += wu.off;
-  float* sh_p = reinterpret_cast<float*>(base + sizeof(UnitSmem)) + wu.off;  // [H][kUnitSlots]
+  // [H][head_stride(H)]
+  float* sh_p = reinterpret_cast<float*>(base + sizeof(UnitSmem)) + wu.off;
   const int ul = 1 << wu.log2_ul;
   __syncwarp();
 
@@ -448,7 +559,7 @@ attn_bwd1_kernel(const T* __restrict__ x, const T* __restrict__ vl,
       }
       sp += p;
       if (pos) spp += p;
-      sh_p[h * kUnitSlots + t] = pos ? p : -p;
+      sh_p[h * head_stride(MAXH) + t] = pos ? p : -p;
     }
     sp = unit_sum(sp, wu);
     spp = unit_sum(spp, wu);
@@ -464,7 +575,7 @@ attn_bwd1_kernel(const T* __restrict__ x, const T* __restrict__ vl,
     float acc[VEC], accp[VEC];
 #pragma unroll
     for (int i = 0; i < VEC; ++i) acc[i] = accp[i] = 0.f;
-    const float* ph = MAXH == 1 ? sh_p : sh_p + rl.hd * kUnitSlots;
+    const float* ph = MAXH == 1 ? sh_p : sh_p + rl.hd * head_stride(MAXH);
     gather_units<VEC, kBwd1Rows<MAXH>>(col, wu, rl, x, hf, [&](int j) { return ph[j] != 0.f; },
                                      [&](int j, const float (&v)[VEC]) {
                                        const float pv = ph[j];
@@ -526,9 +637,10 @@ attn_bwd1_kernel(const T* __restrict__ x, const T* __restrict__ vl,
 // sums: the TPU kernel's per-virtual-row output).  The warp walks all
 // n_slices g-vector slices of the row, so dvl's dot sees its whole head.
 //
-// Scalar phase, by the unit's lanes, head by head: p stored with the sign
-// of zpre (+p where zpre > 0, -p elsewhere), sum p lr' sds a sum over the
-// unit's lanes kept by lane t0 = h (sds_keep).  Gather phase: dx and q by
+// Scalar phase, by the unit's lanes across (slot, head) (HeadLanes, as the
+// forward's): p stored with the sign of zpre (+p where zpre > 0, -p
+// elsewhere), sum p lr' sds a sum over the head's slot lanes kept by lane
+// t0 = h (sds_keep).  Gather phase: dx and q by
 // each slot group from the f32 table's dout slices (16-byte loads at
 // either type), summed over the unit's slot groups; <q, x[c]> summed over
 // each head's lanes and kept by lane t0 = h (dot_keep).
@@ -553,48 +665,42 @@ attn_bwd2_kernel(const float* __restrict__ wtab, const T* __restrict__ x,
   int32_t* col = reinterpret_cast<UnitSmem*>(base)->col;
   stage_columns(wu, cols, occ, col);
   col += wu.off;
-  float* sh_p = reinterpret_cast<float*>(base + sizeof(UnitSmem)) + wu.off;  // [H][kUnitSlots]
-  const int ul = 1 << wu.log2_ul;
+  // [H][head_stride(H)]
+  float* sh_p = reinterpret_cast<float*>(base + sizeof(UnitSmem)) + wu.off;
   const int wt = hf + 4 * heads;
   __syncwarp();
 
-  // scalar phase (a lane of no unit reads row 0 and takes no slot)
-  float sds_keep = 0.f;
-  for (int h = 0; h < heads; ++h) {
-    const float vl_c =
-        ld(vl + static_cast<size_t>(wu.valid() ? wu.node(unit_node) : 0) * heads + h);
-    float sp = 0.f;
-    for (int t = wu.t0(); t < wu.len; t += ul) {
-      const int r = col[t];
-      float pv = 0.f;
-      if (r >= 0) {
-        const float* wr = wtab + static_cast<size_t>(r) * wt + hf + h;
-        float vr_r, m_r, s_r, sds_r;
-        if constexpr (MAXH == 1) {
-          // [vr | m | s | sds] of one head: one 16-byte load (hf and wt
-          // are multiples of 4 and wtab is 16-byte aligned)
-          const float4 v = __ldg(reinterpret_cast<const float4*>(wr));
-          vr_r = v.x;
-          m_r = v.y;
-          s_r = v.z;
-          sds_r = v.w;
-        } else {
-          vr_r = __ldg(wr);
-          m_r = __ldg(wr + heads);
-          s_r = __ldg(wr + 2 * heads);
-          sds_r = __ldg(wr + 3 * heads);
-        }
-        const float zpre = vl_c + vr_r;
-        const float p = expf(lrelu(zpre, slope) - m_r) / s_r;
-        const bool pos = zpre > 0.f;
-        sp = fmaf(pos ? p : slope * p, sds_r, sp);
-        pv = pos ? p : -p;
+  // scalar phase (a lane of no unit reads row 0 and takes no slot): the
+  // lanes of a slot read its [vr | m | s | sds] blocks, at one head by one
+  // 16-byte load (hf and wt are multiples of 4 and wtab is 16-byte
+  // aligned), at H > 1 four coalesced pieces of one row of the table
+  const HeadLanes<MAXH> hl(wu, heads);
+  const float vl_c =
+      hl.on ? ld(vl + static_cast<size_t>(wu.valid() ? wu.node(unit_node) : 0) * heads + hl.h)
+            : 0.f;
+  float sp = 0.f;
+  for (int t = hl.first(wu); hl.on && t < wu.len; t += hl.step) {
+    const int r = col[t];
+    float pv = 0.f;
+    if (r >= 0) {
+      const float* wr = wtab + static_cast<size_t>(r) * wt + hf + hl.h;
+      float4 v;
+      if constexpr (MAXH == 1) {
+        v = __ldg(reinterpret_cast<const float4*>(wr));
+      } else {
+        v = make_float4(__ldg(wr), __ldg(wr + heads), __ldg(wr + 2 * heads),
+                        __ldg(wr + 3 * heads));
       }
-      sh_p[h * kUnitSlots + t] = pv;
+      const float zpre = vl_c + v.x;
+      const float p = expf(lrelu(zpre, slope) - v.y) / v.z;
+      const bool pos = zpre > 0.f;
+      sp = fmaf(pos ? p : slope * p, v.w, sp);
+      pv = pos ? p : -p;
     }
-    sp = unit_sum(sp, wu);
-    if (wu.t0() == h) sds_keep = sp;
+    sh_p[hl.h * head_stride(MAXH) + t] = pv;
   }
+  sp = unit_sum(sp, wu, hl.stop());
+  const float sds_keep = wu.t0() == hl.h ? sp : 0.f;
   __syncwarp();
 
   float dot_keep = 0.f;
@@ -606,7 +712,7 @@ attn_bwd2_kernel(const float* __restrict__ wtab, const T* __restrict__ x,
     float dx[VEC], q[VEC];
 #pragma unroll
     for (int i = 0; i < VEC; ++i) dx[i] = q[i] = 0.f;
-    const float* ph = MAXH == 1 ? sh_p : sh_p + rl.hd * kUnitSlots;
+    const float* ph = MAXH == 1 ? sh_p : sh_p + rl.hd * head_stride(MAXH);
     gather_units<VEC, kBwd2Rows>(col, wu, rl, wtab, wt, [&](int j) { return ph[j] != 0.f; },
                                      [&](int j, const float (&v)[VEC]) {
                                        const float pv = ph[j];
@@ -672,7 +778,16 @@ bool bad_shape(int hf, int nh, int vec) {
   return nh < 1 || nh > kMaxHeads || hf <= 0 || hf % nh != 0 || vec != 4 || (hf / nh) % 4 != 0;
 }
 
-template <int VEC, class T>
+// The grid of a backward pass 1 (and of the forward at H > 1): n_warps
+// warps of units; each walks all the g-vector slices of a row itself
+inline dim3 bwd_grid(int n_warps) {
+  return dim3((n_warps + kWarpsPerBlock - 1) / kWarpsPerBlock);
+}
+inline int n_slices(int hf, int vec, int log2_g) {
+  return (hf / vec + (1 << log2_g) - 1) >> log2_g;
+}
+
+template <int VEC, int MAXH, class T>
 int launch_fwd(const void* x, const void* vl, const void* vr, const void* cols, const void* occ,
                const void* unit_start, const void* unit_len, const void* unit_node,
                const void* unit_part, const void* warp_first, const void* split_node,
@@ -691,14 +806,18 @@ int launch_fwd(const void* x, const void* vl, const void* vr, const void* cols, 
   const auto f32 = [](const void* p) { return static_cast<const float*>(p); };
   const auto i32 = [](const void* p) { return static_cast<const int32_t*>(p); };
   const auto i64 = [](const void* p) { return static_cast<const int64_t*>(p); };
+  // one head: a block a g-vector slice of its warps' rows; more: the warp
+  // walks the slices
   int l;  // log2_g, which the caller checked
   dim3 grid;
   reduce_grid(n_warps, hf, VEC, &l, &grid);
-  attn_fwd_kernel<VEC, T><<<grid, kWarp * kWarpsPerBlock, smem, st>>>(
+  if (MAXH > 1) grid.y = 1;
+  attn_fwd_kernel<VEC, MAXH, T><<<grid, kWarp * kWarpsPerBlock, smem, st>>>(
       t(x), t(vl), t(vr), i32(cols), f32(occ), i64(unit_start), i32(unit_len),
       i32(unit_node), i32(unit_part), i32(warp_first), static_cast<float*>(out),
       static_cast<float*>(m), static_cast<float*>(s), static_cast<float*>(outpos),
-      static_cast<float*>(spos), pacc, paccp, pm, ps, psp, n_warps, hf, nh, slope, log2_g);
+      static_cast<float*>(spos), pacc, paccp, pm, ps, psp, n_warps, hf, nh, slope, log2_g,
+      n_slices(hf, VEC, log2_g));
   const int err = static_cast<int>(cudaGetLastError());
   if (err != 0 || n_split == 0) return err;
   attn_fwd_merge_kernel<<<n_split, kMergeThreads, 0, st>>>(
@@ -719,15 +838,6 @@ int merge_sums(const void* part, const void* split_node, const void* split_first
       static_cast<const int32_t*>(split_first), static_cast<const int32_t*>(split_count),
       static_cast<float*>(out), ow);
   return static_cast<int>(cudaGetLastError());
-}
-
-// The grid of a backward pass 1: n_warps warps of units; each walks all
-// the g-vector slices of a row itself
-inline dim3 bwd_grid(int n_warps) {
-  return dim3((n_warps + kWarpsPerBlock - 1) / kWarpsPerBlock);
-}
-inline int n_slices(int hf, int vec, int log2_g) {
-  return (hf / vec + (1 << log2_g) - 1) >> log2_g;
 }
 
 template <int VEC, int MAXH, class T>
@@ -822,10 +932,12 @@ int fwd(const void* x, const void* vl, const void* vr, const void* cols, const v
   if (err == 0) err = zero_rows({m, s, spos}, nh, n_pad, zero_from, st);
   if (err != 0 || n_warps <= 0) return err;
   const auto run = [&](auto vec_tag) {
-    return launch_fwd<decltype(vec_tag)::value, T>(
-        x, vl, vr, cols, occ, unit_start, unit_len, unit_node, unit_part, warp_first,
-        split_node, split_first, split_count, out, m, s, outpos, spos, part, n_warps, n_split,
-        n_partials, hf, nh, slope, log2_g, st);
+    return dispatch(nh, [&](auto, auto maxh_tag) {
+      return launch_fwd<decltype(vec_tag)::value, decltype(maxh_tag)::value, T>(
+          x, vl, vr, cols, occ, unit_start, unit_len, unit_node, unit_part, warp_first,
+          split_node, split_first, split_count, out, m, s, outpos, spos, part, n_warps, n_split,
+          n_partials, hf, nh, slope, log2_g, st);
+    });
   };
   if constexpr (std::is_same_v<T, bf16>) {
     if (vec == 8) return run(std::integral_constant<int, 8>{});
@@ -999,11 +1111,15 @@ extern "C" int gala_attn_fwd_limits(int k, int nh, int* out) {
   if (nh < 1 || nh > kMaxHeads) return static_cast<int>(cudaErrorInvalidValue);
   const int block = kWarp * kWarpsPerBlock;
   const size_t smem = unit_warp_smem(nh) * kWarpsPerBlock;
+  const bool one = nh == 1;
   switch (k) {
-    case 0: return launch_limits(attn_fwd_kernel<4, float>, block, smem, out);
+    case 0: return one ? launch_limits(attn_fwd_kernel<4, 1, float>, block, smem, out)
+                       : launch_limits(attn_fwd_kernel<4, kMaxHeads, float>, block, smem, out);
     case 1: return launch_limits(attn_fwd_merge_kernel, kMergeThreads, 0, out);
-    case 2: return launch_limits(attn_fwd_kernel<4, bf16>, block, smem, out);
-    case 3: return launch_limits(attn_fwd_kernel<8, bf16>, block, smem, out);
+    case 2: return one ? launch_limits(attn_fwd_kernel<4, 1, bf16>, block, smem, out)
+                       : launch_limits(attn_fwd_kernel<4, kMaxHeads, bf16>, block, smem, out);
+    case 3: return one ? launch_limits(attn_fwd_kernel<8, 1, bf16>, block, smem, out)
+                       : launch_limits(attn_fwd_kernel<8, kMaxHeads, bf16>, block, smem, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

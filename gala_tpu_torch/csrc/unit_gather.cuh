@@ -331,23 +331,28 @@ __device__ __forceinline__ void gather_units(const int32_t* col, const WarpUnits
   }
 }
 
-// the sum of v over the unit's slot groups (every lane of the warp calls it)
-__device__ __forceinline__ float sum_groups(float v, const WarpUnits& wu, const RowLanes& rl) {
-  for (int off = (1 << wu.log2_ul) >> 1; off >= (1 << rl.log2_g); off >>= 1)
-    v += __shfl_xor_sync(kFullMask, v, off);
+// v reduced by op over the unit's lanes that share their lane index below
+// `stop` (a power of two; 1: the whole unit), a butterfly from the widest
+// stride down (every lane of the warp calls it)
+template <class Op>
+__device__ __forceinline__ float reduce_lanes(float v, const WarpUnits& wu, int stop, Op op) {
+  for (int off = (1 << wu.log2_ul) >> 1; off >= stop; off >>= 1)
+    v = op(v, __shfl_xor_sync(kFullMask, v, off));
   return v;
 }
 
-// max and sum of v over the unit's lanes (every lane of the warp calls them)
-__device__ __forceinline__ float unit_max(float v, const WarpUnits& wu) {
-  for (int off = (1 << wu.log2_ul) >> 1; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(kFullMask, v, off));
-  return v;
+// max and sum of v over the unit's lanes, or over those that share their
+// index below stop
+__device__ __forceinline__ float unit_max(float v, const WarpUnits& wu, int stop = 1) {
+  return reduce_lanes(v, wu, stop, [](float a, float b) { return fmaxf(a, b); });
 }
-__device__ __forceinline__ float unit_sum(float v, const WarpUnits& wu) {
-  for (int off = (1 << wu.log2_ul) >> 1; off > 0; off >>= 1)
-    v += __shfl_xor_sync(kFullMask, v, off);
-  return v;
+__device__ __forceinline__ float unit_sum(float v, const WarpUnits& wu, int stop = 1) {
+  return reduce_lanes(v, wu, stop, [](float a, float b) { return a + b; });
+}
+
+// the sum of v over the unit's slot groups (every lane of the warp calls it)
+__device__ __forceinline__ float sum_groups(float v, const WarpUnits& wu, const RowLanes& rl) {
+  return unit_sum(v, wu, 1 << rl.log2_g);
 }
 
 // log2 of the lanes across a row's vectors (a power of two, at most 32),

@@ -32,6 +32,12 @@ counts `gala.attention.pitch` (utils.profiling) while a profiler
 records.  Where fh is a multiple of 4, nothing is copied; every table a
 kernel gets is 16-byte aligned, so there is no scalar form.
 
+Heads: the forward and bwd2 have a one-head form and a multi-head form,
+chosen by H.  At H > 1 a unit's lanes take its scalar phase across
+(slot, head), one coalesced read of a slot's H scores, and the forward's
+warp walks its rows' g-vector slices itself; each such call counts
+`gala.attention.heads` while a profiler records.
+
 Layouts are ops.attention.AttnBell's: `flat_vals` holds slot occupancy
 (1.0 per real edge, 0.0 on padding slots), used only as a mask.
 
@@ -500,6 +506,16 @@ def _pitched(op: str, t: torch.Tensor, nh: int, lane: int = 4) -> tuple[int, int
     return fh, pitch
 
 
+def _count_heads(op: str, u, nh: int, hf: int, vec: int, log2_g: int) -> None:
+    """A CUDA call at nh > 1 heads takes the kernels' multi-head scalar
+    phase (the heads across a unit's lanes, once per unit; the warp walks
+    the row's g-vector slices): count `gala.attention.heads` (kernel,
+    heads, slices walked, work units) while a profiler records."""
+    if nh > 1:
+        slices = -(-(hf // vec) // (1 << log2_g))
+        count("gala.attention.heads", op=op, heads=nh, slices=slices, units=u.n_units)
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """t 16-byte aligned, as the kernels' lanes load it: t itself, or a
     copy of a misaligned view."""
@@ -567,6 +583,7 @@ def attn_fwd_cuda(lay, x, vl, vr, slope: float, n_pad: int, flash: bool):
     vec = lane if pitch % lane == 0 else 4
     log2_g, tables = _unit_args(u, hf, vec)
     n_warps, n_split, _, zero_from = _unit_ints(u, log2_g, n_pad)
+    _count_heads("attn_fwd", u, nh, hf, vec, log2_g)
     _launch("attn_fwd", x,
             x.data_ptr(), vl.data_ptr(), vr.data_ptr(), lay.flat_cols.data_ptr(),
             lay.flat_vals.data_ptr(), *tables,
@@ -655,6 +672,7 @@ def attn_bwd2_cuda(lay, x, vl, w_tab, slope: float, c_pad: int):
     part = (torch.empty((u.n_partials * (hf + nh),), dtype=torch.float32, device=x.device)
             if u.n_partials else None)
     log2_g, tables = _unit_args(u, hf, 4)
+    _count_heads("attn_bwd2", u, nh, hf, 4, log2_g)
     _launch("attn_bwd2", x,
             w_tab.data_ptr(), x.data_ptr(), vl.data_ptr(), lay.flat_cols.data_ptr(),
             lay.flat_vals.data_ptr(), *tables, out.data_ptr(), _ptr(part),

@@ -5,13 +5,15 @@ paths' shapes on the Arxiv stand-in, in f32 and bf16, on one NVIDIA GPU,
 beside each call's bound and, for the SpMM at f32, `torch.sparse.mm` on
 the same matrix.  Usage, from the root of a tree:
 
-    python3 scripts/unit_kernels_torch.py [--label NAME] [--kernels SUBSTRING ...]
+    python3 scripts/unit_kernels_torch.py [--label NAME] [--graph arxiv|reddit]
+        [--kernels SUBSTRING ...]
 
 The SpMM runs on the GCN's full bell (bell_order with the diagonal split)
 at F = 1, 32, 128, and on the unfused GAT's ELL layout with per-slot
 values at F = 32, 40; the attention kernels on the fused GAT's layouts
 (bell_order without the split): the forward at hf = 32, 40 and 41 with
-one head and at hf = 64 and 40 with 8 heads, bwd1 and bwd2 at BWD_SHAPES
+one head and at hf = 64, 40 and 328 (8 heads of 41, pitch 44) with 8
+heads, bwd1 and bwd2 at BWD_SHAPES
 (bwd2's table built as the tree's backward builds it: by
 attn_bell.bwd2_table where the tree has it); the SDDMM
 on the unfused GAT's padded edge lists (2,102,667 edges) at F = 32 and
@@ -22,7 +24,11 @@ subgraph layouts of GCN_DSL + `aggrFn=aggrFn.sample(20).dynamic();`:
 the tree's own form (bell_spmm_sampled where the tree has it, else the
 weights kernel dyn_weights and then bell_spmm with its weights), and in
 a tree with the fused form also the SpMM run on weights made beforehand
-(the kernel's gather and sums alone).  --kernels keeps the cases whose
+(the kernel's gather and sums alone).  `--graph reddit` times the
+attention kernels alone, on the fused GAT's layouts of the benchmark's
+Reddit-shaped graph (gala_bench/graphgen.py, traffic `reddit`: 232,965
+nodes, 114,827,317 nonzeros; its layouts take about two minutes to
+build).  --kernels keeps the cases whose
 name holds one of the given substrings.  Each time is
 the median of 5 runs of 20 calls (CUDA events, after a warm-up), with the
 runs' min and max; beside it the device time of a call (torch.profiler's
@@ -52,10 +58,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import torch  # noqa: E402
 
 SLOPE = 0.2
-# (hf, H) of bwd1 and bwd2: the GAT path's one head at hf = 32 and 40, the
-# Reddit GAT's output layer at 41, and 8 heads (fh = 4 and 8 in 4-column
-# lanes, fh = 5 at a row pitch of 8 where the tree pads)
-BWD_SHAPES = ((32, 1), (40, 1), (41, 1), (32, 8), (64, 8), (40, 8))
+# (hf, H) of the forward, and of bwd1 and bwd2: the GAT path's one head at
+# hf = 32 and 40, the Reddit GAT's output layer at 41, and 8 heads (fh = 4
+# and 8 in 4-column lanes, fh = 5 at a row pitch of 8 where the tree pads,
+# the 8-head GAT's output layer fh = 41 at a pitch of 44)
+FWD_SHAPES = ((32, 1), (40, 1), (41, 1), (64, 8), (40, 8), (328, 8))
+BWD_SHAPES = ((32, 1), (40, 1), (41, 1), (32, 8), (64, 8), (40, 8), (328, 8))
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
@@ -132,6 +140,9 @@ def layout_csr(lay, n_out: int, n_src: int):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--label", default=os.path.basename(os.getcwd()))
+    ap.add_argument("--graph", choices=("arxiv", "reddit"), default="arxiv",
+                    help="the Arxiv stand-in (every kernel) or the benchmark's Reddit-shaped "
+                         "graph (the attention kernels alone)")
     ap.add_argument("--kernels", nargs="+", default=None,
                     help="time only the cases whose name holds one of these")
     args = ap.parse_args(argv)
@@ -151,13 +162,25 @@ def main(argv=None) -> int:
     from gala_tpu_torch.ops.kernels import sddmm as ks
     from gala_tpu_torch.ops.kernels.dyn_weights import dyn_weights_reference
 
-    data = load_dataset("Arxiv", None, 1.0)
-    host = data[0]
-    gcn = Graph.from_host(apply_reorder(host, bell_order(host))[0], strategy="bell",
-                          device="cuda")
+    reddit = args.graph == "reddit"
+    if reddit:
+        from gala_bench import graphgen
+
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        with open(os.path.join(root, "gala_bench", "traffic", "reddit.json")) as f:
+            g = graphgen.make_graph(json.load(f), "cuda")
+        host = graphgen.host_data(g)[0]
+        del g
+        torch.cuda.empty_cache()
+    else:
+        data = load_dataset("Arxiv", None, 1.0)
+        host = data[0]
+        gcn = Graph.from_host(apply_reorder(host, bell_order(host))[0], strategy="bell",
+                              device="cuda")
     gat_host = apply_reorder(host, bell_order(host, split_diag=False))[0]
     gat = Graph.from_host(gat_host, strategy="bell", device="cuda", attention=True)
-    edge = Graph.from_host(gat_host, strategy="ell", device="cuda", edge_vals=True)
+    if not reddit:
+        edge = Graph.from_host(gat_host, strategy="ell", device="cuda", edge_vals=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     times, bounds, device = {}, {}, {}
 
@@ -167,19 +190,20 @@ def main(argv=None) -> int:
         times[key] = runs(fn)
         device[key] = device_ms(fn)
 
-    csr = layout_csr(gcn.bell, gcn.n_pad, gcn.c_pad)
-    evals = torch.rand((edge.e_pad,), generator=gen, device="cuda")
-    ell_vals = edge.ell.slot_values(evals)
+    if not reddit:
+        csr = layout_csr(gcn.bell, gcn.n_pad, gcn.c_pad)
+        evals = torch.rand((edge.e_pad,), generator=gen, device="cuda")
+        ell_vals = edge.ell.slot_values(evals)
     fwd, t = gat.attn.fwd, gat.attn.t
     f32 = 4
-    dyn = sampled_layouts(data)
+    dyn = [] if reddit else sampled_layouts(data)
     for dtype in (torch.float32, torch.bfloat16):
         tag = "f32" if dtype == torch.float32 else "bf16"
 
         def rand(*shape):
             return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
-        for f in (1, 32, 128):
+        for f in () if reddit else (1, 32, 128):
             x = rand(gcn.c_pad, f)
             key = f"bell_spmm {tag} F={f}"
             measure(key, lambda: kernel.bell_spmm(gcn.bell, x, gcn.n_pad))
@@ -187,14 +211,14 @@ def main(argv=None) -> int:
                                 2 * (gcn.bell.flat_cols.numel() + gcn.n_pad) * f)
             if dtype == torch.float32:
                 measure(f"torch.sparse.mm f32 F={f}", lambda: torch.sparse.mm(csr, x))
-        for f in (32, 40):
+        for f in () if reddit else (32, 40):
             x = rand(edge.c_pad, f)
             key = f"bell_spmm ell slot values {tag} F={f}"
             measure(key, lambda: kernel.bell_spmm(edge.ell, x, edge.n_pad, vals=ell_vals))
             bounds[key] = bound(layout_bytes(edge.ell, ell_vals) + nbytes(x)
                                 + edge.n_pad * f * x.element_size(),
                                 2 * edge.ell.flat_cols.numel() * f)
-        for hf, nh in ((32, 1), (40, 1), (41, 1), (64, 8), (40, 8)):
+        for hf, nh in FWD_SHAPES:
             x, vl, vr = rand(gat.c_pad, hf), rand(gat.c_pad, nh), rand(gat.n_pad, nh)
             key = f"attn_fwd {tag} hf={hf} H={nh}"
             measure(key, lambda: ak.attn_fwd(fwd, x, vl, vr, SLOPE, gat.n_pad, True))
@@ -216,7 +240,7 @@ def main(argv=None) -> int:
             bounds[key] = bound(layout_bytes(t) + nbytes(x, vl)
                                 + gat.n_pad * (hf + 4 * nh) * f32 + gat.c_pad * (hf + nh) * f32,
                                 t.flat_cols.numel() * (4 * hf + 12 * nh))
-        for f in (32, 40):
+        for f in () if reddit else (32, 40):
             a, b = rand(edge.c_pad, f), rand(edge.n_pad, f)
             key = f"sddmm {tag} F={f}"
             measure(key, lambda: ks.sddmm(edge.src, edge.dst, a, b))

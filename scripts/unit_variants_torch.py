@@ -28,6 +28,10 @@ whose sources a variant leaves alone is the shipped build):
     sampled_8blocks     the SpMM's sampled form at 8 blocks per SM (32
                         registers, the unsampled form's; it spills 8-12
                         bytes; the shipped: 6, 40 registers)
+    bwd2_scalar_quad    bwd2's one-head form reads a slot's [vr | m | s |
+                        sds] by four 4-byte loads, as the multi-head form
+                        reads its four blocks (the shipped: one 16-byte
+                        load)
     bulk                the SpMM's gather by bulk copies where a warp takes
                         one unit and its lanes cover 128 floats of a row
                         (f32, F a multiple of 4 and at least 128): lane 0
@@ -79,6 +83,8 @@ SHIPPED_FWD_BLOCKS = "constexpr int kFwdMinBlocks = 6;"
 SHIPPED_BWD1_BLOCKS = "constexpr int kBwd1MinBlocks = 6;"
 SHIPPED_BWD2_BLOCKS = "constexpr int kBwd2MinBlocks = 6;"
 SHIPPED_SAMPLED_BLOCKS = "constexpr int kSampledBlocks = 6;"
+SHIPPED_BWD2_QUAD = ("if constexpr (MAXH == 1) {\n"
+                     "        v = __ldg(reinterpret_cast<const float4*>(wr));")
 VARIANTS = {
     "shipped": [],
     "fwd_rows4": [("attn_bell.cu", SHIPPED_ROWS_FWD,
@@ -92,6 +98,8 @@ VARIANTS = {
     "bwd2_8blocks": [("attn_bell.cu", SHIPPED_BWD2_BLOCKS, "constexpr int kBwd2MinBlocks = 8;")],
     "sampled_8blocks": [("bell_spmm.cu", SHIPPED_SAMPLED_BLOCKS,
                          "constexpr int kSampledBlocks = 8;")],
+    "bwd2_scalar_quad": [("attn_bell.cu", SHIPPED_BWD2_QUAD,
+                          SHIPPED_BWD2_QUAD.replace("MAXH == 1", "MAXH < 1"))],
 }
 
 RING = 4  # bulk: rows of a unit in flight

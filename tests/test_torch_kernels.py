@@ -568,7 +568,9 @@ def test_pitched_attention_runs_16_byte_lanes_and_backpropagates(cuda, hf, nh, d
     (attn_bell.aggregate_scales) and one bf16 unit where the result is
     bf16; the forward launches its 16-byte form (attn_fwd_kernel<4> at
     f32, <8> at bf16) and bwd2 its 4-column one, and each kernel call
-    counts `gala.attention.pitch` once, at its own pitch."""
+    counts `gala.attention.pitch` once, at its own pitch; at 3 heads the
+    forward and bwd2 count `gala.attention.heads` once each, at one head
+    never."""
     from gala_tpu_torch.ops.attention import attention_aggregate
     from gala_tpu_torch.utils import profiling
 
@@ -604,6 +606,8 @@ def test_pitched_attention_runs_16_byte_lanes_and_backpropagates(cuda, hf, nh, d
     assert any("attn_bwd2_kernel<4," in n for n in names), names
     pitched = [c for c in profiling.counts() if c["name"] == "gala.attention.pitch"]
     assert [c["op"] for c in pitched] == ["attn_fwd", "attn_bwd2"]
+    heads = [c["op"] for c in profiling.counts() if c["name"] == "gala.attention.heads"]
+    assert heads == ([] if nh == 1 else ["attn_fwd", "attn_bwd2"])
     fh = hf // nh
     assert [(c["cols"], c["pitch"]) for c in pitched] == [
         (hf, nh * attn_bell.row_pitch(fh, lane)), (hf, nh * attn_bell.row_pitch(fh))]
@@ -611,14 +615,21 @@ def test_pitched_attention_runs_16_byte_lanes_and_backpropagates(cuda, hf, nh, d
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("nh,fh", [(8, 8), (8, 41)])
+@pytest.mark.parametrize("nh,fh", [(8, 8), (8, 41), (6, 8), (2, 8)])
 def test_attention_aggregate_at_eight_heads_matches_plain_version(cuda, nh, fh, dtype):
-    """attention_aggregate forward and gradient at the GAT paper's 8 heads
-    (8 of 8, and 8 of 41: pitch 44, 352 columns at f32) on the hub graph:
-    out and the gradients of x, vl and vr against the same op on CPU
-    copies (the plain versions) within 1e-4 + 1e-4 * the magnitudes of the
-    summed terms (attn_bell.aggregate_scales)."""
+    """The attention kernels' multi-head forms at the GAT paper's 8 heads
+    (8 of 8, and 8 of 41: pitch 44, 352 columns at f32, 3 slices walked
+    in the warp), at 6 heads (not a power of two: the lanes past them
+    idle) and at 2, on the hub graph: fwd, bwd1 and bwd2 against their
+    plain versions (attn_bell.compare_with_plain's tolerance) and two calls
+    of each bitwise equal; attention_aggregate forward and gradient, out
+    and the gradients of x, vl and vr against the same op on CPU copies
+    (the plain versions) within 1e-4 + 1e-4 * the magnitudes of the summed
+    terms (attn_bell.aggregate_scales); the aggregate launches the
+    forward's and bwd2's multi-head forms, and each of their calls counts
+    `gala.attention.heads` once, with the g-vector slices its warps walk."""
     from gala_tpu_torch.ops.attention import attention_aggregate
+    from gala_tpu_torch.utils import profiling
 
     host, undirected = torch_case("hub_selfloops")
     graphs = [Graph.from_host(host, strategy="bell", undirected=undirected, device=dev,
@@ -629,6 +640,16 @@ def test_attention_aggregate_at_eight_heads_matches_plain_version(cuda, nh, fh, 
     inputs = [_randn(shape, gen, cuda, dtype) for shape in
               ((g.c_pad, hf), (g.c_pad, nh), (g.n_pad, nh), (g.n_pad, hf))]
     dout = inputs.pop()
+    res = attn_bell.compare_with_plain(g.attn, *inputs, dout, 0.2, g.n_pad, g.c_pad)
+    assert {k: v for k, v in res.items() if v[1]} == {}
+    x, vl, vr = inputs
+    out, m, s, _, _ = attn_bell.attn_fwd(g.attn.fwd, x, vl, vr, 0.2, g.n_pad, True)
+    w_tab = attn_bell.bwd2_table(x, dout, vr, m, s, attn_bell.per_head_dot(dout, out, nh))
+    for call in (lambda: attn_bell.attn_fwd(g.attn.fwd, x, vl, vr, 0.2, g.n_pad, True),
+                 lambda: attn_bell.attn_bwd1(g.attn.fwd, x, vl, vr, dout, m, s, 0.2),
+                 lambda: (attn_bell.attn_bwd2(g.attn.t, x, vl, w_tab, 0.2, g.c_pad),)):
+        assert all(torch.equal(a, b) for a, b in zip(call(), call()))
+
     results = []
     for graph, dev in zip(graphs, (cuda, "cpu")):
         x, vl, vr = (t.detach().to(dev).requires_grad_(True) for t in inputs)
@@ -639,6 +660,28 @@ def test_attention_aggregate_at_eight_heads_matches_plain_version(cuda, nh, fh, 
                                         0.2, g.n_pad, g.c_pad)
     for got, want, scale in zip(*results, scales):
         assert got.shape == want.shape and _close(got, want, scale)
+
+    x, vl, vr = (t.clone().requires_grad_(True) for t in inputs)
+
+    def step():
+        profiling.clear_counts()
+        attention_aggregate(g.n_pad, g.c_pad, 0.2, g.attn, x, vl, vr).backward(dout)
+
+    names = _device_kernels(step)
+    # the forward's lanes: 16 bytes of x where a head's pitch holds them
+    lane = 16 // dtype.itemsize
+    vec = lane if attn_bell.row_pitch(fh, lane) % lane == 0 else 4
+    assert any(f"attn_fwd_kernel<{vec}, 8," in n for n in names), names
+    assert any("attn_bwd2_kernel<4, 8," in n for n in names), names
+    # 8 heads of 41: 88 float4 vectors a row in 3 slices of 32 lanes (48
+    # 8-column vectors at pitch 48 in the bf16 forward: 2); else one slice
+    fwd_slices = (3 if dtype == torch.float32 else 2) if fh == 41 else 1
+    heads = [c for c in profiling.counts() if c["name"] == "gala.attention.heads"]
+    assert heads == [
+        {"name": "gala.attention.heads", "op": "attn_fwd", "heads": nh, "slices": fwd_slices,
+         "units": g.attn.fwd.units.n_units},
+        {"name": "gala.attention.heads", "op": "attn_bwd2", "heads": nh,
+         "slices": 3 if fh == 41 else 1, "units": g.attn.t.units.n_units}]
 
 
 SDDMM_WIDTHS = [1, 3, 32, 33, 40, 128]  # ragged widths take scalar loads

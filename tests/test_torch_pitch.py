@@ -8,7 +8,8 @@ Here: where the helpers put each head and that they give back every
 value; that the plain versions run on the pitched tables give the
 unpitched results (the zero columns add 0); that a width of 4k columns
 is handed on with no copy and a misaligned view as an aligned copy; and
-that a call counts `gala.attention.pitch` only where it pads, while the
+that a call counts `gala.attention.pitch` only where it pads (and
+`gala.attention.heads` only at more than one head), while the
 aggregation's own `gala.attention` counts keep the unpadded width (the
 wrappers run on CPU tensors with the launch left out: the kernels have
 no CPU mode; the card tests in tests/test_torch_kernels.py run them)."""
@@ -218,3 +219,53 @@ def test_a_misaligned_view_reaches_the_kernel_as_an_aligned_copy(graph, monkeypa
     (misaligned, aligned) = (args[i_x] for args in launched)
     assert views[0].data_ptr() % 16 and misaligned % 16 == 0
     assert aligned == views[1].data_ptr()
+
+
+# (hf, H, dtype, slices the forward's warp walks, bwd2's): one head takes
+# the one-head forms (no count); 8 heads of 8 and of 41 (pitch 44, 352
+# columns: 88 float4 vectors in 3 slices of 32 lanes; 48 at bf16 in the
+# forward's 8-column lanes, 2 slices), 6 heads of 8 and 2 heads of 8
+HEAD_CALLS = [(32, 1, F32, None, None), (41, 1, F32, None, None), (64, 8, F32, 1, 1),
+              (328, 8, F32, 3, 3), (328, 8, BF16, 2, 3), (48, 6, F32, 1, 1), (16, 2, F32, 1, 1)]
+
+
+@pytest.mark.parametrize("hf,nh,dtype,fwd_slices,bwd2_slices", HEAD_CALLS)
+def test_heads_are_counted_once_per_call_at_more_than_one_head(graph, monkeypatch, hf, nh, dtype,
+                                                               fwd_slices, bwd2_slices):
+    """attention_aggregate forward and backward with the op's CPU forms
+    routed to the CUDA wrappers and the launch left out, under a
+    profiler: at H > 1 the forward and bwd2 each count
+    `gala.attention.heads` once (kernel, heads, the g-vector slices the
+    warp walks, the layout's work units), never at one head."""
+    g = graph
+    monkeypatch.setattr(KA, "_launch", lambda name, t, *args: None)
+    monkeypatch.setattr(KA, "attn_fwd_reference", KA.attn_fwd_cuda)
+    monkeypatch.setattr(KA, "attn_bwd2_reference", KA.attn_bwd2_cuda)
+    monkeypatch.setattr(KA, "_bwd2_pitch", lambda x, nh: KA.row_pitch(x.shape[1] // nh))
+    x, vl, vr, _ = (t.to(dtype).requires_grad_(True) for t in _inputs(g, hf, nh, 4))
+    with torch.profiler.profile():
+        profiling.clear_counts()
+        out = TA.attention_aggregate(g.n_pad, g.c_pad, SLOPE, g.attn, x, vl, vr)
+        out.backward(torch.ones_like(out))
+        rec = [r for r in profiling.counts() if r["name"] == "gala.attention.heads"]
+    want = [] if nh == 1 else [
+        {"name": "gala.attention.heads", "op": "attn_fwd", "heads": nh, "slices": fwd_slices,
+         "units": g.attn.fwd.units.n_units},
+        {"name": "gala.attention.heads", "op": "attn_bwd2", "heads": nh, "slices": bwd2_slices,
+         "units": g.attn.t.units.n_units}]
+    assert rec == want
+
+
+def test_the_plain_path_counts_no_heads(graph):
+    """On CPU tensors the plain versions run and nothing counts
+    `gala.attention.heads`, while the aggregation's own counts are
+    recorded."""
+    g = graph
+    x, vl, vr, _ = (t.requires_grad_(True) for t in _inputs(g, 64, 8, 6))
+    with torch.profiler.profile():
+        profiling.clear_counts()
+        out = TA.attention_aggregate(g.n_pad, g.c_pad, SLOPE, g.attn, x, vl, vr)
+        out.backward(torch.ones_like(out))
+        names = [r["name"] for r in profiling.counts()]
+    assert "gala.attention" in names and "gala.attention.grad" in names
+    assert "gala.attention.heads" not in names
