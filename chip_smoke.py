@@ -1702,20 +1702,19 @@ def phase_sample(mode, data, strategy="auto", dtype=torch.float32, iters=SAMPLE_
     spmm = dtype_counts("bell_spmm", dtype).name
     sampled = dtype_counts("bell_spmm_dyn", dtype).name
     n_spmm, n_sampled = launches.get(spmm, 0), launches.get(sampled, 0)
-    weights = launches.get("dyn_weights", 0)
     print(f"[{tag}] train {res.total_time * 1e3:.4f} ms/epoch, inference "
           f"{res.inference_time * 1e3:.4f} ms/epoch, max accuracy {res.max_accuracy:.5f}; "
-          f"{spmm} {n_spmm} launches, {sampled} {n_sampled}, weights kernel {weights}")
+          f"{spmm} {n_spmm} launches, {sampled} {n_sampled}")
     if n_spmm + n_sampled <= 0:
         raise AssertionError(f"[{tag}] the path never launched the SpMM kernel")
     want = (0, n_spmm + n_sampled) if mode == "dynamic" else (n_spmm, 0)
-    if (n_spmm, n_sampled) != want or weights:
-        raise AssertionError(f"[{tag}] {n_spmm} {spmm} and {n_sampled} {sampled} launches, "
-                             f"{weights} of a weights kernel: expected {want} and none")
+    if (n_spmm, n_sampled) != want:
+        raise AssertionError(f"[{tag}] {n_spmm} {spmm} and {n_sampled} {sampled} launches: "
+                             f"expected {want}")
     return cm, launches, res
 
 
-def phase_dyn_weights_kernel(cm, seg_cm, kernel, kd):
+def phase_dyn_weights_kernel(cm, seg_cm, kernel):
     """The SpMM's sampled form (the weights made in its staging) on the
     dynamic runs' layouts: the bell run's full-graph, training-subgraph
     and transpose bell layouts, the segment run's seg and t_seg layouts
@@ -1752,7 +1751,7 @@ def phase_dyn_weights_kernel(cm, seg_cm, kernel, kd):
     for name, lay, meta, rows, n_out in layouts:
         for (k, ra, rb), structural in itertools.product(
                 ((1, 5, 7), (SAMPLE_K, 96, 96), (300, 17, 5)), (False, True)):
-            w = kd.dyn_weights_reference(meta.deg, meta.pos, k, ra, rb,
+            w = kernel.dyn_weights_reference(meta.deg, meta.pos, k, ra, rb,
                                          lay.flat_vals if structural else None)
             bad, differ = [], []
             for dtype, f in [(torch.float32, f) for f in WIDTHS] + [(BF16, 32)]:
@@ -1785,13 +1784,13 @@ def phase_dyn_weights_kernel(cm, seg_cm, kernel, kd):
                                      f"{differ}, out of tolerance at {bad}")
     lay, meta, ra, rb, f = full.bell, full.dyn_f, 96, 96, 32
     x = torch.randn((full.c_pad, f), generator=gen, device="cuda")
-    w = kd.dyn_weights_reference(meta.deg, meta.pos, SAMPLE_K, ra, rb, lay.flat_vals)
+    w = kernel.dyn_weights_reference(meta.deg, meta.pos, SAMPLE_K, ra, rb, lay.flat_vals)
     t = {"ms": median_runs(
              lambda: kernel.bell_spmm_sampled(lay, x, full.n_pad, meta, SAMPLE_K, ra, rb, True)),
          "two_step_spmm_ms": median_runs(lambda: kernel.bell_spmm(lay, x, full.n_pad, vals=w)),
          "plain_ms": median_runs(lambda: kernel.bell_spmm_rows_reference(
-             lay, x, full.n_pad, kd.dyn_weights_reference(meta.deg, meta.pos, SAMPLE_K, ra, rb,
-                                                          lay.flat_vals)), reps=5)}
+             lay, x, full.n_pad, kernel.dyn_weights_reference(
+                 meta.deg, meta.pos, SAMPLE_K, ra, rb, lay.flat_vals)), reps=5)}
     # bytes: the layout (its structural values among them), deg and pos,
     # x read once and the output written once; operations: 2 F a slot and
     # k steps of the count
@@ -2937,7 +2936,6 @@ def main() -> int:
     from gala_tpu_torch.data.datasets import load_dataset
     from gala_tpu_torch.ops.kernels import attn_bell as ak
     from gala_tpu_torch.ops.kernels import bell_spmm as kernel
-    from gala_tpu_torch.ops.kernels import dyn_weights as kd
     from gala_tpu_torch.ops.kernels import gather as kg
     from gala_tpu_torch.ops.kernels import sddmm as ks
     from gala_tpu_torch.ops.kernels._build import all_counts, counts_for, toolchain_available
@@ -3039,7 +3037,7 @@ def main() -> int:
         "sample-dynamic-segment", phase_sample, "dynamic", arxiv, "segment", torch.float32, 5,
         0.0)
     r["dyn_err"], r["dyn_times"] = timed(
-        "dyn-weights-kernel", phase_dyn_weights_kernel, cm, seg_cm, kernel, kd)
+        "dyn-weights-kernel", phase_dyn_weights_kernel, cm, seg_cm, kernel)
     del cm, seg_cm
 
     # bf16 activations with f32 params (dtype=torch.bfloat16) on the same

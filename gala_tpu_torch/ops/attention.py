@@ -41,7 +41,8 @@ with the real source rows (AttnBell.n_cols).
 The GAT paper's heads around it (the DSL's gat_heads): `head_scores`,
 each head's score from its own columns, `head_mean`, the output layer's
 mean over heads, and `elu`; spans `gala.head_scores`, `gala.head_mean`
-and `gala.elu` (their forwards), each counting (rows, heads, width).
+and `gala.elu` (their forwards), which count no work (the benchmark's
+head_ops_ms reads their spans alone).
 """
 from __future__ import annotations
 
@@ -159,7 +160,6 @@ def head_scores(p, x: torch.Tensor, heads: int) -> torch.Tensor:
     block-diagonal (H*fh, H) matrix that holds w's columns, so x is read
     once and not copied per head."""
     with marker("gala.head_scores"):
-        count("gala.head_scores", rows=int(x.shape[0]), heads=heads, width=int(x.shape[1]))
         full_precision_matmuls()
         w = p["w"].to(x.dtype)
         eye = torch.eye(heads, dtype=x.dtype, device=x.device)
@@ -170,12 +170,11 @@ def head_scores(p, x: torch.Tensor, heads: int) -> torch.Tensor:
 def head_mean(x: torch.Tensor, heads: int) -> torch.Tensor:
     """(N, H*C) -> (N, C): the mean over the H heads of C columns each."""
     with marker("gala.head_mean"):
-        count("gala.head_mean", rows=int(x.shape[0]), heads=heads, width=int(x.shape[1]))
         return x.view(x.shape[0], heads, -1).mean(dim=1)
 
 
 def elu(x: torch.Tensor, heads: int = 1) -> torch.Tensor:
-    """ELU (alpha 1) of the layer's output, `heads` heads wide."""
+    """ELU (alpha 1) of the layer's output; `heads`, the argument every
+    TRANSFORM node passes (lowering.interp), does not change it."""
     with marker("gala.elu"):
-        count("gala.elu", rows=int(x.shape[0]), heads=heads, width=int(x.shape[1]))
         return F.elu(x)

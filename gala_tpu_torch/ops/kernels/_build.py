@@ -10,12 +10,16 @@ beside it (`csrc/*.cuh`), so an edited source or header is rebuilt.
 Builds may run in parallel threads (each is one nvcc process writing its
 own temporary file, renamed into place when done).
 
-`counts_for(name)` is the launch record of one kernel: its wrapper adds
-one to `launches` where it launches the kernel, and one to
-`reference_calls_on_cuda` where the plain version runs on CUDA tensors,
-so a run can show that its work went through the kernels.  A kernel with
-a bf16 form counts that form's launches under `name`_bf16
-(`dtype_counts`).
+Every kernel is reached through one binding: its module's public
+function checks the arguments and asks `on_card` whether the tensors
+are on a CUDA device (the kernel), on the CPU (the plain version) or on
+another device (refused).  Every kernel is launched through `launch`.
+
+`counts_for(name)` is the launch record of one kernel: `launch` adds
+one to `launches`, and a plain version adds one to
+`reference_calls_on_cuda` where it runs on CUDA tensors, so a run can
+show that its work went through the kernels.  A kernel with a bf16 form
+counts that form's launches under `name`_bf16 (`dtype_counts`).
 
 `toolchain_available()` is the port of gala_tpu's `mosaic_available`: a
 child process builds and launches `csrc/probe.cu` (x * 2, through
@@ -108,6 +112,38 @@ def reset_counts() -> None:
         c.reset()
 
 
+def on_card(x: torch.Tensor, name: str) -> bool:
+    """Whether a call of kernel `name` on x runs the kernel (x on a CUDA
+    device) rather than its plain version (x on the CPU); raises for x on
+    any other device.  A CUDA tensor never reaches a plain version."""
+    kind = x.device.type
+    if kind != "cpu" and kind != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda tensors, got {x.device}")
+    return kind == "cuda"
+
+
+def launch(lib, name: str, x: torch.Tensor, *args, record: Counts | None = None) -> None:
+    """Launch kernel `name` of library `lib` on x's device: its C entry
+    gala_<name>_f32 or gala_<name>_bf16 for x's dtype, counted in
+    dtype_counts(name, x.dtype); where `record` is given, its one entry
+    gala_<name> for every dtype, counted in `record`.  `args` are the
+    entry's arguments before the stream.  The launch path is kept short,
+    as each op call pays it on the host: a device guard only where x's
+    device is not the current one, the stream read as a raw handle
+    (torch.cuda.current_stream() builds a Stream object a call).  Raises
+    RuntimeError on a failed launch."""
+    fn = getattr(lib, f"gala_{name}" if record is not None else f"gala_{name}_{DTYPES[x.dtype]}")
+    dev = x.device.index
+    if dev != torch.cuda.current_device():  # a launch goes to the current device
+        with torch.cuda.device(dev):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
+    else:
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
+    (dtype_counts(name, x.dtype) if record is None else record).launches += 1
+
+
 LIMIT_KEYS = ("registers", "static_smem", "dynamic_smem", "blocks_per_sm")
 
 
@@ -189,7 +225,7 @@ def probe_library() -> Build:
     })
 
 
-_probe_fn = None  # gala_probe_f32, looked up at the first launch
+_probe_lib = None  # the probe's library, loaded at the first launch
 _probe_counts = counts_for("toolchain_probe")
 
 
@@ -199,22 +235,17 @@ def probe_x2(x: torch.Tensor) -> torch.Tensor:
     tensor takes the plain product.  Raises on a failed launch.
 
     At the probe's 128 x 128 tile the host's work per call, not the
-    kernel, sets the time, so the launch path is kept short: the C
-    function is looked up once, and the stream is read as a raw handle
-    (torch.cuda.current_stream() builds a Stream object per call)."""
-    global _probe_fn
-    if x.device.type != "cuda":
+    kernel, sets the time, so the library is looked up once."""
+    global _probe_lib
+    if not on_card(x, "probe_x2"):
         return x * 2.0
     if x.dtype != torch.float32 or not x.is_contiguous() or x.numel() >= 2**31:
         raise ValueError("probe_x2 takes a contiguous float32 tensor of < 2^31 elements")
-    if _probe_fn is None:
-        _probe_fn = probe_library().lib.gala_probe_f32
+    if _probe_lib is None:
+        _probe_lib = probe_library().lib
     out = torch.empty_like(x)
-    err = _probe_fn(x.data_ptr(), out.data_ptr(), x.numel(),
-                    torch._C._cuda_getCurrentRawStream(x.device.index))
-    if err != 0:
-        raise RuntimeError(f"the probe kernel failed to launch: CUDA error {err}")
-    _probe_counts.launches += 1
+    launch(_probe_lib, "probe_f32", x, x.data_ptr(), out.data_ptr(), x.numel(),
+           record=_probe_counts)
     return out
 
 

@@ -22,21 +22,20 @@ Row pitch: a kernel lane loads 4 columns of a head (16 bytes at f32, 8
 at bf16), or 8 in the bf16 forward where the head holds them (16
 bytes).  Where fh is not a multiple of 4, the CUDA wrappers run the
 kernels at a padded pitch (`row_pitch`: fh rounded up to a lane, 41 ->
-44, or 48 in the bf16 forward): x (and bwd1's dout, bwd2's dout block of
-w_tab, which `bwd2_table` writes pitched) with head h at columns
-[h*pitch, h*pitch + fh) and zeros after it (`pad_heads`), launched at
-hf = H * pitch, the outputs cut back to H * fh columns (`unpad_heads`).
-Scores come from vl and vr, which have no pitch, and the zero columns
-add 0 to every sum, so the function is the same.  Each padded call
-counts `gala.attention.pitch` (utils.profiling) while a profiler
-records.  Where fh is a multiple of 4, nothing is copied; every table a
-kernel gets is 16-byte aligned, so there is no scalar form.
+44, or 48 in the bf16 forward): x (and bwd1's dout) with head h at
+columns [h*pitch, h*pitch + fh) and zeros after it (`pad_heads`),
+launched at hf = H * pitch, the outputs cut back to H * fh columns
+(`unpad_heads`).  Scores come from vl and vr, which have no pitch, and
+the zero columns add 0 to every sum, so the function is the same.
+bwd2's table has one format on both devices: `bwd2_table` writes its
+dout block at row_pitch(fh), and the plain bwd2 reads the pitch from the
+table's width.  Where fh is a multiple of 4, nothing is copied; every
+table a kernel gets is 16-byte aligned, so there is no scalar form.
 
 Heads: the forward and bwd2 have a one-head form and a multi-head form,
 chosen by H.  At H > 1 a unit's lanes take its scalar phase across
 (slot, head), one coalesced read of a slot's H scores, and the forward's
-warp walks its rows' g-vector slices itself; each such call counts
-`gala.attention.heads` while a profiler records.
+warp walks its rows' g-vector slices itself.
 
 Layouts are ops.attention.AttnBell's: `flat_vals` holds slot occupancy
 (1.0 per real edge, 0.0 on padding slots), used only as a mask.
@@ -48,10 +47,11 @@ is f32 at both types, as gala_tpu keeps it: m, s, the outputs, the
 partials and merges, bwd2's [dout | vr | m | s | sds] table.  The plain
 versions compute in f32 from the same values.
 
-Dispatch (the wrappers, and for the forward and bwd2 the custom ops
-`gala_tpu_torch::attn_fwd` and `::attn_bwd2` of ops.kernels.library
-through torch's dispatcher): a CPU tensor runs the plain version; a
-CUDA tensor runs the kernel or raises (no fallback).
+Dispatch (`attn_fwd`, `attn_bwd1` and `attn_bwd2`, the one binding of
+each kernel, which for the forward and bwd2 the custom ops
+`gala_tpu_torch::attn_fwd` and `::attn_bwd2` of ops.kernels.library run
+on either device): a CPU tensor runs the plain version; a CUDA tensor
+runs the kernel or raises (no fallback).
 `counts_for(name)` records launches and plain-version calls on CUDA
 tensors for `attn_fwd`, `attn_bwd1` and `attn_bwd2` (bf16 launches under
 `attn_fwd_bf16` and so on, `_build.dtype_counts`).
@@ -72,11 +72,10 @@ import os
 import torch
 
 from gala_tpu_torch.ops.kernels._build import (
-    CSRC_DIR, DTYPES, Build, build_library, counts_for, dtype_counts, read_limits, wide,
+    CSRC_DIR, DTYPES, Build, build_library, counts_for, launch, on_card, read_limits, wide,
 )
 from gala_tpu_torch.ops.graph import row_lanes
 from gala_tpu_torch.ops.kernels.bell_spmm import unit_slots
-from gala_tpu_torch.utils.profiling import count
 
 _SRC = os.path.join(CSRC_DIR, "attn_bell.cu")
 MAX_HEADS = 8
@@ -305,9 +304,10 @@ def attn_bwd1_units_reference(lay, x, vl, vr, dout, m, s, slope: float):
 def attn_bwd2_reference(lay, x, vl, w_tab, slope: float, c_pad: int):
     """Plain backward pass 2 on a transpose layout (rows = source nodes c,
     slots = destinations r): w_tab (n_pad, H * pitch + 4H) = [dout | vr |
-    m | s | sds] in node order, dout's head h at columns h * pitch
-    (bwd2_table; pitch = fh on the CPU).  Returns [dx | dvl] (c_pad,
-    hf + H)."""
+    m | s | sds] in node order, dout's head h at columns h * pitch, the
+    pitch read from the table's width (bwd2_table writes it at
+    row_pitch(fh); a table at pitch fh gives the same result).  Returns
+    [dx | dvl] (c_pad, hf + H)."""
     _note_cuda("attn_bwd2", x)
     x, vl = wide(x), wide(vl)
     hf, nh = x.shape[1], vl.shape[1]
@@ -411,25 +411,6 @@ def _check(lay, x, vl, tables: dict, n_out: int, f32: tuple = ()) -> None:
         raise TypeError(f"work-unit starts must be int64, got {lay.units.start.dtype}")
 
 
-def _launch(name, x, *args) -> None:
-    """Launch kernel `name` in x's dtype's form (gala_<name>_f32 or _bf16)."""
-    fn = getattr(build().lib, f"gala_{name}_{DTYPES[x.dtype]}")
-    dev = x.device.index
-    if dev != torch.cuda.current_device():  # a launch goes to the current device
-        with torch.cuda.device(dev):
-            err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
-    else:
-        err = fn(*args, torch._C._cuda_getCurrentRawStream(dev))
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
-    dtype_counts(name, x.dtype).launches += 1
-
-
-def _cuda_only(x, name):
-    if x.device.type != "cuda":
-        raise ValueError(f"{name} runs on cpu or cuda tensors, got {x.device}")
-
-
 def _unit_args(u, hf: int, vec: int) -> tuple[int, tuple]:
     """(log2_g, a WorkUnits' tables in the kernels' argument order): the
     unit tables, the warp table of g = 2^log2_g lanes across a row of hf /
@@ -495,49 +476,21 @@ def unpad_heads(t: torch.Tensor, nh: int, fh: int, pitch: int) -> torch.Tensor:
                      + [t[:, nh * pitch :]], dim=1)
 
 
-def _pitched(op: str, t: torch.Tensor, nh: int, lane: int = 4) -> tuple[int, int]:
-    """(fh, pitch) of a CUDA call on t with nh heads and lanes of `lane`
-    columns; a call that pads counts `gala.attention.pitch` (its columns,
-    pitched columns, heads and kernel), while a profiler records."""
-    fh = t.shape[1] // nh
-    pitch = row_pitch(fh, lane)
-    if pitch != fh:
-        count("gala.attention.pitch", cols=nh * fh, pitch=nh * pitch, heads=nh, op=op)
-    return fh, pitch
-
-
-def _count_heads(op: str, u, nh: int, hf: int, vec: int, log2_g: int) -> None:
-    """A CUDA call at nh > 1 heads takes the kernels' multi-head scalar
-    phase (the heads across a unit's lanes, once per unit; the warp walks
-    the row's g-vector slices): count `gala.attention.heads` (kernel,
-    heads, slices walked, work units) while a profiler records."""
-    if nh > 1:
-        slices = -(-(hf // vec) // (1 << log2_g))
-        count("gala.attention.heads", op=op, heads=nh, slices=slices, units=u.n_units)
-
-
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """t 16-byte aligned, as the kernels' lanes load it: t itself, or a
     copy of a misaligned view."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _bwd2_pitch(x: torch.Tensor, nh: int) -> int:
-    """The pitch of bwd2's table on x's device: row_pitch on CUDA, fh on
-    the CPU (the plain version takes no pitch)."""
-    fh = x.shape[1] // nh
-    return row_pitch(fh) if x.is_cuda else fh
-
-
 def bwd2_table(x, dout, vr, m, s, sds) -> torch.Tensor:
     """bwd2's w_tab [dout | vr | m | s | sds] (rows, H * pitch + 4H), f32,
     for x of H = vr.shape[1] heads, in one torch.cat: dout's head h at
-    columns [h * pitch, h * pitch + fh), zeros after it, at the kernel's
-    row pitch on CUDA tensors and pitch = fh on CPU ones.  attn_bwd2
-    takes only this table."""
+    columns [h * pitch, h * pitch + fh), zeros after it, pitch the
+    kernel's row_pitch(fh) on either device.  attn_bwd2 takes only this
+    table."""
     nh = vr.shape[1]
-    return torch.cat([*head_blocks(wide(dout), nh, _bwd2_pitch(x, nh)), wide(vr), m, s,
-                      sds], dim=1)
+    return torch.cat([*head_blocks(wide(dout), nh, row_pitch(x.shape[1] // nh)), wide(vr), m,
+                      s, sds], dim=1)
 
 
 def _check_fwd(lay, x, vl, vr, n_pad: int) -> None:
@@ -550,14 +503,11 @@ def _check_fwd(lay, x, vl, vr, n_pad: int) -> None:
 def attn_fwd(lay, x, vl, vr, slope: float, n_pad: int, flash: bool):
     """Attention forward on a fwd layout (see attn_fwd_reference): the
     kernel on CUDA tensors, the plain version on CPU tensors.  x, vl and
-    vr share one dtype; every output is f32.  The direct binding; the
-    custom op `gala_tpu_torch::attn_fwd` (ops.kernels.library) runs the
-    same two functions."""
+    vr share one dtype; every output is f32."""
     _check_fwd(lay, x, vl, vr, n_pad)
-    if x.device.type == "cpu":
-        return attn_fwd_reference(lay, x, vl, vr, slope, n_pad, flash)
-    _cuda_only(x, "attn_fwd")
-    return attn_fwd_cuda(lay, x, vl, vr, slope, n_pad, flash)
+    if on_card(x, "attn_fwd"):
+        return attn_fwd_cuda(lay, x, vl, vr, slope, n_pad, flash)
+    return attn_fwd_reference(lay, x, vl, vr, slope, n_pad, flash)
 
 
 def attn_fwd_cuda(lay, x, vl, vr, slope: float, n_pad: int, flash: bool):
@@ -565,7 +515,8 @@ def attn_fwd_cuda(lay, x, vl, vr, slope: float, n_pad: int, flash: bool):
     at x's row pitch for lanes of 16 bytes; out and outpos come back as
     H * fh columns."""
     nh, lane = vl.shape[1], 16 // x.element_size()
-    fh, pitch = _pitched("attn_fwd", x, nh, lane)
+    fh = x.shape[1] // nh
+    pitch = row_pitch(fh, lane)
     x = _aligned(pad_heads(x, nh, pitch))
     hf = x.shape[1]
     # padding rows zeroed by the call (rows no unit writes stay 0)
@@ -583,12 +534,11 @@ def attn_fwd_cuda(lay, x, vl, vr, slope: float, n_pad: int, flash: bool):
     vec = lane if pitch % lane == 0 else 4
     log2_g, tables = _unit_args(u, hf, vec)
     n_warps, n_split, _, zero_from = _unit_ints(u, log2_g, n_pad)
-    _count_heads("attn_fwd", u, nh, hf, vec, log2_g)
-    _launch("attn_fwd", x,
-            x.data_ptr(), vl.data_ptr(), vr.data_ptr(), lay.flat_cols.data_ptr(),
-            lay.flat_vals.data_ptr(), *tables,
-            out.data_ptr(), m.data_ptr(), s.data_ptr(), _ptr(outpos), _ptr(spos), _ptr(part),
-            n_warps, n_split, u.n_partials, n_pad, zero_from, hf, nh, float(slope), vec, log2_g)
+    launch(build().lib, "attn_fwd", x,
+           x.data_ptr(), vl.data_ptr(), vr.data_ptr(), lay.flat_cols.data_ptr(),
+           lay.flat_vals.data_ptr(), *tables,
+           out.data_ptr(), m.data_ptr(), s.data_ptr(), _ptr(outpos), _ptr(spos), _ptr(part),
+           n_warps, n_split, u.n_partials, n_pad, zero_from, hf, nh, float(slope), vec, log2_g)
     if flash:
         outpos = unpad_heads(outpos, nh, fh, pitch)
     return unpad_heads(out, nh, fh, pitch), m, s, outpos, spos
@@ -605,17 +555,16 @@ def attn_bwd1(lay, x, vl, vr, dout, m, s, slope: float):
             or any(t.shape != (n_pad, nh) for t in (vr, m, s))):
         raise ValueError(f"x needs >= {lay.n_src} rows, dout (n_pad, hf) and vr, m, s "
                          "(n_pad, H)")
-    if x.device.type == "cpu":
-        return attn_bwd1_reference(lay, x, vl, vr, dout, m, s, slope)
-    _cuda_only(x, "attn_bwd1")
-    return attn_bwd1_cuda(lay, x, vl, vr, dout, m, s, slope)
+    if on_card(x, "attn_bwd1"):
+        return attn_bwd1_cuda(lay, x, vl, vr, dout, m, s, slope)
+    return attn_bwd1_reference(lay, x, vl, vr, dout, m, s, slope)
 
 
 def attn_bwd1_cuda(lay, x, vl, vr, dout, m, s, slope: float):
     """The bwd1 kernel on CUDA tensors (arguments as checked by attn_bwd1),
     x and dout at x's row pitch for lanes of 4 columns."""
     nh, n_pad = vl.shape[1], dout.shape[0]
-    _, pitch = _pitched("attn_bwd1", x, nh)
+    pitch = row_pitch(x.shape[1] // nh)
     x, dout = _aligned(pad_heads(x, nh, pitch)), _aligned(pad_heads(dout, nh, pitch))
     hf = x.shape[1]
     # padding rows zeroed by the call (rows no unit writes stay 0)
@@ -625,18 +574,18 @@ def attn_bwd1_cuda(lay, x, vl, vr, dout, m, s, slope: float):
     part = (torch.empty((u.n_partials * 3 * nh,), dtype=torch.float32, device=x.device)
             if u.n_partials else None)
     log2_g, tables = _unit_args(u, hf, 4)
-    _launch("attn_bwd1", x,
-            x.data_ptr(), vl.data_ptr(), vr.data_ptr(), dout.data_ptr(), m.data_ptr(),
-            s.data_ptr(), lay.flat_cols.data_ptr(), lay.flat_vals.data_ptr(), *tables,
-            out.data_ptr(), _ptr(part), *_unit_ints(u, log2_g, n_pad), hf, nh, float(slope),
-            4, log2_g)
+    launch(build().lib, "attn_bwd1", x,
+           x.data_ptr(), vl.data_ptr(), vr.data_ptr(), dout.data_ptr(), m.data_ptr(),
+           s.data_ptr(), lay.flat_cols.data_ptr(), lay.flat_vals.data_ptr(), *tables,
+           out.data_ptr(), _ptr(part), *_unit_ints(u, log2_g, n_pad), hf, nh, float(slope),
+           4, log2_g)
     return out[:, :nh], out[:, nh : 2 * nh], out[:, 2 * nh :]
 
 
 def _check_bwd2(lay, x, vl, w_tab, c_pad: int) -> None:
     _check(lay, x, vl, {"w_tab": w_tab}, c_pad, f32=("w_tab",))
     nh = vl.shape[1]
-    width = nh * _bwd2_pitch(x, nh) + 4 * nh
+    width = nh * row_pitch(x.shape[1] // nh) + 4 * nh
     if w_tab.shape[1] != width or w_tab.shape[0] < lay.n_src:
         raise ValueError(f"w_tab {tuple(w_tab.shape)} must be (>= {lay.n_src}, {width}), "
                          "as bwd2_table builds it")
@@ -647,14 +596,11 @@ def _check_bwd2(lay, x, vl, w_tab, c_pad: int) -> None:
 def attn_bwd2(lay, x, vl, w_tab, slope: float, c_pad: int):
     """Backward pass 2 on a transpose layout (see attn_bwd2_reference):
     returns [dx | dvl] (c_pad, hf + H), f32.  x and vl share one dtype;
-    w_tab is f32, built by bwd2_table.  The direct binding; the custom op
-    `gala_tpu_torch::attn_bwd2` (ops.kernels.library) runs the same two
-    functions."""
+    w_tab is f32, built by bwd2_table."""
     _check_bwd2(lay, x, vl, w_tab, c_pad)
-    if x.device.type == "cpu":
-        return attn_bwd2_reference(lay, x, vl, w_tab, slope, c_pad)
-    _cuda_only(x, "attn_bwd2")
-    return attn_bwd2_cuda(lay, x, vl, w_tab, slope, c_pad)
+    if on_card(x, "attn_bwd2"):
+        return attn_bwd2_cuda(lay, x, vl, w_tab, slope, c_pad)
+    return attn_bwd2_reference(lay, x, vl, w_tab, slope, c_pad)
 
 
 def attn_bwd2_cuda(lay, x, vl, w_tab, slope: float, c_pad: int):
@@ -662,7 +608,8 @@ def attn_bwd2_cuda(lay, x, vl, w_tab, slope: float, c_pad: int):
     x at its row pitch for lanes of 4 columns, as w_tab's dout block
     (bwd2_table); [dx | dvl] comes back as H * fh + H columns."""
     nh = vl.shape[1]
-    fh, pitch = _pitched("attn_bwd2", x, nh)
+    fh = x.shape[1] // nh
+    pitch = row_pitch(fh)
     x, w_tab = _aligned(pad_heads(x, nh, pitch)), _aligned(w_tab)
     hf = x.shape[1]
     # padding rows zeroed by the call (rows no unit writes stay 0)
@@ -672,11 +619,10 @@ def attn_bwd2_cuda(lay, x, vl, w_tab, slope: float, c_pad: int):
     part = (torch.empty((u.n_partials * (hf + nh),), dtype=torch.float32, device=x.device)
             if u.n_partials else None)
     log2_g, tables = _unit_args(u, hf, 4)
-    _count_heads("attn_bwd2", u, nh, hf, 4, log2_g)
-    _launch("attn_bwd2", x,
-            w_tab.data_ptr(), x.data_ptr(), vl.data_ptr(), lay.flat_cols.data_ptr(),
-            lay.flat_vals.data_ptr(), *tables, out.data_ptr(), _ptr(part),
-            *_unit_ints(u, log2_g, c_pad), hf, nh, float(slope), 4, log2_g)
+    launch(build().lib, "attn_bwd2", x,
+           w_tab.data_ptr(), x.data_ptr(), vl.data_ptr(), lay.flat_cols.data_ptr(),
+           lay.flat_vals.data_ptr(), *tables, out.data_ptr(), _ptr(part),
+           *_unit_ints(u, log2_g, c_pad), hf, nh, float(slope), 4, log2_g)
     del x, w_tab, part  # pitched copies and scratch freed before the cut-back copy
     return unpad_heads(out, nh, fh, pitch)
 

@@ -32,27 +32,44 @@ from the bf16 values and round the result once, so the tests hold the
 kernel to an oracle that accumulates as gala_tpu's bf16 einsums do
 (preferred_element_type=f32), not to bf16 adds.
 
-Dispatch (`bell_spmm`, and the custom op `gala_tpu_torch::bell_spmm`
-of ops.kernels.library through torch's dispatcher): a CPU tensor runs
-`bell_spmm_plain`, the bin-by-bin `bell_spmm_reference` for a binned
-layout with its own values and the slot-by-slot
-`bell_spmm_rows_reference` for every other call; a CUDA tensor runs
-`bell_spmm_cuda`, the kernel, or raises (no fallback).  `counts` records
-kernel calls (one per product, both passes) and plain-version calls on
-CUDA tensors, so a run can show that its aggregations went through the
-kernel (bf16 launches under "bell_spmm_bf16", `_build.dtype_counts`).
-`bell_spmm_units_reference` repeats the kernel's two passes in
-plain PyTorch, for the tests and the card's checks only.
+Dispatch (`bell_spmm`, the one binding, which the custom op
+`gala_tpu_torch::bell_spmm` of ops.kernels.library runs on either
+device): a CPU tensor runs `bell_spmm_plain`, the bin-by-bin
+`bell_spmm_reference` for a binned layout with its own values and the
+slot-by-slot `bell_spmm_rows_reference` for every other call; a CUDA
+tensor runs `bell_spmm_cuda`, the kernel, or raises (no fallback).
+`counts` records kernel calls (one per product, both passes) and
+plain-version calls on CUDA tensors, so a run can show that its
+aggregations went through the kernel (bf16 launches under
+"bell_spmm_bf16", `_build.dtype_counts`).  `bell_spmm_units_reference`
+repeats the kernel's two passes in plain PyTorch, for the tests and the
+card's checks only.
 
 Dynamic neighbor sampling (`bell_spmm_sampled`, ops.spmm.SampledSpmm's
-forward and transpose): the same call with each slot's value replaced by
-its sampling weight (ops.kernels.dyn_weights), times the structural value
-on 'bell'.  On a CUDA tensor the kernel's sampled form computes the
-weights in pass 1's staging from the layout's DynSlots (C entries
-gala_bell_spmm_dyn_f32 / _bf16, launches counted under "bell_spmm_dyn",
-bf16 under "bell_spmm_dyn_bf16"); on a CPU tensor the plain weights
-(`dyn_weights_reference`) go to the row-descriptor plain version.  Both
-equal the SpMM with the plain weights as its values, bit for bit.
+forward and transpose; `aggrFn=aggrFn.sample(k).dynamic()`) sums, for
+each row of degree d, the k neighbors at in-row positions
+(ra*i + rb) mod d, i < k, with repetition, under a fresh (ra, rb) each
+epoch.  That sum is the row's ordinary aggregation with slot weights
+
+    w(d, p) = #{i < k : (ra*i + rb) mod d == p}    (0 where d <= 0)
+
+times the structural values on 'bell' (as gala_tpu's _dyn_reweight) and
+alone on the edge-list layouts (as its _sampled_ell, whose values are
+1); they replace gala_tpu's XLA _dyn_counts / _dyn_reweight
+(gala_tpu/ops/spmm.py:894-923), not a Pallas kernel.  On a CUDA tensor
+the kernel's sampled form computes each slot's weight in pass 1's
+staging, where it would load the slot's value, from the layout's
+DynSlots (C entries gala_bell_spmm_dyn_f32 / _bf16, launches counted
+under "bell_spmm_dyn", bf16 under "bell_spmm_dyn_bf16"), so no (S,)
+weights tensor is written and read again.  On a CPU tensor the plain
+weights (`dyn_weights_reference`, also what the card's checks hold the
+kernel to; its calls on CUDA tensors count under "bell_spmm_dyn") go to
+the row-descriptor plain version.  Each weight is a count (a small
+integer, exact in f32) times one value, so both equal the SpMM with the
+plain weights as its values, bit for bit.  (ra, rb) are Python ints,
+passed to the kernel as scalars; ra*(k-1) + rb must fit an int32, as in
+gala_tpu's int32 arithmetic (97*k + 97 for dynamic_sample_params'
+pairs).
 """
 from __future__ import annotations
 
@@ -63,10 +80,8 @@ import torch
 
 from gala_tpu_torch.ops.graph import BellDev, row_lanes
 from gala_tpu_torch.ops.kernels._build import (
-    CSRC_DIR, DTYPES, Build, build_library, counts_for, dtype_counts, read_limits, wide,
+    CSRC_DIR, DTYPES, Build, build_library, counts_for, launch, on_card, read_limits, wide,
 )
-from gala_tpu_torch.ops.kernels.dyn_weights import _check as _check_sampling
-from gala_tpu_torch.ops.kernels.dyn_weights import dyn_weights_reference
 
 _SRC = os.path.join(CSRC_DIR, "bell_spmm.cu")
 # the library's kernels, in the order of gala_bell_spmm_limits
@@ -78,6 +93,8 @@ KERNELS = ("spmm_unit_kernel<4>", "spmm_unit_kernel<1>", "spmm_merge_kernel<4>",
            "spmm_unit_kernel<8> sampled bf16")
 
 counts = counts_for("bell_spmm")
+_sampled_counts = counts_for("bell_spmm_dyn")
+_INT32_MAX = 2**31 - 1
 
 
 # the library's C functions and their argument types
@@ -268,17 +285,12 @@ def bell_spmm_cuda(bell, x: torch.Tensor, n_out_pad: int,
     by bell_spmm_sampled with `sampled` = (DynSlots, k, ra, rb,
     structural): the sampled form); raises when the library cannot be
     built or the launch fails."""
-    dev = x.device.index
-    if dev != torch.cuda.current_device():  # a launch goes to the current device
-        with torch.cuda.device(dev):
-            return bell_spmm_cuda(bell, x, n_out_pad, vals, sampled)
     name, vals_ptr = "bell_spmm", (bell.flat_vals if vals is None else vals).data_ptr()
     dyn_ptrs, dyn_ints = (), ()
     if sampled is not None:
         meta, k, ra, rb, structural = sampled
         name, vals_ptr = "bell_spmm_dyn", bell.flat_vals.data_ptr() if structural else None
         dyn_ptrs, dyn_ints = (meta.deg.data_ptr(), meta.pos.data_ptr()), (k, ra, rb)
-    fn = getattr(build().lib, f"gala_{name}_{DTYPES[x.dtype]}")
     f = x.shape[1]
     units = bell.units
     if units.n_units == 0 or f == 0:
@@ -290,18 +302,13 @@ def bell_spmm_cuda(bell, x: torch.Tensor, n_out_pad: int,
     log2_g = row_lanes(f // vec)
     table, n_warps = units.warps(log2_g)
     ptr = (lambda t: t.data_ptr() if t is not None else None)  # noqa: E731
-    err = fn(
-        x.data_ptr(), bell.flat_cols.data_ptr(), vals_ptr, *dyn_ptrs,
-        units.start.data_ptr(), units.length.data_ptr(), units.node.data_ptr(),
-        units.part.data_ptr(), table, units.split_node.data_ptr(),
-        units.split_first.data_ptr(), units.split_count.data_ptr(), ptr(bell.diag),
-        out.data_ptr(), ptr(part), n_warps, units.split_node.shape[0], n_out_pad,
-        min(units.n_written, n_out_pad), f, vec, log2_g, *dyn_ints,
-        torch._C._cuda_getCurrentRawStream(dev),
-    )
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed with CUDA error {err}")
-    dtype_counts(name, x.dtype).launches += 1
+    launch(build().lib, name, x,
+           x.data_ptr(), bell.flat_cols.data_ptr(), vals_ptr, *dyn_ptrs,
+           units.start.data_ptr(), units.length.data_ptr(), units.node.data_ptr(),
+           units.part.data_ptr(), table, units.split_node.data_ptr(),
+           units.split_first.data_ptr(), units.split_count.data_ptr(), ptr(bell.diag),
+           out.data_ptr(), ptr(part), n_warps, units.split_node.shape[0], n_out_pad,
+           min(units.n_written, n_out_pad), f, vec, log2_g, *dyn_ints)
     return out
 
 
@@ -310,32 +317,61 @@ def bell_spmm(bell, x: torch.Tensor, n_out_pad: int,
     """out = A @ x on a row-descriptor layout (ops.graph.BellDev or
     SlotRows), A's values the layout's flat_vals or, when given, `vals`
     (one f32 per slot): the kernel on a CUDA tensor, a plain version on a
-    CPU tensor.  The result has x's dtype (float32 or bfloat16).  The
-    direct binding; the custom op `gala_tpu_torch::bell_spmm`
-    (ops.kernels.library) runs the same two functions."""
+    CPU tensor.  The result has x's dtype (float32 or bfloat16)."""
     _check(bell, x, n_out_pad, vals)
-    if x.device.type == "cpu":
-        return bell_spmm_plain(bell, x, n_out_pad, vals)
-    if x.device.type != "cuda":
-        raise ValueError(f"bell_spmm runs on cpu or cuda tensors, got {x.device}")
-    return bell_spmm_cuda(bell, x, n_out_pad, vals)
+    if on_card(x, "bell_spmm"):
+        return bell_spmm_cuda(bell, x, n_out_pad, vals)
+    return bell_spmm_plain(bell, x, n_out_pad, vals)
+
+
+def dyn_weights_reference(deg: torch.Tensor, pos: torch.Tensor, k: int, ra: int, rb: int,
+                          vals: torch.Tensor | None = None) -> torch.Tensor:
+    """The sampling weights in plain PyTorch: for slots at in-row
+    position `pos` of rows of degree `deg` (ops.graph.DynSlots), the
+    count of i < k with (ra*i + rb) mod max(deg, 1) == pos, in f32, 0
+    where deg <= 0, times `vals` where given (gala_tpu's
+    jnp.where(d > 0, _dyn_counts, 0) * v)."""
+    if deg.is_cuda:
+        _sampled_counts.reference_calls_on_cuda += 1
+    d1, p = deg.long().clamp_min(1), pos.long()
+    w = torch.zeros(deg.shape, dtype=torch.float32, device=deg.device)
+    for i in range(k):
+        w += (torch.remainder(ra * i + rb, d1) == p).float()
+    w = torch.where(deg > 0, w, torch.zeros_like(w))
+    return w if vals is None else w * vals
+
+
+def _check_sampling(deg, pos, k, ra, rb, vals) -> None:
+    for name, t in (("deg", deg), ("pos", pos)):
+        if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous():
+            raise TypeError(f"dynamic sampling takes contiguous 1-D int32 {name}")
+    if pos.shape != deg.shape or pos.device != deg.device:
+        raise ValueError(f"pos {tuple(pos.shape)} on {pos.device}, deg {tuple(deg.shape)} "
+                         f"on {deg.device}")
+    if (vals.dtype != torch.float32 or vals.shape != deg.shape or not vals.is_contiguous()
+            or vals.device != deg.device):
+        raise ValueError(f"the layout's values must be a contiguous f32 {tuple(deg.shape)} "
+                         f"tensor on {deg.device}, one per sampled slot")
+    if k < 0 or ra < 0 or rb < 0:
+        raise ValueError(f"dynamic sampling takes k, ra, rb >= 0, got {k}, {ra}, {rb}")
+    if ra * max(k - 1, 0) + rb > _INT32_MAX:
+        raise ValueError(f"ra * (k - 1) + rb = {ra * (k - 1) + rb} overflows int32 "
+                         "(gala_tpu samples in int32)")
 
 
 def bell_spmm_sampled(bell, x: torch.Tensor, n_out_pad: int, meta, k: int, ra: int, rb: int,
                       structural: bool) -> torch.Tensor:
     """out = A_s @ x on a row-descriptor layout, A_s's slot values the
-    sampling weights of (k, ra, rb) for the layout's DynSlots `meta`
-    (ops.kernels.dyn_weights), times its flat_vals where `structural`:
-    the kernel's sampled form on a CUDA tensor, the plain weights into
-    the row-descriptor plain version on a CPU tensor.  Bitwise the
-    SpMM run with dyn_weights_reference's weights as `vals`."""
+    sampling weights of (k, ra, rb) for the layout's DynSlots `meta`,
+    times its flat_vals where `structural`: the kernel's sampled form on
+    a CUDA tensor, the plain weights into the row-descriptor plain
+    version on a CPU tensor.  Bitwise the SpMM run with
+    dyn_weights_reference's weights as `vals`."""
     k, ra, rb = int(k), int(ra), int(rb)
     _check(bell, x, n_out_pad, None)
     _check_sampling(meta.deg, meta.pos, k, ra, rb, bell.flat_vals)
-    if x.device.type == "cpu":
-        w = dyn_weights_reference(meta.deg, meta.pos, k, ra, rb,
-                                  bell.flat_vals if structural else None)
-        return bell_spmm_rows_reference(bell, x, n_out_pad, w)
-    if x.device.type != "cuda":
-        raise ValueError(f"bell_spmm_sampled runs on cpu or cuda tensors, got {x.device}")
-    return bell_spmm_cuda(bell, x, n_out_pad, sampled=(meta, k, ra, rb, bool(structural)))
+    if on_card(x, "bell_spmm_sampled"):
+        return bell_spmm_cuda(bell, x, n_out_pad, sampled=(meta, k, ra, rb, bool(structural)))
+    w = dyn_weights_reference(meta.deg, meta.pos, k, ra, rb,
+                              bell.flat_vals if structural else None)
+    return bell_spmm_rows_reference(bell, x, n_out_pad, w)

@@ -16,8 +16,9 @@ kernels: nvcc for sm_90a into a plain-C shared library in
 `gala_tpu_torch/_build/` (git-ignored) at first use, loaded with ctypes
 by `ops.kernels._build.build_library`.
 
-Dispatch (`gather_rows`): a CPU tensor runs `gather_rows_reference`; a
-CUDA tensor runs the kernel or raises (no fallback).  The gather has no
+Dispatch (`gather_rows`, the one binding): a CPU tensor runs
+`gather_rows_reference`; a CUDA tensor runs the kernel or raises (no
+fallback).  The gather has no
 gradient (the Pallas kernel has no VJP either): a table that requires
 grad is refused.  `counts` records kernel launches and plain-version
 calls on CUDA tensors.
@@ -29,7 +30,9 @@ import os
 
 import torch
 
-from gala_tpu_torch.ops.kernels._build import CSRC_DIR, Build, build_library, counts_for
+from gala_tpu_torch.ops.kernels._build import (
+    CSRC_DIR, Build, build_library, counts_for, launch, on_card,
+)
 
 _SRC = os.path.join(CSRC_DIR, "gather_rows.cu")
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -75,10 +78,8 @@ def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     [0, N); the kernel traps on one that does not (the next synchronize
     reports it), as index_select's device assert does."""
     _check(x, idx)
-    if x.device.type == "cpu":
+    if not on_card(x, "gather_rows"):
         return gather_rows_reference(x, idx)
-    if x.device.type != "cuda":
-        raise ValueError(f"gather_rows runs on cpu or cuda tensors, got {x.device}")
     m = idx.shape[0]
     out = torch.empty((m, x.shape[1]), dtype=x.dtype, device=x.device)
     row_bytes = x.shape[1] * x.element_size()
@@ -86,14 +87,8 @@ def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         return out
     vec = next(v for v in _VECS
                if row_bytes % v == 0 and x.data_ptr() % v == 0 and out.data_ptr() % v == 0)
-    lib = build().lib
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.gala_gather_rows(x.data_ptr(), idx.data_ptr(), out.data_ptr(), m, x.shape[0],
-                                   row_bytes, vec, stream)
-    if err != 0:
-        raise RuntimeError(f"gather_rows kernel launch failed with CUDA error {err}")
-    counts.launches += 1
+    launch(build().lib, "gather_rows", x, x.data_ptr(), idx.data_ptr(), out.data_ptr(), m,
+           x.shape[0], row_bytes, vec, record=counts)
     return out
 
 

@@ -29,10 +29,13 @@ The ops, under the namespace `gala_tpu_torch`:
 
 The ops are defined on a `torch.library.Library` (define and impl, not
 the `custom_op` decorator, whose Python wrapper costs tens of µs a call
-on these list-taking schemas).  Each kernel op has two implementations,
-picked by torch's dispatcher from the tensors' device: the plain version
-for CPU tensors and the kernel (the ctypes launch, which counts its
-launches) for CUDA tensors; a CUDA tensor never reaches a plain version.
+on these list-taking schemas).  Each kernel op has one implementation,
+registered under the CPU and the CUDA keys: it rebuilds the layout and
+calls its kernel module's public function (ops.kernels.bell_spmm
+.bell_spmm, sddmm.sddmm, attn_bell.attn_fwd, attn_bell.attn_bwd2), the
+one binding, which checks the arguments and runs the plain version on
+CPU tensors and the kernel (the ctypes launch, which counts its
+launches) on CUDA tensors; a CUDA tensor never reaches a plain version.
 spmm_ev is a composite of the SpMM op and plain torch.  Each op has a
 fake form (register_fake) that gives its outputs' shapes and dtypes from
 the scalar arguments, so export traces it without running anything and
@@ -46,8 +49,8 @@ that its forward's caller attached to the gradient's node (`spmm` and
 `attention`'s `grad_work`, under a profiler only).
 
 Importing this module registers the ops; it builds and loads no CUDA
-library (that happens at the first CUDA call).  The kernels that stay
-direct ctypes bindings: bwd1 (off the path: the flash identity replaces
+library (that happens at the first CUDA call).  The kernels that have no
+op, only their binding: bwd1 (off the path: the flash identity replaces
 it), the row gather (minibatch SAGE, which is not exported) and the
 SpMM's sampled form (bell_spmm_sampled; dynamic sampling refuses export).
 """
@@ -152,17 +155,15 @@ def layout_of(tensors: list[torch.Tensor], ints: list[int], views: bool = True):
 _LIB = torch.library.Library(NAMESPACE, "DEF")  # lives as long as the module
 
 
-def _define(schema: str, fake, cpu=None, cuda=None, composite=None):
-    """Define op `schema` with its CPU and CUDA implementations (or one
-    `composite` of other ops for every device) and its fake form; returns
-    the op."""
+def _define(schema: str, fake, impl, keys: tuple[str, ...] = ("CPU", "CUDA")):
+    """Define op `schema` with its one implementation `impl`, registered
+    under each of `keys` (a composite of other ops under
+    CompositeExplicitAutograd, for every device), and its fake form;
+    returns the op."""
     name = schema[: schema.index("(")]
     _LIB.define(schema)
-    if composite is not None:
-        _LIB.impl(name, composite, "CompositeExplicitAutograd")
-    else:
-        _LIB.impl(name, cpu, "CPU")
-        _LIB.impl(name, cuda, "CUDA")
+    for key in keys:
+        _LIB.impl(name, impl, key)
     torch.library.register_fake(f"{NAMESPACE}::{name}", fake, lib=_LIB)
     return getattr(getattr(torch.ops, NAMESPACE), name).default
 
@@ -200,16 +201,9 @@ def _register_gradient(op, function, differentiable: tuple[int, ...]) -> None:
 # --------------------------------------------------------------------------- #
 # bell_spmm
 # --------------------------------------------------------------------------- #
-def _bell_spmm_cpu(x, lay, lay_ints, vals, n_out, t_lay, t_ints, c_out):
-    layout = layout_of(lay, lay_ints)
-    _spmm._check(layout, x, n_out, vals)
-    return _spmm.bell_spmm_plain(layout, x, n_out, vals)
-
-
-def _bell_spmm_cuda(x, lay, lay_ints, vals, n_out, t_lay, t_ints, c_out):
-    layout = layout_of(lay, lay_ints, views=False)
-    _spmm._check(layout, x, n_out, vals)
-    return _spmm.bell_spmm_cuda(layout, x, n_out, vals)
+def _bell_spmm(x, lay, lay_ints, vals, n_out, t_lay, t_ints, c_out):
+    layout = layout_of(lay, lay_ints, views=x.device.type == "cpu")
+    return _spmm.bell_spmm(layout, x, n_out, vals)
 
 
 def _bell_spmm_fake(x, lay, lay_ints, vals, n_out, t_lay, t_ints, c_out):
@@ -219,7 +213,7 @@ def _bell_spmm_fake(x, lay, lay_ints, vals, n_out, t_lay, t_ints, c_out):
 bell_spmm_op = _define(
     "bell_spmm(Tensor x, Tensor[] lay, int[] lay_ints, Tensor? vals, int n_out, "
     "Tensor[] t_lay, int[] t_ints, int c_out) -> Tensor",
-    _bell_spmm_fake, cpu=_bell_spmm_cpu, cuda=_bell_spmm_cuda)
+    _bell_spmm_fake, _bell_spmm)
 
 
 class _BellSpmmGrad(torch.autograd.Function):
@@ -274,19 +268,8 @@ def spmm(x: torch.Tensor, lay, t_lay, n_out: int, c_out: int,
 # --------------------------------------------------------------------------- #
 # sddmm
 # --------------------------------------------------------------------------- #
-def _sddmm_cpu(src, dst, a, b):
-    _sddmm._check(src, dst, a, b)
-    return _sddmm.sddmm_reference(src, dst, a, b)
-
-
-def _sddmm_cuda(src, dst, a, b):
-    _sddmm._check(src, dst, a, b)
-    return _sddmm.sddmm_cuda(src, dst, a, b)
-
-
 sddmm_op = _define("sddmm(Tensor src, Tensor dst, Tensor a, Tensor b) -> Tensor",
-                   lambda src, dst, a, b: a.new_empty((src.shape[0],)),
-                   cpu=_sddmm_cpu, cuda=_sddmm_cuda)
+                   lambda src, dst, a, b: a.new_empty((src.shape[0],)), _sddmm.sddmm)
 
 
 def sddmm_edges(src: torch.Tensor, dst: torch.Tensor, a: torch.Tensor,
@@ -308,7 +291,8 @@ def _spmm_ev(evals, x, lay, lay_ints, t_lay, t_ints, src, dst, n_out, c_out):
 spmm_ev_op = _define(
     "spmm_ev(Tensor evals, Tensor x, Tensor[] lay, int[] lay_ints, Tensor[] t_lay, "
     "int[] t_ints, Tensor src, Tensor dst, int n_out, int c_out) -> Tensor",
-    lambda evals, x, *args: x.new_empty((args[-2], x.shape[1])), composite=_spmm_ev)
+    lambda evals, x, *args: x.new_empty((args[-2], x.shape[1])), _spmm_ev,
+    keys=("CompositeExplicitAutograd",))
 
 
 class _SpmmEvGrad(torch.autograd.Function):
@@ -356,16 +340,9 @@ def _flash_outputs(out, m, s, outpos, spos):
     return out, m, s, outpos, spos
 
 
-def _attn_fwd_cpu(x, vl, vr, lay, lay_ints, t_lay, t_ints, slope, n_pad, c_pad, flash):
-    layout = layout_of(lay, lay_ints)
-    _attn._check_fwd(layout, x, vl, vr, n_pad)
-    return _flash_outputs(*_attn.attn_fwd_reference(layout, x, vl, vr, slope, n_pad, flash))
-
-
-def _attn_fwd_cuda(x, vl, vr, lay, lay_ints, t_lay, t_ints, slope, n_pad, c_pad, flash):
-    layout = layout_of(lay, lay_ints, views=False)
-    _attn._check_fwd(layout, x, vl, vr, n_pad)
-    return _flash_outputs(*_attn.attn_fwd_cuda(layout, x, vl, vr, slope, n_pad, flash))
+def _attn_fwd(x, vl, vr, lay, lay_ints, t_lay, t_ints, slope, n_pad, c_pad, flash):
+    layout = layout_of(lay, lay_ints, views=x.device.type == "cpu")
+    return _flash_outputs(*_attn.attn_fwd(layout, x, vl, vr, slope, n_pad, flash))
 
 
 def _attn_fwd_fake(x, vl, vr, lay, lay_ints, t_lay, t_ints, slope, n_pad, c_pad, flash):
@@ -381,19 +358,12 @@ attn_fwd_op = _define(
     "attn_fwd(Tensor x, Tensor vl, Tensor vr, Tensor[] lay, int[] lay_ints, Tensor[] t_lay, "
     "int[] t_ints, float slope, int n_pad, int c_pad, bool flash) "
     "-> (Tensor, Tensor, Tensor, Tensor, Tensor)",
-    _attn_fwd_fake, cpu=_attn_fwd_cpu, cuda=_attn_fwd_cuda)
+    _attn_fwd_fake, _attn_fwd)
 
 
-def _attn_bwd2_cpu(x, vl, w_tab, lay, lay_ints, slope, c_pad):
-    layout = layout_of(lay, lay_ints)
-    _attn._check_bwd2(layout, x, vl, w_tab, c_pad)
-    return _attn.attn_bwd2_reference(layout, x, vl, w_tab, slope, c_pad)
-
-
-def _attn_bwd2_cuda(x, vl, w_tab, lay, lay_ints, slope, c_pad):
-    layout = layout_of(lay, lay_ints, views=False)
-    _attn._check_bwd2(layout, x, vl, w_tab, c_pad)
-    return _attn.attn_bwd2_cuda(layout, x, vl, w_tab, slope, c_pad)
+def _attn_bwd2(x, vl, w_tab, lay, lay_ints, slope, c_pad):
+    layout = layout_of(lay, lay_ints, views=x.device.type == "cpu")
+    return _attn.attn_bwd2(layout, x, vl, w_tab, slope, c_pad)
 
 
 attn_bwd2_op = _define(
@@ -401,7 +371,7 @@ attn_bwd2_op = _define(
     "int c_pad) -> Tensor",
     lambda x, vl, w_tab, lay, lay_ints, slope, c_pad: x.new_empty(
         (c_pad, x.shape[1] + vl.shape[1]), dtype=torch.float32),
-    cpu=_attn_bwd2_cpu, cuda=_attn_bwd2_cuda)
+    _attn_bwd2)
 
 
 class _AttnFwdGrad(torch.autograd.Function):
@@ -410,7 +380,7 @@ class _AttnFwdGrad(torch.autograd.Function):
     then one bwd2 sweep over the transpose layout for [dx | dvl].  Needs
     the flash statistics (flash = True).  x is saved unpadded; on CUDA
     tensors bwd2 pads it again, and bwd2_table writes its table's dout
-    block at the kernel's row pitch."""
+    block at the kernel's row pitch on either device."""
 
     @staticmethod
     def forward(ctx, x, vl, vr, lay, lay_ints, t_lay, t_ints, slope, n_pad, c_pad, flash):

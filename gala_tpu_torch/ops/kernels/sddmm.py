@@ -23,10 +23,10 @@ repeats; its note says what bounds it on the H100.  Built like the other
 kernels: nvcc for sm_90a into a plain-C shared library in `gala_tpu_torch/_build/` (git-ignored) at
 first use, loaded with ctypes by `ops.kernels._build.build_library`.
 
-Dispatch (`sddmm`, and the custom op `gala_tpu_torch::sddmm` of
-ops.kernels.library through torch's dispatcher): a CPU tensor runs
-`sddmm_reference`; a CUDA tensor runs `sddmm_cuda`, the kernel, or
-raises (no fallback).  `counts` records kernel
+Dispatch (`sddmm`, the one binding, which the custom op
+`gala_tpu_torch::sddmm` of ops.kernels.library runs on either device): a
+CPU tensor runs `sddmm_reference`; a CUDA tensor runs `sddmm_cuda`, the
+kernel, or raises (no fallback).  `counts` records kernel
 launches and plain-version calls on CUDA tensors (bf16 launches under
 "sddmm_bf16", `_build.dtype_counts`).
 """
@@ -38,7 +38,7 @@ import os
 import torch
 
 from gala_tpu_torch.ops.kernels._build import (
-    CSRC_DIR, DTYPES, Build, build_library, counts_for, dtype_counts, wide,
+    CSRC_DIR, DTYPES, Build, build_library, counts_for, launch, on_card, wide,
 )
 from gala_tpu_torch.ops.kernels.bell_spmm import vector_width
 
@@ -99,21 +99,14 @@ def sddmm_cuda(src: torch.Tensor, dst: torch.Tensor, a: torch.Tensor,
                b: torch.Tensor) -> torch.Tensor:
     """The kernel on CUDA tensors (arguments as checked by sddmm); raises
     when the library cannot be built or the launch fails."""
-    fn = getattr(build().lib, f"gala_sddmm_{DTYPES[a.dtype]}")
     n_edges, f = src.shape[0], a.shape[1]
     if f == 0:
         return torch.zeros(n_edges, dtype=a.dtype, device=a.device)
     out = torch.empty(n_edges, dtype=a.dtype, device=a.device)
     if n_edges == 0:
         return out
-    vec = lane_width(a, b)
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = fn(a.data_ptr(), b.data_ptr(), src.data_ptr(), dst.data_ptr(), out.data_ptr(),
-                 n_edges, f, vec, stream)
-    if err != 0:
-        raise RuntimeError(f"sddmm kernel launch failed with CUDA error {err}")
-    dtype_counts("sddmm", a.dtype).launches += 1
+    launch(build().lib, "sddmm", a, a.data_ptr(), b.data_ptr(), src.data_ptr(), dst.data_ptr(),
+           out.data_ptr(), n_edges, f, lane_width(a, b))
     return out
 
 
@@ -122,12 +115,8 @@ def sddmm(src: torch.Tensor, dst: torch.Tensor, a: torch.Tensor,
     """out[e] = <a[src[e]], b[dst[e]]>, (E,) in the operands' dtype: the
     kernel on CUDA tensors, the plain version on CPU tensors.  Every src must be a row of
     a and every dst a row of b (a Graph's padded edge lists are, for
-    (c_pad, F) and (n_pad, F) operands); the kernel does not check.  The
-    direct binding; the custom op `gala_tpu_torch::sddmm`
-    (ops.kernels.library) runs the same two functions."""
+    (c_pad, F) and (n_pad, F) operands); the kernel does not check."""
     _check(src, dst, a, b)
-    if a.device.type == "cpu":
-        return sddmm_reference(src, dst, a, b)
-    if a.device.type != "cuda":
-        raise ValueError(f"sddmm runs on cpu or cuda tensors, got {a.device}")
-    return sddmm_cuda(src, dst, a, b)
+    if on_card(a, "sddmm"):
+        return sddmm_cuda(src, dst, a, b)
+    return sddmm_reference(src, dst, a, b)

@@ -14,7 +14,7 @@ Semantics:  out[d] = sum over edges e with dst[e]==d of vals[e] * x[src[e]]
 
 Dynamic neighbor sampling (`spmm_sampled`, gala_tpu's spmm_sampled): k
 picks (ra*i + rb) mod deg per row, summed with repetition, are the row's
-aggregation with per-slot weights w(deg, pos) (ops.kernels.dyn_weights),
+aggregation with per-slot weights w(deg, pos) (ops.kernels.bell_spmm),
 so `SampledSpmm` runs the SpMM kernel's sampled form
 (ops.kernels.bell_spmm.bell_spmm_sampled), which computes each slot's
 weight where it stages the slot's value: one launch a product, no

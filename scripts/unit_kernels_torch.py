@@ -21,10 +21,8 @@ on the unfused GAT's padded edge lists (2,102,667 edges) at F = 32 and
 sampled SpMM call (dynamic sampling, k = 20, one epoch's (ra, rb)) at F
 = 32, forward and transpose, on the full-graph and first training
 subgraph layouts of GCN_DSL + `aggrFn=aggrFn.sample(20).dynamic();`:
-the tree's own form (bell_spmm_sampled where the tree has it, else the
-weights kernel dyn_weights and then bell_spmm with its weights), and in
-a tree with the fused form also the SpMM run on weights made beforehand
-(the kernel's gather and sums alone).  `--graph reddit` times the
+bell_spmm_sampled, and the SpMM run on weights made beforehand (the
+kernel's gather and sums alone).  `--graph reddit` times the
 attention kernels alone, on the fused GAT's layouts of the benchmark's
 Reddit-shaped graph (gala_bench/graphgen.py, traffic `reddit`: 232,965
 nodes, 114,827,317 nonzeros; its layouts take about two minutes to
@@ -160,7 +158,6 @@ def main(argv=None) -> int:
     from gala_tpu_torch.ops.kernels import attn_bell as ak
     from gala_tpu_torch.ops.kernels import bell_spmm as kernel
     from gala_tpu_torch.ops.kernels import sddmm as ks
-    from gala_tpu_torch.ops.kernels.dyn_weights import dyn_weights_reference
 
     reddit = args.graph == "reddit"
     if reddit:
@@ -254,10 +251,9 @@ def main(argv=None) -> int:
             bounds[key] = bound(layout_bytes(lay) + nbytes(meta.deg, meta.pos, x)
                                 + n_out * 32 * x.element_size(),
                                 (2 * 32 + SAMPLE_K) * lay.flat_cols.numel())
-            if hasattr(kernel, "bell_spmm_sampled"):
-                w = dyn_weights_reference(meta.deg, meta.pos, SAMPLE_K, RA, RB, lay.flat_vals)
-                measure(f"bell_spmm on made weights {tag} {name} F=32",
-                        lambda: kernel.bell_spmm(lay, x, n_out, vals=w))
+            w = kernel.dyn_weights_reference(meta.deg, meta.pos, SAMPLE_K, RA, RB, lay.flat_vals)
+            measure(f"bell_spmm on made weights {tag} {name} F=32",
+                    lambda: kernel.bell_spmm(lay, x, n_out, vals=w))
     print(json.dumps({"label": args.label, "device": smi, "times": times, "bounds": bounds,
                       "device_ms": device}))
     return 0
@@ -293,16 +289,10 @@ def sampled_layouts(data) -> list:
 
 def sampled_call(lay, x, n_out, meta):
     """One sampled SpMM call on 'bell' (the weights times the structural
-    values) as the tree runs it: the fused form where it has one, else
-    the weights kernel and then the SpMM with its weights."""
+    values)."""
     from gala_tpu_torch.ops.kernels import bell_spmm as kernel
 
-    if hasattr(kernel, "bell_spmm_sampled"):
-        return kernel.bell_spmm_sampled(lay, x, n_out, meta, SAMPLE_K, RA, RB, True)
-    from gala_tpu_torch.ops.kernels.dyn_weights import dyn_weights
-
-    w = dyn_weights(meta.deg, meta.pos, SAMPLE_K, RA, RB, lay.flat_vals)
-    return kernel.bell_spmm(lay, x, n_out, vals=w)
+    return kernel.bell_spmm_sampled(lay, x, n_out, meta, SAMPLE_K, RA, RB, True)
 
 
 if __name__ == "__main__":

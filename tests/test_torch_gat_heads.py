@@ -181,31 +181,25 @@ def test_program_matches_models_gat(small, strategy, heads):
 
 
 def test_new_ops_are_spans_with_their_counts(small, tmp_path):
-    """Under a profiler the per-head scores, the head mean and ELU are
-    `gala.head_scores`, `gala.head_mean` and `gala.elu`, each counting
-    (rows, heads, width) once a call."""
+    """Under a profiler the per-head scores, the head mean and ELU are the
+    spans `gala.head_scores`, `gala.head_mean` and `gala.elu` of the
+    trace, which the benchmark's head_ops_ms reads: each forward (the
+    step's, the inference epoch's, the test evaluation's) scores twice a
+    layer, applies ELU once and averages once, so k forwards give 4k
+    score spans, k mean spans and k ELU spans.  They count no work."""
     cm = _compile(small)
     with profiling.profile_trace(str(tmp_path)):
         cm.train(iters=1)
-    counts = profiling.counts()
-    n = cm.full_graphs[0].n_pad
-    c = small.n_classes
-    by = {name: [(r["rows"], r["heads"], r["width"]) for r in counts if r["name"] == name]
-          for name in ("gala.head_scores", "gala.head_mean", "gala.elu")}
-    # each forward (the step's, the inference epoch's, the test
-    # evaluation's) scores twice a layer, applies ELU once and averages
-    # once, the training loss's mean on its own rows only
-    k = len(by["gala.elu"])
-    assert k >= 2 and set(by["gala.elu"]) == {(n, 8, 64)}
-    assert by["gala.head_scores"].count((n, 8, 64)) == 2 * k
-    assert by["gala.head_scores"].count((n, 8, 8 * c)) == 2 * k
-    assert len(by["gala.head_scores"]) == 4 * k
-    assert len(by["gala.head_mean"]) == k
-    assert {(h, w) for _, h, w in by["gala.head_mean"]} == {(8, 8 * c)}
     trace = [f for f in os.listdir(tmp_path) if f.endswith(".json") and "counts" not in f]
     events = json.load(open(tmp_path / trace[0]))["traceEvents"]
-    names = {e.get("name") for e in events}
-    assert {"gala.head_scores", "gala.head_mean", "gala.elu", "gala.attention"} <= names
+    spans = {name: sum(e.get("name") == name and e.get("ph") == "X" for e in events)
+             for name in ("gala.head_scores", "gala.head_mean", "gala.elu", "gala.attention")}
+    k = spans["gala.elu"]
+    assert k >= 2 and spans["gala.attention"] >= 2 * k
+    assert spans["gala.head_scores"] == 4 * k and spans["gala.head_mean"] == k
+    names = {r["name"] for r in profiling.counts()}
+    assert "gala.attention" in names
+    assert not names & {"gala.head_scores", "gala.head_mean", "gala.elu"}
 
 
 # ---------------------------------------------------------------------- #

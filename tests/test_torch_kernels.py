@@ -34,7 +34,7 @@ from gala_tpu_torch.ops.graph import UNIT_SLOTS, Graph, masked_units, select_row
 from gala_tpu_torch.ops.kernels import _build
 from gala_tpu_torch.ops.kernels import attn_bell
 from gala_tpu_torch.ops.kernels import bell_spmm as kernel
-from gala_tpu_torch.ops.kernels import dyn_weights, gather
+from gala_tpu_torch.ops.kernels import gather
 from gala_tpu_torch.ops.kernels import sddmm
 
 CASES = ["symmetric_relabelled", "directed", "train_subgraph", "hub_selfloops"]
@@ -165,7 +165,7 @@ def test_kernel_matches_plain_version_on_the_card(cuda, case, f, dtype):
 @pytest.mark.parametrize("case", CASES)
 def test_custom_ops_are_the_direct_launches_on_the_card(cuda, case, dtype):
     """The custom ops of ops.kernels.library on CUDA tensors, bitwise the
-    direct ctypes launches, one launch a call and no plain version: the
+    kernels' bindings they call, one launch a call and no plain version: the
     SpMM forward and its registered gradient on the transpose, with
     per-slot values on the ELL layout, the SDDMM, the attention forward
     (with and without the flash statistics) and bwd2."""
@@ -545,6 +545,30 @@ def test_attention_kernels_match_plain_versions_on_the_card(cuda, case, hf, nh, 
         assert all(torch.equal(a, b) for a, b in zip(call(), call()))
 
 
+# the indices of hf, H, vec and log2_g among the forward's and bwd2's C arguments
+LANE_ARGS = {"attn_fwd": (24, 25, 27, 28), "attn_bwd2": (19, 20, 22, 23)}
+
+
+def record_launches(monkeypatch, launch=None) -> list:
+    """Record what each attention forward and bwd2 launch receives:
+    (kernel, (launch width hf, heads, slices its warps walk: hf / vec
+    vectors in slices of 2^log2_g lanes)) appended to the list returned;
+    every launch then goes on to `launch` (the real one on the card;
+    None leaves it out, on CPU tensors)."""
+    launched = []
+
+    def spy(lib, name, t, *args, **kw):
+        if name in LANE_ARGS:
+            i_hf, i_nh, i_vec, i_log2 = LANE_ARGS[name]
+            launched.append((name, (args[i_hf], args[i_nh],
+                                    -(-(args[i_hf] // args[i_vec]) // (1 << args[i_log2])))))
+        if launch is not None:
+            launch(lib, name, t, *args, **kw)
+
+    monkeypatch.setattr(attn_bell, "launch", spy)
+    return launched
+
+
 def _device_kernels(fn) -> list[str]:
     """The names of the device kernels that fn() launches (torch.profiler's
     CUDA activity)."""
@@ -560,19 +584,18 @@ def _device_kernels(fn) -> list[str]:
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("hf,nh", [(41, 1), (21, 3)])
-def test_pitched_attention_runs_16_byte_lanes_and_backpropagates(cuda, hf, nh, dtype):
+def test_pitched_attention_runs_16_byte_lanes_and_backpropagates(cuda, monkeypatch, hf, nh,
+                                                                  dtype):
     """attention_aggregate forward and backward at heads of 41 and 7
     columns, which run at their row pitch: out and the gradients of x, vl
     and vr against the same op on CPU copies (the plain versions) within
     1e-4 + 1e-4 * the magnitudes of the summed terms
     (attn_bell.aggregate_scales) and one bf16 unit where the result is
     bf16; the forward launches its 16-byte form (attn_fwd_kernel<4> at
-    f32, <8> at bf16) and bwd2 its 4-column one, and each kernel call
-    counts `gala.attention.pitch` once, at its own pitch; at 3 heads the
-    forward and bwd2 count `gala.attention.heads` once each, at one head
-    never."""
+    f32, <8> at bf16) and bwd2 its 4-column one, each launched once at
+    its own pitched width H * row_pitch(fh), and at H heads (the
+    multi-head forms at 3)."""
     from gala_tpu_torch.ops.attention import attention_aggregate
-    from gala_tpu_torch.utils import profiling
 
     host, undirected = torch_case("hub_selfloops")
     g = Graph.from_host(host, strategy="bell", undirected=undirected, device=cuda,
@@ -595,28 +618,24 @@ def test_pitched_attention_runs_16_byte_lanes_and_backpropagates(cuda, hf, nh, d
         assert got.shape == want.shape and _close(got, want, scale)
 
     x, vl, vr = (t.clone().requires_grad_(True) for t in inputs)
-
-    def step():
-        profiling.clear_counts()
-        attention_aggregate(g.n_pad, g.c_pad, 0.2, g.attn, x, vl, vr).backward(dout)
-
-    names = [n for n in _device_kernels(step) if "attn_" in n]
+    launched = record_launches(monkeypatch, _build.launch)
+    names = [n for n in _device_kernels(
+        lambda: attention_aggregate(g.n_pad, g.c_pad, 0.2, g.attn, x, vl, vr).backward(dout))
+        if "attn_" in n]
     lane = 16 // dtype.itemsize
     assert any(f"attn_fwd_kernel<{lane}," in n for n in names), names
     assert any("attn_bwd2_kernel<4," in n for n in names), names
-    pitched = [c for c in profiling.counts() if c["name"] == "gala.attention.pitch"]
-    assert [c["op"] for c in pitched] == ["attn_fwd", "attn_bwd2"]
-    heads = [c["op"] for c in profiling.counts() if c["name"] == "gala.attention.heads"]
-    assert heads == ([] if nh == 1 else ["attn_fwd", "attn_bwd2"])
     fh = hf // nh
-    assert [(c["cols"], c["pitch"]) for c in pitched] == [
-        (hf, nh * attn_bell.row_pitch(fh, lane)), (hf, nh * attn_bell.row_pitch(fh))]
+    assert [(name, lanes[:2]) for name, lanes in launched] == [
+        ("attn_fwd", (nh * attn_bell.row_pitch(fh, lane), nh)),
+        ("attn_bwd2", (nh * attn_bell.row_pitch(fh), nh))]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("nh,fh", [(8, 8), (8, 41), (6, 8), (2, 8)])
-def test_attention_aggregate_at_eight_heads_matches_plain_version(cuda, nh, fh, dtype):
+def test_attention_aggregate_at_eight_heads_matches_plain_version(cuda, monkeypatch, nh, fh,
+                                                                   dtype):
     """The attention kernels' multi-head forms at the GAT paper's 8 heads
     (8 of 8, and 8 of 41: pitch 44, 352 columns at f32, 3 slices walked
     in the warp), at 6 heads (not a power of two: the lanes past them
@@ -626,10 +645,9 @@ def test_attention_aggregate_at_eight_heads_matches_plain_version(cuda, nh, fh, 
     and the gradients of x, vl and vr against the same op on CPU copies
     (the plain versions) within 1e-4 + 1e-4 * the magnitudes of the summed
     terms (attn_bell.aggregate_scales); the aggregate launches the
-    forward's and bwd2's multi-head forms, and each of their calls counts
-    `gala.attention.heads` once, with the g-vector slices its warps walk."""
+    forward's and bwd2's multi-head forms once each, at H heads, with
+    lanes vec and log2_g that give the g-vector slices its warps walk."""
     from gala_tpu_torch.ops.attention import attention_aggregate
-    from gala_tpu_torch.utils import profiling
 
     host, undirected = torch_case("hub_selfloops")
     graphs = [Graph.from_host(host, strategy="bell", undirected=undirected, device=dev,
@@ -662,12 +680,9 @@ def test_attention_aggregate_at_eight_heads_matches_plain_version(cuda, nh, fh, 
         assert got.shape == want.shape and _close(got, want, scale)
 
     x, vl, vr = (t.clone().requires_grad_(True) for t in inputs)
-
-    def step():
-        profiling.clear_counts()
-        attention_aggregate(g.n_pad, g.c_pad, 0.2, g.attn, x, vl, vr).backward(dout)
-
-    names = _device_kernels(step)
+    launched = record_launches(monkeypatch, _build.launch)
+    names = _device_kernels(
+        lambda: attention_aggregate(g.n_pad, g.c_pad, 0.2, g.attn, x, vl, vr).backward(dout))
     # the forward's lanes: 16 bytes of x where a head's pitch holds them
     lane = 16 // dtype.itemsize
     vec = lane if attn_bell.row_pitch(fh, lane) % lane == 0 else 4
@@ -676,12 +691,8 @@ def test_attention_aggregate_at_eight_heads_matches_plain_version(cuda, nh, fh, 
     # 8 heads of 41: 88 float4 vectors a row in 3 slices of 32 lanes (48
     # 8-column vectors at pitch 48 in the bf16 forward: 2); else one slice
     fwd_slices = (3 if dtype == torch.float32 else 2) if fh == 41 else 1
-    heads = [c for c in profiling.counts() if c["name"] == "gala.attention.heads"]
-    assert heads == [
-        {"name": "gala.attention.heads", "op": "attn_fwd", "heads": nh, "slices": fwd_slices,
-         "units": g.attn.fwd.units.n_units},
-        {"name": "gala.attention.heads", "op": "attn_bwd2", "heads": nh,
-         "slices": 3 if fh == 41 else 1, "units": g.attn.t.units.n_units}]
+    assert [(name, lanes[1:]) for name, lanes in launched] == [
+        ("attn_fwd", (nh, fwd_slices)), ("attn_bwd2", (nh, 3 if fh == 41 else 1))]
 
 
 SDDMM_WIDTHS = [1, 3, 32, 33, 40, 128]  # ragged widths take scalar loads
@@ -927,14 +938,20 @@ def test_gather_refuses_what_it_does_not_take_on_the_card(cuda):
 
 def test_dyn_weights_source_names_what_it_replaces():
     """The weights are computed in the SpMM's sampled staging: its source
-    names the XLA weights it replaces and its bound, and no source of a
-    weights kernel of its own is left."""
+    names the XLA weights it replaces and its bound, the sampled form's
+    module (ops.kernels.bell_spmm, which keeps the plain weights) names
+    gala_tpu's _dyn_counts and _dyn_reweight, and no weights module or
+    source of a weights kernel of its own is left."""
+    import importlib.util
+
     with open(kernel._SRC) as f:
         src = f.read()
     assert "gala_tpu/ops/spmm.py::_dyn_counts" in src and "3.35 TB/s" in src
     assert "gala_bell_spmm_dyn_f32" in src and "gala_bell_spmm_dyn_bf16" in src
+    assert "_dyn_counts" in kernel.__doc__ and "_dyn_reweight" in kernel.__doc__
+    assert callable(kernel.dyn_weights_reference)
     assert not os.path.exists(os.path.join(_build.CSRC_DIR, "dyn_weights.cu"))
-    assert not hasattr(dyn_weights, "build")
+    assert importlib.util.find_spec("gala_tpu_torch.ops.kernels.dyn_weights") is None
 
 
 def _sampled_graphs(device, col_tile=None):
@@ -957,8 +974,7 @@ def test_dyn_weights_matches_plain_version_bitwise_on_the_card(cuda, k, ra, rb, 
     with and without the structural values, on both sides of 'bell' and
     'segment', untiled and in column tiles of 150 (units whose positions
     have gaps), at F = 1, 32 and 33 (scalar and 16-byte lanes); one
-    launch a call under bell_spmm_dyn, none of a weights kernel (the
-    CUDA form of dyn_weights raises)."""
+    launch a call under bell_spmm_dyn, the only launch of the call."""
     gen = torch.Generator(device=cuda).manual_seed(k)
     counts = _build.dtype_counts("bell_spmm_dyn", dtype)
     graphs = [g for tile in (None, 150) for g in _sampled_graphs(cuda, tile).items()]
@@ -968,17 +984,17 @@ def test_dyn_weights_matches_plain_version_bitwise_on_the_card(cuda, k, ra, rb, 
                                       (g.t_seg, g.dyn_t, g.n_pad, g.c_pad))
         for lay, meta, rows, n_out in sides:
             for structural in (False, True):
-                w = dyn_weights.dyn_weights_reference(meta.deg, meta.pos, k, ra, rb,
-                                                      lay.flat_vals if structural else None)
+                w = kernel.dyn_weights_reference(meta.deg, meta.pos, k, ra, rb,
+                                                 lay.flat_vals if structural else None)
                 for f in (1, 32, 33):
                     x = _randn((rows, f), gen, cuda, dtype)
+                    total = sum(c.launches for c in _build.all_counts().values())
                     launches = counts.launches
                     got = kernel.bell_spmm_sampled(lay, x, n_out, meta, k, ra, rb, structural)
                     torch.cuda.synchronize()
                     assert counts.launches == launches + 1 and got.dtype == dtype
+                    assert sum(c.launches for c in _build.all_counts().values()) == total + 1
                     assert torch.equal(got, kernel.bell_spmm(lay, x, n_out, vals=w))
-        with pytest.raises(RuntimeError, match="bell_spmm_sampled"):
-            dyn_weights.dyn_weights(g.dyn_f.deg, g.dyn_f.pos, k, ra, rb)
 
 
 @pytest.mark.cuda
@@ -1009,12 +1025,12 @@ def test_spmm_sampled_on_the_card_matches_cpu(cuda, strategy, dtype):
             on_cuda = {n: c.reference_calls_on_cuda for n, c in _build.all_counts().items()
                        if c.reference_calls_on_cuda}
             assert launches == {_build.dtype_counts("bell_spmm_dyn", dtype).name: 2}
-            assert dyn_weights.counts.launches == 0 and on_cuda == {}
+            assert on_cuda == {}
     lay, t_lay = (g_cpu.bell, g_cpu.t_bell) if strategy == "bell" else (g_cpu.seg, g_cpu.t_seg)
     for i, (lay_, meta, inp, n_out) in enumerate(((lay, g_cpu.dyn_f, x, g_cpu.n_pad),
                                                   (t_lay, g_cpu.dyn_t, dz, g_cpu.c_pad))):
-        w = dyn_weights.dyn_weights_reference(meta.deg, meta.pos, k, ra, rb,
-                                              lay_.flat_vals if strategy == "bell" else None)
+        w = kernel.dyn_weights_reference(meta.deg, meta.pos, k, ra, rb,
+                                         lay_.flat_vals if strategy == "bell" else None)
         scale = kernel.bell_spmm_rows_reference(lay_, inp.float().abs(), n_out, w)
         assert results["card"][i].dtype == dtype
         assert _close(results["card"][i], results["cpu"][i], scale)

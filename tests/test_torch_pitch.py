@@ -6,13 +6,16 @@ at fh rounded up to a lane (4 columns; 8 in the bf16 forward, whose
 lanes load 16 bytes), its columns at h * pitch and zeros after them.
 Here: where the helpers put each head and that they give back every
 value; that the plain versions run on the pitched tables give the
-unpitched results (the zero columns add 0); that a width of 4k columns
-is handed on with no copy and a misaligned view as an aligned copy; and
-that a call counts `gala.attention.pitch` only where it pads (and
-`gala.attention.heads` only at more than one head), while the
-aggregation's own `gala.attention` counts keep the unpadded width (the
-wrappers run on CPU tensors with the launch left out: the kernels have
-no CPU mode; the card tests in tests/test_torch_kernels.py run them)."""
+unpitched results (the zero columns add 0); that bwd2's table has one
+format, pitched, on the CPU too; that a width of 4k columns is handed
+on with no copy and a misaligned view as an aligned copy; and what each
+launch receives: the pitched width only where a call pads, the lanes
+that give the multi-head forms their slices, while the aggregation's
+own `gala.attention` counts keep the unpadded width (the wrappers run on
+CPU tensors with the launch mocked: the kernels have no CPU mode; the
+card tests in tests/test_torch_kernels.py run them)."""
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -22,6 +25,7 @@ from gala_tpu_torch.ops import attention as TA
 from gala_tpu_torch.ops.graph import Graph
 from gala_tpu_torch.ops.kernels import attn_bell as KA
 from gala_tpu_torch.utils import profiling
+from tests.test_torch_kernels import record_launches
 
 torch.set_num_threads(2)
 
@@ -83,6 +87,13 @@ def test_pad_heads_places_each_head_at_its_pitch_and_gives_it_back(fh, nh, dtype
     assert torch.equal(tailed, torch.cat([t, tail], dim=1))
 
 
+def _mock_launch(monkeypatch) -> list:
+    """Leave the kernels' launch out; returns what each attention forward
+    and bwd2 launch receives (tests.test_torch_kernels.record_launches)."""
+    monkeypatch.setattr(KA, "build", lambda: SimpleNamespace(lib=None))
+    return record_launches(monkeypatch)
+
+
 def _inputs(g, hf, nh, seed):
     gen = torch.Generator().manual_seed(seed)
     rand = lambda *shape: torch.randn(shape, generator=gen)  # noqa: E731
@@ -140,14 +151,12 @@ def test_pitched_tables_give_the_unpitched_results(graph, fh, nh, units):
 @pytest.mark.parametrize("hf,nh", [(41, 1), (21, 3), (32, 1), (40, 1), (512, 8)])
 def test_pitch_is_counted_only_where_a_call_pads(graph, monkeypatch, hf, nh):
     """attention_aggregate forward and backward with the op's CPU forms
-    routed to the CUDA wrappers and the launch left out, under a
-    profiler: the aggregation counts `gala.attention` and
-    `gala.attention.grad` at the unpadded width (the algorithm's bytes),
-    and `gala.attention.pitch` is counted once by the forward and once by
-    bwd2 where fh pads (its columns, pitched columns, heads and kernel),
-    never where fh is a multiple of 4.  bwd2 gets w_tab as the backward
-    builds it for a CUDA x (bwd2_table, its pitch taken on CPU tensors
-    here)."""
+    routed to the CUDA wrappers and the launch mocked, under a profiler:
+    the aggregation counts `gala.attention` and `gala.attention.grad` at
+    the unpadded width (the algorithm's bytes); the forward and bwd2 each
+    launch once at the pitched width H * row_pitch(fh), which differs
+    from hf only where fh is not a multiple of 4; bwd2 gets w_tab as the
+    backward builds it (bwd2_table, pitched on CPU tensors too)."""
     g = graph
     tables = []
 
@@ -155,10 +164,9 @@ def test_pitch_is_counted_only_where_a_call_pads(graph, monkeypatch, hf, nh):
         tables.append(w_tab.shape[1])
         return KA.attn_bwd2_cuda(lay, x, vl, w_tab, slope, c_pad)
 
-    monkeypatch.setattr(KA, "_launch", lambda name, t, *args: None)
+    launched = _mock_launch(monkeypatch)
     monkeypatch.setattr(KA, "attn_fwd_reference", KA.attn_fwd_cuda)
     monkeypatch.setattr(KA, "attn_bwd2_reference", bwd2)
-    monkeypatch.setattr(KA, "_bwd2_pitch", lambda x, nh: KA.row_pitch(x.shape[1] // nh))
     x, vl, vr, _ = (t.requires_grad_(True) for t in _inputs(g, hf, nh, 3))
     with torch.profiler.profile():
         profiling.clear_counts()
@@ -174,24 +182,28 @@ def test_pitch_is_counted_only_where_a_call_pads(graph, monkeypatch, hf, nh):
         by_name.setdefault(r["name"], []).append(r)
     assert [r["width"] for r in by_name["gala.attention"]] == [hf]
     assert [r["width"] for r in by_name["gala.attention.grad"]] == [hf]
-    want = [] if pitch == fh else [
-        {"name": "gala.attention.pitch", "cols": hf, "pitch": nh * pitch, "heads": nh, "op": op}
-        for op in ("attn_fwd", "attn_bwd2")]
-    assert by_name.get("gala.attention.pitch", []) == want
+    assert [(name, lanes[:2]) for name, lanes in launched] == [
+        ("attn_fwd", (nh * pitch, nh)), ("attn_bwd2", (nh * pitch, nh))]
+    assert (nh * pitch != hf) == (fh % 4 != 0)
 
 
 def test_bwd2_takes_a_pitched_table_only_where_it_runs_the_kernel(graph):
-    """On CPU tensors (the plain version) bwd2_table writes dout's block
-    H * fh wide, and attn_bwd2 refuses a pitched table there."""
+    """bwd2's table has one format on both devices: on CPU tensors (the
+    plain version) bwd2_table writes dout's block at the kernel's row
+    pitch (41 -> 44 columns, zeros after the head), attn_bwd2 takes that
+    table and refuses the unpitched one, and its result is the one the
+    unpitched table gives the plain version."""
     g = graph
     x, vl, vr, dout = _inputs(g, 41, 1, 0)
     m = s = sds = torch.ones((g.n_pad, 1))
     w_tab = KA.bwd2_table(x, dout, vr, m, s, sds)
-    assert torch.equal(w_tab, torch.cat([dout, vr, m, s, sds], dim=1))
+    assert torch.equal(w_tab, torch.cat([KA.pad_heads(dout, 1, 44), vr, m, s, sds], dim=1))
+    unpitched = torch.cat([dout, vr, m, s, sds], dim=1)
     with pytest.raises(ValueError):
-        KA.attn_bwd2(g.attn.t, x, vl, torch.cat([KA.pad_heads(dout, 1, 44), vr, m, s, sds],
-                                                dim=1), SLOPE, g.c_pad)
-    assert KA.attn_bwd2(g.attn.t, x, vl, w_tab, SLOPE, g.c_pad).shape == (g.c_pad, 42)
+        KA.attn_bwd2(g.attn.t, x, vl, unpitched, SLOPE, g.c_pad)
+    got = KA.attn_bwd2(g.attn.t, x, vl, w_tab, SLOPE, g.c_pad)
+    assert got.shape == (g.c_pad, 42)
+    assert torch.equal(got, KA.attn_bwd2_reference(g.attn.t, x, vl, unpitched, SLOPE, g.c_pad))
 
 
 @pytest.mark.parametrize("kind", ["fwd", "bwd1", "bwd2"])
@@ -202,7 +214,8 @@ def test_a_misaligned_view_reaches_the_kernel_as_an_aligned_copy(graph, monkeypa
     x as itself."""
     g = graph
     launched = []
-    monkeypatch.setattr(KA, "_launch", lambda name, t, *args: launched.append(args))
+    monkeypatch.setattr(KA, "build", lambda: SimpleNamespace(lib=None))
+    monkeypatch.setattr(KA, "launch", lambda lib, name, t, *args: launched.append(args))
     _, vl, vr, dout = _inputs(g, 32, 1, 5)
     base = torch.randn(g.c_pad * 32 + 1)
     views = (base[1:].view(g.c_pad, 32), base[:-1].view(g.c_pad, 32))
@@ -222,9 +235,9 @@ def test_a_misaligned_view_reaches_the_kernel_as_an_aligned_copy(graph, monkeypa
 
 
 # (hf, H, dtype, slices the forward's warp walks, bwd2's): one head takes
-# the one-head forms (no count); 8 heads of 8 and of 41 (pitch 44, 352
-# columns: 88 float4 vectors in 3 slices of 32 lanes; 48 at bf16 in the
-# forward's 8-column lanes, 2 slices), 6 heads of 8 and 2 heads of 8
+# the one-head forms (slices not asserted); 8 heads of 8 and of 41 (pitch
+# 44, 352 columns: 88 float4 vectors in 3 slices of 32 lanes; 48 at bf16
+# in the forward's 8-column lanes, 2 slices), 6 heads of 8 and 2 heads of 8
 HEAD_CALLS = [(32, 1, F32, None, None), (41, 1, F32, None, None), (64, 8, F32, 1, 1),
               (328, 8, F32, 3, 3), (328, 8, BF16, 2, 3), (48, 6, F32, 1, 1), (16, 2, F32, 1, 1)]
 
@@ -233,39 +246,38 @@ HEAD_CALLS = [(32, 1, F32, None, None), (41, 1, F32, None, None), (64, 8, F32, 1
 def test_heads_are_counted_once_per_call_at_more_than_one_head(graph, monkeypatch, hf, nh, dtype,
                                                                fwd_slices, bwd2_slices):
     """attention_aggregate forward and backward with the op's CPU forms
-    routed to the CUDA wrappers and the launch left out, under a
-    profiler: at H > 1 the forward and bwd2 each count
-    `gala.attention.heads` once (kernel, heads, the g-vector slices the
-    warp walks, the layout's work units), never at one head."""
+    routed to the CUDA wrappers and the launch mocked: the forward and
+    bwd2 each launch once, at H heads (the kernels pick the multi-head
+    form from it at H > 1), with lanes vec and log2_g whose slices of
+    2^log2_g lanes over the row's hf / vec vectors are the 1, 2 or 3 the
+    table names."""
     g = graph
-    monkeypatch.setattr(KA, "_launch", lambda name, t, *args: None)
+    launched = _mock_launch(monkeypatch)
     monkeypatch.setattr(KA, "attn_fwd_reference", KA.attn_fwd_cuda)
     monkeypatch.setattr(KA, "attn_bwd2_reference", KA.attn_bwd2_cuda)
-    monkeypatch.setattr(KA, "_bwd2_pitch", lambda x, nh: KA.row_pitch(x.shape[1] // nh))
     x, vl, vr, _ = (t.to(dtype).requires_grad_(True) for t in _inputs(g, hf, nh, 4))
-    with torch.profiler.profile():
-        profiling.clear_counts()
-        out = TA.attention_aggregate(g.n_pad, g.c_pad, SLOPE, g.attn, x, vl, vr)
-        out.backward(torch.ones_like(out))
-        rec = [r for r in profiling.counts() if r["name"] == "gala.attention.heads"]
-    want = [] if nh == 1 else [
-        {"name": "gala.attention.heads", "op": "attn_fwd", "heads": nh, "slices": fwd_slices,
-         "units": g.attn.fwd.units.n_units},
-        {"name": "gala.attention.heads", "op": "attn_bwd2", "heads": nh, "slices": bwd2_slices,
-         "units": g.attn.t.units.n_units}]
-    assert rec == want
+    out = TA.attention_aggregate(g.n_pad, g.c_pad, SLOPE, g.attn, x, vl, vr)
+    out.backward(torch.ones_like(out))
+    assert [(name, lanes[1]) for name, lanes in launched] == [("attn_fwd", nh),
+                                                              ("attn_bwd2", nh)]
+    if nh > 1:
+        assert [lanes[2] for _, lanes in launched] == [fwd_slices, bwd2_slices]
 
 
-def test_the_plain_path_counts_no_heads(graph):
-    """On CPU tensors the plain versions run and nothing counts
-    `gala.attention.heads`, while the aggregation's own counts are
-    recorded."""
+def test_the_plain_path_counts_no_heads(graph, monkeypatch):
+    """On CPU tensors the plain versions run: nothing is launched, and the
+    aggregation's own counts are recorded as before, `gala.attention`
+    with the layout's real destination rows and nonzeros, x's width, the
+    heads and x's item size, its gradient with the real source rows."""
     g = graph
+    launched = _mock_launch(monkeypatch)
     x, vl, vr, _ = (t.requires_grad_(True) for t in _inputs(g, 64, 8, 6))
     with torch.profiler.profile():
         profiling.clear_counts()
         out = TA.attention_aggregate(g.n_pad, g.c_pad, SLOPE, g.attn, x, vl, vr)
         out.backward(torch.ones_like(out))
-        names = [r["name"] for r in profiling.counts()]
-    assert "gala.attention" in names and "gala.attention.grad" in names
-    assert "gala.attention.heads" not in names
+        rec = profiling.counts()
+    assert launched == []
+    work = {"nnz": g.attn.n_edges, "width": 64, "heads": 8, "itemsize": 4}
+    assert rec == [{"name": "gala.attention", "rows": g.attn.n_rows, **work},
+                   {"name": "gala.attention.grad", "rows": g.attn.n_cols, **work}]

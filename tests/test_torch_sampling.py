@@ -21,6 +21,9 @@ tensors.  Tolerances, and why:
 - bf16: tests/test_torch_bf16.py's per-row bound, 2^-7 of a row's summed
   magnitudes.
 """
+import dataclasses
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -42,7 +45,8 @@ from gala_tpu_torch.data.sampling import dynamic_sample_params
 from gala_tpu_torch.data.synthetic import synthetic_dataset as torch_dataset
 from gala_tpu_torch.ops.graph import Graph as TGraph
 from gala_tpu_torch.ops.kernels import bell_spmm as KB
-from gala_tpu_torch.ops.kernels import dyn_weights as KD
+from gala_tpu_torch.ops.kernels._build import counts_for
+from gala_tpu_torch.ops.kernels._build import on_card as on_card_of
 from gala_tpu_torch.ops.spmm import spmm_sampled
 from gala_tpu_torch.weights import params_from_jax
 from tests.test_torch_train import _data, _forwards_match
@@ -122,7 +126,7 @@ def _magnitudes(tg, x, k, ra, rb, transpose=False):
     bell = tg.strategy == "bell"
     lay = (tg.t_bell if bell else tg.t_seg) if transpose else (tg.bell if bell else tg.seg)
     meta = tg.dyn_t if transpose else tg.dyn_f
-    w = KD.dyn_weights(meta.deg, meta.pos, k, ra, rb, lay.flat_vals if bell else None)
+    w = KB.dyn_weights_reference(meta.deg, meta.pos, k, ra, rb, lay.flat_vals if bell else None)
     return KB.bell_spmm_rows_reference(lay, torch.from_numpy(np.abs(x)),
                                        tg.c_pad if transpose else tg.n_pad, w.abs()).numpy()
 
@@ -169,7 +173,7 @@ def _flat(bell):
 def test_bell_slots_and_weights_match_jax_bitwise(weighted, side):
     """The port's per-slot (deg, pos) are gala_tpu's DynMeta expanded to
     slots, the bells hold the same slots (self loops among them), and the
-    plain dyn_weights equals gala_tpu's _dyn_reweight slot for slot,
+    plain weights (dyn_weights_reference) equal gala_tpu's _dyn_reweight slot for slot,
     bitwise, at each (k, ra, rb)."""
     jg, tg = graph_pair("bell", weighted)
     jb, meta, tb, dyn = ((jg.bell, jg.dyn_f, tg.bell, tg.dyn_f) if side == "forward"
@@ -182,7 +186,7 @@ def test_bell_slots_and_weights_match_jax_bitwise(weighted, side):
     np.testing.assert_array_equal(dyn.pos.numpy(), pos)
     for k, ra, rb in SAMPLES:
         want = _flat(jax.jit(_dyn_reweight, static_argnums=2)(jb, meta, k, ra, rb))
-        got = KD.dyn_weights(dyn.deg, dyn.pos, k, ra, rb, tb.flat_vals).numpy()
+        got = KB.dyn_weights_reference(dyn.deg, dyn.pos, k, ra, rb, tb.flat_vals).numpy()
         assert got.dtype == np.float32
         np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
@@ -215,25 +219,36 @@ def test_spmm_sampled_needs_the_sampling_inputs():
 
 
 def test_dyn_weights_checks_its_input_and_runs_plain_on_cpu():
+    """The plain weights on CPU tensors (no launch) put each of a real
+    row's k picks on one slot; the sampled SpMM, whose check they share,
+    refuses an (ra, rb) that overflows int32, negative ones, int64
+    sampling inputs and inputs of another length than its layout's
+    values."""
     _, tg = graph_pair("bell", False)
     deg, pos = tg.dyn_f.deg, tg.dyn_f.pos
-    KD.counts.reset()
-    w = KD.dyn_weights(deg, pos, 20, 96, 96)
-    assert KD.counts.launches == 0 and KD.counts.reference_calls_on_cuda == 0
+    counts = counts_for("bell_spmm_dyn")
+    counts.reset()
+    w = KB.dyn_weights_reference(deg, pos, 20, 96, 96)
+    assert counts.launches == 0 and counts.reference_calls_on_cuda == 0
     # every real row's weights sum to k: each of its k picks lands on one slot
     sums = torch.zeros(tg.n_pad).index_add_(0, tg.bell.row_node.repeat_interleave(
         tg.bell.row_len.long()), w[torch.cat([torch.arange(s, s + n) for s, n in zip(
             tg.bell.row_start.tolist(), tg.bell.row_len.tolist())])])
     real_deg = np.bincount(_coo(False)[1], minlength=400)
     np.testing.assert_array_equal(sums.numpy()[:400], np.where(real_deg > 0, 20.0, 0.0))
+    x = torch.zeros((tg.c_pad, 4))
+
+    def sampled(meta, k, ra, rb):
+        return KB.bell_spmm_sampled(tg.bell, x, tg.n_pad, meta, k, ra, rb, True)
+
     with pytest.raises(ValueError, match="overflows int32"):
-        KD.dyn_weights(deg, pos, 2**30, 5, 7)
+        sampled(tg.dyn_f, 2**30, 5, 7)
     with pytest.raises(ValueError, match=">= 0"):
-        KD.dyn_weights(deg, pos, 4, -1, 7)
+        sampled(tg.dyn_f, 4, -1, 7)
     with pytest.raises(TypeError):
-        KD.dyn_weights(deg.long(), pos, 4, 5, 7)
+        sampled(SimpleNamespace(deg=deg.long(), pos=pos), 4, 5, 7)
     with pytest.raises(ValueError):
-        KD.dyn_weights(deg, pos, 4, 5, 7, vals=torch.ones(3))
+        sampled(SimpleNamespace(deg=deg[:3], pos=pos[:3]), 4, 5, 7)
 
 
 @pytest.mark.parametrize("strategy", ["segment", "bell"])
@@ -256,8 +271,8 @@ def test_spmm_sampled_matches_jax_at_bf16(strategy):
     for t, j, lay_, meta, inp, n_out in ((got, out, lay, tg.dyn_f, x, tg.n_pad),
                                          (xt.grad, jdx, t_lay, tg.dyn_t,
                                           torch.from_numpy(dz).to(torch.bfloat16), tg.c_pad)):
-        w = KD.dyn_weights(meta.deg, meta.pos, k, ra, rb,
-                           lay_.flat_vals if strategy == "bell" else None)
+        w = KB.dyn_weights_reference(meta.deg, meta.pos, k, ra, rb,
+                                     lay_.flat_vals if strategy == "bell" else None)
         scale = KB.bell_spmm_rows_reference(lay_, inp.float().abs(), n_out, w).numpy()
         err = np.abs(t.detach().float().numpy() - np.asarray(jnp.asarray(j, jnp.float32)))
         assert (err <= 2.0**-7 * scale.max(axis=1, keepdims=True) + 1e-6).all()
@@ -399,11 +414,11 @@ def test_staging_count_matches_the_plain_weights_and_jax(k, ra, rb):
     p = (rng.random(n) * (d + 3)).astype(np.int32)  # some at or past the degree
     vals = rng.uniform(-2.0, 2.0, n).astype(np.float32)
     want = _stepped_counts(d, p, np.arange(n), np.ones(n, np.int64), k, ra, rb)
-    got = KD.dyn_weights_reference(torch.from_numpy(d), torch.from_numpy(p), k, ra, rb).numpy()
+    got = KB.dyn_weights_reference(torch.from_numpy(d), torch.from_numpy(p), k, ra, rb).numpy()
     jx = np.asarray(_dyn_counts(jnp.asarray(d), jnp.asarray(p), k, ra, rb))
     np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
     np.testing.assert_array_equal(jx.view(np.int32), want.view(np.int32))
-    weighted = KD.dyn_weights_reference(torch.from_numpy(d), torch.from_numpy(p), k, ra, rb,
+    weighted = KB.dyn_weights_reference(torch.from_numpy(d), torch.from_numpy(p), k, ra, rb,
                                         torch.from_numpy(vals)).numpy()
     np.testing.assert_array_equal(weighted.view(np.int32), (want * vals).view(np.int32))
     assert (want[:200] == 0).all() and (want[p >= d] == 0).all()
@@ -431,7 +446,7 @@ def test_units_step_their_rows_picks_onto_the_plain_weights(strategy, col_tile):
                 assert (deg[s : s + m] == deg[s]).all()
                 gaps += pos[s + m - 1] - pos[s] != m - 1
         for k, ra, rb in SAMPLES:
-            want = KD.dyn_weights_reference(meta.deg, meta.pos, k, ra, rb).numpy()
+            want = KB.dyn_weights_reference(meta.deg, meta.pos, k, ra, rb).numpy()
             got = _stepped_counts(deg, pos, starts, lens, k, ra, rb)
             np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
     assert (gaps > 0) == (col_tile is not None)
@@ -449,16 +464,26 @@ class _OnCard(torch.Tensor):
         return True
 
 
-def test_dyn_weights_runs_plain_without_a_card_and_raises_on_one():
-    """Without a card dyn_weights is its plain version (no launch); given
-    CUDA tensors it raises, naming the sampled SpMM that computes the
-    weights on the card, and runs no plain version there."""
+def test_dyn_weights_runs_plain_without_a_card_and_raises_on_one(monkeypatch):
+    """The sampled SpMM's one device dispatch: without a card it runs the
+    plain weights into the row-descriptor plain version (no launch), the
+    same bits; given tensors on the card it hands the kernel's sampled
+    form the layout's DynSlots, (k, ra, rb) and the structural flag and
+    runs no plain version; a tensor on any other device raises."""
     _, tg = graph_pair("segment", True)
-    deg, pos = tg.dyn_f.deg, tg.dyn_f.pos
-    KD.counts.reset()
-    got = KD.dyn_weights(deg, pos, 9, 13, 2)
-    assert torch.equal(got, KD.dyn_weights_reference(deg, pos, 9, 13, 2))
-    assert KD.counts.launches == 0 and not hasattr(KD, "build")
-    with pytest.raises(RuntimeError, match="bell_spmm_sampled"):
-        KD.dyn_weights(deg.as_subclass(_OnCard), pos.as_subclass(_OnCard), 9, 13, 2)
-    assert KD.counts.launches == 0 and KD.counts.reference_calls_on_cuda == 0
+    lay, meta = tg.seg, tg.dyn_f
+    x = torch.randn((tg.c_pad, 5), generator=torch.Generator().manual_seed(9))
+    counts = counts_for("bell_spmm_dyn")
+    counts.reset()
+    got = KB.bell_spmm_sampled(lay, x, tg.n_pad, meta, 9, 13, 2, False)
+    want = KB.bell_spmm_rows_reference(lay, x, tg.n_pad,
+                                       KB.dyn_weights_reference(meta.deg, meta.pos, 9, 13, 2))
+    assert torch.equal(got, want) and counts.launches == 0
+    calls = []
+    monkeypatch.setattr(KB, "bell_spmm_cuda", lambda *args, **kw: calls.append(kw["sampled"]))
+    on_card = dataclasses.replace(lay, flat_cols=lay.flat_cols.as_subclass(_OnCard))
+    KB.bell_spmm_sampled(on_card, x.as_subclass(_OnCard), tg.n_pad, meta, 9, 13, 2, False)
+    assert calls == [(meta, 9, 13, 2, False)]
+    assert counts.launches == 0 and counts.reference_calls_on_cuda == 0
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        on_card_of(torch.empty((0,), device="meta"), "bell_spmm_sampled")

@@ -19,6 +19,8 @@ magnitudes from JAX's f32 result (tests/test_torch_bf16.py's OP_RTOL);
 the attention forward computes in f32 from the same values and its
 outputs are f32 at either type.
 """
+from types import SimpleNamespace
+
 import jax
 import numpy as np
 import pytest
@@ -327,7 +329,8 @@ def test_attention_bindings_pass_the_warp_tables(attn_pair, monkeypatch, kind, h
     lane = 16 // dtype.itemsize if kind == "fwd" else 4
     pitch = KA.row_pitch(hf // nh, lane)
     launched = []
-    monkeypatch.setattr(KA, "_launch", lambda name, t, *args: launched.append((name, args)))
+    monkeypatch.setattr(KA, "build", lambda: SimpleNamespace(lib=None))
+    monkeypatch.setattr(KA, "launch", lambda lib, name, t, *args: launched.append((name, args)))
     if kind == "fwd":
         got = KA.attn_fwd_cuda(lay, x, vl, vr, SLOPE, tg.n_pad, True)
         n_out, vec, wide_outs = tg.n_pad, lane if pitch % lane == 0 else 4, (got[0], got[3])
@@ -526,8 +529,6 @@ def test_sampled_spmm_binding_passes_the_sampling_inputs(sampled_graph, monkeypa
     (deg, pos) after the values, the structural values or null, the
     unsampled call's unit tables, lanes and rows, and (k, ra, rb) before
     the stream; one launch counted under bell_spmm_dyn."""
-    from types import SimpleNamespace
-
     from gala_tpu_torch.ops.kernels import _build
 
     g = sampled_graph
