@@ -72,10 +72,16 @@ and prints no "ok" line:
             and two forward calls bitwise equal; bwd1 (over the fwd
             layout's work units) and bwd2 (over the transpose layout's)
             also against their units emulations and a second call,
-            bitwise, there and on the hub graph with masked units; then
+            bitwise, there and on the hub graph with masked units; at
+            (64, 8) and (328, 8) bwd2 also on the shared table of a mean's
+            dout (one block every head reads: its plain version, units
+            emulation and second call, and the per-head table that
+            repeats the block, bitwise); then
             attention_aggregate forward and backward on the hub graph on
             the card against the same call on CPU tensors (same tolerance
-            form), where a padded shape launches the forward's 16-byte
+            form), at (64, 8) and (328, 8) also with the mean over the
+            heads (attention_aggregate(mean=True), the shared table),
+            where a padded shape launches the forward's 16-byte
             form (<4> f32, <8> bf16) and bwd2's 4-column one, as does a
             many-head shape, each at its head template (<.., 1> at one
             head, <.., 8> at more: the heads across lanes); then
@@ -543,20 +549,23 @@ def check_units(ak, kind, what, lay, *args, tag="attn-kernel"):
         call = lambda fn: torch.cat(fn(lay, x, vl, vr, dout, m, s, SLOPE), dim=1)  # noqa: E731
         a_sds, _, a_b = ak.attn_bwd1_reference(lay, x.abs(), vl, vr, dout.abs(), m, s, SLOPE)
         scale = torch.cat([a_sds, a_sds, a_b], dim=1)
+        form = ()
     else:
         x, vl, w_tab, c_pad = args
         nh = vl.shape[1]
         d = w_tab.shape[1] - 4 * nh  # dout's block, at the table's pitch
-        call = lambda fn: fn(lay, x, vl, w_tab, SLOPE, c_pad)  # noqa: E731
+        # the plain versions read the shared form (one dout block) by a flag
+        form = (ak.shared_table(x, vl, w_tab),)
+        call = lambda fn, *flag: fn(lay, x, vl, w_tab, SLOPE, c_pad, *flag)  # noqa: E731
         a_tab = torch.cat([w_tab[:, :d].abs(), w_tab[:, d : d + 3 * nh],
                            -w_tab[:, d + 3 * nh :].abs()], dim=1)
-        scale = ak.attn_bwd2_reference(lay, x.abs(), vl, a_tab, SLOPE, c_pad)
+        scale = ak.attn_bwd2_reference(lay, x.abs(), vl, a_tab, SLOPE, c_pad, *form)
     kernel, plain, units = (getattr(ak, f"attn_{kind}{end}")
                             for end in ("", "_reference", "_units_reference"))
     got, again = call(kernel), call(kernel)
     torch.cuda.synchronize()
     errs = {}
-    for name, want in (("plain", call(plain)), ("units emulation", call(units))):
+    for name, want in (("plain", call(plain, *form)), ("units emulation", call(units, *form))):
         err = (got - want).abs()
         errs[name] = (err.max().item(), int((err > ATOL + RTOL * scale).sum()))
     same = torch.equal(got, again)
@@ -569,6 +578,31 @@ def check_units(ak, kind, what, lay, *args, tag="attn-kernel"):
     if not same:
         raise AssertionError(f"{kind} {what}: two calls differ")
     return errs["plain"][0]
+
+
+def shared_dout(ak, tag, gname, g, x, vl, vr, dout, out, m, s):
+    """bwd2 with the output of a mean over the H heads (gat_heads(8,
+    out=8)'s output layer): dout's first fh columns / H as the shared
+    table's one block, against the plain version and units emulation
+    (check_units) and against bwd2 on the per-head table that repeats the
+    block, bitwise."""
+    nh = vl.shape[1]
+    one = dout[:, : x.shape[1] // nh].float() / nh
+    sds = ak.per_head_dot(one, out, nh)
+    w_tab = ak.bwd2_table(x, one, vr, m, s, sds)
+    if not ak.shared_table(x, vl, w_tab):
+        raise AssertionError(f"bwd2_table gave no shared form: {tuple(w_tab.shape)}")
+    check_units(ak, "bwd2", f"{gname} hf={x.shape[1]} H={nh}, shared dout", g.attn.t, x, vl,
+                w_tab, g.c_pad, tag=tag)
+    got = ak.attn_bwd2(g.attn.t, x, vl, w_tab, SLOPE, g.c_pad)
+    want = ak.attn_bwd2(g.attn.t, x, vl, ak.bwd2_table(x, one.repeat(1, nh), vr, m, s, sds),
+                        SLOPE, g.c_pad)
+    same = torch.equal(got, want)
+    print(f"[{tag}] bwd2 {gname} hf={x.shape[1]} H={nh}: shared dout block "
+          f"({w_tab.shape[1]} floats a row) against the per-head table bitwise equal: {same}")
+    if not same:
+        raise AssertionError(f"bwd2 {gname} hf={x.shape[1]}: the shared form differs from the "
+                             f"per-head table by {(got - want).abs().max().item():.3e}")
 
 
 def spills(log: str) -> dict:
@@ -831,16 +865,57 @@ def device_kernels(fn) -> list:
     return [e.name for e in prof.events() if e.device_type.name == "CUDA"]
 
 
-def _aggregate_on(device, ab, g, inputs):
-    """attention_aggregate forward + backward of sum(out * dout) on `device`."""
+def _aggregate_on(device, ab, g, inputs, mean=False):
+    """attention_aggregate forward + backward of sum(out * dout) on `device`
+    (with `mean`, out the mean over the heads and dout (n_pad, fh))."""
     from gala_tpu_torch.ops.attention import attention_aggregate
 
     x, vl, vr, dout = (t.to(device) for t in inputs)
     for t in (x, vl, vr):
         t.requires_grad_(True)
-    out = attention_aggregate(g.n_pad, g.c_pad, SLOPE, ab, x, vl, vr)
+    out = attention_aggregate(g.n_pad, g.c_pad, SLOPE, ab, x, vl, vr, mean=mean)
     (out * dout).sum().backward()
     return [t.detach().cpu() for t in (out, x.grad, vl.grad, vr.grad)]
+
+
+def _aggregate_card_vs_cpu(ak, tag, hub, hub_cpu, inputs, dtype, mean=False):
+    """attention_aggregate on the card against the same call on CPU tensors
+    (at bf16 out and the gradients are bf16: one unit of slack each); with
+    `mean` the mean over the heads, whose gradient takes bwd2's shared
+    dout block, held to the per-head op's scales at the mean's dout / H.
+    Where the shape is padded or has many heads, the launch check: the
+    16-byte forward and the 4-column bwd2, each at its heads' template
+    (<.., 1> at one head, <.., 8> at more)."""
+    x, vl, vr, dout = inputs
+    hf, nh = x.shape[1], vl.shape[1]
+    fh = hf // nh
+    what = f"hf={hf} H={nh}" + (", mean over the heads" if mean else "")
+    got = _aggregate_on("cuda", hub.attn, hub, inputs, mean)
+    want = _aggregate_on("cpu", hub_cpu.attn, hub_cpu, inputs, mean)
+    each = (dout.float() / nh).repeat(1, nh) if mean else dout
+    scales = ak.aggregate_scales(hub_cpu.attn, x, vl, vr, each, SLOPE, hub.n_pad, hub.c_pad)
+    if mean:
+        scales = (scales[0].view(-1, nh, fh).mean(dim=1), *scales[1:])
+    errs = []
+    for name, gt, wt, sc in zip(("out", "dx", "dvl", "dvr"), got, want, scales):
+        err = (gt.float() - wt.float()).abs()
+        errs.append(f"{name} {err.max().item():.2e}")
+        if gt.dtype != dtype or (err > 1e-4 + 1e-4 * sc + slack(gt, wt)).any():
+            raise AssertionError(f"attention_aggregate {what}: {name} on the card "
+                                 f"({gt.dtype}) differs from CPU by {err.max().item():.3e}")
+    print(f"[{tag}] attention_aggregate hub graph {what}, card vs cpu: " + ", ".join(errs))
+    if fh % 4 or nh > 1:
+        names = device_kernels(lambda: _aggregate_on("cuda", hub.attn, hub,
+                                                     [t.detach() for t in inputs], mean))
+        maxh = 1 if nh == 1 else ak.MAX_HEADS
+        lanes = (f"attn_fwd_kernel<{16 // dtype.itemsize}, {maxh},",
+                 f"attn_bwd2_kernel<4, {maxh},")
+        print(f"[{tag}] attention_aggregate {what} (pitch "
+              f"{ak.row_pitch(fh, 16 // dtype.itemsize)}) launches "
+              + ", ".join(f"{n} x{names.count(n)}"
+                          for n in sorted({n for n in names if "attn_" in n})))
+        if not all(any(k in n for n in names) for k in lanes):
+            raise AssertionError(f"attention_aggregate {what}: no {lanes} launch among {names}")
 
 
 def phase_attn_kernel(cm, ak, dtype=torch.float32):
@@ -894,6 +969,8 @@ def phase_attn_kernel(cm, ak, dtype=torch.float32):
                     err = check_units(ak, kind, f"{gname}{extra} hf={hf} H={nh}", lay, *args,
                                       tag=tag)
                     max_err[f"attn_{kind}"] = max(max_err[f"attn_{kind}"], err)
+            if nh == ak.MAX_HEADS:
+                shared_dout(ak, tag, gname, g, x, vl, vr, dout, out, m, s)
 
     # the op with its autograd on the card against the same op on CPU tensors
     # (at bf16 out and the gradients are bf16: one unit of slack each)
@@ -902,33 +979,11 @@ def phase_attn_kernel(cm, ak, dtype=torch.float32):
     for hf, nh in ATTN_SHAPES:
         inputs = [torch.randn(shape, generator=cpu_gen).to(dtype) for shape in
                   ((hub.c_pad, hf), (hub.c_pad, nh), (hub.n_pad, nh), (hub.n_pad, hf))]
-        got = _aggregate_on("cuda", hub.attn, hub, inputs)
-        want = _aggregate_on("cpu", hub_cpu.attn, hub_cpu, inputs)
-        scales = ak.aggregate_scales(hub_cpu.attn, *inputs, SLOPE, hub.n_pad, hub.c_pad)
-        errs = []
-        for name, gt, wt, sc in zip(("out", "dx", "dvl", "dvr"), got, want, scales):
-            err = (gt.float() - wt.float()).abs()
-            errs.append(f"{name} {err.max().item():.2e}")
-            if gt.dtype != dtype or (err > 1e-4 + 1e-4 * sc + slack(gt, wt)).any():
-                raise AssertionError(f"attention_aggregate hf={hf} H={nh}: {name} on the card "
-                                     f"({gt.dtype}) differs from CPU by {err.max().item():.3e}")
-        print(f"[{tag}] attention_aggregate hub graph hf={hf} H={nh}, card vs cpu: "
-              + ", ".join(errs))
-        fh = hf // nh
-        if fh % 4 or nh > 1:  # padded or many heads: the 16-byte forward and the
-            # 4-column bwd2, each at its heads' template (1, else ak's most, 8)
-            names = device_kernels(lambda: _aggregate_on("cuda", hub.attn, hub,
-                                                         [t.detach() for t in inputs]))
-            maxh = 1 if nh == 1 else ak.MAX_HEADS
-            lanes = (f"attn_fwd_kernel<{16 // dtype.itemsize}, {maxh},",
-                     f"attn_bwd2_kernel<4, {maxh},")
-            print(f"[{tag}] attention_aggregate hf={hf} H={nh} (pitch "
-                  f"{ak.row_pitch(fh, 16 // dtype.itemsize)}) launches "
-                  + ", ".join(f"{n} x{names.count(n)}"
-                              for n in sorted({n for n in names if "attn_" in n})))
-            if not all(any(k in n for n in names) for k in lanes):
-                raise AssertionError(f"attention_aggregate hf={hf} H={nh}: no {lanes} launch "
-                                     f"among {names}")
+        _aggregate_card_vs_cpu(ak, tag, hub, hub_cpu, inputs, dtype)
+        if nh == ak.MAX_HEADS:  # gat_heads(8, out=8)'s output layer: its mean
+            dmean = torch.randn((hub.n_pad, hf // nh), generator=cpu_gen).to(dtype)
+            _aggregate_card_vs_cpu(ak, tag, hub, hub_cpu,
+                                   [t.detach() for t in inputs[:3]] + [dmean], dtype, True)
 
     timings = {}
     lay_f, lay_t = full.attn.fwd, full.attn.t

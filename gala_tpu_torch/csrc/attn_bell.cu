@@ -56,8 +56,10 @@
 // What bounds them on the H100: bytes.  Per real slot the forward reads
 // 8 bytes of (col, occupancy), H scores of vl and one hf-wide row of x;
 // bwd2 reads 8 bytes of (col, occupancy) and one (hf + 4H)-wide row
-// [dout | vr | m | s | sds] of the destination, once; bwd1 what the
-// forward reads, and writes 3H floats a row.  There are a few
+// [dout | vr | m | s | sds] of the destination, once (hf / H + 4H wide
+// for the gradient of a mean over the heads, whose one dout block every
+// head reads: 1,536 -> 304 B a slot at 8 heads of 41, pitch 44); bwd1
+// what the forward reads, and writes 3H floats a row.  There are a few
 // flops per gathered float (an exp per slot and head), and no tile is
 // reused, so tensor cores have no role.  In 32-byte sector requests a
 // real slot costs, at 8 heads on the GAT paper's two layers (8 of 8, 8 of
@@ -644,6 +646,14 @@ attn_bwd1_kernel(const T* __restrict__ x, const T* __restrict__ vl,
 // each slot group from the f32 table's dout slices (16-byte loads at
 // either type), summed over the unit's slot groups; <q, x[c]> summed over
 // each head's lanes and kept by lane t0 = h (dot_keep).
+//
+// The table's dout block is dout_w wide: hf, each head's own dout (at one
+// head always), or hf / H at H > 1, one block that every head takes (the
+// gradient of a mean over the heads, whose dout is the same for each): a
+// lane of head hd then reads the block's column vcol * VEC - hd * dout_w,
+// so every head's lanes read the same bytes of a row, from L1 or L2 after
+// the first.  The values gathered, the lane map and the order of the sums
+// are those of the per-head table that repeats the block H times.
 template <int VEC, int MAXH, class T>
 __global__ void __launch_bounds__(kWarp * kWarpsPerBlock,
                                   MAXH == 1 ? kBwd2MinBlocks : kBwd2MinBlocksHeads)
@@ -653,7 +663,7 @@ attn_bwd2_kernel(const float* __restrict__ wtab, const T* __restrict__ x,
                  const int32_t* __restrict__ unit_len, const int32_t* __restrict__ unit_node,
                  const int32_t* __restrict__ unit_part, const int32_t* __restrict__ warp_first,
                  float* __restrict__ out, float* __restrict__ part, int n_warps, int hf, int nh,
-                 float slope, int log2_g, int n_slices) {
+                 float slope, int log2_g, int n_slices, int dout_w) {
   extern __shared__ float4 smem[];
   const int w = threadIdx.x / kWarp;
   WarpUnits wu;
@@ -667,7 +677,9 @@ attn_bwd2_kernel(const float* __restrict__ wtab, const T* __restrict__ x,
   col += wu.off;
   // [H][head_stride(H)]
   float* sh_p = reinterpret_cast<float*>(base + sizeof(UnitSmem)) + wu.off;
-  const int wt = hf + 4 * heads;
+  const int dw = MAXH == 1 ? hf : dout_w;  // the dout block's width
+  const bool shared = MAXH > 1 && dw != hf;
+  const int wt = dw + 4 * heads;
   __syncwarp();
 
   // scalar phase (a lane of no unit reads row 0 and takes no slot): the
@@ -683,7 +695,7 @@ attn_bwd2_kernel(const float* __restrict__ wtab, const T* __restrict__ x,
     const int r = col[t];
     float pv = 0.f;
     if (r >= 0) {
-      const float* wr = wtab + static_cast<size_t>(r) * wt + hf + hl.h;
+      const float* wr = wtab + static_cast<size_t>(r) * wt + dw + hl.h;
       float4 v;
       if constexpr (MAXH == 1) {
         v = __ldg(reinterpret_cast<const float4*>(wr));
@@ -723,7 +735,8 @@ attn_bwd2_kernel(const float* __restrict__ wtab, const T* __restrict__ x,
                                          dx[i] = fmaf(p, v[i], dx[i]);
                                          q[i] = fmaf(pl, v[i], q[i]);
                                        }
-                                     });
+                                     },
+                                     shared ? rl.hd * dw : 0);
 #pragma unroll
     for (int i = 0; i < VEC; ++i) {
       dx[i] = sum_groups(dx[i], wu, rl);
@@ -865,7 +878,7 @@ int launch_bwd2(const void* wtab, const void* x, const void* vl, const void* col
                 const void* unit_node, const void* unit_part, const void* warp_first,
                 const void* split_node, const void* split_first, const void* split_count,
                 void* out, void* part, int n_warps, int n_split, int hf, int nh, float slope,
-                int log2_g, cudaStream_t st) {
+                int log2_g, int dout_w, cudaStream_t st) {
   const size_t smem = unit_warp_smem(nh) * kWarpsPerBlock;
   const auto t = [](const void* p) { return static_cast<const T*>(p); };
   const auto f32 = [](const void* p) { return static_cast<const float*>(p); };
@@ -874,7 +887,8 @@ int launch_bwd2(const void* wtab, const void* x, const void* vl, const void* col
   attn_bwd2_kernel<VEC, MAXH, T><<<bwd_grid(n_warps), kWarp * kWarpsPerBlock, smem, st>>>(
       f32(wtab), t(x), t(vl), i32(cols), f32(occ), i64(unit_start), i32(unit_len),
       i32(unit_node), i32(unit_part), i32(warp_first), static_cast<float*>(out),
-      static_cast<float*>(part), n_warps, hf, nh, slope, log2_g, n_slices(hf, VEC, log2_g));
+      static_cast<float*>(part), n_warps, hf, nh, slope, log2_g, n_slices(hf, VEC, log2_g),
+      dout_w);
   return merge_sums(part, split_node, split_first, split_count, out, n_split, hf + nh, st);
 }
 
@@ -972,9 +986,10 @@ int bwd2(const void* wtab, const void* x, const void* vl, const void* cols, cons
          const void* unit_part, const void* warp_first, const void* split_node,
          const void* split_first, const void* split_count, void* out, void* part, int n_warps,
          int n_split, int n_pad, int zero_from, int hf, int nh, float slope, int vec, int log2_g,
-         void* stream) {
+         int dout_w, void* stream) {
   if (bad_shape(hf, nh, vec) || (n_split > 0 && part == nullptr) ||
-      bad_units(hf, vec, log2_g, warp_first, n_warps, zero_from))
+      bad_units(hf, vec, log2_g, warp_first, n_warps, zero_from) ||
+      (dout_w != hf && (nh == 1 || dout_w * nh != hf)))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
   const int err = zero_rows({out}, hf + nh, n_pad, zero_from, st);
@@ -983,7 +998,7 @@ int bwd2(const void* wtab, const void* x, const void* vl, const void* cols, cons
     return launch_bwd2<decltype(vec_tag)::value, decltype(maxh_tag)::value, T>(
         wtab, x, vl, cols, occ, unit_start, unit_len, unit_node, unit_part, warp_first,
         split_node, split_first, split_count, out, part, n_warps, n_split, hf, nh, slope, log2_g,
-        st);
+        dout_w, st);
   });
 }
 
@@ -1081,8 +1096,10 @@ GALA_ATTN_FWD(gala_attn_fwd_bf16, bf16)
 GALA_ATTN_BWD1(gala_attn_bwd1_f32, float)
 GALA_ATTN_BWD1(gala_attn_bwd1_bf16, bf16)
 
-// wtab (n_pad, hf + 4H) = [dout | vr | m | s | sds], f32 at either type
-// (gala_tpu's w_tab); out (c_pad, hf + H), rows [zero_from, c_pad) set to
+// wtab (n_pad, dout_w + 4H) = [dout | vr | m | s | sds], f32 at either type
+// (gala_tpu's w_tab), its dout block hf wide (each head's own) or, at H > 1,
+// hf / H (one block every head takes: the gradient of a mean over the
+// heads); out (c_pad, hf + H), rows [zero_from, c_pad) set to
 // 0 first (c_pad is n_pad here); the unit, warp and split tables are the
 // transpose layout's WorkUnits (warp_first and log2_g as the forward takes
 // them); part is f32 scratch of n_partials * (hf + H) floats, read only
@@ -1093,10 +1110,11 @@ GALA_ATTN_BWD1(gala_attn_bwd1_bf16, bf16)
                       const void* unit_node, const void* unit_part, const void* warp_first,      \
                       const void* split_node, const void* split_first, const void* split_count,  \
                       void* out, void* part, int n_warps, int n_split, int n_pad, int zero_from, \
-                      int hf, int nh, float slope, int vec, int log2_g, void* stream) {          \
+                      int hf, int nh, float slope, int vec, int log2_g, int dout_w,              \
+                      void* stream) {                                                            \
     return bwd2<T>(wtab, x, vl, cols, occ, unit_start, unit_len, unit_node, unit_part,          \
                    warp_first, split_node, split_first, split_count, out, part, n_warps,         \
-                   n_split, n_pad, zero_from, hf, nh, slope, vec, log2_g, stream);              \
+                   n_split, n_pad, zero_from, hf, nh, slope, vec, log2_g, dout_w, stream);      \
   }
 GALA_ATTN_BWD2(gala_attn_bwd2_f32, float)
 GALA_ATTN_BWD2(gala_attn_bwd2_bf16, bf16)

@@ -308,13 +308,15 @@ struct RowLanes {
 // unit and slot group for which want(j) holds, use(j, v) with v the lane's
 // VEC values (as f32) of row col[j] of x (row stride f elements; col is
 // the unit's columns in shared memory).  U slots of a group in flight per
-// step.
+// step.  The lane reads its row's columns from vcol * VEC - back on
+// (back = 0: its own; attn_bwd2_kernel's shared dout block the same
+// columns for every head).
 template <int VEC, int U, class T, class Want, class Use>
 __device__ __forceinline__ void gather_units(const int32_t* col, const WarpUnits& wu,
                                              const RowLanes& rl, const T* __restrict__ x, int f,
-                                             Want want, Use use) {
+                                             Want want, Use use, int back = 0) {
   if (!rl.active) return;
-  const T* xv = x + static_cast<size_t>(rl.vcol) * VEC;
+  const T* xv = x + static_cast<size_t>(rl.vcol) * VEC - back;
   const int step = rl.groups * U;
   for (int j0 = rl.sg; j0 < wu.len; j0 += step) {
     float v[U][VEC];

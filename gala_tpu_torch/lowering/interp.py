@@ -17,6 +17,12 @@ Contract (shared with gala_tpu_torch.train.train):
     forward(params, graphs, carry)       -> logits (n_pad, n_classes)
     forward_rows(params, graphs, carry, rows) -> logits of `rows`
 
+A FUSED_ATTENTION node whose one reader is lowering.heads' head_mean
+node (`mean_folds`) runs, where the attention kernels run, as one
+attention op that returns the mean over its heads (its gradient then
+holds the mean's dout once for all heads, ops.attention); the spmd branch
+and the unfused fallback take the mean after the attention, as before.
+
 The hoisted pre-loop section (training-invariant code motion product) is
 evaluated once per graph set; its outputs ride in `carry`.  The carry
 also brings the epoch's dynamic-sampling pair as "_ra"/"_rb" (Python
@@ -86,7 +92,30 @@ def _graph_for(node: ComputeNode, graphs) -> Graph:
     return graphs[0]
 
 
-def _eval_node(node: ComputeNode, env, params, graphs):
+def mean_folds(nodes) -> dict[int, ComputeNode]:
+    """{id of a FUSED_ATTENTION node: the head_mean TRANSFORM node that is
+    the one reader of its output, over as many heads as its scores have}
+    among `nodes` (lowering.heads inserts the mean after the output
+    layer's attention): the pairs evaluated as one attention op that
+    returns the mean over its heads."""
+    readers: dict[int, list[ComputeNode]] = {}
+    for n in nodes:
+        for d in n.inputs:
+            readers.setdefault(d.uid, []).append(n)
+    folds = {}
+    for n in nodes:
+        if n.op is ComputeOp.FUSED_ATTENTION:
+            rs = readers.get(n.outputs[0].uid, [])
+            if (len(rs) == 1 and rs[0].op is ComputeOp.TRANSFORM
+                    and rs[0].params[0] == "head_mean"
+                    and int(rs[0].params[1]) == n.inputs[1].cols):
+                folds[id(n)] = rs[0]
+    return folds
+
+
+def _eval_node(node: ComputeNode, env, params, graphs, mean: ComputeNode | None = None):
+    # mean: the head_mean node that mean_folds pairs with a FUSED_ATTENTION
+    # node, whose output this evaluation then returns
     # strict input resolution: every data input must be in the env except
     # structural graph arguments (routed via _graph_for) and weight
     # placeholders (routed via params)
@@ -137,23 +166,28 @@ def _eval_node(node: ComputeNode, env, params, graphs):
         g = _graph_for(node, graphs)
         x, vl, vr = ins[0], ins[1], ins[2]
         slope = float(node.params[0]) if node.params else 0.2
+        if g.strategy != "spmd" and g.attn is not None:
+            # the attention kernels; with a mean over the heads after it,
+            # one op that returns the mean
+            return attention_aggregate(g.n_pad, g.c_pad, slope, g.attn, x, vl, vr,
+                                       mean=mean is not None)
         if g.strategy == "spmd":
             # sharded: one [x | vl] exchange serves scores and aggregation
             from gala_tpu_torch.parallel.ops import spmd_attention
 
-            return spmd_attention(g, x, vl, vr, slope)
-        if g.attn is not None:
-            return attention_aggregate(g.n_pad, g.c_pad, slope, g.attn, x, vl, vr)
-        # unfused fallback (graph built without the attention layout),
-        # head by head as models/gat.py: head h's scores weight its own
-        # fh-wide slice of x
-        n_heads = vl.shape[1]
-        fh = x.shape[1] // n_heads
-        outs = []
-        for h in range(n_heads):
-            logits = leaky_relu(sddvv_add(g, vl[:, h : h + 1], vr[:, h : h + 1]), slope)
-            outs.append(spmm_ev(g, edge_softmax(g, logits), x[:, h * fh : (h + 1) * fh]))
-        return torch.cat(outs, dim=1) if n_heads > 1 else outs[0]
+            out = spmd_attention(g, x, vl, vr, slope)
+        else:
+            # unfused fallback (graph built without the attention layout),
+            # head by head as models/gat.py: head h's scores weight its
+            # own fh-wide slice of x
+            n_heads = vl.shape[1]
+            fh = x.shape[1] // n_heads
+            outs = []
+            for h in range(n_heads):
+                logits = leaky_relu(sddvv_add(g, vl[:, h : h + 1], vr[:, h : h + 1]), slope)
+                outs.append(spmm_ev(g, edge_softmax(g, logits), x[:, h * fh : (h + 1) * fh]))
+            out = torch.cat(outs, dim=1) if n_heads > 1 else outs[0]
+        return out if mean is None else head_mean(out, int(mean.params[1]))
     if op is ComputeOp.AGGREGATE_EDGE_SUM:
         return sddvv_add(_graph_for(node, graphs), ins[0], ins[1])
     if op is ComputeOp.AGGREGATE_EDGE_MUL:
@@ -226,6 +260,19 @@ def make_forward(prog: Program):
     while cut > 0 and loop_nodes[cut - 1].op in _ROW_LOCAL_OPS:
         cut -= 1
 
+    # an attention with a mean over its heads after it writes the mean's
+    # output, and the mean node is passed over
+    folds = mean_folds(loop_nodes)
+    folded = {id(m) for m in folds.values()}
+
+    def step(node, env, params, graphs):
+        if id(node) in folded:
+            return env[node.outputs[0].uid]
+        mean = folds.get(id(node))
+        out = _eval_node(node, env, params, graphs, mean)
+        env[(node if mean is None else mean).outputs[0].uid] = out
+        return out
+
     def invariant(graphs, x):
         env = {feats_uid: x}
         for node in pre_nodes:
@@ -236,8 +283,7 @@ def make_forward(prog: Program):
         env = dict(carry) if isinstance(carry, dict) else {feats_uid: carry}
         out = None
         for node in loop_nodes:
-            out = _eval_node(node, env, params, graphs)
-            env[node.outputs[0].uid] = out
+            out = step(node, env, params, graphs)
         return out
 
     def forward_rows(params, graphs, carry, rows):
@@ -252,8 +298,7 @@ def make_forward(prog: Program):
                     else v
                     for u, v in env.items()
                 }
-            out = _eval_node(node, env, params, graphs)
-            env[node.outputs[0].uid] = out
+            out = step(node, env, params, graphs)
         if cut == len(loop_nodes):
             out = out[rows]
         return out

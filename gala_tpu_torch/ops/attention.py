@@ -36,7 +36,9 @@ Under a profiler (utils.profiling) `attention_aggregate` is the span
 `gala.attention` and counts its work under that name: the layout's real
 destination rows and nonzeros (AttnBell.n_rows, n_edges), x's width, the
 heads and x's item size; its gradient is `gala.attention.grad`, counted
-with the real source rows (AttnBell.n_cols).
+with the real source rows (AttnBell.n_cols) and the heads of its dout
+block in bwd2's table (`dout_heads`: 1 where the heads share one, as the
+gradient of their mean does, else H).
 
 The GAT paper's heads around it (the DSL's gat_heads): `head_scores`,
 each head's score from its own columns, `head_mean`, the output layer's
@@ -129,26 +131,39 @@ class AttnBell:
 # device op
 # --------------------------------------------------------------------------- #
 def attention_aggregate(n_pad: int, c_pad: int, slope: float, ab: AttnBell,
-                        x: torch.Tensor, vl: torch.Tensor, vr: torch.Tensor) -> torch.Tensor:
+                        x: torch.Tensor, vl: torch.Tensor, vr: torch.Tensor,
+                        mean: bool = False) -> torch.Tensor:
     """Softmax-attention aggregation, H heads in one sweep (gala_tpu's
     signature).  x: (c_pad, H*fh), vl: (c_pad, H), vr: (n_pad, H); H is
     inferred from vl (H = 1 is the DSL GAT).  Returns (n_pad, H*fh) in
-    x's dtype (float32 or bfloat16; vl and vr are cast to it).
+    x's dtype (float32 or bfloat16; vl and vr are cast to it); with
+    `mean`, head_mean of it, (n_pad, fh), whose gradient, where one is
+    wanted, keeps the one dout that every head takes once in bwd2's table
+    (library.attention_mean) and is counted with dout_heads 1 (else H).
 
     The forward emits the flash statistics only when a gradient is wanted
     (they double the weighted reduce)."""
+    nh = int(vl.shape[1])
+    flash = torch.is_grad_enabled() and any(t.requires_grad for t in (x, vl, vr))
+    shared = mean and flash and nh > 1
     with marker("gala.attention"):
         grad_work = None
         if recording():
-            work = {"nnz": ab.n_edges, "width": int(x.shape[1]), "heads": int(vl.shape[1]),
+            work = {"nnz": ab.n_edges, "width": int(x.shape[1]), "heads": nh,
                     "itemsize": x.element_size()}
             count("gala.attention", rows=ab.n_rows, **work)
-            grad_work = {"rows": ab.n_cols, **work}
-        flash = torch.is_grad_enabled() and any(t.requires_grad for t in (x, vl, vr))
+            grad_work = {"rows": ab.n_cols, **work, "dout_heads": 1 if shared else nh}
         vl, vr = (t.to(x.dtype).contiguous() for t in (vl, vr))
-        out = library.attention(x.contiguous(), vl, vr, ab, n_pad, c_pad, float(slope), flash,
-                                grad_work if flash else None)
-        return out.to(x.dtype)
+        x = x.contiguous()
+        if shared:
+            stats = library.attention_stats(x, vl, vr, ab, n_pad, c_pad, float(slope))
+        else:
+            out = library.attention(x, vl, vr, ab, n_pad, c_pad, float(slope), flash,
+                                    grad_work if flash else None).to(x.dtype)
+    if shared:
+        with marker("gala.head_mean"):
+            return library.attention_mean(stats, x, vl, vr, ab, c_pad, float(slope), grad_work)
+    return head_mean(out, nh) if mean else out
 
 
 # --------------------------------------------------------------------------- #

@@ -32,6 +32,16 @@ dout block at row_pitch(fh), and the plain bwd2 reads the pitch from the
 table's width.  Where fh is a multiple of 4, nothing is copied; every
 table a kernel gets is 16-byte aligned, so there is no scalar form.
 
+Shared dout: the gradient of a mean over the H heads gives every head the
+same dout (the mean's dout / H).  `bwd2_table` given that one (rows, fh)
+block writes it once, [dout at pitch | vr | m | s | sds] (pitch + 4H
+floats a row, not H * pitch + 4H), and bwd2 reads it for every head:
+the kernel's lanes of each head read the same columns of a row, the plain
+versions broadcast it (`shared`).  `per_head_dot` takes it the same way.
+The values summed and their order are those of the per-head table that
+repeats it, so dx and dvl are bitwise the same.  attn_bwd2 tells the two
+forms apart by the table's width, which differs at H > 1.
+
 Heads: the forward and bwd2 have a one-head form and a multi-head form,
 chosen by H.  At H > 1 a unit's lanes take its scalar phase across
 (slot, head), one coalesced read of a slot's H scores, and the forward's
@@ -96,7 +106,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 FUNCTIONS = {
     **{f"gala_attn_fwd_{t}": [_P] * 19 + [_I] * 7 + [_F, _I, _I, _P] for t in DTYPES.values()},
     **{f"gala_attn_bwd1_{t}": [_P] * 18 + [_I] * 6 + [_F, _I, _I, _P] for t in DTYPES.values()},
-    **{f"gala_attn_bwd2_{t}": [_P] * 15 + [_I] * 6 + [_F, _I, _I, _P] for t in DTYPES.values()},
+    **{f"gala_attn_bwd2_{t}": [_P] * 15 + [_I] * 6 + [_F, _I, _I, _I, _P]
+       for t in DTYPES.values()},
     "gala_attn_fwd_limits": [_I, _I, _P],
     "gala_attn_bwd1_limits": [_I, _I, _P],
     "gala_attn_bwd2_limits": [_I, _I, _P],
@@ -301,13 +312,14 @@ def attn_bwd1_units_reference(lay, x, vl, vr, dout, m, s, slope: float):
     return out[:, :nh], out[:, nh : 2 * nh], out[:, 2 * nh :]
 
 
-def attn_bwd2_reference(lay, x, vl, w_tab, slope: float, c_pad: int):
+def attn_bwd2_reference(lay, x, vl, w_tab, slope: float, c_pad: int, shared: bool = False):
     """Plain backward pass 2 on a transpose layout (rows = source nodes c,
     slots = destinations r): w_tab (n_pad, H * pitch + 4H) = [dout | vr |
     m | s | sds] in node order, dout's head h at columns h * pitch, the
     pitch read from the table's width (bwd2_table writes it at
-    row_pitch(fh); a table at pitch fh gives the same result).  Returns
-    [dx | dvl] (c_pad, hf + H)."""
+    row_pitch(fh); a table at pitch fh gives the same result); with
+    `shared`, (n_pad, pitch + 4H), one dout block that every head takes.
+    Returns [dx | dvl] (c_pad, hf + H)."""
     _note_cuda("attn_bwd2", x)
     x, vl = wide(x), wide(vl)
     hf, nh = x.shape[1], vl.shape[1]
@@ -317,7 +329,7 @@ def attn_bwd2_reference(lay, x, vl, w_tab, slope: float, c_pad: int):
     c = lay.row_node.long()[rows]
     w = w_tab[lay.flat_cols.long()]
     real = (lay.flat_vals != 0)[:, None]
-    do, vr_g, m_g, s_g, sds_g = _table_blocks(w, nh, fh)
+    do, vr_g, m_g, s_g, sds_g = _table_blocks(w, nh, fh, shared)
     zpre = vl[c] + vr_g
     p = torch.where(real, torch.exp(_lrelu(zpre, slope) - m_g) / s_g, 0.0)
     dp = (do * x[c].view(-1, nh, fh)).sum(-1)
@@ -327,7 +339,8 @@ def attn_bwd2_reference(lay, x, vl, w_tab, slope: float, c_pad: int):
     return _to_nodes(lay, torch.cat([dx, dvl], dim=1), c_pad)
 
 
-def attn_bwd2_units_reference(lay, x, vl, w_tab, slope: float, c_pad: int):
+def attn_bwd2_units_reference(lay, x, vl, w_tab, slope: float, c_pad: int,
+                              shared: bool = False):
     """The bwd2 kernel's two passes in plain PyTorch (for tests and the
     card's checks), the same function as attn_bwd2_reference.  Pass 1, per
     work unit of the transpose layout (source c) and head, from one read of
@@ -335,7 +348,8 @@ def attn_bwd2_units_reference(lay, x, vl, w_tab, slope: float, c_pad: int):
     lrelu'(zpre), dx_u = sum p dout_r, q_u = sum p lr' dout_r and
     dvl_u = <q_u, x[c]> - sum p lr' sds_r; a unit that is its whole row
     writes [dx_u | dvl_u] to its node, the others to their partial rows.
-    Pass 2 sums each split row's partials in unit order."""
+    Pass 2 sums each split row's partials in unit order.  `shared` as
+    attn_bwd2_reference's."""
     units = lay.units
     x, vl = wide(x), wide(vl)
     hf, nh = x.shape[1], vl.shape[1]
@@ -345,7 +359,7 @@ def attn_bwd2_units_reference(lay, x, vl, w_tab, slope: float, c_pad: int):
     c = units.node.long()[unit]
     w = w_tab[lay.flat_cols.long()[slot]]
     real = (lay.flat_vals[slot] != 0)[:, None]
-    do, vr_g, m_g, s_g, sds_g = _table_blocks(w, nh, fh)
+    do, vr_g, m_g, s_g, sds_g = _table_blocks(w, nh, fh, shared)
     zpre = vl[c] + vr_g
     p = torch.where(real, torch.exp(_lrelu(zpre, slope) - m_g) / s_g, 0.0)
     pl = p * torch.where(zpre > 0, 1.0, slope)
@@ -355,11 +369,15 @@ def attn_bwd2_units_reference(lay, x, vl, w_tab, slope: float, c_pad: int):
     return _sum_units(units, torch.cat([dx, dvl], dim=1), c_pad)
 
 
-def _table_blocks(w, nh: int, fh: int) -> tuple:
+def _table_blocks(w, nh: int, fh: int, shared: bool = False) -> tuple:
     """Rows w of bwd2's table, at the pitch its width gives: dout (rows, H,
-    fh), then vr, m, s and sds (rows, H)."""
+    fh; with `shared` its one block broadcast to every head), then vr, m,
+    s and sds (rows, H)."""
     d = w.shape[1] - 4 * nh
-    do = w[:, :d].view(-1, nh, d // nh)[..., :fh]
+    if shared:
+        do = w[:, :d].view(-1, 1, d)[..., :fh].expand(-1, nh, fh)
+    else:
+        do = w[:, :d].view(-1, nh, d // nh)[..., :fh]
     return (do, *(w[:, d + i * nh : d + (i + 1) * nh] for i in range(4)))
 
 
@@ -486,11 +504,13 @@ def bwd2_table(x, dout, vr, m, s, sds) -> torch.Tensor:
     """bwd2's w_tab [dout | vr | m | s | sds] (rows, H * pitch + 4H), f32,
     for x of H = vr.shape[1] heads, in one torch.cat: dout's head h at
     columns [h * pitch, h * pitch + fh), zeros after it, pitch the
-    kernel's row_pitch(fh) on either device.  attn_bwd2 takes only this
-    table."""
-    nh = vr.shape[1]
-    return torch.cat([*head_blocks(wide(dout), nh, row_pitch(x.shape[1] // nh)), wide(vr), m,
-                      s, sds], dim=1)
+    kernel's row_pitch(fh) on either device.  Where dout is one (rows,
+    fh) block that every head takes (the gradient of a mean over the
+    heads), the shared form (rows, pitch + 4H): that block once, at the
+    pitch.  attn_bwd2 takes only these tables."""
+    fh = x.shape[1] // vr.shape[1]
+    return torch.cat([*head_blocks(wide(dout), dout.shape[1] // fh, row_pitch(fh)), wide(vr),
+                      m, s, sds], dim=1)
 
 
 def _check_fwd(lay, x, vl, vr, n_pad: int) -> None:
@@ -582,13 +602,22 @@ def attn_bwd1_cuda(lay, x, vl, vr, dout, m, s, slope: float):
     return out[:, :nh], out[:, nh : 2 * nh], out[:, 2 * nh :]
 
 
+def shared_table(x, vl, w_tab) -> bool:
+    """Whether bwd2's table, as bwd2_table builds it for x of H = vl's
+    heads, is the shared form: one dout block at the pitch, not H (the
+    widths differ at H > 1)."""
+    nh = vl.shape[1]
+    return nh > 1 and w_tab.shape[1] == row_pitch(x.shape[1] // nh) + 4 * nh
+
+
 def _check_bwd2(lay, x, vl, w_tab, c_pad: int) -> None:
     _check(lay, x, vl, {"w_tab": w_tab}, c_pad, f32=("w_tab",))
     nh = vl.shape[1]
-    width = nh * row_pitch(x.shape[1] // nh) + 4 * nh
-    if w_tab.shape[1] != width or w_tab.shape[0] < lay.n_src:
-        raise ValueError(f"w_tab {tuple(w_tab.shape)} must be (>= {lay.n_src}, {width}), "
-                         "as bwd2_table builds it")
+    pitch = row_pitch(x.shape[1] // nh)
+    widths = {nh * pitch + 4 * nh, pitch + 4 * nh}
+    if w_tab.shape[1] not in widths or w_tab.shape[0] < lay.n_src:
+        raise ValueError(f"w_tab {tuple(w_tab.shape)} must be (>= {lay.n_src}, one of "
+                         f"{sorted(widths)}), as bwd2_table builds it")
     if x.shape[0] < lay.n_real:
         raise ValueError(f"x has {x.shape[0]} rows, the layout has {lay.n_real} source rows")
 
@@ -596,20 +625,23 @@ def _check_bwd2(lay, x, vl, w_tab, c_pad: int) -> None:
 def attn_bwd2(lay, x, vl, w_tab, slope: float, c_pad: int):
     """Backward pass 2 on a transpose layout (see attn_bwd2_reference):
     returns [dx | dvl] (c_pad, hf + H), f32.  x and vl share one dtype;
-    w_tab is f32, built by bwd2_table."""
+    w_tab is f32, built by bwd2_table, per head or shared (told apart by
+    its width)."""
     _check_bwd2(lay, x, vl, w_tab, c_pad)
-    if on_card(x, "attn_bwd2"):
-        return attn_bwd2_cuda(lay, x, vl, w_tab, slope, c_pad)
-    return attn_bwd2_reference(lay, x, vl, w_tab, slope, c_pad)
+    run = attn_bwd2_cuda if on_card(x, "attn_bwd2") else attn_bwd2_reference
+    return run(lay, x, vl, w_tab, slope, c_pad, shared_table(x, vl, w_tab))
 
 
-def attn_bwd2_cuda(lay, x, vl, w_tab, slope: float, c_pad: int):
+def attn_bwd2_cuda(lay, x, vl, w_tab, slope: float, c_pad: int, shared: bool = False):
     """The bwd2 kernel on CUDA tensors (arguments as checked by attn_bwd2),
     x at its row pitch for lanes of 4 columns, as w_tab's dout block
-    (bwd2_table); [dx | dvl] comes back as H * fh + H columns."""
+    (bwd2_table; its width, H * pitch or with `shared` the one block's
+    pitch, goes to the kernel); [dx | dvl] comes back as H * fh + H
+    columns."""
     nh = vl.shape[1]
     fh = x.shape[1] // nh
     pitch = row_pitch(fh)
+    dout_w = pitch if shared else nh * pitch
     x, w_tab = _aligned(pad_heads(x, nh, pitch)), _aligned(w_tab)
     hf = x.shape[1]
     # padding rows zeroed by the call (rows no unit writes stay 0)
@@ -622,7 +654,7 @@ def attn_bwd2_cuda(lay, x, vl, w_tab, slope: float, c_pad: int):
     launch(build().lib, "attn_bwd2", x,
            w_tab.data_ptr(), x.data_ptr(), vl.data_ptr(), lay.flat_cols.data_ptr(),
            lay.flat_vals.data_ptr(), *tables, out.data_ptr(), _ptr(part),
-           *_unit_ints(u, log2_g, c_pad), hf, nh, float(slope), 4, log2_g)
+           *_unit_ints(u, log2_g, c_pad), hf, nh, float(slope), 4, log2_g, dout_w)
     del x, w_tab, part  # pitched copies and scratch freed before the cut-back copy
     return unpad_heads(out, nh, fh, pitch)
 
@@ -631,7 +663,11 @@ def attn_bwd2_cuda(lay, x, vl, w_tab, slope: float, c_pad: int):
 # kernels against plain versions (for the card's checks)
 # --------------------------------------------------------------------------- #
 def per_head_dot(a: torch.Tensor, b: torch.Tensor, nh: int) -> torch.Tensor:
-    """(rows, H): <a, b> over each head's fh columns."""
+    """(rows, H): <a, b> over each head's fh columns; a (rows, fh) is
+    every head's (a shared dout), the same products and sums as a
+    repeated H times."""
+    if a.shape[1] != b.shape[1]:
+        return (a[:, None, :] * b.view(b.shape[0], nh, -1)).sum(-1)
     return (a * b).view(a.shape[0], nh, -1).sum(-1)
 
 

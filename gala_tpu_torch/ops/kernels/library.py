@@ -26,6 +26,15 @@ The ops, under the namespace `gala_tpu_torch`:
         spos are (0, ...) tensors unless `flash`.  Its gradient (of out)
         is the flash identity and bwd2 on `t_lay`; it needs flash = True.
     attn_bwd2(x, vl, w_tab, lay, lay_ints, slope, c_pad)
+        w_tab per head or shared (attn_bell.bwd2_table; told apart by
+        its width).
+
+The mean over an attention's heads (the GAT paper's output layer) is not
+an op: `attention_mean` takes the forward's outputs (`attention_stats`,
+attn_fwd below autograd) and differentiates their mean in x, vl and vr
+itself, the mean's dout / H held once in bwd2's table, where autograd
+through attn_fwd and a mean would repeat it for each head.  An exported
+program differentiates the op and the mean as two nodes.
 
 The ops are defined on a `torch.library.Library` (define and impl, not
 the `custom_op` decorator, whose Python wrapper costs tens of µs a call
@@ -45,8 +54,8 @@ exported with them back-propagates after loading.
 
 The gradients of bell_spmm and attn_fwd are the spans `gala.spmm.grad`
 and `gala.attention.grad` (utils.profiling), each counting the work
-that its forward's caller attached to the gradient's node (`spmm` and
-`attention`'s `grad_work`, under a profiler only).
+that its forward's caller attached to the gradient's node (`spmm`,
+`attention` and `attention_mean`'s `grad_work`, under a profiler only).
 
 Importing this module registers the ops; it builds and loads no CUDA
 library (that happens at the first CUDA call).  The kernels that have no
@@ -397,22 +406,49 @@ class _AttnFwdGrad(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout, *_stats):
-        with marker("gala.attention.grad"):
-            _count_grad(ctx, "gala.attention.grad")
-            x, vl, vr, out, m, s, outpos, spos = ctx.saved_tensors
-            t_lay, t_ints, slope, c_pad = ctx.args
-            dout = wide(dout)
-            nh = vl.shape[1]
-            sds = _attn.per_head_dot(dout, out, nh)
-            dvr = (1.0 - slope) * (_attn.per_head_dot(dout, outpos, nh) - sds * spos)
-            w_tab = _attn.bwd2_table(x, dout, vr, m, s, sds)
-            dxx = attn_bwd2_op(x, vl, w_tab, t_lay, t_ints, slope, c_pad)
-            hf = x.shape[1]
-            return (dxx[:, :hf].to(x.dtype), dxx[:, hf:].to(vl.dtype), dvr.to(vr.dtype),
-                    None, None, None, None, None, None, None, None)
+        return (*_flash_grad(ctx, dout), None, None, None, None, None, None, None, None)
 
 
 _register_gradient(attn_fwd_op, _AttnFwdGrad, (0, 1, 2))
+
+
+def _flash_grad(ctx, dout: torch.Tensor, mean: bool = False) -> tuple:
+    """(dx, dvl, dvr) of the attention saved in ctx (x, vl, vr and the
+    forward's five outputs; ctx.args (t_lay, t_ints, slope, c_pad)) for
+    the gradient `dout` of its out (rows, H * fh), or with `mean` of the
+    mean over its heads (rows, fh): every head's dout is then that / H,
+    which bwd2's table holds once.  The span `gala.attention.grad`."""
+    with marker("gala.attention.grad"):
+        _count_grad(ctx, "gala.attention.grad")
+        x, vl, vr, out, m, s, outpos, spos = ctx.saved_tensors
+        t_lay, t_ints, slope, c_pad = ctx.args
+        nh = vl.shape[1]
+        dout = wide(dout / nh if mean else dout)
+        sds = _attn.per_head_dot(dout, out, nh)
+        dvr = (1.0 - slope) * (_attn.per_head_dot(dout, outpos, nh) - sds * spos)
+        w_tab = _attn.bwd2_table(x, dout, vr, m, s, sds)
+        dxx = attn_bwd2_op(x, vl, w_tab, t_lay, t_ints, slope, c_pad)
+        hf = x.shape[1]
+        return dxx[:, :hf].to(x.dtype), dxx[:, hf:].to(vl.dtype), dvr.to(vr.dtype)
+
+
+class _AttnMeanGrad(torch.autograd.Function):
+    """The mean over the H heads of an attention's out (the forward's five
+    outputs, taken without autograd), differentiable in x, vl and vr.  The
+    mean gives every head the same dout, the mean's dout / H, so the
+    gradient keeps one (rows, fh) block of it (_flash_grad) where autograd
+    through the op and a mean would repeat it H times."""
+
+    @staticmethod
+    def forward(ctx, x, vl, vr, out, m, s, outpos, spos, t_lay, t_ints, slope, c_pad):
+        ctx.save_for_backward(x, vl, vr, out, m, s, outpos, spos)
+        ctx.args = (t_lay, t_ints, slope, c_pad)
+        return out.to(x.dtype).view(out.shape[0], vl.shape[1], -1).mean(dim=1)
+
+    @staticmethod
+    def backward(ctx, dmean):
+        return (*_flash_grad(ctx, dmean, mean=True), None, None, None, None, None, None, None,
+                None, None)
 
 
 def attention(x: torch.Tensor, vl: torch.Tensor, vr: torch.Tensor, ab, n_pad: int, c_pad: int,
@@ -424,3 +460,23 @@ def attention(x: torch.Tensor, vl: torch.Tensor, vr: torch.Tensor, ab, n_pad: in
                           c_pad, flash)
     _attach_work(out, grad_work)
     return out
+
+
+def attention_stats(x: torch.Tensor, vl: torch.Tensor, vr: torch.Tensor, ab, n_pad: int,
+                    c_pad: int, slope: float) -> tuple:
+    """The forward's five outputs (out, m, s, out+, s+), f32, with its flash
+    statistics and without autograd: what `attention_mean` takes."""
+    return _below_autograd(attn_fwd_op, x, vl, vr, *layout_args(ab.fwd), *layout_args(ab.t),
+                           slope, n_pad, c_pad, True)
+
+
+def attention_mean(stats: tuple, x: torch.Tensor, vl: torch.Tensor, vr: torch.Tensor, ab,
+                   c_pad: int, slope: float, grad_work: dict | None = None) -> torch.Tensor:
+    """The mean over the heads of attention_stats' out (n_pad, fh), in x's
+    dtype, differentiable in x, vl and vr with one dout block for all
+    heads in bwd2's table; its gradient counts `grad_work` under
+    `gala.attention.grad`."""
+    t_lay, t_ints = layout_args(ab.t)
+    mean = _AttnMeanGrad.apply(x, vl, vr, *stats, t_lay, t_ints, slope, c_pad)
+    _attach_work(mean, grad_work)
+    return mean

@@ -15,7 +15,10 @@ values at F = 32, 40; the attention kernels on the fused GAT's layouts
 one head and at hf = 64, 40 and 328 (8 heads of 41, pitch 44) with 8
 heads, bwd1 and bwd2 at BWD_SHAPES
 (bwd2's table built as the tree's backward builds it: by
-attn_bell.bwd2_table where the tree has it); the SDDMM
+attn_bell.bwd2_table where the tree has it), and at more than one head
+bwd2 also on the gradient of a mean over the heads ("attn_bwd2 mean":
+the mean's dout / H in each head, as one shared dout block where the
+tree's table has that form, else repeated per head); the SDDMM
 on the unfused GAT's padded edge lists (2,102,667 edges) at F = 32 and
 40, a (c_pad, F) and b (n_pad, F), the two calls of its backward; one
 sampled SpMM call (dynamic sampling, k = 20, one epoch's (ra, rb)) at F
@@ -237,6 +240,16 @@ def main(argv=None) -> int:
             bounds[key] = bound(layout_bytes(t) + nbytes(x, vl)
                                 + gat.n_pad * (hf + 4 * nh) * f32 + gat.c_pad * (hf + nh) * f32,
                                 t.flat_cols.numel() * (4 * hf + 12 * nh))
+            if nh > 1:
+                one = dout[:, : hf // nh].float() / nh
+                m_tab = mean_table(ak, x, one, vr, m, s, ak.per_head_dot(one.repeat(1, nh), out,
+                                                                         nh))
+                key = f"attn_bwd2 mean {tag} hf={hf} H={nh}"
+                measure(key, lambda: ak.attn_bwd2(t, x, vl, m_tab, SLOPE, gat.c_pad))
+                bounds[key] = bound(layout_bytes(t) + nbytes(x, vl)
+                                    + gat.n_pad * (hf // nh + 4 * nh) * f32
+                                    + gat.c_pad * (hf + nh) * f32,
+                                    t.flat_cols.numel() * (4 * hf + 12 * nh))
         for f in () if reddit else (32, 40):
             a, b = rand(edge.c_pad, f), rand(edge.n_pad, f)
             key = f"sddmm {tag} F={f}"
@@ -266,6 +279,16 @@ def bwd2_table(ak, x, dout, vr, m, s, sds):
     if hasattr(ak, "bwd2_table"):
         return ak.bwd2_table(x, dout, vr, m, s, sds)
     return torch.cat([dout.float(), vr.float(), m, s, sds], dim=1)
+
+
+def mean_table(ak, x, one, vr, m, s, sds):
+    """bwd2's w_tab for the gradient of a mean over the heads, whose dout
+    is `one` (rows, fh) in every head, as the tree's backward builds it:
+    one shared block where the tree has that form, else repeated per
+    head."""
+    nh = vr.shape[1]
+    return bwd2_table(ak, x, one if hasattr(ak, "shared_table") else one.repeat(1, nh), vr, m,
+                      s, sds)
 
 
 SAMPLE_K, RA, RB = 20, 96, 96  # k of table7's dynamic schedule; one epoch's (ra, rb)

@@ -203,6 +203,132 @@ def test_new_ops_are_spans_with_their_counts(small, tmp_path):
 
 
 # ---------------------------------------------------------------------- #
+# the output layer's mean folded into its attention
+# ---------------------------------------------------------------------- #
+def _step(cm, seed=1):
+    """(loss, {parameter: gradient}) of one training step's loss (the
+    train rows' masked cross entropy on the full graph, as train takes it)
+    from the parameters of `seed`."""
+    from gala_tpu_torch.train import masked_cross_entropy
+
+    p = cm.make_params(seed)
+    rows = torch.nonzero(cm.train_mask).flatten()
+    logits = cm.forward_rows(p, cm.full_graphs, cm.invariant(cm.full_graphs, cm.x), rows)
+    loss = masked_cross_entropy(logits, cm.labels[rows], cm.train_mask[rows])
+    loss.backward()
+    return loss.detach(), {k: v.grad for k, v in p.named_parameters()}
+
+
+@pytest.mark.parametrize("heads,strategy,folds", [("gat_heads(8, out=8);", "bell", 1),
+                                                  ("gat_heads(8, out=1);", "bell", 0),
+                                                  ("gat_heads(8);", "bell", 0),
+                                                  ("gat_heads(8, out=8);", "dense", 0)])
+def test_mean_folds_into_the_attention_only_over_averaged_heads_on_its_kernels(
+        small, monkeypatch, heads, strategy, folds):
+    """The output layer's attention and the head_mean after it run as one
+    op (library.attention_mean) where the IR has the mean (out=8) and the
+    attention kernels run ('bell'), not without averaged heads or on
+    'dense' (head by head, then the mean).  Folded, the output layer's
+    gradient is counted with dout_heads 1 and bwd2's table holds one dout
+    block, pitch(5) + 4 * 8 = 40 floats a row; the hidden layer's 8 heads
+    keep theirs, 8 * 8 + 32 = 96 (one output head: 8 + 4)."""
+    from gala_tpu_torch.lowering import interp
+    from gala_tpu_torch.ops.kernels import attn_bell, library
+
+    calls, tables = [], []
+    mean, plain = library.attention_mean, attn_bell.attn_bwd2_reference
+    monkeypatch.setattr(library, "attention_mean",
+                        lambda *a, **k: calls.append(1) or mean(*a, **k))
+    monkeypatch.setattr(attn_bell, "attn_bwd2_reference",
+                        lambda *a: tables.append(a[3].shape[1]) or plain(*a))
+    cm = _compile(small, _dsl(heads=heads), strategy)
+    assert len(interp.mean_folds(cm.program.loop.nodes)) == (heads.count("out=8") == 1)
+    with torch.profiler.profile():
+        profiling.clear_counts()
+        _step(cm)
+        grads = [r for r in profiling.counts() if r["name"] == "gala.attention.grad"]
+    assert len(calls) == folds
+    if strategy == "dense":
+        assert tables == [] and grads == []
+        return
+    assert [(r["heads"], r["dout_heads"]) for r in grads] == [(8, 1) if folds else (1, 1),
+                                                              (8, 8)]
+    assert tables == ([40, 96] if folds else [8 + 4, 96])
+
+
+def test_spmd_branch_keeps_the_separate_mean(small, monkeypatch):
+    """On a rank's graph (strategy 'spmd') the attention and the mean stay
+    two ops: the sharded attention's out, then head_mean of it."""
+    from types import SimpleNamespace
+
+    from gala_tpu_torch.lowering import interp
+    from gala_tpu_torch.parallel import ops as pops
+
+    cm = _compile(small)
+    nodes = cm.program.loop.nodes
+    (att_id, mean), = interp.mean_folds(nodes).items()
+    att = next(n for n in nodes if id(n) == att_id)
+    n, c = 7, small.n_classes
+    sharded = torch.randn(n, 8 * c)
+    monkeypatch.setattr(pops, "spmd_attention", lambda g, x, vl, vr, slope: sharded)
+    monkeypatch.setattr(interp, "attention_aggregate",
+                        lambda *a, **k: pytest.fail("the kernels' op on a rank's graph"))
+    g = SimpleNamespace(strategy="spmd", n_pad=n, device="cpu")
+    env = {d.uid: torch.randn(n, d.cols) for d in att.inputs if not d.is_graph}
+    got = interp._eval_node(att, env, {}, [g, g], mean)
+    assert torch.equal(got, sharded.view(n, 8, c).mean(dim=1))
+
+
+@pytest.mark.parametrize("heads", ["gat_heads(8, out=8);", "gat_heads(4, out=4);"])
+def test_folded_mean_gives_the_unfolded_loss_and_gradients_bitwise(small, monkeypatch, heads):
+    """The folded program against the same program with the fold turned
+    off (attention, then head_mean; autograd repeats the mean's dout / H
+    for each head): step 1's loss and every gradient bit for bit, as the
+    shared dout block holds the same values, summed in the same order."""
+    from gala_tpu_torch.lowering import interp
+
+    folded = _step(_compile(small, _dsl(heads=heads)))
+    monkeypatch.setattr(interp, "mean_folds", lambda nodes: {})
+    unfolded = _step(_compile(small, _dsl(heads=heads)))
+    assert torch.equal(folded[0], unfolded[0])
+    assert folded[1].keys() == unfolded[1].keys()
+    for k, grad in folded[1].items():
+        assert torch.equal(grad, unfolded[1][k]), k
+
+
+@pytest.mark.parametrize("units", [False, True], ids=["plain", "units"])
+@pytest.mark.parametrize("fh", [5, 8, 41])
+def test_plain_bwd2_on_the_shared_table_equals_the_per_head_table(small, units, fh):
+    """A mean's dout / H as one block (bwd2_table's shared form, pitch +
+    4H wide) and repeated for each head (H * pitch + 4H): per_head_dot,
+    and bwd2's plain version and units emulation, bit for bit."""
+    from gala_tpu_torch.ops.kernels import attn_bell as KA
+
+    g = _compile(small).full_graphs[0]
+    nh, gen = 8, torch.Generator().manual_seed(fh)
+    rand = lambda *shape: torch.randn(shape, generator=gen)  # noqa: E731
+    x, vl, vr = rand(g.c_pad, nh * fh), rand(g.c_pad, nh), rand(g.n_pad, nh)
+    out = rand(g.n_pad, nh * fh)
+    m, s = rand(g.n_pad, nh), torch.rand((g.n_pad, nh), generator=gen) + 0.5
+    dmean = rand(g.n_pad, fh)
+    one = dmean / nh
+    each = one.repeat(1, nh)
+    sds = KA.per_head_dot(one, out, nh)
+    assert torch.equal(sds, KA.per_head_dot(each, out, nh))
+    shared, per_head = KA.bwd2_table(x, one, vr, m, s, sds), KA.bwd2_table(x, each, vr, m, s, sds)
+    pitch = KA.row_pitch(fh)
+    assert (shared.shape[1], per_head.shape[1]) == (pitch + 4 * nh, nh * pitch + 4 * nh)
+    assert KA.shared_table(x, vl, shared) and not KA.shared_table(x, vl, per_head)
+    if units:
+        got = KA.attn_bwd2_units_reference(g.attn.t, x, vl, shared, 0.2, g.c_pad, True)
+        want = KA.attn_bwd2_units_reference(g.attn.t, x, vl, per_head, 0.2, g.c_pad)
+    else:
+        got = KA.attn_bwd2(g.attn.t, x, vl, shared, 0.2, g.c_pad)
+        want = KA.attn_bwd2(g.attn.t, x, vl, per_head, 0.2, g.c_pad)
+    assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------- #
 # what the form refuses
 # ---------------------------------------------------------------------- #
 @pytest.mark.parametrize("case,match", [

@@ -428,6 +428,47 @@ def test_bwd2_over_units_matches_plain_versions(cuda, length, hf, nh, dtype):
             assert ((got - want).abs() <= 1e-4 + 1e-4 * scale).all()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("hf", [64, 328])
+def test_bwd2_on_a_shared_dout_block_equals_the_per_head_table(cuda, hf, dtype):
+    """The gradient of a mean over 8 heads (gat_heads(8, out=8)'s layers: 8
+    of 8, 8 of 41 at pitch 44): bwd2 on bwd2_table's shared form, one dout
+    block that every head's lanes read, against bwd2 on the per-head table
+    that repeats it, on the same inputs: bitwise equal (the same values
+    summed in the same order), both attn_bwd2_kernel<4, 8, ...>.  Every
+    third source row of the transpose layout kept, over memory the
+    allocator last held full of NaN: the rows no unit writes are 0."""
+    nh, fh = 8, hf // 8
+    host, undirected = torch_case("hub_selfloops")
+    g = Graph.from_host(host, strategy="bell", undirected=undirected, device=cuda,
+                        attention=True)
+    t = select_rows(g.attn.t, np.arange(g.attn.t.row_len.shape[0]) % 3 == 0)
+    gen = torch.Generator(device=cuda).manual_seed(hf)
+    rand = lambda *shape: torch.randn(shape, generator=gen, device=cuda)  # noqa: E731
+    x, vl = rand(g.c_pad, hf).to(dtype), rand(g.c_pad, nh).to(dtype)
+    vr, m, out = rand(g.n_pad, nh), rand(g.n_pad, nh), rand(g.n_pad, hf)
+    s = torch.rand((g.n_pad, nh), generator=gen, device=cuda) + 0.5
+    one = rand(g.n_pad, fh) / nh  # a mean's dout / H
+    sds = attn_bell.per_head_dot(one, out, nh)
+    shared = attn_bell.bwd2_table(x, one, vr, m, s, sds)
+    per_head = attn_bell.bwd2_table(x, one.repeat(1, nh), vr, m, s, sds)
+    assert shared.shape[1] == attn_bell.row_pitch(fh) + 4 * nh
+
+    def stale(w_tab):
+        torch.cuda.synchronize()
+        torch.full((64 << 20,), float("nan"), device=cuda)  # freed, then handed back
+        return attn_bell.attn_bwd2(t, x, vl, w_tab, 0.2, g.c_pad)
+
+    got, want = stale(shared), stale(per_head)
+    written = torch.zeros(g.c_pad, dtype=torch.bool, device=cuda)
+    written[t.row_node.long()] = True
+    assert (got[~written] == 0).all() and torch.isfinite(got).all()
+    assert torch.equal(got, want)
+    names = _device_kernels(lambda: attn_bell.attn_bwd2(t, x, vl, shared, 0.2, g.c_pad))
+    assert any("attn_bwd2_kernel<4, 8," in n for n in names), names
+
+
 FAR = 2**31  # slots before a shifted layout's own: every unit start past 2^31
 
 

@@ -160,9 +160,9 @@ def test_pitch_is_counted_only_where_a_call_pads(graph, monkeypatch, hf, nh):
     g = graph
     tables = []
 
-    def bwd2(lay, x, vl, w_tab, slope, c_pad):
+    def bwd2(lay, x, vl, w_tab, slope, c_pad, shared=False):
         tables.append(w_tab.shape[1])
-        return KA.attn_bwd2_cuda(lay, x, vl, w_tab, slope, c_pad)
+        return KA.attn_bwd2_cuda(lay, x, vl, w_tab, slope, c_pad, shared)
 
     launched = _mock_launch(monkeypatch)
     monkeypatch.setattr(KA, "attn_fwd_reference", KA.attn_fwd_cuda)
@@ -268,7 +268,8 @@ def test_the_plain_path_counts_no_heads(graph, monkeypatch):
     """On CPU tensors the plain versions run: nothing is launched, and the
     aggregation's own counts are recorded as before, `gala.attention`
     with the layout's real destination rows and nonzeros, x's width, the
-    heads and x's item size, its gradient with the real source rows."""
+    heads and x's item size, its gradient with the real source rows and
+    the heads of its dout block (8: no mean over the heads)."""
     g = graph
     launched = _mock_launch(monkeypatch)
     x, vl, vr, _ = (t.requires_grad_(True) for t in _inputs(g, 64, 8, 6))
@@ -280,4 +281,5 @@ def test_the_plain_path_counts_no_heads(graph, monkeypatch):
     assert launched == []
     work = {"nnz": g.attn.n_edges, "width": 64, "heads": 8, "itemsize": 4}
     assert rec == [{"name": "gala.attention", "rows": g.attn.n_rows, **work},
-                   {"name": "gala.attention.grad", "rows": g.attn.n_cols, **work}]
+                   {"name": "gala.attention.grad", "rows": g.attn.n_cols, **work,
+                    "dout_heads": 8}]
